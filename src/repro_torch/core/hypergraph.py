@@ -7,8 +7,9 @@ stored as two CSR structures:
   * ``e2v``: for each hyperedge, the list of member vertex ids (its "pins").
 
 All arrays are plain numpy, built exactly as the JAX package builds
-them, so one seed gives one CSR and one ``fingerprint()`` in both. The
-device image is uploaded by ``engines.pipeline``.
+them, so one seed gives one CSR and one ``fingerprint()`` in both.
+``device_adjacency`` is the device CSR image that the superstep engine
+and the refinement screen gather from.
 """
 from __future__ import annotations
 
@@ -17,9 +18,15 @@ import hashlib
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 # Ids at or above 2**31 no longer fit int32.
 INT32_LIMIT = 2**31
+
+
+def device_ptr_dtype(n_indices: int) -> torch.dtype:
+    """Dtype of a device CSR ``indptr``: int32 while offsets fit."""
+    return torch.int32 if int(n_indices) < INT32_LIMIT else torch.int64
 
 
 def csr_index_dtype(n: int, m: int):
@@ -106,6 +113,9 @@ class Hypergraph:
     def vertex_degrees(self) -> np.ndarray:
         return np.diff(self.v2e_indptr)
 
+    def edge_pins(self, e: int) -> np.ndarray:
+        return self.e2v_indices[self.e2v_indptr[e]:self.e2v_indptr[e + 1]]
+
     def vertex_adjacency(self, max_expanded: int = 80_000_000):
         """CSR of unique neighbour lists N(v) for ALL vertices, memoized.
 
@@ -141,6 +151,32 @@ class Hypergraph:
             adj = (indptr, nb.astype(np.int32))
         cache[max_expanded] = adj               # frozen-dataclass memo
         return adj
+
+    def device_adjacency(self, device, max_expanded: int = 80_000_000):
+        """``vertex_adjacency`` uploaded to ``device`` once, memoized.
+
+        Returns ``(indptr, indices)`` torch tensors (``indptr`` int32
+        where the offsets fit, int64 otherwise; ``indices`` int32), or
+        None when the host-side expansion guard trips. Memoized per
+        (device, max_expanded).
+        """
+        cache = self.__dict__.get("_device_adj_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_device_adj_cache", cache)
+        dev = torch.device(device)
+        key = (str(dev), max_expanded)
+        if key in cache:
+            return cache[key]
+        adj = self.vertex_adjacency(max_expanded)
+        out = None
+        if adj is not None:
+            indptr, indices = adj
+            out = (torch.from_numpy(indptr)
+                   .to(device_ptr_dtype(indices.size)).to(dev),
+                   torch.from_numpy(indices).to(dev))
+        cache[key] = out
+        return out
 
     def validate(self) -> None:
         """Check the CSR invariants; raise ``ValueError`` on corruption."""

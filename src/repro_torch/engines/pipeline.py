@@ -8,8 +8,9 @@ lives in the device cache. ``pack_superstep`` draws the next candidates,
 ``harvest`` mirrors its admissions, possibly supersteps later.
 
 The device image is uploaded once as torch tensors: the unique-neighbour
-CSR (``indptr`` int32 below 2**31 pins), the assignment, the score cache,
-the per-phase admission counter and the poison flag. The memory plan is
+CSR (``Hypergraph.device_adjacency``, ``indptr`` int32 below 2**31
+pins), the assignment, the score cache, the per-phase admission counter
+and the poison flag. The memory plan is
 fixed at the JAX package's unconstrained rung-0 choice (the tile width
 ``tile_l`` below); memory rungs are not ported (ROADMAP.md, queue 1).
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core import scoring
-from ..core.hypergraph import INT32_LIMIT, Hypergraph
+from ..core.hypergraph import Hypergraph
 from .runtime import EngineRuntime
 
 # Flat bucket-store key layout: one sorted int64 per queued (phase,
@@ -43,11 +44,6 @@ from .runtime import EngineRuntime
 _PH_SHIFT = 50
 _CLS_SHIFT = 44
 _SEQ_START = np.int64(1) << 43
-
-
-def device_ptr_dtype(n_indices: int) -> torch.dtype:
-    """Dtype of the device CSR ``indptr``: int32 while offsets fit."""
-    return torch.int32 if int(n_indices) < INT32_LIMIT else torch.int64
 
 
 @dataclasses.dataclass
@@ -100,12 +96,10 @@ class PipelineState(EngineRuntime):
             scoring.L_BUCKETS[-1])))
         self.stats.tile_l = self.tile_l
         n, m = hg.n, hg.m
-        indptr, indices = self.adj
         dev = self.device
-        self.dev = (
-            torch.from_numpy(indptr).to(device_ptr_dtype(indices.size))
-            .to(dev),
-            torch.from_numpy(indices).to(dev))
+        # the CSR image is memoized on hg, so a refinement post-pass on
+        # the same device reuses it
+        self.dev = hg.device_adjacency(dev)
         # (n + 1,) / (k + 1,): the last element is the scratch slot that
         # absorbs masked-out scatters (see core/scoring.py)
         self.dev_assign = torch.full((n + 1,), -1, dtype=torch.int32,

@@ -1,17 +1,20 @@
 """Shared engine runtime: host state core, counters, pipeline driver.
 
-The port of ``src/repro/engines/runtime.py`` for this slice:
-``BatchedStats`` (the counters this slice fills), ``EngineRuntime`` (the
-assignment mirror, pool membership and the seeded random stream) and
-``run_pipeline``, the double-buffered superstep driver at any
-``pipeline_depth``. Snapshots, resume, fault plans and the memory-rung
-retry loop are not ported (ROADMAP.md, queue 1).
+The port of ``src/repro/engines/runtime.py``: ``BatchedStats`` (the
+counters the ported engines fill), ``EngineRuntime`` (the assignment
+mirror, pool membership and the seeded random stream), ``run_pipeline``,
+the double-buffered superstep driver at any ``pipeline_depth``, and
+``maybe_refine``, the k-way refinement post-pass. Snapshots, resume,
+fault plans and the memory-rung retry loop are not ported (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
+from typing import Optional
+
 import numpy as np
 
 from ..core.hypergraph import Hypergraph
@@ -19,10 +22,13 @@ from ..core.hypergraph import Hypergraph
 
 @dataclasses.dataclass
 class BatchedStats:
+    kernel_calls: int = 0      # hype_scores calls (the batched engine)
     kernel_rows: int = 0       # candidate rows scored by the kernel
+    host_rows: int = 0         # rows scored on the host
     cache_hits: int = 0
     edges_scanned: int = 0     # pins scanned during candidate selection
     random_restarts: int = 0
+    steps: int = 0                  # growth steps (the batched engine)
     supersteps: int = 0             # device programs = kernel launches
     tile_l: int = 0                 # the run's neighbour-tile gather width
     device_image_bytes: int = 0     # one-time CSR + assignment + cache
@@ -36,6 +42,8 @@ class BatchedStats:
     stale_redraws: int = 0          # pool slots skipped on device because
     #                                 an interleaved superstep had already
     #                                 assigned them
+    # refinement post-pass (None unless refine_passes > 0 ran):
+    refine: Optional[object] = None     # core.refine.RefineStats
 
 
 class EngineRuntime:
@@ -188,3 +196,22 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state):
     # dies with the state
     st.delta_ids, st.delta_vals = [], []
     return st.assignment, st
+
+
+def maybe_refine(hg: Hypergraph, k: int, params, assignment: np.ndarray,
+                 stats: BatchedStats, device) -> np.ndarray:
+    """Run the k-way refinement post-pass when ``refine_passes`` > 0.
+
+    Boundary vertices are screened on ``device`` by the ``kway_gains``
+    kernel and moved under exact-gain, balance-capped admission, so the
+    engine's ``max - min <= 1`` contract survives. ``refine_passes = 0``
+    returns the assignment object untouched.
+    """
+    passes = getattr(params, "refine_passes", 0)
+    if passes <= 0 or k <= 1:
+        return assignment
+    from ..core.refine import refine_kway
+
+    refined, rstats = refine_kway(hg, assignment, k, passes, device=device)
+    stats.refine = rstats
+    return refined

@@ -10,8 +10,9 @@ double-buffered on the shared pipeline driver; ``pipeline_depth=1`` is
 the lock-step schedule.
 
 Only the default device program is ported; the memory-rung variants,
-the refinement post-pass, snapshots and fault plans raise
-``NotImplementedError`` (ROADMAP.md, queue 1).
+snapshots and fault plans raise ``NotImplementedError`` (ROADMAP.md,
+queue 1). With ``refine_passes`` > 0 the k-way refinement post-pass runs
+after the pipeline, its screen on the same device.
 """
 from __future__ import annotations
 
@@ -25,40 +26,25 @@ from ..core.hypergraph import Hypergraph
 from ..core.scoring import (_apply_host_injections, _gather_fresh_tiles,
                             _poison_guard, _stale_masked_prev)
 from ..kernels.hype_score.ops import SELECT_PAD, hype_score_select
+from .batched import BatchedParams, check_ported, hype_batched_partition
+from .batched import UNPORTED_KNOBS as BATCHED_UNPORTED
 from .pipeline import PipelineState, _CallArgs
-from .runtime import BatchedStats, run_pipeline as _run_pipeline
+from .runtime import BatchedStats, maybe_refine
+from .runtime import run_pipeline as _run_pipeline
 
 
 @dataclasses.dataclass
-class SuperstepParams:
+class SuperstepParams(BatchedParams):
     """Knobs of the superstep engine: the JAX ``SuperstepParams`` fields
     (its ``BatchedParams`` parent's included) with the same defaults.
 
     ``t`` (admissions per phase per superstep), ``pool_cap``, ``rows``,
-    ``pipeline_depth`` and ``seed`` steer this engine; ``b``, ``s``,
-    ``refill_lo``, ``cap_pins``, ``kernel_min``, ``snapshot_dir``,
-    ``keep_last``, ``max_retries`` and ``retry_backoff_s`` have no
-    effect here, as in the JAX engine or because their feature is not
-    ported. ``refine_passes``, ``snapshot_every``, ``resume``,
-    ``fault_plan`` and ``mem_budget`` raise ``NotImplementedError`` when
-    set away from their defaults.
+    ``pipeline_depth``, ``refine_passes`` and ``seed`` steer this
+    engine; ``b``, ``s``, ``refill_lo``, ``cap_pins`` and ``kernel_min``
+    steer only the ``hype_batched`` fallback, as in the JAX engine.
+    ``snapshot_every``, ``resume``, ``fault_plan`` and ``mem_budget``
+    raise ``NotImplementedError`` when set away from their defaults.
     """
-    b: int = 256
-    s: int = 16
-    t: int = 8
-    pool_cap: int = 64
-    refill_lo: int = 64
-    cap_pins: int = 3072
-    kernel_min: int = 16
-    refine_passes: int = 0
-    seed: int = 0
-    snapshot_every: int = 0
-    snapshot_dir: Optional[str] = None
-    keep_last: int = 3
-    resume: Optional[str] = None
-    fault_plan: Optional[object] = None
-    max_retries: int = 2
-    retry_backoff_s: float = 0.01
     # fresh candidate rows per phase per superstep; None = max(8, t)
     rows: Optional[int] = None
     # in-flight supersteps of the double-buffered pipeline; 1 = lock-step
@@ -67,23 +53,7 @@ class SuperstepParams:
 
 
 # knob -> the ROADMAP.md item (queue 1) that brings its feature
-UNPORTED_KNOBS = {
-    "refine_passes": "refinement, hype_multilevel and preset='quality'",
-    "snapshot_every": "resilience (snapshots, resume, fault plans)",
-    "resume": "resilience (snapshots, resume, fault plans)",
-    "fault_plan": "resilience (snapshots, resume, fault plans)",
-    "mem_budget": "memory rungs",
-}
-
-
-def check_ported(p: SuperstepParams) -> None:
-    """Raise ``NotImplementedError`` for a knob of an unported feature."""
-    defaults = SuperstepParams()
-    for knob, item in UNPORTED_KNOBS.items():
-        if getattr(p, knob) != getattr(defaults, knob):
-            raise NotImplementedError(
-                f"{knob}={getattr(p, knob)!r} needs a feature the torch "
-                f"port does not have yet; see ROADMAP.md, queue 1: {item}")
+UNPORTED_KNOBS = {**BATCHED_UNPORTED, "mem_budget": "memory rungs"}
 
 
 def superstep_device(indptr, indices, assign, cache, acc, poison,
@@ -200,8 +170,9 @@ def hype_superstep_partition(hg: Hypergraph, k: int,
     balance (and the ``BatchedStats`` with ``return_stats``). ``device``
     is where the image lives and the kernel runs (``"cuda"`` or
     ``"cpu"``); ``debug`` adds the scatter-uniqueness checks, which
-    synchronize. Where the JAX engine falls back to ``hype_batched``
-    (the hub-expansion guard trips), this raises ``NotImplementedError``.
+    synchronize. Falls back to ``hype_batched_partition`` on the same
+    device when the adjacency guard trips (pathological hub expansion),
+    as the JAX engine does.
     """
     if params is None:
         params = SuperstepParams()
@@ -213,7 +184,7 @@ def hype_superstep_partition(hg: Hypergraph, k: int,
         raise ValueError("rows, pool_cap, t must all be >= 1")
     if params.pipeline_depth < 1:
         raise ValueError("pipeline_depth must be >= 1")
-    check_ported(params)
+    check_ported(params, UNPORTED_KNOBS)
     if k == 1:
         out = np.zeros(hg.n, dtype=np.int32)
         return (out, BatchedStats()) if return_stats else out
@@ -221,11 +192,10 @@ def hype_superstep_partition(hg: Hypergraph, k: int,
         hg, k, params,
         lambda p: SuperstepState(hg, k, p, device, debug=debug))
     if assignment is None:
-        raise NotImplementedError(
-            "the hub-expansion guard tripped; the JAX engine falls back to "
-            "hype_batched here, which the torch port does not have yet "
-            "(ROADMAP.md, queue 1: hype_batched)")
+        return hype_batched_partition(hg, k, params, return_stats,
+                                      device=device)
     assert (assignment >= 0).all()
+    assignment = maybe_refine(hg, k, params, assignment, st.stats, device)
     if return_stats:
         return assignment, st.stats
     return assignment

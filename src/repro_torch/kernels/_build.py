@@ -1,6 +1,8 @@
 """Build the port's CUDA kernels from the sources in this checkout.
 
-``load_extension()`` compiles every ``kernels/*/csrc/*.cu`` together
+``on_cuda(t, name)`` is the wrappers' one device decision: a CUDA tensor
+goes to the kernel, a CPU tensor to the plain version, and any other
+device raises. ``load_extension()`` compiles every ``kernels/*/csrc/*.cu`` together
 with the one PyTorch binding (``hype_score/csrc/binding.cpp``) for
 Hopper (``sm_90a``) through ``torch.utils.cpp_extension.load``, into
 ``build/torch_ext`` at the repository root, at first use, and memoizes
@@ -30,3 +32,11 @@ def load_extension():
     return load(name="repro_torch_kernels", sources=sources,
                 build_directory=str(BUILD_DIR),
                 extra_cflags=["-O2"], extra_cuda_cflags=CUDA_FLAGS)
+
+
+def on_cuda(t, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise otherwise."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not "
+                         f"{t.device}")
+    return t.device.type == "cuda"

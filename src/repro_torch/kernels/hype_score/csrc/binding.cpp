@@ -17,6 +17,15 @@ extern "C" cudaError_t hype_score_select_launch(
     const float* prev, float* scores, int32_t* sel_idx, float* sel_val,
     int32_t* rem, int G, int R, int L, int s, int P, int select_k, int vec4,
     cudaStream_t stream);
+extern "C" cudaError_t hype_scores_launch(const int32_t* nbrs,
+                                          const int32_t* fringe,
+                                          int32_t* out, int B, int L, int s,
+                                          int vec4, cudaStream_t stream);
+extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
+                                         const int32_t* own, float* gains,
+                                         int B, int L, int k, int vec4,
+                                         cudaStream_t stream);
+extern "C" int kway_gains_max_k();
 
 namespace {
 
@@ -83,9 +92,64 @@ std::vector<torch::Tensor> score_select(const torch::Tensor& nbrs,
   return {scores, sel_idx, sel_val, rem};
 }
 
+bool aligned16(const torch::Tensor& t) {
+  return reinterpret_cast<std::uintptr_t>(t.data_ptr()) % 16 == 0;
+}
+
+torch::Tensor scores(const torch::Tensor& nbrs, const torch::Tensor& fringe) {
+  TORCH_CHECK(nbrs.is_cuda(), "nbrs must be a CUDA tensor");
+  const torch::Device device = nbrs.device();
+  check_input(nbrs, "nbrs", torch::kInt32, 2, device);
+  check_input(fringe, "fringe", torch::kInt32, 1, device);
+  const int64_t B = nbrs.size(0), L = nbrs.size(1), s = fringe.size(0);
+  TORCH_CHECK(s * static_cast<int64_t>(sizeof(int32_t)) <= 48 * 1024,
+              "fringe width s exceeds the kernel's shared memory");
+  TORCH_CHECK(B < (int64_t{1} << 31) && B * L < (int64_t{1} << 40),
+              "shape too large");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor out = torch::empty({B}, nbrs.options());
+  if (B == 0) return out;
+  const int vec4 = (L % 4 == 0) && aligned16(nbrs);
+  C10_CUDA_CHECK(hype_scores_launch(
+      nbrs.data_ptr<int32_t>(), fringe.data_ptr<int32_t>(),
+      out.data_ptr<int32_t>(), static_cast<int>(B), static_cast<int>(L),
+      static_cast<int>(s), vec4, at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+torch::Tensor kway_gains(const torch::Tensor& parts, const torch::Tensor& own,
+                         int64_t k) {
+  TORCH_CHECK(parts.is_cuda(), "parts must be a CUDA tensor");
+  const torch::Device device = parts.device();
+  check_input(parts, "parts", torch::kInt32, 2, device);
+  check_input(own, "own", torch::kInt32, 1, device);
+  const int64_t B = parts.size(0), L = parts.size(1);
+  TORCH_CHECK(own.size(0) == B, "own must be (B,)");
+  TORCH_CHECK(k >= 1 && k <= kway_gains_max_k(), "k must lie in [1, ",
+              kway_gains_max_k(), "]: the kernel's shared-memory histogram");
+  TORCH_CHECK(B < (int64_t{1} << 31) && B * L < (int64_t{1} << 40),
+              "shape too large");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor gains =
+      torch::empty({B, k}, parts.options().dtype(torch::kFloat32));
+  if (B == 0) return gains;
+  const int vec4 = (L % 4 == 0) && aligned16(parts);
+  C10_CUDA_CHECK(kway_gains_launch(
+      parts.data_ptr<int32_t>(), own.data_ptr<int32_t>(),
+      gains.data_ptr<float>(), static_cast<int>(B), static_cast<int>(L),
+      static_cast<int>(k), vec4, at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return gains;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("score_select", &score_select,
         "Fused HYPE score + per-phase select (CUDA, sm_90a)");
+  m.def("scores", &scores, "HYPE external-neighbours scores (CUDA, sm_90a)");
+  m.def("kway_gains", &kway_gains, "K-way move gains (CUDA, sm_90a)");
 }

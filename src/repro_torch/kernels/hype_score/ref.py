@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the fused score + select kernel.
+"""Plain PyTorch versions of the scoring kernels.
 
-The same function as ``csrc/score_select.cu`` in tensor ops: the CPU
-path of ``ops.hype_score_select`` and the yardstick the card's kernel
-is compared with. Selection is an iterative argmin that mirrors the TPU
+The same functions as ``csrc/score_select.cu`` and ``csrc/scores.cu`` in
+tensor ops: the CPU paths of ``ops.hype_score_select`` and
+``ops.hype_scores`` and the yardsticks the card's kernels are compared
+with. Selection is an iterative argmin that mirrors the TPU
 kernel round for round (lowest index wins a tie, a taken slot becomes
 +inf, a NaN in a phase gives index R + P) -- not ``torch.topk``, whose
 tie order differs from the reference's stable order.
@@ -15,6 +16,30 @@ import torch
 # slots); +inf marks a slot already taken. Any real score, the 1e12 hub
 # penalty included, sits far below it.
 SELECT_PAD = 1e30
+
+
+def _external_count(nbrs: torch.Tensor, fringe: torch.Tensor,
+                    ) -> torch.Tensor:
+    """``#valid - #(valid & in fringe)`` over the last axis, as int32.
+
+    ``fringe`` holds one row of s ids per leading index of ``nbrs``
+    (broadcast over the rows); membership ORs the fringe slots, so a
+    duplicated fringe id counts a neighbour once.
+    """
+    valid = nbrs >= 0
+    member = torch.zeros_like(valid)
+    for j in range(fringe.shape[-1]):
+        member |= nbrs == fringe[..., j, None, None]
+    member &= valid
+    return (valid.sum(-1, dtype=torch.int32)
+            - member.sum(-1, dtype=torch.int32))
+
+
+def hype_scores_ref(nbrs: torch.Tensor, fringe: torch.Tensor
+                    ) -> torch.Tensor:
+    """d_ext score per row: nbrs (B, L) int32, -1 padded; fringe (s,)
+    int32, -1 padded. Returns (B,) int32."""
+    return _external_count(nbrs[None], fringe[None])[0]
 
 
 def hype_score_select_ref(nbrs: torch.Tensor, fringe: torch.Tensor,
@@ -30,14 +55,7 @@ def hype_score_select_ref(nbrs: torch.Tensor, fringe: torch.Tensor,
     still below ``SELECT_PAD`` after selection.
     """
     G, R, _ = nbrs.shape
-    valid = nbrs >= 0
-    member = torch.zeros_like(valid)
-    for j in range(fringe.shape[1]):
-        member |= nbrs == fringe[:, j, None, None]
-    member &= valid
-    count = valid.sum(-1, dtype=torch.int32) - member.sum(-1,
-                                                          dtype=torch.int32)
-    scores = count.to(torch.float32) + bias
+    scores = _external_count(nbrs, fringe).to(torch.float32) + bias
     # clamp keeps NaN, as jnp.minimum does; the scalar bounds are cast
     # to float32, so no tensor constant (and no host copy) is needed
     merged = torch.clamp(torch.cat([scores, prev], dim=1), max=SELECT_PAD)

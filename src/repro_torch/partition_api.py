@@ -1,4 +1,4 @@
-"""The port's entry point: ``partition(hg, k, "hype_superstep")``.
+"""The port's entry point: ``partition(hg, k, method)``.
 
 It runs on the card unless the caller passes ``device="cpu"``; with no
 card and no ``device`` it raises instead of falling back. ``METHODS``
@@ -13,9 +13,12 @@ import numpy as np
 import torch
 
 from .core.hypergraph import Hypergraph
+from .core.multilevel import hype_multilevel_partition, multilevel_partition
+from .engines.batched import BatchedParams, hype_batched_partition
 from .engines.superstep import SuperstepParams, hype_superstep_partition
 
-METHODS = ("hype_superstep",)
+METHODS = ("hype_batched", "hype_superstep", "hype_multilevel",
+           "multilevel")
 
 _HOST = "host-only methods (numpy copies)"
 PENDING = {
@@ -24,17 +27,23 @@ PENDING = {
     "minmax_nb": _HOST,
     "minmax_eb": _HOST,
     "shp": _HOST,
-    "multilevel": _HOST,
     "random": _HOST,
     "hashing": _HOST,
-    "hype_batched": "hype_batched",
-    "hype_multilevel": "refinement, hype_multilevel and preset='quality'",
     "hype_device": "hype_device",
     "hype_sharded": "hype_sharded",
     "hype_stream": "hype_stream",
     "hype_jax": "hype_jax and hype_parallel",
     "hype_parallel": "hype_jax and hype_parallel",
 }
+
+# preset -> the knob defaults it folds in under the explicit knobs, as
+# in the JAX package's registry. The pipelined engine also pins the
+# lock-step schedule at ``quality``.
+_PRESETS_HOST = {"fast": {}, "balanced": {"refine_passes": 1},
+                 "quality": {"refine_passes": 4}}
+_PRESETS_PIPE = {"fast": {}, "balanced": {"refine_passes": 1},
+                 "quality": {"refine_passes": 4, "pipeline_depth": 1}}
+PRESETS = {"hype_batched": _PRESETS_HOST, "hype_superstep": _PRESETS_PIPE}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,6 +57,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _resolve_preset(method: str, preset: Optional[str], kw: dict) -> dict:
+    """Fold ``preset`` defaults under the explicit knobs in ``kw``."""
+    if preset is None:
+        return kw
+    presets = PRESETS.get(method)
+    if not presets:
+        raise ValueError(f"method {method!r} does not support presets")
+    if preset not in presets:
+        raise ValueError(
+            f"unknown preset {preset!r} for method {method!r}; "
+            f"choose from {tuple(presets)}")
+    return {**presets[preset], **kw}
+
+
 def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
               device=None, seed: int = 0, preset: Optional[str] = None,
               validate="auto", auto_validate_max_n: int = 1_000_000,
@@ -55,12 +78,14 @@ def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
     """Partition ``hg`` into ``k`` parts; returns an int32 assignment.
 
     ``device`` is ``None`` (the card), ``"cuda"`` or ``"cpu"``. ``seed``,
-    ``validate`` and ``auto_validate_max_n`` mean what they mean in
-    ``repro.core.partition_api.partition``; ``knobs`` go to
-    ``SuperstepParams``. ``preset`` may be ``None`` or ``"fast"`` (the
-    engine's own defaults). A method or knob of a feature the port does
-    not have yet raises ``NotImplementedError`` naming its ROADMAP.md
-    item.
+    ``preset``, ``validate`` and ``auto_validate_max_n`` mean what they
+    mean in ``repro.core.partition_api.partition``: ``preset`` is
+    ``"fast"``, ``"balanced"`` or ``"quality"`` on ``hype_batched`` and
+    ``hype_superstep`` (explicit knobs win) and a ``ValueError`` on the
+    other methods. ``knobs`` go to ``BatchedParams`` or
+    ``SuperstepParams``, or are ``refine_passes`` and ``coarsest`` of
+    ``hype_multilevel``. A method or knob of a feature the port does not
+    have yet raises ``NotImplementedError`` naming its ROADMAP.md item.
     """
     if method in PENDING:
         raise NotImplementedError(
@@ -69,11 +94,6 @@ def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
     if method not in METHODS:
         raise ValueError(
             f"unknown method {method!r}; choose from {METHODS}")
-    if preset not in (None, "fast"):
-        raise NotImplementedError(
-            f"preset {preset!r} needs the refinement post-pass, which the "
-            f"torch port does not have yet; see ROADMAP.md, queue 1: "
-            f"{PENDING['hype_multilevel']}")
     dev = resolve_device(device)
     if validate == "auto":
         validate = hg.n < int(auto_validate_max_n)
@@ -82,6 +102,14 @@ def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
             f"validate must be 'auto' or a bool, got {validate!r}")
     if validate:
         hg.validate()
-    return hype_superstep_partition(hg, k, SuperstepParams(seed=seed,
-                                                           **knobs),
-                                    device=dev)
+    knobs = _resolve_preset(method, preset, knobs)
+    if method == "hype_batched":
+        return hype_batched_partition(
+            hg, k, BatchedParams(seed=seed, **knobs), device=dev)
+    if method == "hype_superstep":
+        return hype_superstep_partition(
+            hg, k, SuperstepParams(seed=seed, **knobs), device=dev)
+    if method == "hype_multilevel":
+        return hype_multilevel_partition(hg, k, seed=seed, device=dev,
+                                         **knobs)
+    return multilevel_partition(hg, k, seed=seed, **knobs)

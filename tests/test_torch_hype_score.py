@@ -1,4 +1,4 @@
-"""The port's fused score + select against the JAX package's kernel.
+"""The port's scoring kernels against the JAX package's kernels.
 
 On the CPU the port's ``ops.hype_score_select`` runs its plain version
 (``ref.py``); the JAX kernel runs in Pallas interpret mode. Every output
@@ -7,7 +7,9 @@ patterns, selected indices and the per-phase remaining count exactly.
 The Pallas kernel unrolls ``select_k`` rounds, so each new shape costs a
 trace; the JAX comparison therefore covers every value of every axis on
 nine shapes, and the whole (G, R, L, s, select_k) grid is held against
-the JAX package's numpy oracle instead.
+the JAX package's numpy oracle instead. The plain ``hype_scores`` is
+held against the JAX kernel at every L bucket, B in {8, 33, 64, 256}
+and s in {1, 10, 16}, with duplicated fringe ids and all-pad rows.
 """
 import itertools
 
@@ -16,8 +18,9 @@ import pytest
 import torch
 
 from repro.kernels.hype_score.ops import hype_score_select as jax_select
+from repro.kernels.hype_score.ops import hype_scores as jax_scores
 from repro.kernels.hype_score.ref import hype_score_select_ref as np_select
-from repro_torch.kernels.hype_score.ops import hype_score_select
+from repro_torch.kernels.hype_score.ops import hype_score_select, hype_scores
 from repro_torch.kernels.hype_score.ref import SELECT_PAD
 
 P = 64
@@ -149,3 +152,57 @@ def test_wrapper_refuses_other_devices():
              ((2, 8), torch.float32), ((2, P), torch.float32))]
     with pytest.raises(ValueError, match="cpu or cuda"):
         hype_score_select(*args, select_k=4)
+
+
+# ------------------------------------------------------------ hype_scores
+
+
+L_BUCKETS = (32, 128, 512, 2048)
+
+
+def make_score_inputs(B, L, s, seed=0):
+    """Seeded (nbrs (B, L), fringe (s,)) int32 inputs for ``hype_scores``.
+
+    Fringe ids are drawn from the tile, so membership matters; with
+    s >= 2 the fringe repeats one id and ends in a -1 pad slot. Rows 0
+    and B - 1 are all pad, and rows hold -1 gaps mid-row.
+    """
+    rng = np.random.default_rng(seed)
+    nbrs = rng.integers(0, 2 * L, size=(B, L)).astype(np.int32)
+    nbrs[rng.random((B, L)) < 0.4] = -1
+    nbrs[0] = -1
+    nbrs[B - 1] = -1
+    pick = nbrs[nbrs >= 0]
+    fringe = rng.choice(pick, size=s).astype(np.int32)
+    if s >= 2:
+        fringe[1] = fringe[0]            # a duplicated fringe id
+        fringe[-1] = -1                  # a pad slot
+    return nbrs, fringe
+
+
+@pytest.mark.parametrize("s", (1, 10, 16))
+@pytest.mark.parametrize("B", (8, 33, 64, 256))
+@pytest.mark.parametrize("L", L_BUCKETS)
+def test_hype_scores_matches_jax_kernel(L, B, s):
+    nbrs, fringe = make_score_inputs(B, L, s, seed=L + B + s)
+    want = np.asarray(jax_scores(nbrs, fringe))
+    got = hype_scores(torch.from_numpy(nbrs), torch.from_numpy(fringe))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0] == 0 and got[B - 1] == 0       # all-pad rows
+
+
+def test_hype_scores_counts_a_duplicated_fringe_id_once():
+    nbrs = np.array([[4, 4, 7, -1], [-1, -1, -1, -1]], np.int32)
+    fringe = np.array([4, 4, -1], np.int32)
+    got = hype_scores(torch.from_numpy(nbrs), torch.from_numpy(fringe))
+    np.testing.assert_array_equal(got.numpy(), [1, 0])
+    np.testing.assert_array_equal(np.asarray(jax_scores(nbrs, fringe)),
+                                  [1, 0])
+
+
+def test_hype_scores_refuses_other_devices():
+    args = (torch.empty((4, 32), dtype=torch.int32, device="meta"),
+            torch.empty(16, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        hype_scores(*args)

@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 Checked at run time (a fresh interpreter imports ``repro_torch`` and
-runs a partition on the CPU, then no ``jax`` and no ``repro`` module may
-be loaded) and statically (no import statement in ``src/repro_torch`` or
+runs every ported method on the CPU, then no ``jax`` and no ``repro``
+module may be loaded) and statically (no import statement in ``src/repro_torch`` or
 ``chip_smoke.py`` names them, lazy imports inside functions included).
 """
 import ast
@@ -21,9 +21,12 @@ _PROBE = """
 import sys
 from repro_torch.data.synthetic import powerlaw_hypergraph
 from repro_torch.partition_api import partition
-a = partition(powerlaw_hypergraph(200, 150, seed=2), 4, device="cpu",
-              pipeline_depth=2)
-assert a.min() >= 0 and a.max() < 4, a
+hg = powerlaw_hypergraph(200, 150, seed=2)
+for method, kw in (("hype_superstep", {"pipeline_depth": 2}),
+                   ("hype_batched", {"preset": "quality"}),
+                   ("hype_multilevel", {}), ("multilevel", {})):
+    a = partition(hg, 4, method, device="cpu", **kw)
+    assert a.min() >= 0 and a.max() < 4, (method, a)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
