@@ -24,6 +24,18 @@ prints one JSON line per phase:
   profile   the depth-1 slice, the batched and the quality path each run
             twice more, under torch.profiler (the card's busy time) and
             under cProfile (the host's time per function)
+  kernel_embedding_bag  the EmbeddingBag kernel against its plain version
+            (fp32 and bf16, mean and sum, edge cases, ids near V-1 of a
+            full-width 16,777,216 x 256 table), timed at the serving
+            shapes beside ``torch.nn.functional.embedding_bag``
+  recsys_serve  two-tower-retrieval at its published width, tables drawn
+            on the card: score_batch at serve_p99 (B=512) and serve_bulk
+            (B=262,144), retrieve over 1,048,576 candidates (top 128),
+            each equal to the same call through the plain EmbeddingBag,
+            then the serve launcher at B=512
+  recsys_parity  the reduced config from numpy params, card against CPU
+  placement  HYPE row placement of the co-access log of
+            benchmarks/bench_beyond_paper.py, held against JAX's digest
 
 Every path starts with all launch counts at 0 and reads them right after;
 a path that did not launch each of its kernels fails. Then come the
@@ -61,6 +73,20 @@ PATH_KM1 = {"batched": 52658, "quality": 60847, "multilevel": 28860}
 ML_FINGERPRINT = "e3c67ff51a35cfd8"
 # RefineStats.kernel_calls of the quality path in the JAX package's run
 QUALITY_SCREENS = 104
+
+# The two-tower serving slice. Tolerance of the reduced config's card
+# run against the CPU run (tests/test_torch_recsys.py holds the CPU run
+# against JAX with the same): the matmul libraries sum in other orders.
+PARITY_TOL = dict(rtol=1e-5, atol=1e-6)
+SERVE_BATCHES = {"serve_p99": 512, "serve_bulk": 262_144}
+RETRIEVE_N_CAND, RETRIEVE_TOP_K = 1_048_576, 128
+# partition_rows_hype on benchmarks/bench_beyond_paper.py's log (vocab
+# 8,192, 4,000 queries, bag 16, k=8, seed 0), and the mean shards
+# touched and remote fraction of the HYPE and the hash placement, all
+# computed with the JAX package on the CPU (tests/test_torch_hype.py)
+PLACEMENT_DIGEST = "23febef3972fa7ee"
+PLACEMENT_JAX = {"hype": (2.03425, 0.23954658362470863),
+                 "hash": (7.0305, 0.7520709009740261)}
 
 # tests/test_pipeline.py:38-43 of the JAX package: depth-1 goldens
 GOLD_PL600 = {(5, 8): "9e8abe668aa53a74", (16, 8): "bbcd2f732e03af91",
@@ -327,7 +353,8 @@ def phase_profile(label, fn):
     """Where the time goes in one path, from two more runs of it.
 
     Under torch.profiler: the card's busy time (kernels and copies,
-    summed over device-side events only) and its largest consumers.
+    summed over device-side events only) and its largest consumers. Each
+    run ends in a synchronize, so the wall time covers the card's work.
     Under cProfile: the host's cumulative seconds per function of the
     port (cProfile inflates Python-heavy code, so read the shares, not
     the sums).
@@ -335,6 +362,7 @@ def phase_profile(label, fn):
     import cProfile
     import pstats
 
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,6 +370,7 @@ def phase_profile(label, fn):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = {}
     for e in prof.key_averages():
@@ -357,6 +386,7 @@ def phase_profile(label, fn):
     t0 = time.perf_counter()
     prof.enable()
     fn()
+    torch.cuda.synchronize()
     prof.disable()
     wall = time.perf_counter() - t0
     host = {}
@@ -366,6 +396,349 @@ def phase_profile(label, fn):
     top = dict(sorted(host.items(), key=lambda kv: -kv[1])[:10])
     emit({"phase": "host_profile", "path": label,
           "wall_s_under_cprofile": wall, "cumulative_s": top})
+
+
+def bag_case(bops, bref, table, ids, combine, row, timed):
+    """One EmbeddingBag case: the kernel against its plain version
+    (``torch.equal``); when ``timed``, the kernel's, the plain version's
+    and ``F.embedding_bag``'s times, and the bytes bound (the valid rows,
+    the ids and the output, each moved once)."""
+    import torch
+    import torch.nn.functional as F
+    out = bops.embedding_bag(table, ids, combine=combine)
+    torch.cuda.synchronize()
+    want = bref.embedding_bag_ref(table, ids, combine)
+    row = {"phase": "kernel_embedding_bag", **row,
+           "dtype": str(table.dtype).removeprefix("torch."),
+           "combine": combine, "rows": ids.shape[0], "bag": ids.shape[1],
+           "D": table.shape[1], "equal": torch.equal(out, want),
+           "max_abs_err": max_abs_err([out], [want])}
+    if timed:
+        valid = ids >= 0
+        nbytes = (int(valid.sum()) * table.shape[1] * table.element_size()
+                  + ids.nbytes + out.nbytes)
+        flat, weights = ids.clamp_min(0).long(), valid.to(table.dtype)
+        row.update(
+            ms=cuda_ms(lambda: bops.embedding_bag(table, ids,
+                                                  combine=combine)),
+            plain_ms=cuda_ms(lambda: bref.embedding_bag_ref(table, ids,
+                                                            combine),
+                             iters=20),
+            library_ms=cuda_ms(lambda: F.embedding_bag(
+                flat, table, mode="sum", per_sample_weights=weights)),
+            library_call="F.embedding_bag(mode='sum', per_sample_weights)",
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    emit(row)
+    if not row["equal"]:
+        raise SystemExit(f"embedding_bag disagrees with its plain version: "
+                         f"{row}")
+    return row
+
+
+def phase_kernel_bag(bops, bref, table, cfg):
+    """EmbeddingBag on the card against its plain version: edge cases on
+    small tables, ids near V-1 of the full-width table (fp32 and a bf16
+    copy: row offsets past 2**32 elements), and the serving shapes on
+    the full-width fp32 table, timed: batch x n_fields bag rows, 2,048
+    at serve_p99 and 1,048,576 at serve_bulk, bag 8, D 256, mean."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    worst, timed = 0.0, {}
+    small = [(1000, 256, 512, 8, "random"), (100, 33, 64, 5, "odd_d"),
+             (50, 64, 40, 1, "bag1"), (300, 128, 17, 40, "wide_bag"),
+             (200, 256, 64, 8, "duplicates"), (200, 256, 64, 8, "all_pad")]
+    for V, D, B, bag, kind in small:
+        t32 = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
+        ids = rng.integers(-1, V, size=(B, bag)).astype(np.int32)
+        if kind == "duplicates":
+            ids[:, 1:] = ids[:, :1]
+        elif kind == "all_pad":
+            ids[::2] = -1
+        ids = torch.from_numpy(ids).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            for combine in ("mean", "sum"):
+                row = bag_case(bops, bref, t32.to(dtype).cuda(), ids,
+                               combine, {"V": V, "inputs": kind}, False)
+                worst = max(worst, row["max_abs_err"])
+    V = table.shape[0]
+    ids = (V - 1 - rng.integers(0, 4096, size=(4096, 8))).astype(np.int32)
+    ids[0] = V - 1
+    ids[rng.random(ids.shape) < 0.1] = -1
+    ids = torch.from_numpy(ids).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        t = table if dtype == table.dtype else table.to(dtype)
+        for combine in ("mean", "sum"):
+            row = bag_case(bops, bref, t, ids, combine,
+                           {"V": V, "inputs": "ids_near_V-1"}, False)
+            worst = max(worst, row["max_abs_err"])
+        del t
+    torch.cuda.empty_cache()
+    for shape, B in SERVE_BATCHES.items():
+        ids = torch.from_numpy(rng.integers(
+            -1, V, size=(B * cfg.n_fields, cfg.bag_size)).astype(
+                np.int32)).cuda()
+        row = bag_case(bops, bref, table, ids, "mean",
+                       {"V": V, "inputs": "random", "shape": shape}, True)
+        worst = max(worst, row["max_abs_err"])
+        timed[shape] = row
+    return timed, worst
+
+
+def serve_ids(rng, cfg, B):
+    """A serving batch as the launcher draws it: ids in [-1, vocab)."""
+    import numpy as np
+    import torch
+    shape = (B, cfg.n_fields, cfg.bag_size)
+    return {name: torch.from_numpy(rng.integers(-1, vocab, shape).astype(
+        np.int32)).cuda() for name, vocab in (("user_ids", cfg.user_vocab),
+                                              ("item_ids", cfg.item_vocab))}
+
+
+def wall_ms(fn, n: int) -> float:
+    """Median host-clock ms of ``n`` synchronised calls, after one more."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_recsys_serve(recsys, bref, params, cfg, launches):
+    """The serving path at full width through the entry points: each
+    call is driven once with every launch count at 0 and must launch the
+    EmbeddingBag kernel once per tower, then is repeated through the
+    plain EmbeddingBag on the card and must give the same tensors."""
+    import numpy as np
+    import torch
+
+    def through_plain(fn):
+        kernel = recsys.bag_kernel
+        recsys.bag_kernel = lambda t, i, combine: bref.embedding_bag_ref(
+            t, i, combine)
+        try:
+            return fn()
+        finally:
+            recsys.bag_kernel = kernel
+
+    def check(row, got, want, counts, need):
+        row.update(launches=counts, expected_launches=need,
+                   equal_to_plain_path=all(
+                       torch.equal(a, b) for a, b in zip(got, want)),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(row)
+        if not row["equal_to_plain_path"]:
+            raise SystemExit(f"{row['path']} differs from the plain path")
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"{row['path']} launched {counts}, not {need}")
+        if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+            raise SystemExit(f"{row['path']} gave non-finite values")
+
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        for shape, B in SERVE_BATCHES.items():
+            batch = serve_ids(rng, cfg, B)
+            torch.cuda.reset_peak_memory_stats()
+            s, _, counts = launches.drive(
+                lambda: recsys.score_batch(params, batch, cfg))
+            torch.cuda.synchronize()
+            want = through_plain(lambda: recsys.score_batch(params, batch,
+                                                            cfg))
+            iters = 100 if B <= 512 else 5
+            flat = {k: v.reshape(-1, cfg.bag_size) for k, v in batch.items()}
+            row = {"phase": "recsys_serve", "path": f"score_batch_{shape}",
+                   "batch": B, "wall_ms": wall_ms(
+                       lambda: recsys.score_batch(params, batch, cfg),
+                       20 if B <= 512 else 5),
+                   # where the time goes, in CUDA events (the profiler
+                   # rows below may miss device events): the whole call
+                   # and its two bags, back to back
+                   "device_ms": cuda_ms(lambda: recsys.score_batch(
+                       params, batch, cfg), iters=iters),
+                   "bags_ms": cuda_ms(lambda: [recsys.bag_kernel(
+                       params[f"{side}_table"], flat[f"{side}_ids"])
+                       for side in ("user", "item")], iters=iters)}
+            if s.shape != (B,):
+                raise SystemExit(f"score_batch gave {tuple(s.shape)}")
+            check(row, [s], [want], counts, {"embedding_bag": 2})
+            phase_profile(f"score_batch_{shape}", lambda: recsys.score_batch(
+                params, batch, cfg))
+
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        cands = torch.randn((RETRIEVE_N_CAND, cfg.tower_dims[-1]),
+                            generator=gen, device="cuda")
+        cands /= torch.linalg.vector_norm(cands, dim=-1, keepdim=True)
+        batch = {"user_ids": serve_ids(rng, cfg, 1)["user_ids"],
+                 "cand_embs": cands}
+        torch.cuda.reset_peak_memory_stats()
+        (v, i), _, counts = launches.drive(lambda: recsys.retrieve(
+            params, batch, cfg, top_k=RETRIEVE_TOP_K))
+        want = through_plain(lambda: recsys.retrieve(
+            params, batch, cfg, top_k=RETRIEVE_TOP_K))
+        u = recsys.tower(params["user_tower"], params["user_table"],
+                         batch["user_ids"], cfg)
+        top = torch.topk((u @ cands.T)[0], RETRIEVE_TOP_K).values
+        scores = (u @ cands.T)[0]
+        row = {"phase": "recsys_serve", "path": "retrieve_retrieval_cand",
+               "n_cand": RETRIEVE_N_CAND, "top_k": RETRIEVE_TOP_K,
+               "values_equal_topk": torch.equal(v, top),
+               "indices_distinct": int(i.unique().numel()),
+               "wall_ms": wall_ms(lambda: recsys.retrieve(
+                   params, batch, cfg, top_k=RETRIEVE_TOP_K), 10),
+               "device_ms": cuda_ms(lambda: recsys.retrieve(
+                   params, batch, cfg, top_k=RETRIEVE_TOP_K), iters=20),
+               "tower_ms": cuda_ms(lambda: recsys.tower(
+                   params["user_tower"], params["user_table"],
+                   batch["user_ids"], cfg), iters=20),
+               "cand_matmul_ms": cuda_ms(lambda: u @ cands.T, iters=20),
+               "top_k_ms": cuda_ms(lambda: recsys.ordered_top_k(
+                   scores, RETRIEVE_TOP_K), iters=20)}
+        if not row["values_equal_topk"] or row["indices_distinct"] != \
+                RETRIEVE_TOP_K:
+            raise SystemExit(f"retrieve's top-k is wrong: {row}")
+        check(row, [v, i], list(want), counts, {"embedding_bag": 1})
+        phase_profile("retrieve_retrieval_cand", lambda: recsys.retrieve(
+            params, batch, cfg, top_k=RETRIEVE_TOP_K))
+
+
+def phase_recsys_parity(recsys, convert, cfg):
+    """The reduced config from numpy params: the card (the kernel)
+    against the CPU (the plain version), within PARITY_TOL; top-k
+    indices equal except between scores that tie within it."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    dims = (cfg.n_fields * cfg.embed_dim,) + tuple(cfg.tower_dims[1:])
+
+    def tower():
+        p = {f"w{i}": rng.normal(size=(dims[i], dims[i + 1])) /
+             np.sqrt(dims[i]) for i in range(len(dims) - 1)}
+        p.update({f"b{i}": rng.normal(size=dims[i + 1]) * 0.1
+                  for i in range(len(dims) - 1)})
+        return p
+
+    tree = {"user_table": rng.normal(size=(cfg.user_vocab,
+                                           cfg.embed_dim)) * 0.02,
+            "item_table": rng.normal(size=(cfg.item_vocab,
+                                           cfg.embed_dim)) * 0.02,
+            "user_tower": tower(), "item_tower": tower()}
+    shape = (512, cfg.n_fields, cfg.bag_size)
+    ids = {name: rng.integers(-1, vocab, shape).astype(np.int32)
+           for name, vocab in (("user_ids", cfg.user_vocab),
+                               ("item_ids", cfg.item_vocab))}
+    cands = rng.normal(size=(2048, cfg.tower_dims[-1])).astype(np.float32)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            params = convert.twotower_params_from_numpy(tree, cfg, dev)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in ids.items()}
+            s = recsys.score_batch(params, batch, cfg)
+            q = {"user_ids": batch["user_ids"][:1],
+                 "cand_embs": torch.from_numpy(cands).to(dev)}
+            v, i = recsys.retrieve(params, q, cfg, top_k=128)
+            u = recsys.tower(params["user_tower"], params["user_table"],
+                             q["user_ids"], cfg)
+            full = (u @ q["cand_embs"].T)[0]
+            out[dev] = [t.cpu().numpy() for t in (s, v, i, full)]
+    (s_g, v_g, i_g, _), (s_c, v_c, i_c, full_c) = out["cuda"], out["cpu"]
+    ok = (np.allclose(s_g, s_c, **PARITY_TOL)
+          and np.allclose(v_g, v_c, **PARITY_TOL))
+    swapped = np.flatnonzero(i_g != i_c)
+    ok = ok and np.allclose(full_c[i_g[swapped]], full_c[i_c[swapped]],
+                            **PARITY_TOL)
+    row = {"phase": "recsys_parity", "config": "two-tower-retrieval reduced",
+           "batch": 512, "n_cand": 2048, "top_k": 128, "tol": PARITY_TOL,
+           "score_max_abs_diff": float(np.abs(s_g - s_c).max()),
+           "topk_value_max_abs_diff": float(np.abs(v_g - v_c).max()),
+           "topk_swapped_near_ties": int(swapped.size), "ok": bool(ok)}
+    emit(row)
+    if not ok:
+        raise SystemExit(f"reduced two-tower differs card vs cpu: {row}")
+
+
+def phase_placement(pe):
+    """HYPE row placement of benchmarks/bench_beyond_paper.py's co-access
+    log (the same numpy calls), against JAX's digest; mean shards
+    touched and remote fraction under affinity routing for HYPE and the
+    hash placement. Host work."""
+    import numpy as np
+    vocab, n_queries, bag, k = 8192, 4000, 16, 8
+    rng = np.random.default_rng(0)
+    centers = rng.integers(0, vocab, n_queries)
+    queries = [np.unique((centers[i] + rng.geometric(0.05, bag)) % vocab)
+               for i in range(n_queries)]
+    t0 = time.perf_counter()
+    asg = pe.partition_rows_hype(vocab, queries, k, seed=0)
+    host_s = time.perf_counter() - t0
+    row = {"phase": "placement", "vocab": vocab, "queries": n_queries,
+           "bag": bag, "k": k, "host_s": host_s, "digest": digest(asg),
+           "expected_digest": PLACEMENT_DIGEST}
+    hashed = (np.arange(vocab) * 2654435761 % vocab % k).astype(np.int32)
+    for name, a in (("hype", asg), ("hash", hashed)):
+        pl = pe.RowPlacement.from_assignment(a, k)
+        touched, remote = [], []
+        for q in queries:
+            counts = np.bincount(pl.owner[q], minlength=k)
+            touched.append(int((counts > 0).sum()))
+            remote.append(1.0 - counts.max() / max(counts.sum(), 1))
+        row[name] = {"shards_touched": float(np.mean(touched)),
+                     "remote_frac": float(np.mean(remote)),
+                     "expected": PLACEMENT_JAX[name]}
+    emit(row)
+    if row["digest"] != PLACEMENT_DIGEST or any(
+            (row[n]["shards_touched"], row[n]["remote_frac"])
+            != PLACEMENT_JAX[n] for n in PLACEMENT_JAX):
+        raise SystemExit(f"placement differs from the JAX package: {row}")
+
+
+def run_recsys(launches, bops, bref):
+    """The two-tower serving slice: full-width tables drawn on the card,
+    the EmbeddingBag kernel phase on them, the serving paths, the serve
+    launcher (after the tables are freed), the reduced parity run and
+    the placement. Returns the kernel's timed rows and its worst error."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import recsys
+    from repro_torch.placement import partitioned_embedding as pe
+
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.build_cfg()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = recsys.init_twotower_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "recsys_setup", "config": "two-tower-retrieval",
+          "embed_dim": cfg.embed_dim, "tower_dims": cfg.tower_dims,
+          "n_fields": cfg.n_fields, "bag_size": cfg.bag_size,
+          "user_vocab": cfg.user_vocab, "item_vocab": cfg.item_vocab,
+          "param_gb": sum(t.nbytes for t in (
+              [params["user_table"], params["item_table"]]
+              + list(params["user_tower"].values())
+              + list(params["item_tower"].values()))) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    timed, worst = phase_kernel_bag(bops, bref, params["user_table"], cfg)
+    phase_recsys_serve(recsys, bref, params, cfg, launches)
+    del params
+    torch.cuda.empty_cache()
+    s, wall, counts = launches.drive(lambda: serve.main(
+        ["--arch", "two-tower-retrieval", "--batch", "512"]))
+    row = {"phase": "recsys_serve", "path": "launch.serve --batch 512",
+           "wall_s": wall, "launches": counts}
+    emit(row)
+    if {k: v for k, v in counts.items() if v} != {"embedding_bag": 2}:
+        raise SystemExit(f"the serve launcher launched {counts}")
+    torch.cuda.empty_cache()
+    phase_recsys_parity(recsys, convert, arch.build_cfg(reduced=True))
+    phase_placement(pe)
+    return timed, worst
 
 
 class Launches:
@@ -442,6 +815,8 @@ def main() -> int:
     from repro_torch.engines.superstep import (SuperstepParams,
                                                hype_superstep_partition)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops as bops
+    from repro_torch.kernels.embedding_bag import ref as bref
     from repro_torch.kernels.hype_score import ops, ref
     from repro_torch.kernels.kway_refine import ops as kops
     from repro_torch.kernels.kway_refine import ref as kref
@@ -474,7 +849,8 @@ def main() -> int:
     # the main paths: each starts with every launch count at 0
     launches = Launches({"hype_score_select": ops.hype_score_select,
                          "hype_scores": ops.hype_scores,
-                         "kway_gains": kops.kway_gains})
+                         "kway_gains": kops.kway_gains,
+                         "embedding_bag": bops.embedding_bag})
     runs = {}
     for depth in (1, 2):
         (a, row), _, counts = launches.drive(lambda: run_slice(
@@ -580,17 +956,24 @@ def main() -> int:
     phase_profile("quality", lambda: hype_superstep_partition(
         hg, 32, qp, device="cuda"))
 
+    bag_rows, worst_bag = run_recsys(launches, bops, bref)
+
     def entry(name, source, replaces, main, err):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches.total[name],
                 "max_abs_err": err, "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": main.get("library_ms")}
 
     csrc = "src/repro_torch/kernels/"
-    emit({"phase": "library", "library_ms": None,
-          "why": "no single PyTorch call computes any of the three "
-                 "kernels' functions"})
+    bulk = bag_rows["serve_bulk"]
+    emit({"phase": "library",
+          "embedding_bag": {shape: {"library_ms": r["library_ms"],
+                                    "call": r["library_call"]}
+                            for shape, r in bag_rows.items()},
+          "hype_score_select": None, "hype_scores": None, "kway_gains": None,
+          "why_none": "no single PyTorch call computes the functions of "
+                      "the three partitioning kernels"})
     emit({"kernels": [
         entry("hype_score_select", csrc + "hype_score/csrc/score_select.cu",
               "src/repro/kernels/hype_score/kernel.py:160",
@@ -600,7 +983,10 @@ def main() -> int:
               per_bl[(256, 2048)], worst_scores),
         entry("kway_gains", csrc + "kway_refine/csrc/kway_gains.cu",
               "src/repro/kernels/kway_refine/kernel.py:65",
-              per_lk[(quality_tile_l, 32)], worst_kway)]})
+              per_lk[(quality_tile_l, 32)], worst_kway),
+        entry("embedding_bag", csrc + "embedding_bag/csrc/embedding_bag.cu",
+              "src/repro/kernels/embedding_bag/kernel.py:73", bulk,
+              worst_bag)]})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

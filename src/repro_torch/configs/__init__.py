@@ -1,0 +1,47 @@
+"""Architecture registry: ``get_arch(arch_id)`` -> ArchDef.
+
+It knows every architecture of the JAX package's registry
+(``src/repro/configs/__init__.py``). ``PORTED`` maps the ones the port
+serves to their module; ``get_arch`` on any other raises
+``NotImplementedError`` naming its ROADMAP.md item. ``FAMILIES`` gives
+every architecture's family without loading it.
+"""
+from __future__ import annotations
+
+import importlib
+
+FAMILIES = {
+    "stablelm-3b": "lm",
+    "qwen3-8b": "lm",
+    "llama3-405b": "lm",
+    "mixtral-8x22b": "lm",
+    "granite-moe-3b-a800m": "lm",
+    "gatedgcn": "gnn",
+    "meshgraphnet": "gnn",
+    "schnet": "gnn",
+    "graphsage-reddit": "gnn",
+    "two-tower-retrieval": "recsys",
+    "hype_paper": "partitioning",
+}
+
+PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval"}
+
+_ITEM = "ROADMAP.md, queue 1, item 15"
+PENDING_ITEMS = {
+    "lm": f"{_ITEM}c: LM serving with flash_attention_fwd",
+    "gnn": f"{_ITEM}b: GNN training with neighbor_agg",
+    "partitioning": "ROADMAP.md, queue 1, item 16: the bench lane",
+}
+
+ARCH_IDS = [a for a in FAMILIES if a != "hype_paper"]
+
+
+def get_arch(arch_id: str):
+    if arch_id not in FAMILIES:
+        raise KeyError(f"unknown arch {arch_id!r}; choose from "
+                       f"{list(FAMILIES)}")
+    if arch_id not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to torch yet; see "
+            f"{PENDING_ITEMS[FAMILIES[arch_id]]}")
+    return importlib.import_module(PORTED[arch_id]).ARCH

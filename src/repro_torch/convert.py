@@ -4,17 +4,21 @@ The port imports nothing of ``repro``, so a caller holding the JAX
 package's objects hands over their arrays or fields instead:
 ``hypergraph_from_arrays(hg.n, hg.m, hg.v2e_indptr, hg.v2e_indices,
 hg.e2v_indptr, hg.e2v_indices)``, ``superstep_params_from_dict(dataclasses.asdict(
-params))`` and ``batched_params_from_dict(dataclasses.asdict(params))``.
+params))``, ``batched_params_from_dict(dataclasses.asdict(params))`` and
+``twotower_params_from_numpy(jax.tree.map(np.asarray, params), cfg,
+device)``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.hypergraph import Hypergraph
 from .engines.batched import BatchedParams
 from .engines.superstep import SuperstepParams
+from .models.recsys import PARAM_NAMES, TwoTowerConfig
 
 
 def hypergraph_from_arrays(n, m, v2e_indptr, v2e_indices, e2v_indptr,
@@ -45,3 +49,34 @@ def superstep_params_from_dict(d: dict) -> SuperstepParams:
 def batched_params_from_dict(d: dict) -> BatchedParams:
     """The port's ``BatchedParams`` from a dict of the JAX fields."""
     return _params_from_dict(BatchedParams, d)
+
+
+def twotower_params_from_numpy(tree: dict, cfg: TwoTowerConfig,
+                               device="cpu") -> dict:
+    """The port's two-tower params from the JAX package's, as nested
+    dicts of numpy arrays. Both keep a dense weight as (in, out), so the
+    arrays are copied as they are, cast to ``cfg.dtype``; every name and
+    shape is checked against ``cfg``."""
+    if set(tree) != set(PARAM_NAMES):
+        raise ValueError(f"two-tower params are {PARAM_NAMES}, got "
+                         f"{sorted(tree)}")
+
+    def leaf(a, shape, where):
+        a = np.asarray(a)
+        if a.shape != shape:
+            raise ValueError(f"{where} has shape {a.shape}, want {shape}")
+        return torch.tensor(a, dtype=cfg.dtype, device=device)
+
+    out = {name: leaf(tree[name], (vocab, cfg.embed_dim), name)
+           for name, vocab in (("user_table", cfg.user_vocab),
+                               ("item_table", cfg.item_vocab))}
+    dims = (cfg.n_fields * cfg.embed_dim,) + tuple(cfg.tower_dims[1:])
+    shapes = {f"w{i}": (dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
+    shapes.update({f"b{i}": (dims[i + 1],) for i in range(len(dims) - 1)})
+    for name in ("user_tower", "item_tower"):
+        if set(tree[name]) != set(shapes):
+            raise ValueError(f"{name} holds {sorted(tree[name])}, want "
+                             f"{sorted(shapes)}")
+        out[name] = {k: leaf(tree[name][k], shp, f"{name}.{k}")
+                     for k, shp in shapes.items()}
+    return out

@@ -178,6 +178,18 @@ class Hypergraph:
         cache[key] = out
         return out
 
+    def flip(self) -> "Hypergraph":
+        """Swap roles of vertices and hyperedges (paper §III-C).
+
+        Flipping twice is the identity (up to pin ordering). Used for
+        perfect hyperedge balancing: balance vertices in the flipped graph.
+        """
+        return Hypergraph(n=self.m, m=self.n,
+                          v2e_indptr=self.e2v_indptr,
+                          v2e_indices=self.e2v_indices,
+                          e2v_indptr=self.v2e_indptr,
+                          e2v_indices=self.v2e_indices)
+
     def validate(self) -> None:
         """Check the CSR invariants; raise ``ValueError`` on corruption."""
         if self.v2e_indptr.shape != (self.n + 1,):

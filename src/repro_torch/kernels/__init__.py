@@ -5,3 +5,4 @@
 #   hype_score -- fused external-neighbours score + per-phase select,
 #                 and the plain external-neighbours score
 #   kway_refine -- k-way move gains of the refinement post-pass
+#   embedding_bag -- sum/mean of the valid rows of -1-padded bags (recsys)

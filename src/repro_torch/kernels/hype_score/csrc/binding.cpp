@@ -26,6 +26,11 @@ extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
                                          int B, int L, int k, int vec4,
                                          cudaStream_t stream);
 extern "C" int kway_gains_max_k();
+extern "C" cudaError_t embedding_bag_launch(const void* table,
+                                            const int32_t* ids, void* out,
+                                            int64_t B, int bag, int D,
+                                            int bf16, int vec, int mean,
+                                            cudaStream_t stream);
 
 namespace {
 
@@ -145,6 +150,34 @@ torch::Tensor kway_gains(const torch::Tensor& parts, const torch::Tensor& own,
   return gains;
 }
 
+torch::Tensor embedding_bag(const torch::Tensor& table,
+                            const torch::Tensor& ids, bool mean) {
+  TORCH_CHECK(table.is_cuda(), "table must be a CUDA tensor");
+  const torch::Device device = table.device();
+  TORCH_CHECK(table.scalar_type() == torch::kFloat32 ||
+                  table.scalar_type() == torch::kBFloat16,
+              "table must be float32 or bfloat16, got ",
+              table.scalar_type());
+  check_input(table, "table", table.scalar_type(), 2, device);
+  check_input(ids, "ids", torch::kInt32, 2, device);
+  const int64_t D = table.size(1), B = ids.size(0), bag = ids.size(1);
+  TORCH_CHECK(D < (int64_t{1} << 31) && bag < (int64_t{1} << 31),
+              "shape too large");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor out = torch::empty({B, D}, table.options());
+  if (B == 0 || D == 0) return out;
+  const int vec = (D * table.element_size()) % 16 == 0 && aligned16(table) &&
+                  aligned16(out);
+  C10_CUDA_CHECK(embedding_bag_launch(
+      table.data_ptr(), ids.data_ptr<int32_t>(), out.data_ptr(), B,
+      static_cast<int>(bag), static_cast<int>(D),
+      table.scalar_type() == torch::kBFloat16, vec, mean,
+      at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -152,4 +185,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Fused HYPE score + per-phase select (CUDA, sm_90a)");
   m.def("scores", &scores, "HYPE external-neighbours scores (CUDA, sm_90a)");
   m.def("kway_gains", &kway_gains, "K-way move gains (CUDA, sm_90a)");
+  m.def("embedding_bag", &embedding_bag,
+        "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
 }

@@ -1,0 +1,58 @@
+"""Shared model building blocks, as ``src/repro/models/common.py`` has them.
+
+Parameters are nested dicts of tensors in the JAX package's layout: a
+dense weight is (in, out) and is applied as ``x @ w + b``, so params
+converted from the JAX package are used as they are (no transpose).
+Every ``*_init`` takes an explicit ``torch.Generator`` and a device and
+draws on that device, so a full-width table is made on the card without
+a host copy. The draws are float32 normals, scaled, then cast to
+``dtype``, as the JAX package draws them; the numbers themselves differ
+from JAX's, whose generator is another.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """(in_dim, out_dim) normal / sqrt(in_dim)."""
+    return _normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim), dtype,
+                   device)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int,
+               dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """(vocab, dim) normal x 0.02."""
+    return _normal(gen, (vocab, dim), 0.02, dtype, device)
+
+
+def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
+             device="cpu") -> dict:
+    """Params ``w{i}`` (d_i, d_{i+1}) and zero ``b{i}`` for layer dims
+    [d0, d1, ..., dk]."""
+    params = {f"w{i}": dense_init(gen, dims[i], dims[i + 1], dtype, device)
+              for i in range(len(dims) - 1)}
+    params.update({f"b{i}": torch.zeros(dims[i + 1], dtype=dtype,
+                                        device=device)
+                   for i in range(len(dims) - 1)})
+    return params
+
+
+def mlp_apply(params: dict, x: torch.Tensor, n_layers: int,
+              final_act: bool = False) -> torch.Tensor:
+    """``x @ w + b`` per layer, ReLU between layers (after the last only
+    with ``final_act``)."""
+    for i in range(n_layers):
+        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n_layers - 1 or final_act:
+            x = torch.relu(x)
+    return x

@@ -12,18 +12,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.hype import HypeParams, hype_partition
 from .core.hypergraph import Hypergraph
 from .core.multilevel import hype_multilevel_partition, multilevel_partition
 from .engines.batched import BatchedParams, hype_batched_partition
 from .engines.superstep import SuperstepParams, hype_superstep_partition
 
 METHODS = ("hype_batched", "hype_superstep", "hype_multilevel",
-           "multilevel")
+           "multilevel", "hype", "hype_weighted")
 
 _HOST = "host-only methods (numpy copies)"
 PENDING = {
-    "hype": _HOST,
-    "hype_weighted": _HOST,
     "minmax_nb": _HOST,
     "minmax_eb": _HOST,
     "shp": _HOST,
@@ -83,9 +82,12 @@ def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
     ``"fast"``, ``"balanced"`` or ``"quality"`` on ``hype_batched`` and
     ``hype_superstep`` (explicit knobs win) and a ``ValueError`` on the
     other methods. ``knobs`` go to ``BatchedParams`` or
-    ``SuperstepParams``, or are ``refine_passes`` and ``coarsest`` of
-    ``hype_multilevel``. A method or knob of a feature the port does not
-    have yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+    ``SuperstepParams``, are ``refine_passes`` and ``coarsest`` of
+    ``hype_multilevel``, or go to ``HypeParams`` for ``hype`` and
+    ``hype_weighted`` (the host partitioner, numpy on any ``device``;
+    ``hype_weighted`` pins ``balance="weighted"``). A method or knob of
+    a feature the port does not have yet raises ``NotImplementedError``
+    naming its ROADMAP.md item.
     """
     if method in PENDING:
         raise NotImplementedError(
@@ -112,4 +114,9 @@ def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
     if method == "hype_multilevel":
         return hype_multilevel_partition(hg, k, seed=seed, device=dev,
                                          **knobs)
+    if method == "hype":
+        return hype_partition(hg, k, HypeParams(seed=seed, **knobs))
+    if method == "hype_weighted":
+        return hype_partition(hg, k, HypeParams(seed=seed,
+                                                balance="weighted", **knobs))
     return multilevel_partition(hg, k, seed=seed, **knobs)

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.data.synthetic import powerlaw_hypergraph
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.hype_score.ops import hype_score_select, hype_scores
 from repro_torch.kernels.hype_score.ref import (hype_score_select_ref,
                                                 hype_scores_ref)
@@ -102,3 +104,25 @@ def test_cuda_refined_partition_matches_golden(method, kw, want):
     a = partition(hg, 16, method, device="cuda", **kw)
     got = hashlib.sha256(a.astype(np.int32).tobytes()).hexdigest()[:16]
     assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,B,bag,combine", [
+    (4096, 256, 2048, 8, "mean"), (4096, 256, 512, 8, "sum"),
+    (100, 33, 64, 5, "mean"), (50, 64, 40, 1, "sum"),
+    (300, 128, 17, 40, "mean")])
+def test_cuda_embedding_bag_equals_plain_version(V, D, B, bag, combine,
+                                                 dtype):
+    _need_card()
+    rng = np.random.default_rng(V + D + bag)
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
+    ids = rng.integers(-1, V, size=(B, bag)).astype(np.int32)
+    ids[0] = -1                                    # an all-pad row
+    ids[-1] = ids[-1, 0]                           # one id repeated
+    x = [table.to(dtype).cuda(), torch.from_numpy(ids).cuda()]
+    before = embedding_bag.launches
+    got = embedding_bag(*x, combine=combine)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, D)
+    assert torch.equal(got, embedding_bag_ref(*x, combine))

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 Checked at run time (a fresh interpreter imports ``repro_torch`` and
-runs every ported method on the CPU, then no ``jax`` and no ``repro``
-module may be loaded) and statically (no import statement in ``src/repro_torch`` or
+runs every ported method, the two-tower serving path, the serve
+launcher and the HYPE row placement on the CPU, then no ``jax`` and no
+``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch`` or
 ``chip_smoke.py`` names them, lazy imports inside functions included).
 """
 import ast
@@ -19,14 +20,32 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
 
 _PROBE = """
 import sys
+import numpy as np
+import torch
+from repro_torch.configs import get_arch
 from repro_torch.data.synthetic import powerlaw_hypergraph
-from repro_torch.partition_api import partition
+from repro_torch.launch import serve
+from repro_torch.models import recsys
+from repro_torch.partition_api import METHODS, partition
+from repro_torch.placement.partitioned_embedding import partition_rows_hype
 hg = powerlaw_hypergraph(200, 150, seed=2)
-for method, kw in (("hype_superstep", {"pipeline_depth": 2}),
-                   ("hype_batched", {"preset": "quality"}),
-                   ("hype_multilevel", {}), ("multilevel", {})):
-    a = partition(hg, 4, method, device="cpu", **kw)
+knobs = {"hype_superstep": {"pipeline_depth": 2},
+         "hype_batched": {"preset": "quality"}}
+for method in METHODS:
+    a = partition(hg, 4, method, device="cpu", **knobs.get(method, {}))
     assert a.min() >= 0 and a.max() < 4, (method, a)
+cfg = get_arch("two-tower-retrieval").build_cfg(reduced=True)
+params = recsys.init_twotower_params(torch.Generator().manual_seed(0), cfg)
+ids = torch.zeros((2, cfg.n_fields, cfg.bag_size), dtype=torch.int32)
+with torch.inference_mode():
+    s = recsys.score_batch(params, {"user_ids": ids, "item_ids": ids}, cfg)
+    v, i = recsys.retrieve(params, {"user_ids": ids[:1], "cand_embs":
+                                    torch.ones(50, cfg.tower_dims[-1])}, cfg,
+                           top_k=5)
+assert s.shape == (2,) and i.tolist() == [0, 1, 2, 3, 4]
+serve.main(["--arch", "two-tower-retrieval", "--reduced", "--device", "cpu"])
+a = partition_rows_hype(64, [[0, 1, 2], [2, 3], [5, 6, 7]], 2)
+assert a.shape == (64,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

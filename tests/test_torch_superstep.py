@@ -270,6 +270,7 @@ def test_pending_methods_raise(method):
 
 
 def test_registry_covers_every_jax_method():
+    assert {"hype", "hype_weighted"} <= set(METHODS)
     assert set(METHODS).isdisjoint(PENDING)
     assert set(METHODS) | set(PENDING) == set(jax_api.METHODS)
     with pytest.raises(ValueError, match="unknown method"):
