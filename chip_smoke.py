@@ -36,6 +36,18 @@ prints one JSON line per phase:
   recsys_parity  the reduced config from numpy params, card against CPU
   placement  HYPE row placement of the co-access log of
             benchmarks/bench_beyond_paper.py, held against JAX's digest
+  kernel_flash_attention  the flash-attention kernel against its plain
+            version (fp32 and bf16, causal, non-causal, windows, D in
+            {16, 32, 64, 80, 128}, ragged S, and the full-width qwen3-8b
+            layer shape B=8, S=4096), timed there and at B=1, S=32,768
+            beside ``F.scaled_dot_product_attention``; at S=32,768 the
+            last 64 query rows of every head are compared
+  lm_serve  qwen3-8b at full width (bf16, 8.19e9 params drawn on the
+            card): prefill of 8 prompts of 4,096 tokens, 16 greedy
+            decode steps on that cache, then the serve launcher with its
+            defaults; each prefill launches the kernel once per layer
+  lm_parity  the reduced qwen3-8b config in float32 from numpy params,
+            card against CPU
 
 Every path starts with all launch counts at 0 and reads them right after;
 a path that did not launch each of its kernels fails. Then come the
@@ -49,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -57,6 +70,9 @@ import time
 
 # HBM rate of one H100 SXM (NVIDIA's data sheet): the bytes bound.
 HBM_BYTES_PER_S = 3.35e12
+# Dense bf16 tensor-core peak of one H100 SXM (NVIDIA's data sheet): the
+# operations bound of attention.
+BF16_FLOPS = 989e12
 
 # The JAX package's schedule facts for the slice (computed with the JAX
 # package on the CPU; they are not speeds).
@@ -87,6 +103,32 @@ RETRIEVE_N_CAND, RETRIEVE_TOP_K = 1_048_576, 128
 PLACEMENT_DIGEST = "23febef3972fa7ee"
 PLACEMENT_JAX = {"hype": (2.03425, 0.23954658362470863),
                  "hash": (7.0305, 0.7520709009740261)}
+
+# The LM serving slice: qwen3-8b at full width, bf16. The published
+# prefill_32k (B=32) and decode_32k (B=128) caches need 154.6 and 618 GB
+# (147,456 bytes per token over 36 layers), so prefill runs B=8 prompts
+# of 4,096 tokens (a 4.83 GB cache) and decode 16 steps at B=8 on that
+# cache; the kernel alone is timed at the published S=32,768 with B=1.
+LM_ARCH = "qwen3-8b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 4096, 16
+LM_LONG_SEQ = 32_768
+# flash_attention against its plain version on the card: the kernel sums
+# key tiles online, the plain version takes one softmax, so they agree
+# within float32 rounding (the float32 tolerance of tests/test_kernels.py).
+# Both compute in float32 and round the output to bf16 once, so in bf16
+# they differ by at most one bf16 step (2**-7 of the value, under rtol)
+# plus the float32 difference (atol, 5x the float32 tolerance). The
+# limit scales with the values: late rows of a long causal sequence
+# average thousands of keys and are about 0.01 to 0.03 in size.
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+             "bfloat16": dict(atol=1e-4, rtol=1e-2)}
+# At S=32,768 the plain scores would be 137 GB: the last rows of every
+# head are compared (64 x 32,768 scores a head) with the plain formula.
+LONG_CHECK_ROWS = 64
+# The reduced LM, float32 without TF32, card against CPU: the tolerance
+# tests/test_serving.py holds two float32 decode paths to.
+LM_PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
+LM_PARITY_STEPS = 8
 
 # tests/test_pipeline.py:38-43 of the JAX package: depth-1 goldens
 GOLD_PL600 = {(5, 8): "9e8abe668aa53a74", (16, 8): "bbcd2f732e03af91",
@@ -123,10 +165,10 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 5, iters: int = 100) -> float:
+def cuda_ms(fn, reps: int = 5, iters: int = 100, warmup: int = 10) -> float:
     """Median device time of one call over ``reps`` runs of ``iters``."""
     import torch
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -741,6 +783,339 @@ def run_recsys(launches, bops, bref):
     return timed, worst
 
 
+def attention_bound(B, S, Hq, Hkv, D):
+    """(FLOPs, bytes, bound ms) of one causal bf16 attention call: 4 D
+    FLOP (QK^T and PV) per unmasked (query, key) pair, S (S + 1) / 2 of
+    them per batch row and q-head, at the bf16 tensor-core peak; q, k
+    and v read once and the output written once. The bound is the
+    larger of the two times."""
+    flops = 4 * B * Hq * D * (S * (S + 1) // 2)
+    nbytes = (2 * Hq + 2 * Hkv) * B * S * D * 2
+    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    return flops, nbytes, bound_ms
+
+
+def attention_rows_plain(q, k, v, start):
+    """The plain version's formula (kernels/flash_attention/ref.py),
+    causal, for query rows start..S-1 only: (B, S - start, Hq, D)."""
+    import torch
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q[:, start:].reshape(B, S - start, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
+                          k.float()) / math.sqrt(D)
+    i = torch.arange(start, S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    probs = torch.softmax(torch.where(j <= i, scores, -1e30), dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(B, S - start, Hq, D).to(q.dtype)
+
+
+def phase_kernel_flash(fops, fref):
+    """flash_attention on the card against its plain version (FLASH_TOL):
+    the shapes of tests/test_kernels.py in fp32 and bf16, non-causal, a
+    window, D in {64, 80, 128}, ragged S, and the full-width layer shape
+    of qwen3-8b (B=8, S=4096, 32 q-heads, 8 kv-heads, D=128, bf16),
+    compared one sequence at a time so the plain scores stay at 2.1 GB.
+    Timed there and at B=1, S=32,768, beside
+    F.scaled_dot_product_attention; at S=32,768 the plain version is
+    neither run whole nor timed (its scores would be 137 GB), and the last
+    LONG_CHECK_ROWS query rows of every head are compared with its
+    formula."""
+    import torch
+    import torch.nn.functional as F
+    cases = [(B, S, Hq, Hkv, D, True, w, dt)
+             for dt in ("float32", "bfloat16")
+             for B, S, Hq, Hkv, D, w in (
+                 (2, 128, 4, 4, 64, None), (1, 256, 8, 2, 64, None),
+                 (2, 256, 4, 4, 32, 64), (1, 128, 2, 1, 128, None))]
+    cases += [(1, 128, 2, 2, 32, False, None, "float32"),
+              (2, 256, 4, 2, 64, False, 48, "float32"),
+              (1, 512, 8, 2, 128, True, 100, "bfloat16"),
+              (2, 256, 8, 2, 80, True, None, "float32"),
+              (2, 256, 8, 2, 80, True, None, "bfloat16"),
+              (2, 100, 4, 2, 128, True, None, "float32"),
+              (1, 1000, 8, 2, 128, True, None, "bfloat16"),
+              (1, 1000, 4, 1, 64, True, 256, "float32"),
+              (3, 1, 4, 4, 16, True, None, "float32")]
+    worst = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def inputs(B, S, Hq, Hkv, D, dtype):
+        return [torch.randn((B, S, h, D), device="cuda",
+                            generator=gen).to(getattr(torch, dtype))
+                for h in (Hq, Hkv, Hkv)]
+
+    for B, S, Hq, Hkv, D, causal, window, dtype in cases:
+        x = inputs(B, S, Hq, Hkv, D, dtype)
+        out = fops.flash_attention(*x, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fref.attention_ref(*x, causal=causal, window=window)
+        err = float((out.float() - want.float()).abs().max())
+        ok = torch.allclose(out.float(), want.float(), **FLASH_TOL[dtype])
+        worst = max(worst, err)
+        row = {"phase": "kernel_flash_attention", "B": B, "S": S, "Hq": Hq,
+               "Hkv": Hkv, "D": D, "causal": causal, "window": window,
+               "dtype": dtype, "max_abs_err": err, "tol": FLASH_TOL[dtype],
+               "close": ok}
+        emit(row)
+        if not ok:
+            raise SystemExit(f"flash_attention disagrees with its plain "
+                             f"version: {row}")
+
+    timed = {}
+    for name, (B, S) in (("layer", (LM_BATCH, LM_PROMPT)),
+                         ("long", (1, LM_LONG_SEQ))):
+        Hq, Hkv, D = 32, 8, 128
+        x = inputs(B, S, Hq, Hkv, D, "bfloat16")
+        row = {"phase": "kernel_flash_attention", "shape": name, "B": B,
+               "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
+               "window": None, "dtype": "bfloat16"}
+        out = fops.flash_attention(*x)
+        torch.cuda.synchronize()
+        if name == "layer":
+            errs, oks = [], []
+            for b in range(B):
+                xb = [t[b:b + 1] for t in x]
+                want = fref.attention_ref(*xb).float()
+                errs.append(float((out[b:b + 1].float() - want).abs().max()))
+                oks.append(torch.allclose(out[b:b + 1].float(), want,
+                                          **FLASH_TOL["bfloat16"]))
+                del want
+            row.update(max_abs_err=max(errs), tol=FLASH_TOL["bfloat16"],
+                       close=all(oks), compared="one sequence at a time")
+            worst = max(worst, row["max_abs_err"])
+        else:
+            if not bool(torch.isfinite(out.float()).all()):
+                raise SystemExit(f"flash_attention at S={S} gave non-finite "
+                                 f"values")
+            start = S - LONG_CHECK_ROWS
+            want = attention_rows_plain(*x, start).float()
+            got = out[:, start:].float()
+            row.update(max_abs_err=float((got - want).abs().max()),
+                       tol=FLASH_TOL["bfloat16"],
+                       close=torch.allclose(got, want,
+                                            **FLASH_TOL["bfloat16"]),
+                       compared=f"query rows {start}..{S - 1} of every head")
+            worst = max(worst, row["max_abs_err"])
+            del want, got
+        del out
+        flops, nbytes, bound_ms = attention_bound(B, S, Hq, Hkv, D)
+        iters = 5 if name == "layer" else 2
+        row.update(ms=cuda_ms(lambda: fops.flash_attention(*x), reps=3,
+                              iters=iters, warmup=2),
+                   flops=flops, bytes=nbytes, bound_ms=bound_ms,
+                   bound_by="operations")
+        row["tflops"] = flops / row["ms"] / 1e9
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in x)
+        row.update(library_ms=cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=3,
+            iters=iters, warmup=2),
+            library_call="F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) on (B, H, S, D) copies")
+        del qt, kt, vt
+        if name == "layer":
+            torch.cuda.empty_cache()
+            row["plain_ms"] = cuda_ms(lambda: fref.attention_ref(*x),
+                                      reps=3, iters=1, warmup=1)
+        emit(row)
+        if not row["close"]:
+            raise SystemExit(f"flash_attention disagrees with its plain "
+                             f"version at full width: {row}")
+        timed[name] = row
+        del x
+        torch.cuda.empty_cache()
+    return timed, worst
+
+
+def phase_lm_serve(tf, launches):
+    """qwen3-8b at full width (bf16, params drawn on the card): prefill of
+    B=8 prompts of 4,096 tokens (a warm-up, then timed), then 16 greedy
+    serve_steps on that cache, unpadded, as the serve launcher decodes.
+    Each prefill must launch the kernel once per layer, decode never."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH).build_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["lm_head"], params["ln_f"],
+              *params["layers"].values()]
+    emit({"phase": "lm_setup", "config": LM_ARCH, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "d_head": cfg.d_head,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "dtype": str(cfg.dtype).removeprefix("torch."),
+          "params": sum(t.numel() for t in leaves),
+          "params_dense": cfg.params_dense,
+          "param_gb": sum(t.nbytes for t in leaves) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    # params_dense (the JAX package's count) leaves out the qk-norm scales
+    qk = 2 * cfg.n_layers * cfg.d_head if cfg.qk_norm else 0
+    if sum(t.numel() for t in leaves) != cfg.params_dense + qk:
+        raise SystemExit(f"{LM_ARCH} params differ from params_dense")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()
+
+    def run_prefill():
+        out = tf.prefill(params, prompts, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    def greedy(logits):
+        return torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    need = {"flash_attention": cfg.n_layers}
+    with torch.inference_mode():
+        for label in ("prefill_warmup", "prefill"):
+            torch.cuda.reset_peak_memory_stats()
+            (cache, logits), wall, counts = launches.drive(run_prefill)
+            row = {"phase": "lm_serve", "path": label,
+                   "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+                   "wall_s": wall, "tokens_per_s": LM_BATCH * LM_PROMPT / wall,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "cache_gb": (cache["k"].nbytes + cache["v"].nbytes) / 1e9,
+                   "launches": counts, "expected_launches": need}
+            emit(row)
+            if {k: v for k, v in counts.items() if v} != need:
+                raise SystemExit(f"{label} launched {counts}, not {need}")
+        if logits.shape != (LM_BATCH, cfg.vocab) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise SystemExit(f"prefill logits {tuple(logits.shape)} are not "
+                             f"finite ({LM_BATCH}, {cfg.vocab})")
+        prefill_cache_pos = cache["pos"]
+
+        def decode():
+            nonlocal cache, logits
+            toks, step_s = [greedy(logits)], []
+            for _ in range(LM_STEPS):
+                t0 = time.perf_counter()
+                logits, cache = tf.serve_step(params, cache, toks[-1], cfg)
+                toks.append(greedy(logits))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            return torch.cat(toks, 1), step_s
+
+        torch.cuda.reset_peak_memory_stats()
+        (toks, step_s), wall, counts = launches.drive(decode)
+        step_ms = statistics.median(step_s) * 1e3
+        row = {"phase": "lm_serve", "path": "decode", "batch": LM_BATCH,
+               "cache_len": LM_PROMPT, "steps": LM_STEPS, "wall_s": wall,
+               "step_ms_median": step_ms,
+               "step_ms_first": step_s[0] * 1e3,
+               "tokens_per_s": LM_BATCH / (step_ms / 1e3),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "pos": cache["pos"], "launches": counts,
+               "expected_launches": {}}
+        emit(row)
+        if any(counts.values()):
+            raise SystemExit(f"decode launched {counts}; it runs no kernel")
+        if (cache["pos"] != prefill_cache_pos + LM_STEPS
+                or toks.shape != (LM_BATCH, LM_STEPS + 1)
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab
+                or not bool(torch.isfinite(logits.float()).all())):
+            raise SystemExit(f"decode gave bad tokens or logits: {row}")
+        step = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
+        phase_profile("lm_prefill", run_prefill)
+        phase_profile("lm_decode_step", lambda: tf.serve_step(
+            params, dict(step), toks[:, -1:], cfg))
+
+
+def phase_lm_parity(tf, convert, cfg):
+    """The reduced qwen3-8b config in float32 from numpy params, card (the
+    kernel; TF32 off) against CPU (the plain version): prefill logits and
+    LM_PARITY_STEPS decode steps' logits within LM_PARITY_TOL on the
+    unpadded cache, and equal greedy tokens."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    cfg = dc.replace(cfg, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    tree = {"embed": rng.normal(size=(cfg.vocab, cfg.d_model)) * 0.02,
+            "lm_head": rng.normal(size=(cfg.d_model, cfg.vocab))
+            / np.sqrt(cfg.d_model),
+            "ln_f": 1 + 0.1 * rng.normal(size=cfg.d_model),
+            "layers": {name: (1 + 0.1 * rng.normal(size=(cfg.n_layers,)
+                                                    + shape))
+                       if len(shape) == 1 else
+                       rng.normal(size=(cfg.n_layers,) + shape)
+                       / np.sqrt(shape[0])
+                       for name, shape in tf.layer_shapes(cfg).items()}}
+    prompts = rng.integers(0, cfg.vocab, (4, 40)).astype(np.int32)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            params = convert.transformer_params_from_numpy(tree, cfg, dev)
+            cache, logits = tf.prefill(params, torch.from_numpy(prompts).to(
+                dev), cfg)
+            logs, toks = [logits], [logits.argmax(-1)]
+            for _ in range(LM_PARITY_STEPS):
+                logits, cache = tf.serve_step(
+                    params, cache, toks[-1][:, None].to(torch.int32), cfg)
+                logs.append(logits)
+                toks.append(logits.argmax(-1))
+            out[dev] = (torch.stack(logs).cpu().numpy(),
+                        torch.stack(toks).cpu().numpy())
+    (lg, tg), (lc, tc) = out["cuda"], out["cpu"]
+    ok = bool(np.allclose(lg, lc, **LM_PARITY_TOL)
+              and np.array_equal(tg, tc))
+    row = {"phase": "lm_parity", "config": f"{LM_ARCH} reduced, float32",
+           "batch": 4, "prompt_len": 40, "steps": LM_PARITY_STEPS,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "tol": LM_PARITY_TOL,
+           "prefill_max_abs_diff": float(np.abs(lg[0] - lc[0]).max()),
+           "decode_max_abs_diff": float(np.abs(lg[1:] - lc[1:]).max()),
+           "logit_scale": float(np.abs(lc).max()),
+           "tokens_equal": bool(np.array_equal(tg, tc)), "ok": ok}
+    emit(row)
+    if not ok:
+        raise SystemExit(f"reduced LM differs card vs cpu: {row}")
+
+
+def run_lm(launches, fops, fref):
+    """The LM serving slice: the flash-attention kernel phase, qwen3-8b
+    at full width through prefill and decode, the serve launcher with its
+    defaults, and the reduced config card against CPU. Returns the
+    kernel's timed rows and its worst error."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    # float32 matmuls in full float32 (the parity phase's premise)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_memory", "allocated_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
+    timed, worst = phase_kernel_flash(fops, fref)
+    phase_lm_serve(tf, launches)
+    torch.cuda.empty_cache()
+    toks, wall, counts = launches.drive(lambda: serve.main(
+        ["--arch", LM_ARCH]))
+    need = {"flash_attention": get_arch(LM_ARCH).build_cfg().n_layers}
+    row = {"phase": "lm_serve", "path": f"launch.serve --arch {LM_ARCH}",
+           "wall_s": wall, "tokens_shape": list(toks.shape),
+           "launches": counts, "expected_launches": need}
+    emit(row)
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"the serve launcher launched {counts}")
+    torch.cuda.empty_cache()
+    phase_lm_parity(tf, convert, get_arch(LM_ARCH).build_cfg(reduced=True))
+    return timed, worst
+
+
 class Launches:
     """The launch counts of every kernel wrapper of the port."""
 
@@ -817,6 +1192,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.embedding_bag import ops as bops
     from repro_torch.kernels.embedding_bag import ref as bref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.hype_score import ops, ref
     from repro_torch.kernels.kway_refine import ops as kops
     from repro_torch.kernels.kway_refine import ref as kref
@@ -850,7 +1227,8 @@ def main() -> int:
     launches = Launches({"hype_score_select": ops.hype_score_select,
                          "hype_scores": ops.hype_scores,
                          "kway_gains": kops.kway_gains,
-                         "embedding_bag": bops.embedding_bag})
+                         "embedding_bag": bops.embedding_bag,
+                         "flash_attention": fops.flash_attention})
     runs = {}
     for depth in (1, 2):
         (a, row), _, counts = launches.drive(lambda: run_slice(
@@ -957,13 +1335,15 @@ def main() -> int:
         hg, 32, qp, device="cuda"))
 
     bag_rows, worst_bag = run_recsys(launches, bops, bref)
+    flash_rows, worst_flash = run_lm(launches, fops, fref)
 
     def entry(name, source, replaces, main, err):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches.total[name],
                 "max_abs_err": err, "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": "bytes", "library_ms": main.get("library_ms")}
+                "bound_by": main.get("bound_by", "bytes"),
+                "library_ms": main.get("library_ms")}
 
     csrc = "src/repro_torch/kernels/"
     bulk = bag_rows["serve_bulk"]
@@ -971,6 +1351,9 @@ def main() -> int:
           "embedding_bag": {shape: {"library_ms": r["library_ms"],
                                     "call": r["library_call"]}
                             for shape, r in bag_rows.items()},
+          "flash_attention": {shape: {"library_ms": r["library_ms"],
+                                      "call": r["library_call"]}
+                              for shape, r in flash_rows.items()},
           "hype_score_select": None, "hype_scores": None, "kway_gains": None,
           "why_none": "no single PyTorch call computes the functions of "
                       "the three partitioning kernels"})
@@ -986,7 +1369,11 @@ def main() -> int:
               per_lk[(quality_tile_l, 32)], worst_kway),
         entry("embedding_bag", csrc + "embedding_bag/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag/kernel.py:73", bulk,
-              worst_bag)]})
+              worst_bag),
+        entry("flash_attention",
+              csrc + "flash_attention/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:111",
+              flash_rows["layer"], worst_flash)]})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

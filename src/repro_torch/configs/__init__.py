@@ -4,7 +4,9 @@ It knows every architecture of the JAX package's registry
 (``src/repro/configs/__init__.py``). ``PORTED`` maps the ones the port
 serves to their module; ``get_arch`` on any other raises
 ``NotImplementedError`` naming its ROADMAP.md item. ``FAMILIES`` gives
-every architecture's family without loading it.
+every architecture's family without loading it. Of the LMs, the dense
+ones are ported; the MoE ones (mixtral-8x22b, granite-moe-3b-a800m) wait
+for MoE serving.
 """
 from __future__ import annotations
 
@@ -24,11 +26,17 @@ FAMILIES = {
     "hype_paper": "partitioning",
 }
 
-PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval"}
+PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+          "stablelm-3b": "repro_torch.configs.stablelm_3b",
+          "qwen3-8b": "repro_torch.configs.qwen3_8b",
+          "llama3-405b": "repro_torch.configs.llama3_405b"}
 
 _ITEM = "ROADMAP.md, queue 1, item 15"
+PENDING_MOE = f"{_ITEM}e: MoE LM serving (moe_ffn, models/moe.py)"
+PENDING_PAGED = f"{_ITEM}f: paged decode (decode_paged, serve_step_paged)"
+PENDING_TRAIN = f"{_ITEM}d: LM training (lm_loss)"
 PENDING_ITEMS = {
-    "lm": f"{_ITEM}c: LM serving with flash_attention_fwd",
+    "lm": PENDING_MOE,
     "gnn": f"{_ITEM}b: GNN training with neighbor_agg",
     "partitioning": "ROADMAP.md, queue 1, item 16: the bench lane",
 }

@@ -6,7 +6,8 @@ package's objects hands over their arrays or fields instead:
 hg.e2v_indptr, hg.e2v_indices)``, ``superstep_params_from_dict(dataclasses.asdict(
 params))``, ``batched_params_from_dict(dataclasses.asdict(params))`` and
 ``twotower_params_from_numpy(jax.tree.map(np.asarray, params), cfg,
-device)``.
+device)`` and ``transformer_params_from_numpy(jax.tree.map(np.asarray,
+params), cfg, device)``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from .core.hypergraph import Hypergraph
 from .engines.batched import BatchedParams
 from .engines.superstep import SuperstepParams
 from .models.recsys import PARAM_NAMES, TwoTowerConfig
+from .models.transformer import TransformerConfig, layer_shapes
 
 
 def hypergraph_from_arrays(n, m, v2e_indptr, v2e_indices, e2v_indptr,
@@ -79,4 +81,39 @@ def twotower_params_from_numpy(tree: dict, cfg: TwoTowerConfig,
                              f"{sorted(shapes)}")
         out[name] = {k: leaf(tree[name][k], shp, f"{name}.{k}")
                      for k, shp in shapes.items()}
+    return out
+
+
+def transformer_params_from_numpy(tree: dict, cfg: TransformerConfig,
+                                  device="cpu") -> dict:
+    """The port's LM params from the JAX package's (``scan_layers``:
+    stacked layers), as nested dicts of numpy arrays. Both keep a dense
+    weight as (in, out) and every layer leaf with a leading ``n_layers``
+    axis, so the arrays are copied as they are, cast to ``cfg.dtype``
+    (bfloat16 arrays widen exactly to float32 on the way); every name and
+    shape is checked against ``cfg``."""
+    top = {"embed": (cfg.vocab_padded, cfg.d_model),
+           "lm_head": (cfg.d_model, cfg.vocab_padded),
+           "ln_f": (cfg.d_model,)}
+    if set(tree) != set(top) | {"layers"}:
+        raise ValueError(f"LM params are {sorted(top) + ['layers']}, got "
+                         f"{sorted(tree)}")
+    shapes = {name: (cfg.n_layers,) + shape
+              for name, shape in layer_shapes(cfg).items()}
+    if set(tree["layers"]) != set(shapes):
+        raise ValueError(f"layers hold {sorted(tree['layers'])}, want "
+                         f"{sorted(shapes)}")
+
+    def leaf(a, shape, where):
+        a = np.asarray(a)
+        if a.shape != shape:
+            raise ValueError(f"{where} has shape {a.shape}, want {shape}")
+        if a.dtype != np.float32:
+            a = a.astype(np.float32)
+        return torch.tensor(a, device=device).to(cfg.dtype)
+
+    out = {name: leaf(tree[name], shape, name) for name, shape in top.items()}
+    out["layers"] = {name: leaf(tree["layers"][name], shape,
+                                f"layers.{name}")
+                     for name, shape in shapes.items()}
     return out

@@ -6,3 +6,5 @@
 #                 and the plain external-neighbours score
 #   kway_refine -- k-way move gains of the refinement post-pass
 #   embedding_bag -- sum/mean of the valid rows of -1-padded bags (recsys)
+#   flash_attention -- causal / sliding-window GQA attention forward (LM
+#                 prefill)

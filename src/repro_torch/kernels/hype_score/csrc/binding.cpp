@@ -31,6 +31,11 @@ extern "C" cudaError_t embedding_bag_launch(const void* table,
                                             int64_t B, int bag, int D,
                                             int bf16, int vec, int mean,
                                             cudaStream_t stream);
+extern "C" cudaError_t flash_attention_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int S,
+    int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
+    const int64_t* ost, float scale, int causal, int window, int bf16,
+    cudaStream_t stream);
 
 namespace {
 
@@ -178,6 +183,46 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
   return out;
 }
 
+torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                              const torch::Tensor& v, bool causal,
+                              int64_t window, double scale) {
+  TORCH_CHECK(q.is_cuda(), "q must be a CUDA tensor");
+  const torch::Device device = q.device();
+  const auto dtype = q.scalar_type();
+  TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+              "q must be float32 or bfloat16, got ", dtype);
+  check_input(q, "q", dtype, 4, device);
+  check_input(k, "k", dtype, 4, device);
+  check_input(v, "v", dtype, 4, device);
+  const int64_t B = q.size(0), S = q.size(1), Hq = q.size(2), D = q.size(3);
+  const int64_t Hkv = k.size(2);
+  TORCH_CHECK(k.sizes() == v.sizes(), "k and v must have one shape");
+  TORCH_CHECK(k.size(0) == B && k.size(1) == S && k.size(3) == D,
+              "k and v must be (B, S, Hkv, D) beside q's (B, S, Hq, D)");
+  TORCH_CHECK(Hkv >= 1 && Hq % Hkv == 0, "Hq must be a multiple of Hkv");
+  TORCH_CHECK(D >= 8 && D <= 256 && D % 8 == 0,
+              "D must be a multiple of 8 in [8, 256], got ", D);
+  TORCH_CHECK(B < 65536 && Hq < 65536 && S < (int64_t{1} << 31),
+              "shape too large for the kernel's grid");
+  TORCH_CHECK(aligned16(q) && aligned16(k) && aligned16(v),
+              "q, k and v must be 16-byte aligned");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor out = torch::empty_like(q);
+  if (B == 0 || S == 0 || Hq == 0) return out;
+  const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
+  const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
+  const int64_t ost[3] = {out.stride(0), out.stride(1), out.stride(2)};
+  C10_CUDA_CHECK(flash_attention_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      static_cast<int>(B), static_cast<int>(S), static_cast<int>(Hq),
+      static_cast<int>(Hkv), static_cast<int>(D), qst, kst, ost,
+      static_cast<float>(scale), causal, static_cast<int>(window),
+      dtype == torch::kBFloat16, at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -187,4 +232,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kway_gains", &kway_gains, "K-way move gains (CUDA, sm_90a)");
   m.def("embedding_bag", &embedding_bag,
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
+  m.def("flash_attention", &flash_attention,
+        "Causal / sliding-window GQA attention forward (CUDA, sm_90a)");
 }

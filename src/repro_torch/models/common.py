@@ -7,13 +7,18 @@ Every ``*_init`` takes an explicit ``torch.Generator`` and a device and
 draws on that device, so a full-width table is made on the card without
 a host copy. The draws are float32 normals, scaled, then cast to
 ``dtype``, as the JAX package draws them; the numbers themselves differ
-from JAX's, whose generator is another.
+from JAX's, whose generator is another. The norms and RoPE round
+where the JAX package rounds.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+# The LM's default compute dtype, as in the JAX package; the two-tower
+# model keeps float32.
+DEFAULT_DTYPE = torch.bfloat16
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
@@ -56,3 +61,41 @@ def mlp_apply(params: dict, x: torch.Tensor, n_layers: int,
         if i < n_layers - 1 or final_act:
             x = torch.relu(x)
     return x
+
+
+# ------------------------------------------------------------------- norms
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32, cast back to ``x.dtype``, then times ``gamma``
+    in that dtype (where the JAX package rounds)."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dtype) * gamma
+
+
+# -------------------------------------------------------------------- rope
+
+def rotary_embedding(positions: torch.Tensor, d_head: int,
+                     theta: float = 10_000.0):
+    """Returns (sin, cos) of shape (..., d_head//2), float32."""
+    half = d_head // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); sin/cos: (..., S, D//2) broadcast over heads.
+    A bfloat16 ``x`` times the float32 sin and cos is float32 (in both
+    frameworks); the result is cast back to ``x.dtype`` at the end."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

@@ -1,0 +1,319 @@
+"""Decoder-only transformer LM (GQA, RoPE, qk-norm, sliding window): serving.
+
+The counterpart of ``src/repro/models/transformer.py`` for the dense
+architectures (stablelm-3b, qwen3-8b, llama3-405b). Params keep the JAX
+package's stacked layout: every layer leaf has a leading ``n_layers``
+axis, so params converted from JAX (``convert.transformer_params_from_numpy``)
+are a copy. Layers run in a Python loop over that axis.
+
+Prefill attention goes through the flash-attention kernel
+(``kernels/flash_attention``: the hand-written CUDA kernel on the card,
+its plain version on the CPU), which computes the function of both of
+the JAX model's ``attention_impl`` paths. The kernel keeps scores and
+probabilities in float32 where the JAX model's einsum path rounds them
+to the compute dtype, so in bfloat16 the two differ by rounding (ROADMAP.md, queue 3).
+Decode attention stays plain torch, as the JAX package computes it
+outside any kernel, and rounds where it rounds.
+
+Serving runs under ``torch.inference_mode()``. ``serve_step`` writes the
+new token's K/V into the cache's tensors in place, where JAX returns a
+new cache. The cache position ``pos`` is a Python int. Unported: MoE
+layers, paged decode and the training loss raise ``NotImplementedError``
+naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs import PENDING_MOE, PENDING_PAGED, PENDING_TRAIN
+from ..kernels.flash_attention.ops import flash_attention
+from .common import (DEFAULT_DTYPE, apply_rope, dense_init, embed_init,
+                     rms_norm, rotary_embedding)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The JAX package's fields that serving reads. Its training and
+    sharding knobs (``remat``, ``scan_layers``, ``seq_shard``,
+    ``constrain``, ``attention_impl``, ``attention_block`` and the
+    ``moe_*`` tuning fields) are left out: the port has no such paths."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qk_norm: bool = False
+    window: Optional[int] = None          # sliding-window attention
+    rope_theta: float = 10_000.0
+    moe: Optional[object] = None
+    dtype: torch.dtype = DEFAULT_DTYPE
+    decode_paged: bool = False
+    pad_vocab: bool = False
+
+    @property
+    def vocab_padded(self) -> int:
+        if self.pad_vocab:
+            return ((self.vocab + 255) // 256) * 256
+        return self.vocab
+
+    @property
+    def params_dense(self) -> int:
+        """Total parameter count N (for MODEL_FLOPS = 6*N*D)."""
+        a = self.d_model * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+        a += self.n_heads * self.d_head * self.d_model
+        if self.moe is None:
+            f = 3 * self.d_model * self.d_ff
+        else:
+            f = 3 * self.d_model * self.d_ff * self.moe.n_experts \
+                + self.d_model * self.moe.n_experts
+        per_layer = a + f + 2 * self.d_model
+        return (self.n_layers * per_layer + 2 * self.vocab * self.d_model
+                + self.d_model)
+
+
+def _dense_only(cfg: TransformerConfig):
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"MoE layers of {cfg.name!r} are not ported to torch yet; see "
+            f"{PENDING_MOE}")
+
+
+# ------------------------------------------------------------------ params
+
+def layer_shapes(cfg: TransformerConfig) -> dict:
+    """Name -> shape of one layer's leaves, in the JAX package's order."""
+    d, dh = cfg.d_model, cfg.d_head
+    shapes = {"ln1": (d,), "ln2": (d,),
+              "wq": (d, cfg.n_heads * dh), "wk": (d, cfg.n_kv_heads * dh),
+              "wv": (d, cfg.n_kv_heads * dh), "wo": (cfg.n_heads * dh, d)}
+    if cfg.qk_norm:
+        shapes.update(qnorm=(dh,), knorm=(dh,))
+    shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                  w_down=(cfg.d_ff, d))
+    return shapes
+
+
+def init_layer_params(gen: torch.Generator, cfg: TransformerConfig,
+                      device="cpu") -> dict:
+    """One layer's params: norms at 1, dense weights normal / sqrt(in)."""
+    _dense_only(cfg)
+    return {name: (torch.ones(shape, dtype=cfg.dtype, device=device)
+                   if len(shape) == 1 else
+                   dense_init(gen, *shape, cfg.dtype, device))
+            for name, shape in layer_shapes(cfg).items()}
+
+
+def init_params(gen: torch.Generator, cfg: TransformerConfig,
+                device="cpu") -> dict:
+    """Random params on ``device`` from ``gen`` (a generator of that
+    device): embed, lm_head, then layer by layer into preallocated
+    stacked tensors, so no float32 draw of a whole stacked leaf is made
+    (a stacked ``w_gate`` of qwen3-8b would be a 7.2 GB transient)."""
+    _dense_only(cfg)
+    params = {
+        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype,
+                            device),
+        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_padded, cfg.dtype,
+                              device),
+        "ln_f": torch.ones(cfg.d_model, dtype=cfg.dtype, device=device),
+    }
+    layers = {name: torch.empty((cfg.n_layers,) + shape, dtype=cfg.dtype,
+                                device=device)
+              for name, shape in layer_shapes(cfg).items()}
+    for li in range(cfg.n_layers):
+        for name, leaf in init_layer_params(gen, cfg, device).items():
+            layers[name][li].copy_(leaf)
+    params["layers"] = layers
+    return params
+
+
+def layer(params: dict, li: int) -> dict:
+    """Layer ``li``'s params: views into the stacked leaves."""
+    return {name: leaf[li] for name, leaf in params["layers"].items()}
+
+
+def _embed(params: dict, tokens: torch.Tensor,
+           cfg: TransformerConfig) -> torch.Tensor:
+    flat = params["embed"].index_select(0, tokens.reshape(-1))
+    return flat.reshape(*tokens.shape, cfg.d_model).to(cfg.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+def _attention(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
+               sin: torch.Tensor, cos: torch.Tensor):
+    """Full (optionally windowed) prefill attention through the kernel.
+
+    Returns (output, (k, v)) so prefill can collect the cache without
+    recomputing projections. The causal and window mask is the kernel's
+    ``causal`` and ``window`` arguments.
+    """
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = (x @ lp["wq"]).reshape(B, S, Hq, Dh)
+    k = (x @ lp["wk"]).reshape(B, S, Hkv, Dh)
+    v = (x @ lp["wv"]).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["qnorm"])
+        k = rms_norm(k, lp["knorm"])
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    out = flash_attention(q, k, v, causal=True, window=cfg.window)
+    return out.reshape(B, S, Hq * Dh) @ lp["wo"], (k, v)
+
+
+def _dense_ffn(cfg: TransformerConfig, lp: dict,
+               x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
+    return h @ lp["w_down"]
+
+
+def _layer_fwd(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
+               sin: torch.Tensor, cos: torch.Tensor):
+    a, kv = _attention(cfg, lp, rms_norm(x, lp["ln1"]), sin, cos)
+    x = x + a
+    return x + _dense_ffn(cfg, lp, rms_norm(x, lp["ln2"])), kv
+
+
+def _rope_tables(S: int, cfg: TransformerConfig, device):
+    positions = torch.arange(S, device=device)[None, :]
+    return rotary_embedding(positions, cfg.d_head, cfg.rope_theta)
+
+
+# ------------------------------------------------------------------ forward
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+    """tokens (B, S) int -> final hidden states (B, S, d), aux loss (0:
+    a dense model has none)."""
+    _dense_only(cfg)
+    x = _embed(params, tokens, cfg)
+    sin, cos = _rope_tables(tokens.shape[1], cfg, x.device)
+    for li in range(cfg.n_layers):
+        x, _ = _layer_fwd(cfg, layer(params, li), x, sin, cos)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["ln_f"]), aux
+
+
+def lm_loss(params, batch, cfg: TransformerConfig):
+    raise NotImplementedError(
+        f"lm_loss is not ported to torch yet; see {PENDING_TRAIN}")
+
+
+# ------------------------------------------------------------------ serving
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               device="cpu") -> dict:
+    """KV cache. Sliding-window archs use a rolling buffer of size window."""
+    Skv = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch, Skv, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": 0}
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Run the full prompt, return (cache, last-token logits).
+
+    The cache holds each layer's K/V of the forward pass; for windowed
+    attention only the last ``window`` positions are kept. It holds
+    exactly that many slots, as in the JAX package: a caller that
+    decodes on it without padding overwrites the oldest slots.
+    """
+    _dense_only(cfg)
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg)
+    sin, cos = _rope_tables(S, cfg, x.device)
+    Skv = min(S, cfg.window) if cfg.window else S
+    shape = (cfg.n_layers, B, Skv, cfg.n_kv_heads, cfg.d_head)
+    cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=x.device),
+             "v": torch.empty(shape, dtype=cfg.dtype, device=x.device),
+             "pos": S}
+    for li in range(cfg.n_layers):
+        x, (k, v) = _layer_fwd(cfg, layer(params, li), x, sin, cos)
+        cache["k"][li].copy_(k[:, S - Skv:])
+        cache["v"][li].copy_(v[:, S - Skv:])
+    x = rms_norm(x, params["ln_f"])
+    return cache, x[:, -1] @ params["lm_head"]
+
+
+@functools.cache
+def _root(d_head: int, dtype: torch.dtype) -> float:
+    """sqrt(d_head) rounded to ``dtype``, as ``jnp.sqrt(Dh).astype(dtype)``."""
+    return float(torch.tensor(math.sqrt(d_head)).to(dtype))
+
+
+def _decode_attention(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      pos: int, sin: torch.Tensor,
+                      cos: torch.Tensor) -> torch.Tensor:
+    """One-token attention against one layer's cache, x: (B, 1, d); sin
+    and cos are the RoPE tables of position ``pos`` (made once per step,
+    where JAX makes them per layer). The new K/V go into slot
+    ``pos % Skv`` of ``cache_k``/``cache_v`` in place. Plain torch,
+    rounding where the JAX package rounds: scores and probabilities in
+    the compute dtype, the softmax in float32."""
+    B = x.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = Hq // Hkv
+    Skv = cache_k.shape[1]
+    q = (x @ lp["wq"]).reshape(B, 1, Hq, Dh)
+    k = (x @ lp["wk"]).reshape(B, 1, Hkv, Dh)
+    v = (x @ lp["wv"]).reshape(B, 1, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["qnorm"])
+        k = rms_norm(k, lp["knorm"])
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    # rolling-buffer write position (no-op modulo for full caches)
+    slot = pos % Skv
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    q = q.reshape(B, Hkv, G, Dh)
+    scores = torch.einsum("bhgd,bthd->bhgt", q, cache_k) / _root(Dh, x.dtype)
+    # valid positions: the rolling buffer is full once pos >= Skv
+    if pos < Skv:
+        t = torch.arange(Skv, device=x.device)
+        scores = torch.where(t <= pos, scores.float(), -1e30)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("bhgt,bthd->bhgd", probs, cache_v)
+    return out.reshape(B, 1, Hq * Dh) @ lp["wo"]
+
+
+def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
+               cfg: TransformerConfig):
+    """One decode step: tokens (B, 1) + cache -> logits (B, V), cache.
+
+    The cache's ``k`` and ``v`` tensors are updated in place; the
+    returned dict holds the same tensors and ``pos + 1``.
+    """
+    _dense_only(cfg)
+    if cfg.decode_paged:
+        raise NotImplementedError(
+            f"decode_paged is not ported to torch yet; see {PENDING_PAGED}")
+    x = _embed(params, tokens, cfg)
+    pos = cache["pos"]
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    sin, cos = rotary_embedding(positions, cfg.d_head, cfg.rope_theta)
+    for li in range(cfg.n_layers):
+        lp = layer(params, li)
+        x = x + _decode_attention(cfg, lp, rms_norm(x, lp["ln1"]),
+                                  cache["k"][li], cache["v"][li], pos, sin,
+                                  cos)
+        x = x + _dense_ffn(cfg, lp, rms_norm(x, lp["ln2"]))
+    x = rms_norm(x, params["ln_f"])
+    logits = x[:, 0] @ params["lm_head"]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def serve_step_paged(params, cache, tokens, cfg: TransformerConfig):
+    raise NotImplementedError(
+        f"serve_step_paged is not ported to torch yet; see {PENDING_PAGED}")

@@ -126,3 +126,53 @@ def test_cuda_embedding_bag_equals_plain_version(V, D, B, bag, combine,
     assert embedding_bag.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, D)
     assert torch.equal(got, embedding_bag_ref(*x, combine))
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(atol=2e-5, rtol=2e-5)),
+    (torch.bfloat16, dict(atol=1e-4, rtol=1e-2))])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
+    (2, 128, 4, 4, 64, True, None), (1, 256, 8, 2, 64, True, None),
+    (2, 256, 4, 4, 32, True, 64), (1, 128, 2, 1, 128, True, None),
+    (1, 128, 2, 2, 32, False, None), (2, 100, 4, 2, 80, True, None),
+    (1, 1000, 8, 2, 128, True, 300), (1, 70, 2, 1, 256, False, 33),
+    (3, 1, 4, 4, 16, True, None)])
+def test_cuda_flash_attention_close_to_plain_version(B, S, Hq, Hkv, D,
+                                                     causal, window, dtype,
+                                                     tol):
+    """The kernel sums key tiles online where the plain version takes one
+    softmax, so the two agree within float32 rounding (the float32 tol of
+    tests/test_kernels.py), not bit for bit. Both round the output to
+    bf16 once: in bf16 they differ by at most one bf16 step (rtol) plus
+    the float32 difference (atol), as chip_smoke.py's FLASH_TOL says."""
+    _need_card()
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    rng = np.random.default_rng(B + S + D)
+    x = [torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
+        np.float32)).to(dtype).cuda() for h in (Hq, Hkv, Hkv)]
+    before = fops.flash_attention.launches
+    got = fops.flash_attention(*x, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == x[0].shape
+    want = attention_ref(*x, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_cuda_prefill_launches_the_kernel_once_per_layer():
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer as tf
+    cfg = get_arch("qwen3-8b").build_cfg(reduced=True)
+    params = tf.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                            "cuda")
+    tokens = torch.zeros((2, 40), dtype=torch.int32, device="cuda")
+    before = fops.flash_attention.launches
+    with torch.inference_mode():
+        cache, logits = tf.prefill(params, tokens, cfg)
+        tf.serve_step(params, cache, tokens[:, :1], cfg)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(logits.float()).all())

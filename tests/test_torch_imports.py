@@ -2,7 +2,8 @@
 
 Checked at run time (a fresh interpreter imports ``repro_torch`` and
 runs every ported method, the two-tower serving path, the serve
-launcher and the HYPE row placement on the CPU, then no ``jax`` and no
+launcher for two-tower and LM serving, the flash-attention wrapper and
+the HYPE row placement on the CPU, then no ``jax`` and no
 ``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch`` or
 ``chip_smoke.py`` names them, lazy imports inside functions included).
 """
@@ -44,6 +45,13 @@ with torch.inference_mode():
                            top_k=5)
 assert s.shape == (2,) and i.tolist() == [0, 1, 2, 3, 4]
 serve.main(["--arch", "two-tower-retrieval", "--reduced", "--device", "cpu"])
+toks = serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt_len", "8", "--tokens", "2"])
+assert toks.shape == (2, 3)
+from repro_torch.kernels.flash_attention import flash_attention
+q = torch.ones((1, 8, 2, 16))
+assert flash_attention(q, q[:, :, :1].contiguous(),
+                       q[:, :, :1].contiguous()).shape == q.shape
 a = partition_rows_hype(64, [[0, 1, 2], [2, 3], [5, 6, 7]], 2)
 assert a.shape == (64,)
 bad = sorted(m for m in sys.modules

@@ -311,7 +311,7 @@ def test_serve_main_scores_like_score_batch():
 
 
 @pytest.mark.parametrize("arch,err,match", [
-    ("qwen3-8b", NotImplementedError, "item 15c"),
+    ("mixtral-8x22b", NotImplementedError, "item 15e"),
     ("graphsage-reddit", SystemExit, "trained, not served"),
 ])
 def test_serve_other_families(arch, err, match):
