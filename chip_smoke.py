@@ -48,6 +48,24 @@ prints one JSON line per phase:
             defaults; each prefill launches the kernel once per layer
   lm_parity  the reduced qwen3-8b config in float32 from numpy params,
             card against CPU
+  gnn_setup the reddit-scale source graph (232,965 nodes, 114.6M edges),
+            its features and labels, and the neighbour sampler, on the host
+  kernel_neighbor_agg  the neighbour-aggregation forward and backward
+            kernels against their plain versions (small shapes, an all-pad
+            row, K = 1, ragged D and F, D = 602, K = 100, bf16, the train
+            launcher's batch with K = 1,340, and the full-width layer
+            shape of a sampled batch: B = N = 169,984, D = F = 128),
+            timed there beside F.embedding_bag + matmul and a sparse
+            CSR product
+  gnn_train graphsage-reddit at its published width: 20 AdamW steps on
+            sampled minibatch_lg batches (1,024 seeds, fanout 15-10)
+            through run_training, each step launching the forward and the
+            backward kernel twice; the first losses held to the JAX
+            package's; then 3 more steps under the profiler
+  gnn_launcher  the train launcher at minibatch_lg for 5 steps, its
+            losses held to the JAX launcher's
+  gnn_parity  the reduced config in float32, card against CPU: loss and
+            every gradient
 
 Every path starts with all launch counts at 0 and reads them right after;
 a path that did not launch each of its kernels fails. Then come the
@@ -67,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # HBM rate of one H100 SXM (NVIDIA's data sheet): the bytes bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -129,6 +148,50 @@ LONG_CHECK_ROWS = 64
 # tests/test_serving.py holds two float32 decode paths to.
 LM_PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
 LM_PARITY_STEPS = 8
+
+# The GNN training slice: graphsage-reddit at its published width (2
+# layers, d_hidden 128, mean aggregator, d_feat 602, 41 classes) on the
+# minibatch_lg shape: 1,024 seeds a step, fanout 15 then 10, sampled from
+# a reddit-scale source graph (232,965 nodes, 114.6M edges) and padded to
+# 169,984 nodes and 168,960 edges. Every input is made here from numpy
+# seeds by the functions below, which tests/jax_gnn_losses.py runs with
+# the JAX package's own generators and model to pin GNN_JAX_LOSSES.
+GNN_ARCH, GNN_SHAPE = "graphsage-reddit", "minibatch_lg"
+GNN_STEPS, GNN_PROFILE_STEPS = 20, 3
+GNN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0)
+GNN_KEYS = ("nodes", "edge_src", "edge_dst", "edge_mask", "node_mask",
+            "labels")
+# FP32 CUDA-core peak of one H100 SXM (NVIDIA's data sheet): the
+# operations bound of neighbor_agg (float32 gathers, means and product).
+FP32_FLOPS = 67e12
+# neighbor_agg on the card against its plain version: the mean is a
+# float32 sum in slot order in both (compared bit for bit); the product
+# sums over D in another order (float32 rounding), and a bf16 output
+# rounds once, so it may differ by one bf16 step (rtol 2**-7). The
+# backward adds in (b, j) order; the plain version's index_add_ on the
+# card uses atomics, so the two agree within float32 rounding.
+NA_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+          "bfloat16": dict(atol=1e-5, rtol=2 ** -7)}
+# The first losses of gnn_train and of the launcher at minibatch_lg for 5
+# steps, from the JAX package on the CPU (tests/jax_gnn_losses.py).
+GNN_JAX_LOSSES = [3.7235753536224365, 3.68819260597229, 3.634840965270996]
+GNN_LAUNCHER_STEPS = 5
+GNN_LAUNCHER_JAX_LOSSES = [3.7143805027008057, 3.714378595352173,
+                           3.714369773864746, 3.7143445014953613,
+                           3.7143125534057617]
+# Step 0 is one float32 forward (the aggregation sums in another order):
+# float32 rounding. Later steps follow bf16 params updated by AdamW: a
+# gradient a float32 rounding apart can round a param to the next bf16
+# value, which moves the loss in its fifth digit at most (a param whose
+# gradient is near zero barely moves the loss).
+GNN_LOSS_TOL = [dict(rtol=1e-5, atol=1e-5)] + [dict(rtol=1e-4,
+                                                    atol=1e-4)] * 4
+# The launcher's losses move by 6.8e-5 in five steps (AdamWConfig()'s
+# lr 3e-4 warms up over 100 steps), so GNN_LOSS_TOL would pass a frozen
+# state: rtol 1e-6, about four float32 steps of 3.71, holds each step.
+GNN_LAUNCHER_TOL = dict(rtol=1e-6, atol=0.0)
+# The reduced config in float32 (TF32 off), card against CPU.
+GNN_PARITY_TOL = dict(atol=1e-5, rtol=1e-5)
 
 # tests/test_pipeline.py:38-43 of the JAX package: depth-1 goldens
 GOLD_PL600 = {(5, 8): "9e8abe668aa53a74", (16, 8): "bbcd2f732e03af91",
@@ -1115,6 +1178,490 @@ def run_lm(launches, fops, fref):
     phase_lm_parity(tf, convert, get_arch(LM_ARCH).build_cfg(reduced=True))
     return timed, worst
 
+# ------------------------------------------------------------------- GNN
+
+def gnn_source(meta, graphs):
+    """The reddit-scale source graph, its features and labels, on the host:
+    ``random_graph`` over ``graph_nodes`` with ``graph_edges / graph_nodes``
+    edges a node (seed 0), then, as tests/test_gnn_training.py:54-57 makes
+    them, 41 class prototypes and features ``proto[label] + 0.3 noise``
+    (seed 0). ``graphs`` is the port's data.graphs module or the JAX
+    package's; both give the same arrays."""
+    import numpy as np
+    n = meta["graph_nodes"]
+    src, dst = graphs.random_graph(n, meta["graph_edges"] / n, seed=0)
+    rng = np.random.default_rng(0)
+    proto = rng.normal(size=(meta["n_classes"], meta["d_feat"])).astype(
+        np.float32)
+    labels = rng.integers(0, meta["n_classes"], n).astype(np.int32)
+    feats = (proto[labels] + rng.normal(size=(n, meta["d_feat"])) * 0.3
+             ).astype(np.float32)
+    return src, dst, feats, labels
+
+
+def gnn_sample(sampler, meta, feats, labels, step):
+    """The padded batch of one step: ``batch_nodes`` seeds drawn without
+    replacement and sampled with ``fanout``, from a generator seeded by
+    the step alone, so a replayed step gets the same batch."""
+    import numpy as np
+    rng = np.random.default_rng([1, step])
+    seeds = rng.choice(meta["graph_nodes"], meta["batch_nodes"],
+                       replace=False)
+    return sampler.sample_padded(seeds, meta["fanout"], rng,
+                                 max_nodes=meta["nodes"],
+                                 max_edges=meta["edges"], features=feats,
+                                 labels=labels)
+
+
+def gnn_numpy_params(shapes, seed: int = 0):
+    """Params as numpy float32: every weight ``normal / sqrt(fan_in)``,
+    drawn in JAX's flatten order (sorted keys, lists in order), every bias
+    zero, as ``mlp_init`` scales them; ``shapes`` is the param tree with a
+    shape tuple at each leaf. The model casts them to bfloat16."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if len(node) == 1:
+            return np.zeros(node, np.float32)
+        return (rng.normal(size=node) / np.sqrt(node[0])).astype(np.float32)
+
+    return walk(shapes)
+
+
+def neighbor_agg_bound(x, nbrs, w, out_itemsize, with_mean):
+    """(FLOPs, bytes, bound ms, bound_by) of one forward: the rows of x that
+    valid slots name, read once, nbrs and w read once, the output (and the
+    float32 mean, when training asks for it) written once; one add per
+    valid slot and element, 2 D F FLOP for the product of each row with
+    a valid slot (a row without one has a zero mean and output)."""
+    import torch
+    B, K = nbrs.shape
+    D, F = w.shape
+    valid = nbrs[nbrs >= 0]
+    rows = int(torch.unique(valid).numel())
+    live = int(((nbrs >= 0).sum(1) > 0).sum())
+    nbytes = (rows * D * x.element_size() + nbrs.numel() * 4
+              + w.numel() * w.element_size() + B * F * out_itemsize
+              + (B * D * 4 if with_mean else 0))
+    flops = int(valid.numel()) * D + 2 * live * D * F
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops > t_bytes else "bytes")
+
+
+def neighbor_agg_bwd_bound(g, nbrs, n_rows, out_itemsize):
+    """The same for the backward kernel: the rows of g with a valid slot,
+    the counts, the transposed index (N + 1 offsets, one int32 per valid
+    slot) read once, grad_x written once; a division and an add per valid
+    slot and element."""
+    B, D = g.shape
+    cnt = (nbrs >= 0).sum(1)
+    nv = int(cnt.sum())
+    nbytes = (int((cnt > 0).sum()) * D * 4 + B * 4 + (n_rows + 1) * 8
+              + nv * 4 + n_rows * D * out_itemsize)
+    flops = 2 * nv * D
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops > t_bytes else "bytes")
+
+
+def na_case(nops, nref, x, nbrs, w, row):
+    """One neighbor_agg case on the card: the forward against the plain
+    version (NA_TOL), the kernel's mean bit for bit, the backward against
+    the plain backward (NA_TOL) and equal to itself on a second run."""
+    import torch
+    from repro_torch.kernels._build import load_extension
+    dt = str(x.dtype).removeprefix("torch.")
+    out = nops.neighbor_agg(x, nbrs, w)
+    _, mean = load_extension().neighbor_agg(x, nbrs, w, True)
+    torch.cuda.synchronize()
+    want = nref.neighbor_agg_ref(x, nbrs, w)
+    fwd_err = float((out.float() - want.float()).abs().max()) \
+        if out.numel() else 0.0
+    fwd_ok = torch.allclose(out.float(), want.float(), **NA_TOL[dt])
+    mean_equal = torch.equal(mean, nref.neighbor_mean_ref(x, nbrs)[0])
+    del want
+    g = torch.randn((nbrs.shape[0], x.shape[1]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(7))
+    gx = nops.neighbor_agg_bwd(g, nbrs, x.shape[0], x.dtype)
+    again = nops.neighbor_agg_bwd(g, nbrs, x.shape[0], x.dtype)
+    want = nref.neighbor_agg_bwd_ref(g, nbrs, x.shape[0]).to(x.dtype)
+    bwd_err = float((gx.float() - want.float()).abs().max()) \
+        if gx.numel() else 0.0
+    row.update(x_dtype=dt, w_dtype=str(w.dtype).removeprefix("torch."),
+               fwd_max_abs_err=fwd_err, mean_bit_equal=mean_equal,
+               bwd_max_abs_err=bwd_err,
+               bwd_run_to_run_equal=torch.equal(gx, again),
+               tol=NA_TOL[dt],
+               close=fwd_ok and torch.allclose(gx.float(), want.float(),
+                                               **NA_TOL[dt]))
+    emit(row)
+    if not (row["close"] and mean_equal and row["bwd_run_to_run_equal"]):
+        raise SystemExit(f"neighbor_agg disagrees with its plain version: "
+                         f"{row}")
+    return fwd_err, bwd_err
+
+
+def layer_x_w(N, gen):
+    """h (N, 128) float32 with unit rows, as the layer has it, and w_nbr
+    (128, 128) bfloat16."""
+    import torch
+    x = torch.randn((N, 128), device="cuda", generator=gen)
+    w = (torch.randn((128, 128), device="cuda", generator=gen)
+         / math.sqrt(128)).to(torch.bfloat16)
+    return x / x.norm(dim=1, keepdim=True), w
+
+
+def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
+    """neighbor_agg forward and backward on the card against their plain
+    versions: the shapes of tests/test_kernels.py:213, K = 1, D and F not
+    multiples of 4, D = 602 (the opt-in shared memory), K = 100 at the
+    layer's N (slot chunks of 32 and a partial last one), bf16 x and w,
+    each with an all-pad row and a row naming N - 1 in every slot; the
+    train launcher's batch (B = N = 169,984, K = 1,340 from node 0's
+    in-degree); then the full-width layer shape from a real sampled batch
+    (B = N = 169,984, the batch's K, D = F = 128, float32 x and bf16 w
+    as the model has them), timed beside the plain versions and the
+    nearest library calls. Returns the timed row and the worst forward
+    and backward errors."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels._build import load_extension
+    ext = load_extension()
+    cases = [(64, 32, 16, 8, 4, "float32", "float32"),
+             (200, 128, 64, 16, 10, "float32", "float32"),
+             (30, 16, 8, 4, 15, "float32", "float32"),
+             (50, 33, 7, 9, 1, "float32", "float32"),
+             (40, 5, 3, 6, 3, "float32", "bfloat16"),
+             (200, 128, 64, 16, 10, "bfloat16", "float32"),
+             (200, 128, 64, 16, 10, "bfloat16", "bfloat16"),
+             (1000, 602, 128, 256, 10, "float32", "bfloat16"),
+             (169984, 128, 128, 4096, 100, "float32", "bfloat16")]
+    worst = (0.0, 0.0)
+    for N, D, F_, B, K, xd, wd in cases:
+        rng = np.random.default_rng(N + D + K)
+        x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+        w = torch.from_numpy((rng.normal(size=(D, F_)) * 0.1).astype(
+            np.float32))
+        nbrs = rng.integers(-1, N, size=(B, K)).astype(np.int32)
+        nbrs[0] = -1                               # an all-pad row
+        nbrs[-1] = N - 1                           # ids at N - 1
+        errs = na_case(
+            nops, nref, x.to(getattr(torch, xd)).cuda(),
+            torch.from_numpy(nbrs).cuda(), w.to(getattr(torch, wd)).cuda(),
+            {"phase": "kernel_neighbor_agg", "N": N, "D": D, "F": F_,
+             "B": B, "K": K})
+        worst = tuple(map(max, worst, errs))
+
+    # the launcher's batch: a hub row of 1,340 slots
+    gen = torch.Generator("cuda").manual_seed(11)
+    N, K = launcher_nbrs.shape
+    x, w = layer_x_w(N, gen)
+    worst = tuple(map(max, worst, na_case(
+        nops, nref, x, launcher_nbrs, w,
+        {"phase": "kernel_neighbor_agg", "shape": "launcher batch", "N": N,
+         "D": 128, "F": 128, "B": N, "K": K,
+         "valid_slots": int((launcher_nbrs >= 0).sum())})))
+    del x, w
+
+    # the layer shape: h (N, 128) float32, w_nbr (128, 128) bf16
+    N, K = layer_nbrs.shape
+    D = F_ = 128
+    x, w = layer_x_w(N, gen)
+    row = {"phase": "kernel_neighbor_agg", "shape": "layer", "N": N,
+           "D": D, "F": F_, "B": N, "K": K,
+           "valid_slots": int((layer_nbrs >= 0).sum())}
+    worst = tuple(map(max, worst, na_case(nops, nref, x, layer_nbrs, w,
+                                          row)))
+    flops, nbytes, bound_ms, bound_by = neighbor_agg_bound(
+        x, layer_nbrs, w, 4, True)
+    row.update(ms=cuda_ms(lambda: ext.neighbor_agg(x, layer_nbrs, w, True),
+                          reps=5, iters=20, warmup=3),
+               flops=flops, bytes=nbytes, bound_ms=bound_ms,
+               bound_by=bound_by,
+               plain_ms=cuda_ms(lambda: nref.neighbor_agg_ref(
+                   x, layer_nbrs, w), reps=3, iters=3, warmup=1))
+    # the nearest library composition: F.embedding_bag(mean) over a table
+    # with a zero row at N for the pad slots, then the product
+    table = torch.cat([x, torch.zeros((1, D), device="cuda")])
+    ids = torch.where(layer_nbrs >= 0, layer_nbrs, N).long()
+    wf = w.float()
+    lib = F.embedding_bag(ids, table, mode="mean", padding_idx=N) @ wf
+    row["library_max_abs_err"] = float(
+        (lib - ext.neighbor_agg(x, layer_nbrs, w, False)[0]).abs().max())
+    row.update(library_ms=cuda_ms(lambda: F.embedding_bag(
+        ids, table, mode="mean", padding_idx=N) @ wf, reps=5, iters=20,
+        warmup=3),
+        library_call="two calls: F.embedding_bag(mode='mean', "
+                     "padding_idx=N) on a zero-padded table, then "
+                     "torch.matmul")
+    del table, ids, lib
+
+    # the backward at the same shape: the kernel alone (transposed index
+    # built once), the wrapper with its index build, the plain version,
+    # and one sparse CSR product of the same function
+    g = torch.randn((N, D), device="cuda", generator=gen)
+    index = nops.transpose_index(layer_nbrs, N)
+    cnt = index.cnt
+    bflops, bbytes, bbound, bby = neighbor_agg_bwd_bound(g, layer_nbrs, N, 4)
+    bwd = {"ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False),
+                         reps=5, iters=20, warmup=3),
+           "wrapper_ms": cuda_ms(lambda: nops.neighbor_agg_bwd(
+               g, layer_nbrs, N), reps=5, iters=5, warmup=2),
+           "flops": bflops, "bytes": bbytes, "bound_ms": bbound,
+           "bound_by": bby,
+           "plain_ms": cuda_ms(lambda: nref.neighbor_agg_bwd_ref(
+               g, layer_nbrs, N), reps=3, iters=3, warmup=1)}
+    pos = (layer_nbrs.reshape(-1) >= 0).nonzero().squeeze(1)
+    b_of = torch.div(pos, K, rounding_mode="floor")
+    vals = 1.0 / cnt.clamp_min(1).float()[b_of]
+    with warnings.catch_warnings():   # sparse CSR is "beta" in torch
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_coo_tensor(
+            torch.stack([layer_nbrs.reshape(-1)[pos].long(), b_of]), vals,
+            (N, N), check_invariants=False).coalesce().to_sparse_csr()
+    lib = a @ g
+    bwd["library_max_abs_err"] = float(
+        (lib - ext.neighbor_agg_bwd(g, *index, False)).abs().max())
+    bwd.update(library_ms=cuda_ms(lambda: a @ g, reps=5, iters=20, warmup=3),
+               library_call="torch.sparse CSR (N x B, weights 1/count) @ g")
+    row["backward"] = bwd
+    emit({"phase": "kernel_neighbor_agg", "shape": "layer timing", **{
+        k: v for k, v in row.items() if k not in ("phase", "shape")}})
+    del x, g, a, lib, index
+    torch.cuda.empty_cache()
+    return row, worst
+
+
+def phase_gnn_train(launches, cfg, meta, sampler, feats, labels):
+    """graphsage-reddit at full width through the port's train step and
+    fault-tolerant driver: GNN_STEPS AdamW steps, each on a fresh sampled
+    batch (host sample, upload and device step timed apart), in a fresh
+    checkpoint directory, then GNN_PROFILE_STEPS more under the profiler.
+    Fails on a recovered failure, a skipped step, a non-finite loss, a
+    launch count other than 2 forward + 2 backward a step, or a first loss
+    outside GNN_LOSS_TOL of the JAX package's."""
+    import tempfile
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import gnn
+    from repro_torch.train.fault_tolerance import FTConfig, run_training
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.train_loop import make_train_step
+
+    params = convert.gnn_params_from_numpy(
+        gnn_numpy_params(gnn.gnn_param_shapes(cfg)), cfg, "cuda",
+        dtype=torch.bfloat16)
+    opt_cfg = AdamWConfig(**GNN_OPT)
+    step_fn = make_train_step(lambda p, b: gnn.gnn_loss(p, b, cfg), opt_cfg)
+    times = {"sample_ms": [], "upload_ms": [], "device_ms": []}
+    valid_edges = []
+
+    def batch_at(step):
+        t0 = time.perf_counter()
+        b = gnn_sample(sampler, meta, feats, labels, step)
+        t1 = time.perf_counter()
+        tb = {k: torch.from_numpy(b[k]).cuda() for k in GNN_KEYS}
+        torch.cuda.synchronize()
+        times["sample_ms"].append((t1 - t0) * 1e3)
+        times["upload_ms"].append((time.perf_counter() - t1) * 1e3)
+        valid_edges.append(int(b["edge_mask"].sum()))
+        return tb
+
+    def timed_step(p, o, b):
+        t0 = time.perf_counter()
+        out = step_fn(p, o, b)
+        torch.cuda.synchronize()
+        times["device_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        state = (params, init_adamw(params, opt_cfg))
+        res, wall, counts = launches.drive(lambda: run_training(
+            timed_step, state, None, GNN_STEPS,
+            FTConfig(ckpt_dir=d, ckpt_every=10), batch_at=batch_at))
+    losses = [m["loss"] for m in res.metrics_history]
+    skipped = [i for i, m in enumerate(res.metrics_history)
+               if m.get("skipped")]
+    need = {"neighbor_agg": 2 * GNN_STEPS, "neighbor_agg_bwd": 2 * GNN_STEPS}
+    pinned = GNN_JAX_LOSSES
+    close = [bool(math.isclose(a, b, rel_tol=t["rtol"], abs_tol=t["atol"]))
+             for a, b, t in zip(losses, pinned, GNN_LOSS_TOL)]
+    med = {k: statistics.median(v) for k, v in times.items()}
+    row = {"phase": "gnn_train", "config": GNN_ARCH, "shape": GNN_SHAPE,
+           "steps": res.steps_done, "wall_s": wall,
+           "step_ms_mean": wall * 1e3 / max(res.steps_done, 1),
+           **{f"{k}_median": v for k, v in med.items()},
+           "device_ms_first": times["device_ms"][0],
+           "valid_edges_min_max": [min(valid_edges), max(valid_edges)],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "failures_recovered": res.failures_recovered,
+           "skipped_steps": skipped, "losses": losses,
+           "jax_losses": pinned, "loss_tol": GNN_LOSS_TOL[:len(pinned)],
+           "losses_close_to_jax": close,
+           "launches": counts, "expected_launches": need,
+           "launches_per_step": {k: v / GNN_STEPS for k, v in counts.items()
+                                 if v}}
+    emit(row)
+    if res.failures_recovered or skipped or res.steps_done != GNN_STEPS:
+        raise SystemExit(f"gnn_train recovered from failures or skipped "
+                         f"steps: {row}")
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"gnn_train gave non-finite losses: {losses}")
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"gnn_train launched {counts}, not {need}")
+    if not all(close):
+        raise SystemExit(f"gnn_train's first losses differ from JAX's: "
+                         f"{losses[:len(pinned)]} vs {pinned}")
+
+    def three_steps():
+        p, o = state
+        for k in range(GNN_PROFILE_STEPS):
+            p, o, _ = step_fn(p, o, batch_at(GNN_STEPS + k))
+        torch.cuda.synchronize()
+
+    phase_profile("gnn_train_steps", three_steps)
+
+
+def phase_gnn_launcher(launches):
+    """The train launcher at minibatch_lg for 5 steps in a fresh
+    checkpoint directory (its one fixed batch from ``random_graph`` over
+    169,984 nodes, node 0's in-degree setting K), held to the JAX
+    launcher's losses."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", GNN_ARCH, "--shape", GNN_SHAPE, "--steps",
+            str(GNN_LAUNCHER_STEPS)]
+    with tempfile.TemporaryDirectory() as d:
+        res, wall, counts = launches.drive(lambda: launch_train.main(
+            argv + ["--ckpt_dir", d]))
+    losses = [m["loss"] for m in res.metrics_history]
+    need = {"neighbor_agg": 2 * GNN_LAUNCHER_STEPS,
+            "neighbor_agg_bwd": 2 * GNN_LAUNCHER_STEPS}
+    pinned = GNN_LAUNCHER_JAX_LOSSES
+    t = GNN_LAUNCHER_TOL
+    close = [bool(math.isclose(a, b, rel_tol=t["rtol"], abs_tol=t["atol"]))
+             for a, b in zip(losses, pinned)]
+    row = {"phase": "gnn_launcher", "argv": argv, "wall_s": wall,
+           "steps": res.steps_done,
+           "failures_recovered": res.failures_recovered, "losses": losses,
+           "jax_losses": pinned, "loss_tol": t, "losses_close_to_jax": close,
+           "launches": counts, "expected_launches": need}
+    emit(row)
+    if res.failures_recovered or any(m.get("skipped")
+                                     for m in res.metrics_history):
+        raise SystemExit(f"the train launcher hid a failure: {row}")
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"the train launcher launched {counts}")
+    if len(pinned) != len(losses) or not all(close):
+        raise SystemExit(f"the train launcher's losses differ from JAX's: "
+                         f"{row}")
+
+
+def phase_gnn_parity(cfg, graphs):
+    """The reduced graphsage config in float32 (TF32 off), card against
+    CPU: the loss and every gradient within GNN_PARITY_TOL on a sampled
+    batch whose padding edges reach node 0."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import gnn
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import tree_flatten
+    n = 1000
+    src, dst = graphs.random_graph(n, 8.0, seed=5)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(n, cfg.d_in)).astype(np.float32)
+    labels = rng.integers(0, cfg.n_classes, n).astype(np.int32)
+    b = graphs.NeighborSampler(n, src, dst).sample_padded(
+        rng.choice(n, 64, replace=False), (5, 3), rng, max_nodes=1536,
+        max_edges=2048, features=feats, labels=labels)
+    tree = gnn_numpy_params(gnn.gnn_param_shapes(cfg), seed=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = convert.gnn_params_from_numpy(tree, cfg, dev,
+                                          dtype=torch.float32)
+        tb = {k: torch.from_numpy(b[k]).to(dev) for k in GNN_KEYS}
+        loss, grads = value_and_grad(lambda q, bb: gnn.gnn_loss(q, bb, cfg),
+                                     p, tb)
+        out[dev] = [loss.cpu().numpy()] + [g.cpu().numpy()
+                                           for g in tree_flatten(grads)]
+    diffs = [float(np.abs(a - c).max()) for a, c in zip(out["cuda"],
+                                                         out["cpu"])]
+    ok = all(np.allclose(a, c, **GNN_PARITY_TOL)
+             for a, c in zip(out["cuda"], out["cpu"]))
+    row = {"phase": "gnn_parity", "config": f"{GNN_ARCH} reduced, float32",
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "tol": GNN_PARITY_TOL, "loss_cuda": float(out["cuda"][0]),
+           "loss_cpu": float(out["cpu"][0]), "loss_abs_diff": diffs[0],
+           "grad_max_abs_diff": max(diffs[1:]),
+           "padding_edges": int((~b["edge_mask"]).sum()), "ok": ok}
+    emit(row)
+    if not ok:
+        raise SystemExit(f"reduced GNN differs card vs cpu: {row}")
+
+
+def run_gnn(launches, nops, nref):
+    """The GNN training slice: the reddit-scale source graph and sampler
+    on the host, the neighbor_agg kernel phase at the layer shape of its
+    first batch, graphsage-reddit trained at full width, the train
+    launcher at minibatch_lg, and the reduced config card against CPU.
+    Returns the kernel's timed row and its worst forward and backward
+    errors."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graphs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch(GNN_ARCH)
+    cfg = arch.build_cfg(shape=GNN_SHAPE)
+    meta = arch.shapes[GNN_SHAPE].meta
+    t0 = time.perf_counter()
+    src, dst, feats, labels = gnn_source(meta, graphs)
+    t1 = time.perf_counter()
+    sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
+    t2 = time.perf_counter()
+    emit({"phase": "gnn_setup", "config": GNN_ARCH, "shape": GNN_SHAPE,
+          "n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+          "d_in": cfg.d_in, "n_classes": cfg.n_classes,
+          "aggregator": cfg.aggregator, "graph_nodes": meta["graph_nodes"],
+          "graph_edges": int(src.size), "batch_nodes": meta["batch_nodes"],
+          "fanout": list(meta["fanout"]), "padded_nodes": meta["nodes"],
+          "padded_edges": meta["edges"],
+          "graph_and_features_s": t1 - t0, "sampler_build_s": t2 - t1,
+          "host_setup_s": t2 - t0})
+    del src, dst
+    first = gnn_sample(sampler, meta, feats, labels, 0)
+    tb = {k: torch.from_numpy(first[k]).cuda() for k in GNN_KEYS}
+    layer_nbrs = gnn.in_neighbors(tb["edge_src"], tb["edge_dst"],
+                                  tb["edge_mask"], meta["nodes"])[0]
+    tb = launch_train.gnn_batches(arch, GNN_SHAPE, False, "cuda")(0)
+    launcher_nbrs = gnn.in_neighbors(tb["edge_src"], tb["edge_dst"],
+                                     tb["edge_mask"], meta["nodes"])[0]
+    del tb, first
+    timed, worst = phase_kernel_neighbor_agg(nops, nref, layer_nbrs,
+                                             launcher_nbrs)
+    del layer_nbrs, launcher_nbrs
+    phase_gnn_train(launches, cfg, meta, sampler, feats, labels)
+    del sampler, feats, labels
+    torch.cuda.empty_cache()
+    phase_gnn_launcher(launches)
+    torch.cuda.empty_cache()
+    phase_gnn_parity(arch.build_cfg(reduced=True), graphs)
+    return timed, worst
 
 class Launches:
     """The launch counts of every kernel wrapper of the port."""
@@ -1197,6 +1744,8 @@ def main() -> int:
     from repro_torch.kernels.hype_score import ops, ref
     from repro_torch.kernels.kway_refine import ops as kops
     from repro_torch.kernels.kway_refine import ref as kref
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.kernels.neighbor_agg import ref as nref
     from repro_torch.partition_api import PRESETS, partition
 
     t_start = time.perf_counter()
@@ -1228,7 +1777,9 @@ def main() -> int:
                          "hype_scores": ops.hype_scores,
                          "kway_gains": kops.kway_gains,
                          "embedding_bag": bops.embedding_bag,
-                         "flash_attention": fops.flash_attention})
+                         "flash_attention": fops.flash_attention,
+                         "neighbor_agg": nops.neighbor_agg,
+                         "neighbor_agg_bwd": nops.neighbor_agg_bwd})
     runs = {}
     for depth in (1, 2):
         (a, row), _, counts = launches.drive(lambda: run_slice(
@@ -1336,14 +1887,15 @@ def main() -> int:
 
     bag_rows, worst_bag = run_recsys(launches, bops, bref)
     flash_rows, worst_flash = run_lm(launches, fops, fref)
+    na_row, (worst_na, worst_na_bwd) = run_gnn(launches, nops, nref)
 
-    def entry(name, source, replaces, main, err):
+    def entry(name, source, replaces, main, err, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches.total[name],
                 "max_abs_err": err, "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main.get("bound_by", "bytes"),
-                "library_ms": main.get("library_ms")}
+                "library_ms": main.get("library_ms"), **extra}
 
     csrc = "src/repro_torch/kernels/"
     bulk = bag_rows["serve_bulk"]
@@ -1354,6 +1906,11 @@ def main() -> int:
           "flash_attention": {shape: {"library_ms": r["library_ms"],
                                       "call": r["library_call"]}
                               for shape, r in flash_rows.items()},
+          "neighbor_agg": {"layer": {"library_ms": na_row["library_ms"],
+                                     "call": na_row["library_call"]}},
+          "neighbor_agg_bwd": {"layer": {
+              "library_ms": na_row["backward"]["library_ms"],
+              "call": na_row["backward"]["library_call"]}},
           "hype_score_select": None, "hype_scores": None, "kway_gains": None,
           "why_none": "no single PyTorch call computes the functions of "
                       "the three partitioning kernels"})
@@ -1373,7 +1930,15 @@ def main() -> int:
         entry("flash_attention",
               csrc + "flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:111",
-              flash_rows["layer"], worst_flash)]})
+              flash_rows["layer"], worst_flash),
+        entry("neighbor_agg", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
+              "src/repro/kernels/neighbor_agg/kernel.py:72", na_row,
+              worst_na),
+        entry("neighbor_agg_bwd", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
+              None, na_row["backward"], worst_na_bwd,
+              note="the backward (grad of x) of neighbor_agg_kernel, "
+                   "src/repro/kernels/neighbor_agg/kernel.py:72, which has "
+                   "no TPU backward")]})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

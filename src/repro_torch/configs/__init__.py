@@ -6,7 +6,8 @@ serves to their module; ``get_arch`` on any other raises
 ``NotImplementedError`` naming its ROADMAP.md item. ``FAMILIES`` gives
 every architecture's family without loading it. Of the LMs, the dense
 ones are ported; the MoE ones (mixtral-8x22b, granite-moe-3b-a800m) wait
-for MoE serving.
+for MoE serving. Of the GNNs, graphsage-reddit is ported (training);
+gatedgcn, meshgraphnet and schnet wait for their layers.
 """
 from __future__ import annotations
 
@@ -29,15 +30,23 @@ FAMILIES = {
 PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
           "stablelm-3b": "repro_torch.configs.stablelm_3b",
           "qwen3-8b": "repro_torch.configs.qwen3_8b",
-          "llama3-405b": "repro_torch.configs.llama3_405b"}
+          "llama3-405b": "repro_torch.configs.llama3_405b",
+          "graphsage-reddit": "repro_torch.configs.graphsage_reddit"}
 
 _ITEM = "ROADMAP.md, queue 1, item 15"
 PENDING_MOE = f"{_ITEM}e: MoE LM serving (moe_ffn, models/moe.py)"
 PENDING_PAGED = f"{_ITEM}f: paged decode (decode_paged, serve_step_paged)"
 PENDING_TRAIN = f"{_ITEM}d: LM training (lm_loss)"
+PENDING_GNN_ARCHS = (f"{_ITEM}g: the gatedgcn, meshgraphnet and schnet "
+                     f"layers")
+PENDING_RECSYS_TRAIN = (f"{_ITEM}h: two-tower training (twotower_loss, an "
+                        f"embedding_bag backward)")
+PENDING_COMPRESSION = f"{_ITEM}i: gradient compression (grad_compression)"
+PENDING_FULL_BATCH = (f"{_ITEM}j: full-batch GraphSAGE past 2**31 "
+                      f"neighbour slots")
 PENDING_ITEMS = {
     "lm": PENDING_MOE,
-    "gnn": f"{_ITEM}b: GNN training with neighbor_agg",
+    "gnn": PENDING_GNN_ARCHS,
     "partitioning": "ROADMAP.md, queue 1, item 16: the bench lane",
 }
 

@@ -6,8 +6,9 @@ package's objects hands over their arrays or fields instead:
 hg.e2v_indptr, hg.e2v_indices)``, ``superstep_params_from_dict(dataclasses.asdict(
 params))``, ``batched_params_from_dict(dataclasses.asdict(params))`` and
 ``twotower_params_from_numpy(jax.tree.map(np.asarray, params), cfg,
-device)`` and ``transformer_params_from_numpy(jax.tree.map(np.asarray,
-params), cfg, device)``.
+device)``, ``transformer_params_from_numpy(jax.tree.map(np.asarray,
+params), cfg, device)`` and ``gnn_params_from_numpy(jax.tree.map(
+np.asarray, params), cfg, device)``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from .core.hypergraph import Hypergraph
 from .engines.batched import BatchedParams
 from .engines.superstep import SuperstepParams
+from .models.gnn import GNNConfig, gnn_param_shapes
 from .models.recsys import PARAM_NAMES, TwoTowerConfig
 from .models.transformer import TransformerConfig, layer_shapes
 
@@ -117,3 +119,46 @@ def transformer_params_from_numpy(tree: dict, cfg: TransformerConfig,
                                 f"layers.{name}")
                      for name, shape in shapes.items()}
     return out
+
+
+def _float_tensor(a, dtype, device, where) -> torch.Tensor:
+    """A float32 or bfloat16 numpy array (``ml_dtypes`` for bfloat16) as a
+    tensor of ``dtype`` (None: its own), exactly."""
+    if str(a.dtype) == "bfloat16":
+        t = torch.tensor(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype == np.float32:
+        t = torch.tensor(a)
+    else:
+        raise ValueError(f"{where} is {a.dtype}; want float32 or bfloat16")
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def gnn_params_from_numpy(tree: dict, cfg: GNNConfig, device="cpu",
+                          dtype=None) -> dict:
+    """The port's GNN params from the JAX package's, as nested dicts (and
+    the ``layers`` list) of numpy arrays. Both keep a dense weight as
+    (in, out), so the arrays are copied as they are: bfloat16 (the JAX
+    package's ``mlp_init``) stays bfloat16 bit for bit, float32 stays
+    float32, unless ``dtype`` casts every leaf. Every name and shape is
+    checked against ``cfg``; any other element type raises."""
+    shapes = gnn_param_shapes(cfg)
+
+    def walk(node, want, where):
+        if isinstance(want, tuple):
+            a = np.asarray(node)
+            if a.shape != want:
+                raise ValueError(f"{where} has shape {a.shape}, want {want}")
+            return _float_tensor(a, dtype, device, where)
+        if isinstance(want, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(want):
+                raise ValueError(f"{where} must be a list of {len(want)}")
+            return [walk(n, w, f"{where}[{i}]")
+                    for i, (n, w) in enumerate(zip(node, want))]
+        if not isinstance(node, dict) or set(node) != set(want):
+            raise ValueError(f"{where or 'params'} holds "
+                             f"{sorted(node) if isinstance(node, dict) else node!r}"
+                             f", want {sorted(want)}")
+        return {k: walk(node[k], w, f"{where}.{k}" if where else k)
+                for k, w in want.items()}
+
+    return walk(tree, shapes, "")

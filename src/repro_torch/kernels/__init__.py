@@ -8,3 +8,5 @@
 #   embedding_bag -- sum/mean of the valid rows of -1-padded bags (recsys)
 #   flash_attention -- causal / sliding-window GQA attention forward (LM
 #                 prefill)
+#   neighbor_agg -- mean of the -1-padded neighbour rows times w, and
+#                 its deterministic backward for x (GraphSAGE training)

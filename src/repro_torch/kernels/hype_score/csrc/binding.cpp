@@ -36,6 +36,17 @@ extern "C" cudaError_t flash_attention_launch(
     int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
     const int64_t* ost, float scale, int causal, int window, int bf16,
     cudaStream_t stream);
+extern "C" size_t neighbor_agg_smem_bytes(int D);
+extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
+                                           const void* w, void* out,
+                                           float* mean_out, int64_t B, int K,
+                                           int D, int F, int x_bf16,
+                                           int w_bf16, int vec,
+                                           cudaStream_t stream);
+extern "C" cudaError_t neighbor_agg_bwd_launch(
+    const float* g, const int32_t* cnt, const int64_t* rowptr,
+    const int32_t* rows, void* grad_x, int64_t N, int D, int out_bf16,
+    int vec, cudaStream_t stream);
 
 namespace {
 
@@ -223,6 +234,84 @@ torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   return out;
 }
 
+bool float_or_bf16(const torch::Tensor& t) {
+  return t.scalar_type() == torch::kFloat32 ||
+         t.scalar_type() == torch::kBFloat16;
+}
+
+// Returns {out (B, F) in x's dtype, mean (B, D) float32}; the mean is an
+// empty tensor unless ``want_mean``.
+std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
+                                        const torch::Tensor& nbrs,
+                                        const torch::Tensor& w,
+                                        bool want_mean) {
+  TORCH_CHECK(x.is_cuda(), "x must be a CUDA tensor");
+  const torch::Device device = x.device();
+  TORCH_CHECK(float_or_bf16(x) && float_or_bf16(w),
+              "x and w must be float32 or bfloat16, got ", x.scalar_type(),
+              " and ", w.scalar_type());
+  check_input(x, "x", x.scalar_type(), 2, device);
+  check_input(nbrs, "nbrs", torch::kInt32, 2, device);
+  check_input(w, "w", w.scalar_type(), 2, device);
+  const int64_t D = x.size(1), B = nbrs.size(0), K = nbrs.size(1);
+  const int64_t F = w.size(1);
+  TORCH_CHECK(w.size(0) == D, "w must be (D, F) with D = ", D);
+  TORCH_CHECK(D < (int64_t{1} << 31) && K < (int64_t{1} << 31) &&
+                  F < (int64_t{1} << 31),
+              "shape too large");
+  TORCH_CHECK(neighbor_agg_smem_bytes(static_cast<int>(D)) <= 227 * 1024,
+              "D = ", D, " exceeds the kernel's shared memory");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor out = torch::empty({B, F}, x.options());
+  torch::Tensor mean = torch::empty(
+      {want_mean ? B : 0, want_mean ? D : 0},
+      x.options().dtype(torch::kFloat32));
+  if (B == 0) return {out, mean};
+  const int vec = (D * x.element_size()) % 16 == 0 && aligned16(x);
+  C10_CUDA_CHECK(neighbor_agg_launch(
+      x.data_ptr(), nbrs.data_ptr<int32_t>(), w.data_ptr(), out.data_ptr(),
+      want_mean ? mean.data_ptr<float>() : nullptr, B, static_cast<int>(K),
+      static_cast<int>(D), static_cast<int>(F),
+      x.scalar_type() == torch::kBFloat16,
+      w.scalar_type() == torch::kBFloat16, vec,
+      at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {out, mean};
+}
+
+// grad_x (N, D) in ``bf16 ? bfloat16 : float32`` from g (B, D) float32,
+// the per-row valid counts (B,), and the transposed index: rowptr (N + 1)
+// int64 and rows (rowptr[N]) int32.
+torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
+                               const torch::Tensor& cnt,
+                               const torch::Tensor& rowptr,
+                               const torch::Tensor& rows, bool bf16) {
+  TORCH_CHECK(g.is_cuda(), "g must be a CUDA tensor");
+  const torch::Device device = g.device();
+  check_input(g, "g", torch::kFloat32, 2, device);
+  check_input(cnt, "cnt", torch::kInt32, 1, device);
+  check_input(rowptr, "rowptr", torch::kInt64, 1, device);
+  check_input(rows, "rows", torch::kInt32, 1, device);
+  const int64_t B = g.size(0), D = g.size(1), N = rowptr.size(0) - 1;
+  TORCH_CHECK(N >= 0, "rowptr must hold N + 1 offsets");
+  TORCH_CHECK(cnt.size(0) == B, "cnt must be (B,)");
+  TORCH_CHECK(D < (int64_t{1} << 31), "shape too large");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor grad_x = torch::empty(
+      {N, D}, g.options().dtype(bf16 ? torch::kBFloat16 : torch::kFloat32));
+  if (N == 0 || D == 0) return grad_x;
+  const int vec = D % 4 == 0 && aligned16(g);
+  C10_CUDA_CHECK(neighbor_agg_bwd_launch(
+      g.data_ptr<float>(), cnt.data_ptr<int32_t>(),
+      rowptr.data_ptr<int64_t>(), rows.data_ptr<int32_t>(),
+      grad_x.data_ptr(), N, static_cast<int>(D), bf16, vec,
+      at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return grad_x;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -234,4 +323,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
   m.def("flash_attention", &flash_attention,
         "Causal / sliding-window GQA attention forward (CUDA, sm_90a)");
+  m.def("neighbor_agg", &neighbor_agg,
+        "Mean of the -1-padded neighbour rows times w (CUDA, sm_90a)");
+  m.def("neighbor_agg_bwd", &neighbor_agg_bwd,
+        "Gradient of x of neighbor_agg, deterministic (CUDA, sm_90a)");
 }

@@ -1,0 +1,155 @@
+"""The neighbour-aggregation wrappers: the tensors' device picks the kernel.
+
+A CUDA tensor goes to the hand-written Hopper kernels
+(``csrc/neighbor_agg.cu``, built by ``kernels._build``); a CPU tensor
+goes to the plain versions in ``ref.py``. There is no other switch and
+no fallback: a failed build or launch raises. ``neighbor_agg`` is
+differentiable (a ``torch.autograd.Function``): its backward computes
+``grad_w`` and ``grad_out @ w^T`` with ``torch.matmul``, as the JAX
+model's autodiff leaves those products outside any Pallas kernel, and
+``grad_x`` with ``neighbor_agg_bwd``, a deterministic kernel that the
+JAX package lacks, over a ``SlotIndex`` of the valid slots grouped by
+id: the caller may pass one it built with the neighbour matrix
+(``models.gnn.in_neighbors`` does), else the backward builds it with
+``transpose_index``. ``neighbor_agg.launches`` and
+``neighbor_agg_bwd.launches`` count the CUDA launches, so a run can show
+that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .._build import load_extension, on_cuda
+from .ref import acc_dtype, neighbor_agg_bwd_ref, neighbor_mean_ref
+
+__all__ = ["SlotIndex", "neighbor_agg", "neighbor_agg_bwd",
+           "transpose_index"]
+
+DTYPES = (torch.float32, torch.bfloat16)
+# the plain version also takes float64 (torch.autograd.gradcheck)
+CPU_DTYPES = DTYPES + (torch.float64,)
+
+
+class SlotIndex(NamedTuple):
+    """The valid slots of a neighbour matrix (B, K) grouped by id, for
+    the backward kernel: ``rows[rowptr[u]:rowptr[u + 1]]`` holds the b of
+    every slot (b, j) naming id u, in (b, j) order."""
+    cnt: torch.Tensor     # (B,) int32: valid slots of each row
+    rowptr: torch.Tensor  # (n_rows + 1,) int64
+    rows: torch.Tensor    # int32, at least rowptr[n_rows] entries
+
+
+def transpose_index(nbrs: torch.Tensor, n_rows: int) -> SlotIndex:
+    """The ``SlotIndex`` of ``nbrs`` (B, K): a stable sort of its valid
+    slots by id, in torch ops on the tensor's device (``nonzero`` syncs
+    once)."""
+    K = nbrs.shape[1]
+    flat = nbrs.reshape(-1)
+    pos = (flat >= 0).nonzero().squeeze(1)
+    ids, perm = torch.sort(flat[pos], stable=True)
+    rows = torch.div(pos[perm], K, rounding_mode="floor").to(torch.int32)
+    rowptr = torch.searchsorted(
+        ids, torch.arange(n_rows + 1, dtype=ids.dtype, device=ids.device))
+    return SlotIndex((nbrs >= 0).sum(1, dtype=torch.int32), rowptr, rows)
+
+
+def neighbor_agg_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
+                     dtype: torch.dtype = torch.float32,
+                     index: SlotIndex | None = None) -> torch.Tensor:
+    """The gradient of x through the neighbour mean: g (B, D) float32
+    (``grad_out @ w^T``; float64 on the CPU), nbrs (B, K) int32 with -1
+    pad. Returns (n_rows, D) in ``dtype``: ``sum of g[b] /
+    max(count_b, 1)`` over the valid slots (b, j) of each id, added in
+    (b, j) order, as ``ref.neighbor_agg_bwd_ref`` defines it. ``index``
+    is ``transpose_index(nbrs, n_rows)`` when given (the card's route
+    reads it; the plain version does not need it)."""
+    if g.dim() != 2 or nbrs.dim() != 2 or g.shape[0] != nbrs.shape[0]:
+        raise ValueError(f"neighbor_agg_bwd takes g (B, D) and nbrs (B, K), "
+                         f"got {tuple(g.shape)} and {tuple(nbrs.shape)}")
+    if not on_cuda(g, "neighbor_agg_bwd"):
+        if g.dtype != acc_dtype(dtype) or dtype not in CPU_DTYPES:
+            raise ValueError(f"g must be {acc_dtype(dtype)} for a {dtype} "
+                             f"x, got {g.dtype}")
+        return neighbor_agg_bwd_ref(g, nbrs, n_rows).to(dtype)
+    if g.dtype != torch.float32 or dtype not in DTYPES:
+        raise ValueError(f"on the card g must be float32 and dtype one of "
+                         f"{DTYPES}, got {g.dtype} and {dtype}")
+    cnt, rowptr, rows = index or transpose_index(nbrs, n_rows)
+    out = load_extension().neighbor_agg_bwd(
+        g.contiguous(), cnt, rowptr, rows, dtype == torch.bfloat16)
+    neighbor_agg_bwd.launches += 1
+    return out
+
+
+neighbor_agg_bwd.launches = 0
+
+
+class _NeighborAgg(torch.autograd.Function):
+    """``mean(x[nbrs valid]) @ w`` with its gradient for x and w."""
+
+    @staticmethod
+    def forward(ctx, x, nbrs, w, index):
+        want_mean = ctx.needs_input_grad[2]
+        if on_cuda(x, "neighbor_agg"):
+            out, mean = load_extension().neighbor_agg(x, nbrs, w, want_mean)
+            neighbor_agg.launches += 1
+        else:
+            mean, _ = neighbor_mean_ref(x, nbrs)
+            out = (mean @ w.to(mean.dtype)).to(x.dtype)
+        ctx.save_for_backward(nbrs, w, mean if want_mean else None)
+        ctx.n_rows, ctx.x_dtype, ctx.index = x.shape[0], x.dtype, index
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        nbrs, w, mean = ctx.saved_tensors
+        dt = acc_dtype(ctx.x_dtype)
+        g = grad_out.to(dt)
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[2]:
+            grad_w = (mean.t() @ g).to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            grad_x = neighbor_agg_bwd(g @ w.to(dt).t(), nbrs, ctx.n_rows,
+                                      ctx.x_dtype, ctx.index)
+        return grad_x, None, grad_w, None
+
+
+def neighbor_agg(x: torch.Tensor, nbrs: torch.Tensor, w: torch.Tensor,
+                 index: SlotIndex | None = None) -> torch.Tensor:
+    """x (N, D) and w (D, F), each float32 or bfloat16; nbrs (B, K) int32
+    ids in [-1, N), -1 a pad slot; all contiguous on one device. Returns
+    (B, F) in ``x.dtype``: the float32 mean of each row's valid
+    neighbours (0 for an all-pad row) times ``w`` in float32, as
+    ``ref.neighbor_agg_ref`` defines it for a finite ``w``. Differentiable
+    in x and w; the gradient of w comes in ``w.dtype``; ``index``, when
+    given, is ``transpose_index(nbrs, N)`` for the backward. On the CPU,
+    x and w may also be float64 (summed in float64).
+
+    Only dtype and shape are checked: an id at or above N is not looked
+    for, since that would cost a device sync.
+    """
+    if x.dim() != 2 or w.dim() != 2 or nbrs.dim() != 2:
+        raise ValueError(f"neighbor_agg takes x (N, D), nbrs (B, K) and w "
+                         f"(D, F), got {tuple(x.shape)}, {tuple(nbrs.shape)}"
+                         f" and {tuple(w.shape)}")
+    if w.shape[0] != x.shape[1]:
+        raise ValueError(f"w must be (D, F) with D = {x.shape[1]}, got "
+                         f"{tuple(w.shape)}")
+    if nbrs.dtype != torch.int32:
+        raise ValueError(f"nbrs must be int32, got {nbrs.dtype}")
+    ok = DTYPES if on_cuda(x, "neighbor_agg") else CPU_DTYPES
+    if x.dtype not in ok or w.dtype not in ok:
+        raise ValueError(f"x and w must be one of {ok}, got {x.dtype} "
+                         f"and {w.dtype}")
+    if not (x.is_contiguous() and nbrs.is_contiguous()
+            and w.is_contiguous()):
+        raise ValueError("x, nbrs and w must be contiguous")
+    if not (x.device == nbrs.device == w.device):
+        raise ValueError(f"x, nbrs and w must share one device, got "
+                         f"{x.device}, {nbrs.device} and {w.device}")
+    return _NeighborAgg.apply(x, nbrs, w, index)
+
+
+neighbor_agg.launches = 0

@@ -1,0 +1,74 @@
+"""Plain PyTorch version of the neighbour-aggregation kernel and of its
+backward.
+
+The same functions as ``csrc/neighbor_agg.cu`` in tensor ops: the CPU
+path of ``ops.neighbor_agg`` and the yardstick the card's kernels are
+compared with.
+
+Forward, ``mean(x[nbrs >= 0]) @ w``: the mean walks the slots in order
+j = 0..K-1 and adds each valid row into a float32 accumulator, as the
+TPU kernel's body (``_agg_kernel``) and the CUDA kernel do, then divides
+once by ``max(count, 1)``, so the mean equals the kernel's bit for bit.
+The product with ``w`` (widened to float32) is one matmul here and a
+sum in depth order in the kernel, so the output agrees within float32
+rounding, then rounds once to ``x.dtype``.
+
+Backward, for ``x``: ``grad_x[u] = sum of g[b] / max(count_b, 1)`` over
+every valid slot (b, j) with ``nbrs[b, j] = u``, where ``g = grad_out @
+w^T``. ``index_add_`` on the CPU adds in index order, which is the (b,
+j) order the CUDA kernel keeps, so the two agree bit for bit there.
+
+A float64 input is summed in float64 (the CPU route only, for
+``torch.autograd.gradcheck``); every other dtype in float32.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator's dtype: float64 for float64, else float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def neighbor_mean_ref(x: torch.Tensor, nbrs: torch.Tensor):
+    """x (N, D) float; nbrs (B, K) integer ids in [-1, N), -1 a pad slot.
+    Returns ``(mean, count)``: the (B, D) float32 (float64 for a float64
+    x) mean of the valid rows ``x[nbrs[b, j]]`` (0 for an all-pad row)
+    and the (B,) int32 count of valid slots."""
+    B, K = nbrs.shape
+    dt = acc_dtype(x.dtype)
+    acc = torch.zeros((B, x.shape[1]), dtype=dt, device=x.device)
+    cnt = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    for j in range(K):
+        ids = nbrs[:, j]
+        valid = ids >= 0
+        rows = x.index_select(0, ids.clamp_min(0).long())
+        acc = torch.where(valid[:, None], acc + rows.to(dt), acc)
+        cnt += valid
+    return acc / cnt.clamp_min(1).to(dt)[:, None], cnt
+
+
+def neighbor_agg_ref(x: torch.Tensor, nbrs: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """x (N, D), nbrs (B, K) with -1 pad, w (D, F) -> (B, F) in
+    ``x.dtype``: the float32 mean of each row's valid neighbours times
+    ``w`` in float32, rounded once."""
+    mean, _ = neighbor_mean_ref(x, nbrs)
+    return (mean @ w.to(mean.dtype)).to(x.dtype)
+
+
+def neighbor_agg_bwd_ref(g: torch.Tensor, nbrs: torch.Tensor,
+                         n_rows: int) -> torch.Tensor:
+    """The gradient of ``x`` through the mean: g (B, D) float32 (the
+    output's gradient times ``w^T``), nbrs (B, K). Returns (n_rows, D)
+    float32, ``sum of g[b] / max(count_b, 1)`` over the valid slots of
+    each row id, added in (b, j) order."""
+    B, K = nbrs.shape
+    flat = nbrs.reshape(-1)
+    pos = (flat >= 0).nonzero().squeeze(1)
+    b = pos // K
+    denom = (nbrs >= 0).sum(1).clamp_min(1).to(g.dtype)
+    contrib = g.index_select(0, b) / denom.index_select(0, b)[:, None]
+    out = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, flat[pos].long(), contrib)

@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (the two-tower serving path)."""
+"""Launchers of the port: ``serve`` (two-tower and LM serving) and
+``train`` (GNN training)."""

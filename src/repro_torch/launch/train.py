@@ -1,0 +1,126 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch graphsage-reddit --reduced --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch graphsage-reddit --shape minibatch_lg --steps 5
+
+The counterpart of ``src/repro/launch/train.py`` for the GNN family. It
+runs on the card unless ``--device cpu`` is given, and raises when there
+is no card. As the JAX launcher does, it trains on one fixed batch from
+``random_graph`` over the shape's padded size (``build_graph_batch``
+with 5 label classes), draws every param as ``rng.normal(shape)`` in
+float32 times 0.1, cast to the param's dtype, in JAX's flatten order
+over the sorted keys (so the params equal the JAX launcher's bit for
+bit), and drives ``AdamWConfig()`` through ``run_training`` with
+checkpoints in ``<ckpt_dir>/<arch>``. A directory that already holds a
+checkpoint resumes from it. Returns the ``TrainResult``. LM and
+two-tower training raise ``NotImplementedError`` naming their ROADMAP.md
+items.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..configs import (ARCH_IDS, FAMILIES, PENDING_RECSYS_TRAIN,
+                       PENDING_TRAIN, get_arch)
+from ..data.graphs import build_graph_batch, random_graph
+from ..models.gnn import gnn_loss, init_gnn_params
+from ..partition_api import resolve_device
+from ..train.fault_tolerance import FTConfig, run_training
+from ..train.optimizer import AdamWConfig, init_adamw
+from ..train.train_loop import make_train_step
+from ..train.tree import tree_map
+
+DEFAULT_SHAPE = {"lm": "train_4k", "gnn": "full_graph_sm",
+                 "recsys": "train_batch"}
+
+
+def gnn_batches(arch, shape: str, reduced: bool, device, seed: int = 0):
+    """The JAX launcher's ``_gnn_batches``: one fixed batch for every
+    step, the input spec's keys only, on ``device``."""
+    spec = arch.input_specs(shape, reduced=reduced)
+    (n, d_feat), _ = spec["nodes"]
+    e = spec["edge_src"][0][0]
+    src, dst = random_graph(n, max(e / n, 1.0), seed=seed)
+    src, dst = src[:e], dst[:e]
+    base = build_graph_batch(n, src, dst, d_feat,
+                             int(spec["labels"][0][0] and 5) or 5,
+                             seed=seed, pad_nodes=n, pad_edges=e)
+    base = {k: torch.from_numpy(v).to(device) for k, v in base.items()
+            if k in spec}
+    return lambda step: base
+
+
+def launcher_params(cfg, device, seed: int = 0) -> dict:
+    """The JAX launcher's params: every leaf ``rng.normal(shape)`` in
+    float32 times 0.1, cast to its dtype, in JAX's flatten order."""
+    rng = np.random.default_rng(seed)
+    like = init_gnn_params(torch.Generator().manual_seed(0), cfg, "cpu")
+
+    def draw(t):
+        a = rng.normal(size=tuple(t.shape)).astype(np.float32) * 0.1
+        return torch.from_numpy(a).to(device=device, dtype=t.dtype)
+
+    return tree_map(draw, like)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU-trainable)")
+    ap.add_argument("--ckpt_dir", default="artifacts/ckpt")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    family = FAMILIES[args.arch]
+    arch = get_arch(args.arch)           # unported archs raise here
+    if family == "lm":
+        raise NotImplementedError(
+            f"LM training is not ported to torch yet; see {PENDING_TRAIN}")
+    if family == "recsys":
+        raise NotImplementedError(
+            f"two-tower training is not ported to torch yet; see "
+            f"{PENDING_RECSYS_TRAIN}")
+    shape = args.shape or DEFAULT_SHAPE[family]
+    if arch.step_kind(shape) != "train":
+        raise ValueError(f"train.py drives train cells; {shape!r} is "
+                         f"{arch.step_kind(shape)!r}")
+    device = resolve_device(args.device)
+
+    cfg = arch.build_cfg(reduced=args.reduced, shape=shape)
+    params = launcher_params(cfg, device)
+    batch_at = gnn_batches(arch, shape, args.reduced, device)
+    opt_cfg = AdamWConfig()
+    opt = init_adamw(params, opt_cfg)
+    step_fn = make_train_step(lambda p, b: gnn_loss(p, b, cfg), opt_cfg,
+                              accum_steps=1)
+
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    t0 = time.time()
+    res = run_training(step_fn, (params, opt), None, args.steps,
+                       FTConfig(ckpt_dir=os.path.join(args.ckpt_dir,
+                                                      args.arch)),
+                       batch_at=batch_at)
+    losses = [m["loss"] for m in res.metrics_history if "loss" in m]
+    if losses:
+        print(f"{args.arch}/{shape}: {res.steps_done} steps in "
+              f"{time.time() - t0:.1f}s on {device.type}; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    else:
+        print(f"{args.arch}/{shape}: resumed at step {res.steps_done}; "
+              f"no step to run")
+    return res
+
+
+if __name__ == "__main__":
+    main()

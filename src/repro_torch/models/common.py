@@ -55,9 +55,13 @@ def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
 def mlp_apply(params: dict, x: torch.Tensor, n_layers: int,
               final_act: bool = False) -> torch.Tensor:
     """``x @ w + b`` per layer, ReLU between layers (after the last only
-    with ``final_act``)."""
+    with ``final_act``). Mixed dtypes promote as in JAX: a float32 ``x``
+    against bfloat16 params (the GNN) multiplies in float32, with ``w``
+    widened exactly; with one dtype nothing is cast."""
     for i in range(n_layers):
-        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        w = params[f"w{i}"]
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x = x.to(dt) @ w.to(dt) + params[f"b{i}"]
         if i < n_layers - 1 or final_act:
             x = torch.relu(x)
     return x
@@ -99,3 +103,19 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     cos = cos[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# -------------------------------------------------------------------- loss
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy in float32. logits (..., V), labels (...,) int;
+    with ``mask`` (...,) the sum of the masked terms over
+    ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

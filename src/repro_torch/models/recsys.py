@@ -11,8 +11,8 @@ orders them. Serving runs under ``torch.inference_mode()``.
 
 The embedding tables are the HYPE placement target: rows co-accessed
 by one query form a hyperedge, and ``placement/partitioned_embedding``
-shards the rows with HYPE. Training (``twotower_loss``) waits for the
-training slice (ROADMAP.md, queue 1, item 15b).
+shards the rows with HYPE. Training (``twotower_loss``) waits for an
+``embedding_bag`` backward (ROADMAP.md, queue 1, item 15h).
 """
 from __future__ import annotations
 

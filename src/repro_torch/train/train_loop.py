@@ -1,0 +1,66 @@
+"""Train-step factory, as ``src/repro/train/train_loop.py``.
+
+``make_train_step(loss_fn, opt_cfg, accum_steps=...)`` returns
+
+    train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+With ``accum_steps > 1`` every batch leaf has a leading accumulation
+axis; the microbatches run in a loop (the JAX package's ``lax.scan``),
+so activations live for one microbatch, and the gradients accumulate in
+float32. Gradient compression raises ``NotImplementedError`` naming its
+ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..configs import PENDING_COMPRESSION
+from .optimizer import AdamWConfig, adamw_update
+from .tree import tree_flatten, tree_map, tree_unflatten
+
+
+def value_and_grad(loss_fn: Callable, params, batch):
+    """``(loss, grads)`` of ``loss_fn(params, batch)``, the grads shaped
+    like ``params`` (``jax.value_and_grad``)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *,
+                    accum_steps: int = 1, compress_grads: bool = False):
+    """loss_fn(params, batch) -> scalar loss."""
+    if compress_grads:
+        raise NotImplementedError(
+            f"compress_grads is not ported to torch yet; see "
+            f"{PENDING_COMPRESSION}")
+
+    def train_step(params, opt_state, batch):
+        if accum_steps > 1:
+            loss = torch.zeros((), dtype=torch.float32)
+            grads = None
+            for i in range(accum_steps):
+                mb = tree_map(lambda x: x[i], batch)
+                l_i, g_i = value_and_grad(loss_fn, params, mb)
+                if grads is None:
+                    loss = loss.to(l_i.device)
+                    grads = tree_map(lambda p: torch.zeros(
+                        p.shape, dtype=torch.float32, device=p.device),
+                        params)
+                grads = tree_map(lambda a, b: a + b.float() / accum_steps,
+                                 grads, g_i)
+                loss = loss + l_i / accum_steps
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state, stats = adamw_update(grads, opt_state, params,
+                                                opt_cfg)
+        return params, opt_state, {"loss": loss.float(), **stats}
+
+    return train_step
+

@@ -1,0 +1,147 @@
+"""Compute the JAX package's losses that chip_smoke.py pins.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/jax_gnn_losses.py \
+        [--port] [--stats]
+
+Runs, on the CPU, the JAX package on the inputs chip_smoke.py makes for
+its GNN phases, from the same numpy seeds and by the same recipe
+(chip_smoke's ``gnn_source``, ``gnn_sample`` and ``gnn_numpy_params``,
+given the JAX package's ``repro.data.graphs``):
+
+  * ``GNN_JAX_LOSSES``: the first 3 losses of graphsage-reddit at full
+    width on minibatch_lg (the reddit-scale source graph, one sampled
+    batch a step, ``GNN_OPT``), through ``repro.models.gnn.gnn_loss`` and
+    ``repro.train.optimizer.adamw_update``;
+  * ``GNN_LAUNCHER_JAX_LOSSES``: the JAX train launcher's losses at
+    ``--shape minibatch_lg --steps 5``.
+
+With ``--stats`` it prints the shape of the first sampled batch: its
+valid edges, K (the largest valid in-degree) and how many slots of the
+in-neighbour matrix the busiest source id fills (the backward kernel's
+longest row). With ``--port`` it also runs the port (``repro_torch``)
+on the CPU on the same training inputs and prints its losses beside JAX's (not the
+launcher's: there node 0's in-degree makes K about 1,400, and the plain
+aggregation loops over K). It needs about 4 GB of host memory and a few
+minutes (the 114.6M-edge graph and its sampler).
+It is a helper, not a test: pytest does not collect it.
+"""
+import argparse
+import pathlib
+import sys
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
+
+import repro.launch.train as jax_launch  # noqa: E402
+from repro.configs import get_arch  # noqa: E402
+from repro.data import graphs  # noqa: E402
+from repro.models import gnn  # noqa: E402
+from repro.train.optimizer import (AdamWConfig, adamw_update,  # noqa: E402
+                                   init_adamw)
+
+N_PINNED = 3
+
+
+def batch_stats(b) -> dict:
+    """Valid edges, K, and the slots each source id fills, of a batch."""
+    src = b["edge_src"][b["edge_mask"]]
+    dst = b["edge_dst"][b["edge_mask"]]
+    per_id = np.bincount(src)
+    return {"valid_edges": int(src.size),
+            "K": int(np.bincount(dst).max()),
+            "max_slots_one_id": int(per_id.max()),
+            "ids_over_64_slots": int((per_id > 64).sum())}
+
+
+def train_losses(port: bool, stats: bool):
+    arch = get_arch(cs.GNN_ARCH)
+    cfg = arch.build_cfg(shape=cs.GNN_SHAPE)
+    meta = arch.shapes[cs.GNN_SHAPE].meta
+    src, dst, feats, labels = cs.gnn_source(meta, graphs)
+    sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
+    del src, dst
+    shapes = jax.tree.map(lambda a: tuple(a.shape), jax.eval_shape(
+        lambda: gnn.init_gnn_params(jax.random.PRNGKey(0), cfg)))
+    tree = cs.gnn_numpy_params(shapes)
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    opt_cfg = AdamWConfig(**cs.GNN_OPT)
+    opt = init_adamw(params, opt_cfg)
+
+    @jax.jit
+    def step(p, o, b):
+        loss, g = jax.value_and_grad(lambda q: gnn.gnn_loss(q, b, cfg))(p)
+        p, o, _ = adamw_update(g, o, p, opt_cfg)
+        return p, o, loss
+
+    batches = [{k: v for k, v in cs.gnn_sample(
+        sampler, meta, feats, labels, i).items() if k in cs.GNN_KEYS}
+        for i in range(N_PINNED)]
+    if stats:
+        print("first batch:", batch_stats(batches[0]))
+    losses = []
+    for b in batches:
+        params, opt, loss = step(params, opt, {k: jnp.asarray(v)
+                                               for k, v in b.items()})
+        losses.append(float(loss))
+    port_losses = None
+    if port:
+        import torch
+        from repro_torch import convert
+        from repro_torch.configs import get_arch as port_arch
+        from repro_torch.models import gnn as port_gnn
+        from repro_torch.train import optimizer as popt
+        from repro_torch.train.train_loop import make_train_step
+        pcfg = port_arch(cs.GNN_ARCH).build_cfg(shape=cs.GNN_SHAPE)
+        p = convert.gnn_params_from_numpy(tree, pcfg, "cpu",
+                                          dtype=torch.bfloat16)
+        ocfg = popt.AdamWConfig(**cs.GNN_OPT)
+        o = popt.init_adamw(p, ocfg)
+        fn = make_train_step(lambda q, bb: port_gnn.gnn_loss(q, bb, pcfg),
+                             ocfg)
+        port_losses = []
+        for b in batches:
+            p, o, m = fn(p, o, {k: torch.from_numpy(v) for k, v in b.items()})
+            port_losses.append(float(m["loss"]))
+    return losses, port_losses
+
+
+def launcher_losses():
+    argv = ["--arch", cs.GNN_ARCH, "--shape", cs.GNN_SHAPE, "--steps",
+            str(cs.GNN_LAUNCHER_STEPS)]
+    seen = {}
+    orig = jax_launch.run_training
+
+    def spy(*a, **k):
+        seen["res"] = orig(*a, **k)
+        return seen["res"]
+
+    jax_launch.run_training = spy
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            jax_launch.main(argv + ["--ckpt_dir", d])
+    finally:
+        jax_launch.run_training = orig
+    return [m["loss"] for m in seen["res"].metrics_history]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--port", action="store_true",
+                    help="also run the port on the CPU and print its losses")
+    ap.add_argument("--stats", action="store_true",
+                    help="print the first sampled batch's shape")
+    args = ap.parse_args()
+    print("GNN_LAUNCHER_JAX_LOSSES =", launcher_losses())
+    tj, tp = train_losses(args.port, args.stats)
+    print("GNN_JAX_LOSSES =", tj)
+    if tp is not None:
+        print("port on the CPU:", tp)
+
+
+if __name__ == "__main__":
+    main()

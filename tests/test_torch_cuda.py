@@ -176,3 +176,117 @@ def test_cuda_prefill_launches_the_kernel_once_per_layer():
     torch.cuda.synchronize()
     assert fops.flash_attention.launches == before + cfg.n_layers
     assert bool(torch.isfinite(logits.float()).all())
+
+
+# neighbor_agg on the card against its plain version: the mean is a
+# float32 sum in slot order in both (equal bit for bit); the product sums
+# over D in another order, so the output agrees within float32 rounding,
+# and in bf16 within one bf16 step of the output (rtol 2**-7) plus that.
+NA_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+          torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+NA_SHAPES = [(64, 32, 16, 8, 4), (200, 128, 64, 16, 10), (30, 16, 8, 4, 15),
+             (50, 33, 7, 9, 1), (100, 602, 128, 64, 10),
+             (4096, 128, 128, 4096, 25), (5000, 128, 64, 300, 100)]
+
+
+def _na_inputs(N, D, F, B, K, dtype):
+    rng = np.random.default_rng(N + D + K)
+    x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(D, F)) * 0.1).astype(np.float32))
+    nbrs = rng.integers(-1, N, size=(B, K)).astype(np.int32)
+    nbrs[0] = -1                                   # an all-pad row
+    nbrs[-1] = N - 1                               # the last row, K times
+    return x.to(dtype).cuda(), torch.from_numpy(nbrs).cuda(), w.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,F,B,K", NA_SHAPES)
+def test_cuda_neighbor_agg_close_to_plain_version(N, D, F, B, K, dtype):
+    _need_card()
+    from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.kernels.neighbor_agg import ref as nref
+    x, nbrs, w = _na_inputs(N, D, F, B, K, dtype)
+    before = nops.neighbor_agg.launches
+    got = nops.neighbor_agg(x, nbrs, w)
+    torch.cuda.synchronize()
+    assert nops.neighbor_agg.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, F)
+    torch.testing.assert_close(got.float(),
+                               nref.neighbor_agg_ref(x, nbrs, w).float(),
+                               **NA_TOL[dtype])
+    _, mean = load_extension().neighbor_agg(x, nbrs, w, True)
+    assert torch.equal(mean, nref.neighbor_mean_ref(x, nbrs)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,F,B,K", NA_SHAPES)
+def test_cuda_neighbor_agg_backward_is_deterministic(N, D, F, B, K, dtype):
+    """The backward kernel adds in (b, j) order without float atomics: the
+    same bits on every run, within float32 rounding of the plain version
+    (whose index_add_ on the card uses atomics)."""
+    _need_card()
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.kernels.neighbor_agg import ref as nref
+    _, nbrs, _ = _na_inputs(N, D, F, B, K, dtype)
+    g = torch.randn((B, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(K))
+    before = nops.neighbor_agg_bwd.launches
+    first = nops.neighbor_agg_bwd(g, nbrs, N, dtype)
+    again = nops.neighbor_agg_bwd(g, nbrs, N, dtype)
+    torch.cuda.synchronize()
+    assert nops.neighbor_agg_bwd.launches == before + 2
+    assert first.dtype == dtype and torch.equal(first, again)
+    torch.testing.assert_close(first.float(), nref.neighbor_agg_bwd_ref(
+        g, nbrs, N).to(dtype).float(), **NA_TOL[dtype])
+
+
+def test_cuda_neighbor_agg_backward_index_from_edges():
+    """The backward over the index that in_neighbors builds from the edges
+    gives the same bits as over transpose_index of the matrix."""
+    _need_card()
+    from repro_torch.data.graphs import build_graph_batch, random_graph
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.models import gnn
+    src, dst = random_graph(3000, 6.0, seed=2)
+    b = build_graph_batch(3000, src, dst, 8, 5, seed=2, pad_nodes=3072,
+                          pad_edges=20480)
+    t = {k: torch.from_numpy(b[k]).cuda()
+         for k in ("edge_src", "edge_dst", "edge_mask")}
+    nbrs, _, index = gnn.in_neighbors(t["edge_src"], t["edge_dst"],
+                                      t["edge_mask"], 3072)
+    g = torch.randn((3072, 128), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4))
+    assert torch.equal(nops.neighbor_agg_bwd(g, nbrs, 3072, index=index),
+                       nops.neighbor_agg_bwd(g, nbrs, 3072))
+
+
+def test_cuda_graphsage_step_launches_two_forward_two_backward():
+    """One training step of the reduced GraphSAGE on the card: each of the
+    two layers launches the forward kernel once and the backward once;
+    the loss agrees with the CPU run within float32 rounding."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import build_graph_batch, random_graph
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.models import gnn
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("graphsage-reddit").build_cfg(reduced=True)
+    src, dst = random_graph(200, 4.0, seed=3)
+    b = build_graph_batch(200, src, dst, cfg.d_in, cfg.n_classes, seed=3,
+                          pad_nodes=256, pad_edges=1024)
+    params = gnn.init_gnn_params(torch.Generator().manual_seed(0), cfg)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        p = tree_map(lambda t: t.to(dev), params)
+        before = (nops.neighbor_agg.launches, nops.neighbor_agg_bwd.launches)
+        loss, grads = value_and_grad(
+            lambda q, bb: gnn.gnn_loss(q, bb, cfg), p, batch)
+        after = (nops.neighbor_agg.launches, nops.neighbor_agg_bwd.launches)
+        want = (0, 0) if dev == "cpu" else (2, 2)
+        assert (after[0] - before[0], after[1] - before[1]) == want
+        losses[dev] = float(loss)
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)

@@ -2,8 +2,10 @@
 
 Checked at run time (a fresh interpreter imports ``repro_torch`` and
 runs every ported method, the two-tower serving path, the serve
-launcher for two-tower and LM serving, the flash-attention wrapper and
-the HYPE row placement on the CPU, then no ``jax`` and no
+launcher for two-tower and LM serving, the flash-attention wrapper,
+the HYPE row placement, the train launcher for GraphSAGE (neighbour
+aggregation forward and backward, AdamW, checkpoints), the sampler and
+the partitioned-GNN placement on the CPU, then no ``jax`` and no
 ``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch`` or
 ``chip_smoke.py`` names them, lazy imports inside functions included).
 """
@@ -54,6 +56,23 @@ assert flash_attention(q, q[:, :, :1].contiguous(),
                        q[:, :, :1].contiguous()).shape == q.shape
 a = partition_rows_hype(64, [[0, 1, 2], [2, 3], [5, 6, 7]], 2)
 assert a.shape == (64,)
+import tempfile
+from repro_torch import convert
+from repro_torch.data.graphs import NeighborSampler, random_graph
+from repro_torch.launch import train
+from repro_torch.placement.partitioned_gnn import (build_partitioned_graph,
+                                                   graph_to_hypergraph)
+with tempfile.TemporaryDirectory() as d:
+    res = train.main(["--arch", "graphsage-reddit", "--reduced", "--steps",
+                      "2", "--device", "cpu", "--ckpt_dir", d])
+    assert res.steps_done == 2 and res.failures_recovered == 0
+src, dst = random_graph(50, 3.0, seed=0)
+b = NeighborSampler(50, src, dst).sample_padded(
+    np.arange(4), (3, 2), np.random.default_rng(0), 64, 64,
+    np.zeros((50, 4), np.float32), np.zeros(50, np.int32))
+pgr = build_partitioned_graph(50, src, dst, partition(
+    graph_to_hypergraph(50, src, dst), 2, "hype", device="cpu"), 2)
+assert pgr.s_max >= 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
