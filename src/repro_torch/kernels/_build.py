@@ -8,7 +8,13 @@ Hopper (``sm_90a``) through ``torch.utils.cpp_extension.load``, into
 ``build/torch_ext`` at the repository root, at first use, and memoizes
 the module for the process. Only the binding includes PyTorch's headers.
 Nothing here runs at import time: a CPU-only machine never builds or
-imports the extension. A failed build raises.
+imports the extension. A failed build raises. ``load`` compiles every
+``.cu`` file with ``-D__CUDA_NO_HALF_OPERATORS__``,
+``-D__CUDA_NO_HALF_CONVERSIONS__``, ``-D__CUDA_NO_BFLOAT16_CONVERSIONS__``
+and ``-D__CUDA_NO_HALF2_OPERATORS__``; the kernels convert through the
+intrinsics (``__float2bfloat16_rn``, ``__floats2bfloat162_rn``) and
+write the tensor-core instructions (wgmma, TMA, mbarriers) as inline PTX,
+so they need no ``-U`` flag and no CUTLASS headers.
 """
 from __future__ import annotations
 

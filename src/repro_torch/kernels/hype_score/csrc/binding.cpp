@@ -15,17 +15,18 @@
 extern "C" cudaError_t hype_score_select_launch(
     const int32_t* nbrs, const int32_t* fringe, const float* bias,
     const float* prev, float* scores, int32_t* sel_idx, float* sel_val,
-    int32_t* rem, int G, int R, int L, int s, int P, int select_k, int vec4,
-    cudaStream_t stream);
+    int32_t* rem, float* scratch, int G, int R, int L, int s, int P,
+    int select_k, int vec4, cudaStream_t stream);
+extern "C" int64_t hype_score_select_scratch_len(int G, int R, int P);
 extern "C" cudaError_t hype_scores_launch(const int32_t* nbrs,
                                           const int32_t* fringe,
                                           int32_t* out, int B, int L, int s,
                                           int vec4, cudaStream_t stream);
 extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
                                          const int32_t* own, float* gains,
-                                         int B, int L, int k, int vec4,
-                                         cudaStream_t stream);
-extern "C" int kway_gains_max_k();
+                                         int* scratch, int B, int L, int k,
+                                         int vec4, cudaStream_t stream);
+extern "C" int64_t kway_gains_scratch_len(int B, int k);
 extern "C" cudaError_t embedding_bag_launch(const void* table,
                                             const int32_t* ids, void* out,
                                             int64_t B, int bag, int D,
@@ -50,7 +51,7 @@ extern "C" cudaError_t neighbor_agg_bwd_launch(
 
 namespace {
 
-constexpr int64_t kMaxFringe = 16;
+constexpr int64_t kInt31 = int64_t{1} << 31;
 
 void check_input(const torch::Tensor& t, const char* name,
                  torch::ScalarType dtype, int64_t dim,
@@ -80,12 +81,10 @@ std::vector<torch::Tensor> score_select(const torch::Tensor& nbrs,
   TORCH_CHECK(fringe.size(0) == G, "fringe must be (G, s)");
   TORCH_CHECK(bias.size(0) == G && bias.size(1) == R, "bias must be (G, R)");
   TORCH_CHECK(prev.size(0) == G, "prev must be (G, P)");
-  TORCH_CHECK(s <= kMaxFringe, "fringe width s must be <= ", kMaxFringe);
   TORCH_CHECK(select_k >= 1 && select_k <= R + P,
               "select_k must lie in [1, R + P]");
-  TORCH_CHECK((R + P) * static_cast<int64_t>(sizeof(float)) <= 48 * 1024,
-              "R + P slots exceed the kernel's shared memory");
-  TORCH_CHECK(G < (int64_t{1} << 31) && G * R * L < (int64_t{1} << 40),
+  TORCH_CHECK(G < kInt31 && R + P < kInt31 && L < kInt31 && s < kInt31 &&
+                  G * R * L < (int64_t{1} << 40),
               "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
@@ -96,6 +95,11 @@ std::vector<torch::Tensor> score_select(const torch::Tensor& nbrs,
   torch::Tensor sel_val = torch::empty({G, select_k}, f32);
   torch::Tensor rem = torch::empty({G}, i32);
   if (G == 0) return {scores, sel_idx, sel_val, rem};
+  // the R + P slots of each phase, where they overflow shared memory
+  const int64_t n_scratch = hype_score_select_scratch_len(
+      static_cast<int>(G), static_cast<int>(R), static_cast<int>(P));
+  torch::Tensor scratch;
+  if (n_scratch) scratch = torch::empty({n_scratch}, f32);
 
   const int vec4 =
       (L % 4 == 0) &&
@@ -105,6 +109,7 @@ std::vector<torch::Tensor> score_select(const torch::Tensor& nbrs,
       bias.data_ptr<float>(), prev.data_ptr<float>(),
       scores.data_ptr<float>(), sel_idx.data_ptr<int32_t>(),
       sel_val.data_ptr<float>(), rem.data_ptr<int32_t>(),
+      scratch.defined() ? scratch.data_ptr<float>() : nullptr,
       static_cast<int>(G), static_cast<int>(R), static_cast<int>(L),
       static_cast<int>(s), static_cast<int>(P), static_cast<int>(select_k),
       vec4, at::cuda::getCurrentCUDAStream().stream());
@@ -123,9 +128,8 @@ torch::Tensor scores(const torch::Tensor& nbrs, const torch::Tensor& fringe) {
   check_input(nbrs, "nbrs", torch::kInt32, 2, device);
   check_input(fringe, "fringe", torch::kInt32, 1, device);
   const int64_t B = nbrs.size(0), L = nbrs.size(1), s = fringe.size(0);
-  TORCH_CHECK(s * static_cast<int64_t>(sizeof(int32_t)) <= 48 * 1024,
-              "fringe width s exceeds the kernel's shared memory");
-  TORCH_CHECK(B < (int64_t{1} << 31) && B * L < (int64_t{1} << 40),
+  TORCH_CHECK(B < kInt31 && L < kInt31 && s < kInt31 &&
+                  B * L < (int64_t{1} << 40),
               "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
@@ -148,19 +152,27 @@ torch::Tensor kway_gains(const torch::Tensor& parts, const torch::Tensor& own,
   check_input(own, "own", torch::kInt32, 1, device);
   const int64_t B = parts.size(0), L = parts.size(1);
   TORCH_CHECK(own.size(0) == B, "own must be (B,)");
-  TORCH_CHECK(k >= 1 && k <= kway_gains_max_k(), "k must lie in [1, ",
-              kway_gains_max_k(), "]: the kernel's shared-memory histogram");
-  TORCH_CHECK(B < (int64_t{1} << 31) && B * L < (int64_t{1} << 40),
+  TORCH_CHECK(k >= 1, "k must be >= 1, got ", k);
+  TORCH_CHECK(B < kInt31 && L < kInt31 && k < kInt31 &&
+                  B * L < (int64_t{1} << 40),
               "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
   torch::Tensor gains =
       torch::empty({B, k}, parts.options().dtype(torch::kFloat32));
   if (B == 0) return gains;
+  // one row of k counters per warp in flight, where the histograms
+  // overflow shared memory
+  const int64_t n_scratch =
+      kway_gains_scratch_len(static_cast<int>(B), static_cast<int>(k));
+  torch::Tensor scratch;
+  if (n_scratch) scratch = torch::empty({n_scratch}, parts.options());
   const int vec4 = (L % 4 == 0) && aligned16(parts);
   C10_CUDA_CHECK(kway_gains_launch(
       parts.data_ptr<int32_t>(), own.data_ptr<int32_t>(),
-      gains.data_ptr<float>(), static_cast<int>(B), static_cast<int>(L),
+      gains.data_ptr<float>(),
+      scratch.defined() ? scratch.data_ptr<int32_t>() : nullptr,
+      static_cast<int>(B), static_cast<int>(L),
       static_cast<int>(k), vec4, at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return gains;

@@ -20,15 +20,23 @@
 // microsecond, so the launch and the select_k serial selection rounds
 // dominate. The design keeps the tile out of shared memory: warps stride
 // over a phase's rows, lanes over the row with 16-byte loads where the
-// row is aligned, and a warp-shuffle sum per row leaves one score. The
-// fringe row sits in registers (at most 16 ids, padded with -1, which no
-// valid id equals). Selection is small (R + P slots) and runs in warp 0
-// alone over shared memory, so it needs no block barrier per round. Only
+// row is aligned, and a warp-shuffle sum per row leaves one score. A
+// fringe of up to 16 ids sits in registers (padded with -1, which no
+// valid id equals; the main path's is 1 wide); a wider one in shared
+// memory, read as a broadcast, as scores.cu keeps it. Selection runs in
+// warp 0 alone over the R + P merged slots, so it needs no block barrier
+// per round. The slots sit in shared memory, opted in past 48 KB up to
+// the card's 227 KB (58,112 slots); past that they sit in a global
+// scratch of (G, R + P) floats that the binding allocates, and a fringe
+// that no longer fits beside them is read from global memory. Every slot
+// is written before it is read, so the scratch needs no clearing. Only
 // G CTAs run (32 on the main path); a later change can split the rows
 // over more CTAs and fuse the CSR gather in front of the scoring.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../smem_optin.cuh"
 
 namespace {
 
@@ -57,19 +65,41 @@ __device__ __forceinline__ Best take_better(Best a, Best b, int nan_idx) {
   return a;
 }
 
+// The fringe of a phase: MAXS > 0 ids in registers, or (MAXS == 0) s ids
+// in shared or global memory.
 template <int MAXS>
-__device__ __forceinline__ void tally(int32_t x, const int32_t (&f)[MAXS],
-                                      int& valid, int& member) {
-  if (x >= 0) {
-    ++valid;
+struct Fringe {
+  int32_t f[MAXS];
+  __device__ __forceinline__ bool has(int32_t x) const {
     bool m = false;
 #pragma unroll
     for (int j = 0; j < MAXS; ++j) m |= (x == f[j]);
-    member += m ? 1 : 0;
+    return m;
+  }
+};
+template <>
+struct Fringe<0> {
+  const int32_t* f;
+  int s;
+  __device__ __forceinline__ bool has(int32_t x) const {
+    bool m = false;
+    for (int j = 0; j < s; ++j) m |= (x == f[j]);
+    return m;
+  }
+};
+
+template <int MAXS>
+__device__ __forceinline__ void tally(int32_t x, const Fringe<MAXS>& f,
+                                      int& valid, int& member) {
+  if (x >= 0) {
+    ++valid;
+    member += f.has(x) ? 1 : 0;
   }
 }
 
-template <int MAXS>
+// kGlobalSlots: the R + P slots live in ``scratch``, not in shared memory
+// (a template, so that the shared route keeps shared-memory accesses).
+template <int MAXS, bool kGlobalSlots>
 __global__ void __launch_bounds__(kThreads)
 score_select_kernel(const int32_t* __restrict__ nbrs,
                     const int32_t* __restrict__ fringe,
@@ -78,18 +108,35 @@ score_select_kernel(const int32_t* __restrict__ nbrs,
                     float* __restrict__ scores,
                     int32_t* __restrict__ sel_idx,
                     float* __restrict__ sel_val,
-                    int32_t* __restrict__ rem,
-                    int R, int L, int s, int P, int select_k, int vec4) {
-  extern __shared__ float merged[];  // R + P slots: [fresh | pool]
+                    int32_t* __restrict__ rem, float* __restrict__ scratch,
+                    int R, int L, int s, int P, int select_k, int vec4,
+                    int fringe_in_smem) {
+  // shared memory: [the R + P slots, unless in scratch | the fringe, when
+  // MAXS == 0 and fringe_in_smem]
+  extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int n_slots = R + P;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // R + P slots: [fresh | pool]
+  float* merged = kGlobalSlots ? scratch + (int64_t)g * n_slots : smem;
 
-  int32_t f[MAXS];
+  Fringe<MAXS> f;
+  if constexpr (MAXS > 0) {
 #pragma unroll
-  for (int j = 0; j < MAXS; ++j)
-    f[j] = j < s ? fringe[(int64_t)g * s + j] : -1;
+    for (int j = 0; j < MAXS; ++j)
+      f.f[j] = j < s ? fringe[(int64_t)g * s + j] : -1;
+  } else {
+    f.s = s;
+    f.f = fringe + (int64_t)g * s;
+    if (fringe_in_smem) {
+      int32_t* fs =
+          reinterpret_cast<int32_t*>(smem + (kGlobalSlots ? 0 : n_slots));
+      for (int j = threadIdx.x; j < s; j += kThreads) fs[j] = f.f[j];
+      f.f = fs;
+      __syncthreads();
+    }
+  }
 
   for (int p = threadIdx.x; p < P; p += kThreads)
     merged[R + p] = clamp_pad(prev[(int64_t)g * P + p]);
@@ -152,34 +199,79 @@ score_select_kernel(const int32_t* __restrict__ nbrs,
   if (lane == 0) rem[g] = left;
 }
 
+bool slots_fit(int R, int P) {
+  return sizeof(float) * ((size_t)R + P) <= (size_t)max_smem_optin();
+}
+
+template <int MAXS, bool kGlobalSlots>
+cudaError_t launch_one(const int32_t* nbrs, const int32_t* fringe,
+                       const float* bias, const float* prev, float* scores,
+                       int32_t* sel_idx, float* sel_val, int32_t* rem,
+                       float* scratch, int G, int R, int L, int s, int P,
+                       int select_k, int vec4, cudaStream_t stream) {
+  const size_t slots = kGlobalSlots ? 0 : sizeof(float) * ((size_t)R + P);
+  const size_t fringe_bytes = MAXS == 0 ? sizeof(int32_t) * (size_t)s : 0;
+  const int fringe_in_smem =
+      MAXS == 0 && slots + fringe_bytes <= (size_t)max_smem_optin();
+  const size_t smem = slots + (fringe_in_smem ? fringe_bytes : 0);
+  auto kernel = score_select_kernel<MAXS, kGlobalSlots>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<G, kThreads, smem, stream>>>(nbrs, fringe, bias, prev, scores,
+                                        sel_idx, sel_val, rem, scratch, R, L,
+                                        s, P, select_k, vec4,
+                                        fringe_in_smem);
+  return cudaGetLastError();
+}
+
 template <int MAXS>
 cudaError_t launch(const int32_t* nbrs, const int32_t* fringe,
                    const float* bias, const float* prev, float* scores,
-                   int32_t* sel_idx, float* sel_val, int32_t* rem, int G,
-                   int R, int L, int s, int P, int select_k, int vec4,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(R + P);
-  score_select_kernel<MAXS><<<G, kThreads, smem, stream>>>(
-      nbrs, fringe, bias, prev, scores, sel_idx, sel_val, rem, R, L, s, P,
-      select_k, vec4);
-  return cudaGetLastError();
+                   int32_t* sel_idx, float* sel_val, int32_t* rem,
+                   float* scratch, int G, int R, int L, int s, int P,
+                   int select_k, int vec4, cudaStream_t stream) {
+  if (scratch)
+    return launch_one<MAXS, true>(nbrs, fringe, bias, prev, scores, sel_idx,
+                                  sel_val, rem, scratch, G, R, L, s, P,
+                                  select_k, vec4, stream);
+  return launch_one<MAXS, false>(nbrs, fringe, bias, prev, scores, sel_idx,
+                                 sel_val, rem, nullptr, G, R, L, s, P,
+                                 select_k, vec4, stream);
 }
 
 }  // namespace
 
+// The float scratch hype_score_select_launch needs: G * (R + P) slots when
+// they do not fit the block's shared memory, else 0.
+extern "C" int64_t hype_score_select_scratch_len(int G, int R, int P) {
+  return slots_fit(R, P) ? 0 : (int64_t)G * ((int64_t)R + P);
+}
+
 // Plain C entry point; the PyTorch binding (binding.cpp) checks the
-// arguments, allocates the outputs and passes the current stream.
+// arguments, allocates the outputs and the scratch
+// (``hype_score_select_scratch_len`` floats, or none) and passes the
+// current stream.
 extern "C" cudaError_t hype_score_select_launch(
     const int32_t* nbrs, const int32_t* fringe, const float* bias,
     const float* prev, float* scores, int32_t* sel_idx, float* sel_val,
-    int32_t* rem, int G, int R, int L, int s, int P, int select_k, int vec4,
-    cudaStream_t stream) {
+    int32_t* rem, float* scratch, int G, int R, int L, int s, int P,
+    int select_k, int vec4, cudaStream_t stream) {
+  if (slots_fit(R, P))
+    scratch = nullptr;
+  else if (scratch == nullptr)
+    return cudaErrorInvalidValue;
   if (s <= 1)
     return launch<1>(nbrs, fringe, bias, prev, scores, sel_idx, sel_val,
-                     rem, G, R, L, s, P, select_k, vec4, stream);
+                     rem, scratch, G, R, L, s, P, select_k, vec4, stream);
   if (s <= 4)
     return launch<4>(nbrs, fringe, bias, prev, scores, sel_idx, sel_val,
-                     rem, G, R, L, s, P, select_k, vec4, stream);
-  return launch<16>(nbrs, fringe, bias, prev, scores, sel_idx, sel_val,
-                    rem, G, R, L, s, P, select_k, vec4, stream);
+                     rem, scratch, G, R, L, s, P, select_k, vec4, stream);
+  if (s <= 16)
+    return launch<16>(nbrs, fringe, bias, prev, scores, sel_idx, sel_val,
+                      rem, scratch, G, R, L, s, P, select_k, vec4, stream);
+  return launch<0>(nbrs, fringe, bias, prev, scores, sel_idx, sel_val, rem,
+                   scratch, G, R, L, s, P, select_k, vec4, stream);
 }

@@ -13,10 +13,13 @@
 // (B <= 256 rows, at most 2 MB) the launch. It is the scoring loop of
 // score_select.cu without the selection: one warp per row, lanes over
 // the row with 16-byte loads where the row is aligned, a warp-shuffle
-// sum per row. The fringe sits in shared memory (any s), read as a
-// broadcast by every lane.
+// sum per row. The fringe sits in shared memory, read as a broadcast by
+// every lane, opted in past 48 KB up to the card's 227 KB (58,112 ids); a
+// wider fringe is read from global memory (through L1) in place.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../smem_optin.cuh"
 
 namespace {
 
@@ -32,13 +35,20 @@ __device__ __forceinline__ int external(int32_t x, const int32_t* f,
   return m ? 0 : 1;
 }
 
+// kGlobalFringe: read the fringe where it lies instead of staging it.
+template <bool kGlobalFringe>
 __global__ void __launch_bounds__(kThreads)
 scores_kernel(const int32_t* __restrict__ nbrs,
               const int32_t* __restrict__ fringe,
               int32_t* __restrict__ out, int B, int L, int s, int vec4) {
-  extern __shared__ int32_t f[];  // the s fringe ids
-  for (int j = threadIdx.x; j < s; j += kThreads) f[j] = fringe[j];
-  __syncthreads();
+  extern __shared__ int32_t f_smem[];  // the s fringe ids
+  const int32_t* f = f_smem;
+  if constexpr (kGlobalFringe) {
+    f = fringe;
+  } else {
+    for (int j = threadIdx.x; j < s; j += kThreads) f_smem[j] = fringe[j];
+    __syncthreads();
+  }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int b = blockIdx.x * kWarps + warp; b < B;
@@ -72,7 +82,19 @@ extern "C" cudaError_t hype_scores_launch(const int32_t* nbrs,
                                           int vec4, cudaStream_t stream) {
   int blocks = (B + kWarps - 1) / kWarps;
   if (blocks > 65535) blocks = 65535;
-  scores_kernel<<<blocks, kThreads, sizeof(int32_t) * (size_t)s, stream>>>(
-      nbrs, fringe, out, B, L, s, vec4);
+  const size_t smem = sizeof(int32_t) * (size_t)s;
+  if (smem > (size_t)max_smem_optin()) {
+    scores_kernel<true><<<blocks, kThreads, 0, stream>>>(nbrs, fringe, out,
+                                                         B, L, s, vec4);
+    return cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scores_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  scores_kernel<false><<<blocks, kThreads, smem, stream>>>(nbrs, fringe, out,
+                                                           B, L, s, vec4);
   return cudaGetLastError();
 }

@@ -35,7 +35,7 @@ def hype_score_select(nbrs: torch.Tensor, fringe: torch.Tensor,
     """Fused scoring + per-phase top-``select_k`` selection.
 
     nbrs (G, R, L) int32 stacked phase tiles, -1 padded; fringe (G, s)
-    int32 (s <= 16 on CUDA); bias (G, R) float32 additive row bias (the
+    int32, any width; bias (G, R) float32 additive row bias (the
     hub penalty, or +inf for a pad row); prev (G, P) float32 held pool
     scores. Returns ``(scores (G, R), sel_idx (G, select_k), sel_val
     (G, select_k), rem (G,))`` as ``ref.hype_score_select_ref`` defines

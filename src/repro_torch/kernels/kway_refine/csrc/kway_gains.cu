@@ -25,15 +25,27 @@
 // (the common case on a boundary) does not serialise 32 atomics on one
 // counter. cnt_own is a per-lane count and a warp-shuffle sum. Every
 // lane runs the same number of iterations, so the warp-wide intrinsics
-// always see all 32 lanes.
+// always see all 32 lanes. The histograms take k * 8 * 4 bytes of shared
+// memory a block, opted in past 48 KB up to the card's 227 KB (k <= 7,264);
+// for a larger k each warp keeps its row of k counters in a global int32
+// scratch that the binding allocates (one row per warp in flight, the grid
+// capped at kGlobalBlocks), with the same grouped atomics. Each warp zeroes
+// its histogram before each vertex, so the scratch needs no clearing. The
+// counts are integers either way: both routes give the plain version's
+// bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../smem_optin.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+// blocks of the global-histogram route: 2,048 warps' rows of k counters
+// (82 MB at k = 10,000)
+constexpr int kGlobalBlocks = 256;
 
 // One id: add it to the warp's histogram (grouped by value) and to the
 // lane's own-partition count. Called by all 32 lanes together.
@@ -45,15 +57,21 @@ __device__ __forceinline__ void tally(int32_t x, int32_t own, int k,
     atomicAdd(hist + x, __popc(same));
 }
 
+// kGlobal: the histograms live in ``scratch`` (one row of k per warp of the
+// grid), not in shared memory; a template, so that the shared route keeps
+// its shared-memory atomics.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 kway_gains_kernel(const int32_t* __restrict__ parts,
                   const int32_t* __restrict__ own,
-                  float* __restrict__ gains, int B, int L, int k,
-                  int vec4) {
-  extern __shared__ int hist_all[];  // kWarps rows of k counters
+                  float* __restrict__ gains, int* __restrict__ scratch,
+                  int B, int L, int k, int vec4) {
+  extern __shared__ int hist_smem[];  // kWarps rows of k counters
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  int* hist = hist_all + warp * k;
+  int* hist =
+      (kGlobal ? scratch + (int64_t)blockIdx.x * kWarps * k : hist_smem) +
+      (int64_t)warp * k;
 
   for (int b = blockIdx.x * kWarps + warp; b < B;
        b += gridDim.x * kWarps) {
@@ -89,23 +107,45 @@ kway_gains_kernel(const int32_t* __restrict__ parts,
   }
 }
 
-}  // namespace
+size_t smem_bytes(int k) { return sizeof(int) * (size_t)k * kWarps; }
 
-// Plain C entry point; the PyTorch binding (hype_score/csrc/binding.cpp)
-// checks the arguments, allocates the output and passes the current
-// stream. ``k * kWarps`` int32 counters of shared memory per block.
-extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
-                                         const int32_t* own, float* gains,
-                                         int B, int L, int k, int vec4,
-                                         cudaStream_t stream) {
-  const size_t smem = sizeof(int) * (size_t)k * kWarps;
-  int blocks = (B + kWarps - 1) / kWarps;
-  if (blocks > 65535) blocks = 65535;
-  kway_gains_kernel<<<blocks, kThreads, smem, stream>>>(parts, own, gains,
-                                                        B, L, k, vec4);
-  return cudaGetLastError();
+int grid_blocks(int B, bool global_hist) {
+  const int blocks = (B + kWarps - 1) / kWarps;
+  const int cap = global_hist ? kGlobalBlocks : 65535;
+  return blocks < cap ? blocks : cap;
 }
 
-extern "C" int kway_gains_max_k() {
-  return (48 * 1024) / (int)(sizeof(int) * kWarps);
+}  // namespace
+
+// The int32 scratch kway_gains_launch needs, in counters: 0 when the
+// histograms fit the block's shared memory.
+extern "C" int64_t kway_gains_scratch_len(int B, int k) {
+  if (smem_bytes(k) <= (size_t)max_smem_optin()) return 0;
+  return (int64_t)grid_blocks(B, true) * kWarps * k;
+}
+
+// Plain C entry point; the PyTorch binding (hype_score/csrc/binding.cpp)
+// checks the arguments, allocates the output and the scratch
+// (``kway_gains_scratch_len`` counters, or none) and passes the current
+// stream.
+extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
+                                         const int32_t* own, float* gains,
+                                         int* scratch, int B, int L, int k,
+                                         int vec4, cudaStream_t stream) {
+  if (kway_gains_scratch_len(B, k) > 0) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    kway_gains_kernel<true><<<grid_blocks(B, true), kThreads, 0, stream>>>(
+        parts, own, gains, scratch, B, L, k, vec4);
+    return cudaGetLastError();
+  }
+  const size_t smem = smem_bytes(k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kway_gains_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kway_gains_kernel<false><<<grid_blocks(B, false), kThreads, smem, stream>>>(
+      parts, own, gains, nullptr, B, L, k, vec4);
+  return cudaGetLastError();
 }

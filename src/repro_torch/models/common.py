@@ -16,8 +16,8 @@ import math
 
 import torch
 
-# The LM's default compute dtype, as in the JAX package; the two-tower
-# model keeps float32.
+# The default dtype of the inits (and the LM's compute dtype), as in the
+# JAX package; the two-tower model passes float32.
 DEFAULT_DTYPE = torch.bfloat16
 
 
@@ -28,19 +28,19 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
+               dtype=DEFAULT_DTYPE, device="cpu") -> torch.Tensor:
     """(in_dim, out_dim) normal / sqrt(in_dim)."""
     return _normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim), dtype,
                    device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
+               dtype=DEFAULT_DTYPE, device="cpu") -> torch.Tensor:
     """(vocab, dim) normal x 0.02."""
     return _normal(gen, (vocab, dim), 0.02, dtype, device)
 
 
-def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
+def mlp_init(gen: torch.Generator, dims, dtype=DEFAULT_DTYPE,
              device="cpu") -> dict:
     """Params ``w{i}`` (d_i, d_{i+1}) and zero ``b{i}`` for layer dims
     [d0, d1, ..., dk]."""
@@ -53,17 +53,18 @@ def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
 
 
 def mlp_apply(params: dict, x: torch.Tensor, n_layers: int,
-              final_act: bool = False) -> torch.Tensor:
-    """``x @ w + b`` per layer, ReLU between layers (after the last only
-    with ``final_act``). Mixed dtypes promote as in JAX: a float32 ``x``
-    against bfloat16 params (the GNN) multiplies in float32, with ``w``
-    widened exactly; with one dtype nothing is cast."""
+              act=torch.relu, final_act: bool = False) -> torch.Tensor:
+    """``x @ w + b`` per layer, ``act`` (ReLU by default) between layers
+    (after the last only with ``final_act``). Mixed dtypes promote as in
+    JAX: a float32 ``x`` against bfloat16 params (the GNN) multiplies in
+    float32, with ``w`` widened exactly; with one dtype nothing is
+    cast."""
     for i in range(n_layers):
         w = params[f"w{i}"]
         dt = torch.promote_types(x.dtype, w.dtype)
         x = x.to(dt) @ w.to(dt) + params[f"b{i}"]
         if i < n_layers - 1 or final_act:
-            x = torch.relu(x)
+            x = act(x)
     return x
 
 

@@ -70,12 +70,13 @@ def _resolve_preset(method: str, preset: Optional[str], kw: dict) -> dict:
     return {**presets[preset], **kw}
 
 
-def partition(hg: Hypergraph, k: int, method: str = "hype_superstep", *,
+def partition(hg: Hypergraph, k: int, method: str = "hype", *,
               device=None, seed: int = 0, preset: Optional[str] = None,
               validate="auto", auto_validate_max_n: int = 1_000_000,
               **knobs) -> np.ndarray:
     """Partition ``hg`` into ``k`` parts; returns an int32 assignment.
 
+    ``method`` defaults to ``"hype"``, as in the JAX package.
     ``device`` is ``None`` (the card), ``"cuda"`` or ``"cpu"``. ``seed``,
     ``preset``, ``validate`` and ``auto_validate_max_n`` mean what they
     mean in ``repro.core.partition_api.partition``: ``preset`` is

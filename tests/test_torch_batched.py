@@ -145,8 +145,8 @@ def test_refine_passes_match_jax(method):
 
 def test_refine_passes_zero_keeps_the_golden():
     """tests/test_refine.py:273: refine_passes=0 is a strict no-op."""
-    a = partition(_pl600(synthetic), 16, device="cpu", t=8,
-                  pipeline_depth=1, refine_passes=0)
+    a = partition(_pl600(synthetic), 16, "hype_superstep", device="cpu",
+                  t=8, pipeline_depth=1, refine_passes=0)
     assert _digest(a) == "bbcd2f732e03af91"
 
 

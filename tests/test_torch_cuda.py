@@ -29,17 +29,23 @@ def _need_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-@pytest.mark.parametrize("G,R,L,s,select_k", [
-    (32, 16, 2048, 1, 16), (32, 16, 128, 1, 16), (1, 16, 512, 16, 80),
-    (5, 8, 33, 3, 72)])
-def test_cuda_kernel_equals_plain_version(G, R, L, s, select_k):
+@pytest.mark.parametrize("G,R,L,s,P,select_k", [
+    (32, 16, 2048, 1, 64, 16), (32, 16, 128, 1, 64, 16),
+    (1, 16, 512, 16, 64, 80), (5, 8, 33, 3, 64, 72),
+    # a fringe wider than the 16 register slots (shared memory), and
+    # R + P slots past 48 KB (opted-in shared memory) and past the 227 KB
+    # a block can have (a global scratch)
+    (32, 16, 2048, 24, 64, 16), (32, 16, 512, 64, 64, 16),
+    (4, 16, 128, 16, 12_300, 40), (3, 16, 64, 3, 58_200, 40),
+    (2, 8, 64, 100, 60_000, 12)])
+def test_cuda_kernel_equals_plain_version(G, R, L, s, P, select_k):
     _need_card()
     rng = np.random.default_rng(G + L)
     nbrs = rng.integers(-1, 3 * L, size=(G, R, L)).astype(np.int32)
     fringe = rng.integers(-1, 3 * L, size=(G, s)).astype(np.int32)
     bias = np.where(rng.random((G, R)) < 0.2, 1e12, 0.0).astype(np.float32)
-    prev = rng.integers(0, L, size=(G, 64)).astype(np.float32)
-    prev[rng.random((G, 64)) < 0.3] = np.inf
+    prev = rng.integers(0, L, size=(G, P)).astype(np.float32)
+    prev[rng.random((G, P)) < 0.3] = np.inf
     x = [torch.from_numpy(a).cuda() for a in (nbrs, fringe, bias, prev)]
     before = hype_score_select.launches
     got = hype_score_select(*x, select_k=select_k)
@@ -52,13 +58,15 @@ def test_cuda_kernel_equals_plain_version(G, R, L, s, select_k):
 def test_cuda_partition_matches_golden():
     _need_card()
     hg = powerlaw_hypergraph(600, 400, seed=11, max_edge=30, max_degree=20)
-    a = partition(hg, 16, device="cuda", t=8, pipeline_depth=1)
+    a = partition(hg, 16, "hype_superstep", device="cuda", t=8,
+                  pipeline_depth=1)
     got = hashlib.sha256(a.astype(np.int32).tobytes()).hexdigest()[:16]
     assert got == "bbcd2f732e03af91"    # tests/test_pipeline.py:39
 
 
 @pytest.mark.parametrize("B,L,s", [
-    (64, 32, 16), (256, 2048, 16), (256, 512, 1), (33, 33, 3), (5, 128, 40)])
+    (64, 32, 16), (256, 2048, 16), (256, 512, 1), (33, 33, 3), (5, 128, 40),
+    (256, 2048, 16_384), (64, 128, 60_000)])
 def test_cuda_scores_equal_plain_version(B, L, s):
     _need_card()
     rng = np.random.default_rng(B + L + s)
@@ -77,7 +85,7 @@ def test_cuda_scores_equal_plain_version(B, L, s):
 
 @pytest.mark.parametrize("B,L,k", [
     (4096, 2048, 32), (4096, 32, 2), (300, 512, 67), (17, 33, 5),
-    (8, 128, 1)])
+    (8, 128, 1), (4096, 512, 2048), (4096, 512, 7264), (2048, 512, 10_000)])
 def test_cuda_kway_gains_equal_plain_version(B, L, k):
     _need_card()
     rng = np.random.default_rng(B + L + k)
@@ -128,23 +136,43 @@ def test_cuda_embedding_bag_equals_plain_version(V, D, B, bag, combine,
     assert torch.equal(got, embedding_bag_ref(*x, combine))
 
 
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, dict(atol=2e-5, rtol=2e-5)),
-    (torch.bfloat16, dict(atol=1e-4, rtol=1e-2))])
+# flash_attention on the card against its plain version (chip_smoke.py's
+# FLASH_TOL). float32: the CUDA-core kernel sums key tiles online where the
+# plain version takes one softmax, so the two agree within float32
+# rounding (the float32 tol of tests/test_kernels.py). bfloat16: the
+# tensor-core kernel rounds P to bf16 before P V; bf16 keeps 8 significant
+# bits, so each p_j moves by at most 2**-8 of itself and an output row by
+# at most 2**-8 * sum_j p_j |v_j| / l <= 2**-8 max|v|; both sides round
+# the output to bf16 once (under rtol). Worst case: allclose with atol
+# 1e-4 + 2**-8 max|v| and rtol 1e-2. Typical error: mean |out - ref| <=
+# 2**-8 mean |ref|, which a systematic fault would break.
+FLASH_F32_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _assert_flash_close(got, want, v):
+    got, want = got.float(), want.float()
+    if v.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **FLASH_F32_TOL)
+        return
+    vmax = float(v.float().abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4 + 2 ** -8 * vmax,
+                               rtol=1e-2)
+    assert float((got - want).abs().mean()) <= \
+        2 ** -8 * float(want.abs().mean())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
     (2, 128, 4, 4, 64, True, None), (1, 256, 8, 2, 64, True, None),
     (2, 256, 4, 4, 32, True, 64), (1, 128, 2, 1, 128, True, None),
     (1, 128, 2, 2, 32, False, None), (2, 100, 4, 2, 80, True, None),
     (1, 1000, 8, 2, 128, True, 300), (1, 70, 2, 1, 256, False, 33),
-    (3, 1, 4, 4, 16, True, None)])
+    (3, 1, 4, 4, 16, True, None), (1, 300, 4, 1, 64, True, 77),
+    (2, 129, 4, 1, 128, False, None), (1, 200, 4, 2, 256, True, None)])
 def test_cuda_flash_attention_close_to_plain_version(B, S, Hq, Hkv, D,
-                                                     causal, window, dtype,
-                                                     tol):
-    """The kernel sums key tiles online where the plain version takes one
-    softmax, so the two agree within float32 rounding (the float32 tol of
-    tests/test_kernels.py), not bit for bit. Both round the output to
-    bf16 once: in bf16 they differ by at most one bf16 step (rtol) plus
-    the float32 difference (atol), as chip_smoke.py's FLASH_TOL says."""
+                                                     causal, window, dtype):
+    """The limits above, on ragged S, windows, Hkv = 1 and D in {64, 80,
+    128, 256} among others."""
     _need_card()
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -157,7 +185,7 @@ def test_cuda_flash_attention_close_to_plain_version(B, S, Hq, Hkv, D,
     assert fops.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == x[0].shape
     want = attention_ref(*x, causal=causal, window=window)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    _assert_flash_close(got, want, x[2])
 
 
 def test_cuda_prefill_launches_the_kernel_once_per_layer():

@@ -119,6 +119,21 @@ def test_plain_version_matches_jax_ref_tightly(window):
            atol=1e-6, rtol=1e-6)
 
 
+# every head dim the wrapper takes (a multiple of 8 in [8, 256]) under each
+# mask combination; the card's bf16 kernel zero-pads D up to a multiple of
+# 64, so each D is a distinct padding case there
+@pytest.mark.parametrize("causal,window", [
+    (True, None), (True, 5), (False, None), (False, 5)],
+    ids=["causal", "causal_window", "full", "window"])
+@pytest.mark.parametrize("D", range(8, 257, 8))
+def test_every_head_dim_and_mask_match_jax_ref(D, causal, window):
+    (jq, jk, jv), (q, k, v) = _inputs(D, 1, 19, 4, 2, D)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, jax_ref(jq, jk, jv, causal=causal, window=window),
+           **_tol("float32"))
+
+
 def test_cpu_tensors_never_launch():
     _, (q, k, v) = _inputs(5, 1, 64, 4, 2, 32)
     before = ops.flash_attention.launches

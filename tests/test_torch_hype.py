@@ -136,6 +136,16 @@ def test_partition_api_equals_jax(method, k):
     assert got.min() >= 0 and got.max() < k
 
 
+def test_default_method_is_jax_default():
+    """``partition(hg, k)`` names no method: both packages run ``hype``.
+    JAX's digest on this graph is 075e45ddb0c2850d (k-1 = 292)."""
+    jhg, hg = graphs("pl600")
+    want = jax_api.partition(jhg, 8)
+    got = partition(hg, 8, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert digest(got) == "075e45ddb0c2850d"
+
+
 def test_hype_methods_are_served():
     assert {"hype", "hype_weighted"} <= set(METHODS)
     assert not {"hype", "hype_weighted"} & set(PENDING)

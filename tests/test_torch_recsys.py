@@ -190,6 +190,42 @@ def test_mlp_apply_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("final_act", [False, True])
+def test_mlp_apply_act_matches_jax(final_act):
+    """``act`` as schnet passes it (softplus), within float32 rounding."""
+    rng = np.random.default_rng(13)
+    dims = (10, 6, 4)
+    p = {f"w{i}": rng.normal(size=(dims[i], dims[i + 1])).astype(np.float32)
+         for i in range(2)}
+    p.update({f"b{i}": rng.normal(size=dims[i + 1]).astype(np.float32)
+              for i in range(2)})
+    x = rng.normal(size=(7, 10)).astype(np.float32)
+    want = jax_common.mlp_apply({k: jnp.asarray(v) for k, v in p.items()},
+                                jnp.asarray(x), 2, act=jax.nn.softplus,
+                                final_act=final_act)
+    got = common.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                           torch.from_numpy(x), 2,
+                           act=torch.nn.functional.softplus,
+                           final_act=final_act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", ["dense_init", "embed_init", "mlp_init"])
+def test_init_default_dtype_equals_jax(name):
+    """With no dtype the inits draw JAX's DEFAULT_DTYPE, bfloat16."""
+    jax_fn, fn = getattr(jax_common, name), getattr(common, name)
+    args = ([3, 5, 2],) if name == "mlp_init" else (3, 5)
+    want = jax_fn(jax.random.PRNGKey(0), *args)
+    got = fn(torch.Generator().manual_seed(0), *args)
+    if name == "mlp_init":
+        assert {k: str(v.dtype) for k, v in got.items()} == {
+            k: "torch." + str(v.dtype) for k, v in want.items()}
+    else:
+        assert str(got.dtype) == "torch." + str(want.dtype)
+    assert common.DEFAULT_DTYPE == torch.bfloat16
+    assert str(jax_common.DEFAULT_DTYPE.dtype) == "bfloat16"
+
+
 def test_init_matches_jax_shapes_and_scales():
     """Same tree, shapes and dtypes as JAX's init; the draws differ (the
     generators differ), so the scales are checked: table std 0.02,

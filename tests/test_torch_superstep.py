@@ -188,7 +188,7 @@ _GOLD_REDDIT = "13f232f653c9c752"
 
 @pytest.mark.parametrize("k,t", sorted(_GOLD_PL600))
 def test_depth1_golden_powerlaw(k, t):
-    a = partition(_pl600(synthetic), k, device="cpu", t=t,
+    a = partition(_pl600(synthetic), k, "hype_superstep", device="cpu", t=t,
                   pipeline_depth=1)
     assert _digest(a) == _GOLD_PL600[(k, t)]
 
@@ -196,15 +196,15 @@ def test_depth1_golden_powerlaw(k, t):
 def test_depth1_golden_restart_heavy():
     hg = synthetic.powerlaw_hypergraph(300, 500, seed=21, max_edge=10,
                                        max_degree=30)
-    a = partition(hg, 24, device="cpu", seed=1, pool_cap=16,
-                  pipeline_depth=1)
+    a = partition(hg, 24, "hype_superstep", device="cpu", seed=1,
+                  pool_cap=16, pipeline_depth=1)
     assert _digest(a) == _GOLD_PL300
 
 
 @pytest.mark.parametrize("k", sorted(_GOLD_TINY))
 def test_depth1_golden_edge_cases(k):
     hg = Hypergraph.from_edge_lists(6, [[0, 1], [1, 2, 3], []])
-    a = partition(hg, k, device="cpu", pipeline_depth=1)
+    a = partition(hg, k, "hype_superstep", device="cpu", pipeline_depth=1)
     assert _digest(a) == _GOLD_TINY[k]
 
 
@@ -260,7 +260,8 @@ def test_pipelined_run_matches_jax(case, depth):
 ], ids=lambda kw: ",".join(kw))
 def test_unported_knobs_raise(knobs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        partition(_pl600(synthetic), 4, device="cpu", **knobs)
+        partition(_pl600(synthetic), 4, "hype_superstep", device="cpu",
+                  **knobs)
 
 
 @pytest.mark.parametrize("method", sorted(PENDING))
@@ -288,7 +289,7 @@ def test_hub_expansion_guard_raises():
     falls back to hype_batched on the same device, as the JAX engine
     does; tests/test_torch_batched.py holds the result against JAX."""
     hg = Hypergraph.from_pins(9000, 1, np.arange(9000), np.zeros(9000))
-    a = partition(hg, 4, device="cpu")
+    a = partition(hg, 4, "hype_superstep", device="cpu")
     assert hg.vertex_adjacency() is None
     np.testing.assert_array_equal(
         a, partition(hg, 4, "hype_batched", device="cpu"))
