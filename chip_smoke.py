@@ -12,16 +12,20 @@ prints one JSON line per phase:
             extension's SASS (the bf16 kernel must hold HGMMA)
   kernel    each CUDA kernel against its plain PyTorch version on the card,
             compared exactly, with times per launch: score + select per L,
-            hype_scores per (B, L), kway_gains per (L, k), plus edge cases
-            and the shapes past the limits the port once had (a fringe of
-            24 to 60,000 ids, R + P up to 60,016 slots, k up to 10,000)
+            hype_scores per (B, L) (eagerly and in a CUDA graph, beside
+            the launch floor of a one-element add_), kway_gains per
+            (L, k), plus edge cases and the shapes past the limits the
+            port once had (a fringe of 24 to 60,000 ids, R + P up to
+            60,016 slots, k up to 10,000)
   goldens   the seven small depth-1 golden digests of the JAX package and
             six of the refinement, batched and multilevel paths (pl600),
             reproduced through ``partition(..., device="cuda")``
   slice     github_like(1.0, seed=0), k=32, t=16, hype_superstep at
             pipeline depth 1 and 2, with its digests held against the JAX
             package's
-  batched   the same graph through hype_batched, t=16
+  batched   the same graph through hype_batched, t=16, with the (B, L)
+            of each hype_scores launch counted and summed over this run's
+            times per shape
   quality   the same graph through hype_superstep, t=16, preset="quality"
             (the refinement post-pass on the card)
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
@@ -61,10 +65,11 @@ prints one JSON line per phase:
   kernel_neighbor_agg  the neighbour-aggregation forward and backward
             kernels against their plain versions (small shapes, an all-pad
             row, K = 1, ragged D and F, D = 602, K = 100, bf16, the train
-            launcher's batch with K = 1,340, and the full-width layer
-            shape of a sampled batch: B = N = 169,984, D = F = 128),
-            timed there beside F.embedding_bag + matmul and a sparse
-            CSR product
+            launcher's batch with K = 1,340, a synthetic hub of 100,000
+            slots, and the full-width layer shape of a sampled batch:
+            B = N = 169,984, D = F = 128; the backward bit for bit
+            against its plain version on the CPU), timed there beside
+            F.embedding_bag + matmul and a sparse CSR product
   gnn_train graphsage-reddit at its published width: 20 AdamW steps on
             sampled minibatch_lg batches (1,024 seeds, fanout 15-10)
             through run_training, each step launching the forward and the
@@ -84,6 +89,7 @@ repository.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import json
@@ -192,8 +198,8 @@ FP32_FLOPS = 67e12
 # float32 sum in slot order in both (compared bit for bit); the product
 # sums over D in another order (float32 rounding), and a bf16 output
 # rounds once, so it may differ by one bf16 step (rtol 2**-7). The
-# backward adds in (b, j) order; the plain version's index_add_ on the
-# card uses atomics, so the two agree within float32 rounding.
+# backward is held bit for bit to its plain version on the CPU (the
+# chunk order of ref.py in both), not to this tolerance.
 NA_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
           "bfloat16": dict(atol=1e-5, rtol=2 ** -7)}
 # The first losses of gnn_train and of the launcher at minibatch_lg for 5
@@ -305,6 +311,24 @@ def cuda_ms(fn, reps: int = 5, iters: int = 100, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, iters: int = 100) -> float:
+    """Device time of one call with the host's launch cost out of the
+    way: ``iters`` calls captured in one CUDA graph, the graph's replay
+    timed by ``cuda_ms``, divided by ``iters``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, iters=1, warmup=2) / iters
+
+
 def kernel_inputs(rng, G, R, L, s, P, kind):
     """Seeded score + select inputs on the card (numpy-made)."""
     import numpy as np
@@ -389,11 +413,12 @@ def phase_kernel(ops, ref):
     return per_l, worst
 
 
-def compare_and_time(phase, fn, plain, x, row, timed, time_plain=True):
+def compare_and_time(phase, fn, plain, x, row, timed, time_plain=True,
+                     graph=False):
     """Run the kernel and its plain version on ``x``; emit and return the
     row (exact comparison, and times and the bytes bound when ``timed``;
-    the plain version untimed when not ``time_plain``). Raises when they
-    disagree."""
+    the plain version untimed when not ``time_plain``; the kernel also
+    timed in a CUDA graph when ``graph``). Raises when they disagree."""
     import torch
     out = fn(*x)
     torch.cuda.synchronize()
@@ -405,6 +430,8 @@ def compare_and_time(phase, fn, plain, x, row, timed, time_plain=True):
         nbytes = sum(t.nbytes for t in x) + out.nbytes
         row.update(ms=cuda_ms(lambda: fn(*x)), bytes=nbytes,
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        if graph:
+            row["graph_ms"] = graph_ms(lambda: fn(*x))
         if time_plain:
             row["plain_ms"] = cuda_ms(lambda: plain(*x), iters=20)
     emit(row)
@@ -415,14 +442,28 @@ def compare_and_time(phase, fn, plain, x, row, timed, time_plain=True):
 
 def phase_kernel_scores(ops, ref):
     """hype_scores at the batched engine's shapes (B in {64, 256}, every
-    L bucket, s=16) and edge cases, against its plain version."""
+    L bucket, s=16) and edge cases, against its plain version, timed
+    eagerly (the host's launch included, as the engine calls it) and in a
+    CUDA graph (the device alone), beside the launch floor: a one-element
+    ``add_`` timed the same two ways. Fringe widths 1, 17, 32 and 33
+    cross the kernel's register paths (s <= 16, s <= 32) and the
+    shared-memory one. Returns the s=16 rows by (B, L), the floor row and
+    the worst error."""
     import numpy as np
     import torch
+    one = torch.zeros(1, device="cuda")
+    floor = {"phase": "kernel_hype_scores", "launch_floor": "add_ of one "
+             "float32 element", "ms": cuda_ms(lambda: one.add_(1.0)),
+             "graph_ms": graph_ms(lambda: one.add_(1.0))}
+    emit(floor)
     rng = np.random.default_rng(1)
     cases = [(B, L, 16, "random") for B in (64, 256)
              for L in (32, 128, 512, 2048)]
     cases += [(256, 2048, 16, "dup_fringe"), (64, 128, 16, "pads"),
               (33, 33, 3, "random"), (5, 128, 40, "dup_fringe"),
+              (64, 2048, 1, "widths"), (256, 2048, 17, "widths"),
+              (256, 2048, 32, "widths"), (256, 2048, 33, "widths"),
+              (1, 2048, 16, "widths"), (256, 33, 32, "widths"),
               # past the old 48 KB fringe: opted-in shared memory, and
               # past 227 KB read from global memory
               (256, 2048, 16_384, "wide"), (64, 128, 60_000, "wide")]
@@ -430,7 +471,8 @@ def phase_kernel_scores(ops, ref):
     for B, L, s, kind in cases:
         nbrs = rng.integers(0, 2 * L, size=(B, L)).astype(np.int32)
         nbrs[rng.random((B, L)) < 0.4] = -1
-        nbrs[0] = -1                                   # an all-pad row
+        if B > 1:
+            nbrs[0] = -1                               # an all-pad row
         fringe = rng.choice(nbrs[nbrs >= 0], size=s).astype(np.int32)
         fringe[-1] = -1                                # a pad slot
         if kind == "dup_fringe":
@@ -438,17 +480,18 @@ def phase_kernel_scores(ops, ref):
         elif kind == "pads":
             nbrs[:] = -1
         x = [torch.from_numpy(a).cuda() for a in (nbrs, fringe)]
+        main = kind == "random" and s == 16 and L % 32 == 0
         row = compare_and_time(
             "kernel_hype_scores", ops.hype_scores, ref.hype_scores_ref, x,
             {"B": B, "L": L, "s": s, "inputs": kind},
+            timed=(kind in ("random", "wide", "widths")) and L % 32 == 0,
             # the plain version loops over a wide fringe in Python (1.3 s
             # a call at s = 60,000): checked, not timed
-            timed=kind in ("random", "wide") and L % 32 == 0,
-            time_plain=kind != "wide")
+            time_plain=kind != "wide", graph=main)
         worst = max(worst, row["max_abs_err"])
-        if "ms" in row and kind == "random":
+        if main:
             per_shape[(B, L)] = row
-    return per_shape, worst
+    return per_shape, floor, worst
 
 
 def phase_kernel_kway(kops, kref):
@@ -1446,11 +1489,11 @@ def neighbor_agg_bwd_bound(g, nbrs, n_rows, out_itemsize):
 
 def na_case(nops, nref, x, nbrs, w, row):
     """One neighbor_agg case on the card: the forward against the plain
-    version (NA_TOL), the kernel's mean bit for bit, the backward against
-    the plain backward (NA_TOL) and equal to itself on a second run. The
-    plain backward runs on the CPU, where ``index_add_`` adds in the
-    kernel's (b, j) order; on the card its atomics add a hub id's slots
-    in an order that changes from run to run."""
+    version (NA_TOL), the kernel's mean bit for bit, the backward bit for
+    bit against the plain backward and equal to itself on a second run.
+    The plain backward runs on the CPU, where ``index_add_`` adds in the
+    chunk order the kernel keeps (ref.py); on the card its atomics add a
+    hub id's slots in an order that changes from run to run."""
     import torch
     from repro_torch.kernels._build import load_extension
     dt = str(x.dtype).removeprefix("torch.")
@@ -1474,13 +1517,12 @@ def na_case(nops, nref, x, nbrs, w, row):
         if gx.numel() else 0.0
     row.update(x_dtype=dt, w_dtype=str(w.dtype).removeprefix("torch."),
                fwd_max_abs_err=fwd_err, mean_bit_equal=mean_equal,
-               bwd_max_abs_err=bwd_err,
-               bwd_run_to_run_equal=torch.equal(gx, again),
-               tol=NA_TOL[dt],
-               close=fwd_ok and torch.allclose(gx_cpu.float(),
-                                               want.float(), **NA_TOL[dt]))
+               fwd_tol=NA_TOL[dt], close=fwd_ok, bwd_max_abs_err=bwd_err,
+               bwd_bit_equal=torch.equal(gx_cpu, want),
+               bwd_run_to_run_equal=torch.equal(gx, again))
     emit(row)
-    if not (row["close"] and mean_equal and row["bwd_run_to_run_equal"]):
+    if not (fwd_ok and mean_equal and row["bwd_bit_equal"]
+            and row["bwd_run_to_run_equal"]):
         raise SystemExit(f"neighbor_agg disagrees with its plain version: "
                          f"{row}")
     return fwd_err, bwd_err
@@ -1549,6 +1591,29 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
          "valid_slots": int((launcher_nbrs >= 0).sum())})))
     del x, w
 
+    # a synthetic hub: id 7 named by 100,000 slots (3,125 chunks spread
+    # over the card, then added in chunk order by one warp)
+    rng = np.random.default_rng(100_000)
+    N, K, hub = 5000, 4, 100_000
+    B = hub + 1000
+    nbrs = rng.integers(-1, N, size=(B, K)).astype(np.int32)
+    nbrs[nbrs == 7] = 8
+    nbrs[1 + rng.permutation(B - 1)[:hub], 0] = 7
+    nbrs[0] = -1                                   # an all-pad row
+    nbrs = torch.from_numpy(nbrs).cuda()
+    x, w = layer_x_w(N, gen)
+    worst = tuple(map(max, worst, na_case(
+        nops, nref, x, nbrs, w,
+        {"phase": "kernel_neighbor_agg", "shape": "hub", "N": N, "D": 128,
+         "F": 128, "B": B, "K": K, "hub_slots": hub})))
+    g = torch.randn((B, 128), device="cuda", generator=gen)
+    index = nops.transpose_index(nbrs, N)
+    emit({"phase": "kernel_neighbor_agg", "shape": "hub timing",
+          "hub_slots": hub, "chunk_units": int(index.hptr[-1]),
+          "bwd_ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False),
+                            reps=3, iters=10, warmup=2)})
+    del x, w, g, nbrs, index
+
     # the layer shape: h (N, 128) float32, w_nbr (128, 128) bf16
     N, K = layer_nbrs.shape
     D = F_ = 128
@@ -1591,6 +1656,9 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
     bflops, bbytes, bbound, bby = neighbor_agg_bwd_bound(g, layer_nbrs, N, 4)
     bwd = {"ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False),
                          reps=5, iters=20, warmup=3),
+           "chunk_units": int(index.hptr[-1]),
+           "heaviest_id_slots": int((index.rowptr[1:]
+                                     - index.rowptr[:-1]).max()),
            "wrapper_ms": cuda_ms(lambda: nops.neighbor_agg_bwd(
                g, layer_nbrs, N), reps=5, iters=5, warmup=2),
            "flops": bflops, "bytes": bbytes, "bound_ms": bbound,
@@ -1891,6 +1959,23 @@ def check_path(row, want_digest, want_km1, cpu_digest, counts, need):
         raise SystemExit(f"{row['phase']} launched none of its kernels")
 
 
+def batched_scores_row(shapes, per_bl, floor):
+    """The batched path's hype_scores launches by (B, L), and their sum of
+    this run's times per shape: eager, in a graph, over the bytes bound
+    (the launches x gap) and over the launch floor."""
+    row = {"phase": "batched_scores_shapes",
+           "launches": {f"{B}x{L}": n for (B, L), n in sorted(shapes.items())}}
+    timed = {k: n for k, n in shapes.items() if k in per_bl}
+    row["untimed_shapes"] = sorted(f"{B}x{L}" for B, L in
+                                   set(shapes) - set(timed))
+    for key in ("ms", "graph_ms", "bound_ms"):
+        row[f"sum_{key}"] = sum(n * per_bl[k][key] for k, n in timed.items())
+    row["gap_over_bound_ms"] = row["sum_ms"] - row["sum_bound_ms"]
+    row["gap_over_floor_ms"] = row["sum_ms"] - sum(timed.values()) * floor[
+        "ms"]
+    return row
+
+
 def path_row(phase, hg, a, k, wall):
     from repro_torch.core import metrics
     sizes = metrics.partition_sizes(a, k)
@@ -1938,7 +2023,7 @@ def main() -> int:
           "build_s": build_s, "flash_sass": flash_sass(ext.__file__)})
 
     per_l, worst_err = phase_kernel(ops, ref)
-    per_bl, worst_scores = phase_kernel_scores(ops, ref)
+    per_bl, scores_floor, worst_scores = phase_kernel_scores(ops, ref)
     per_lk, worst_kway = phase_kernel_kway(kops, kref)
     phase_goldens(partition, synth, Hypergraph)
 
@@ -1992,9 +2077,24 @@ def main() -> int:
 
     same_graph = fp == SLICE_FINGERPRINT
     # hype_batched, t=16: the hype_scores kernel, one launch per tile
+    # (the (B, L) of every launch counted on the way: the shapes the
+    # path really scores)
+    from repro_torch.engines import batched as batched_mod
+    score_shapes = collections.Counter()
+
+    def spy_scores(nbrs, fringe):
+        score_shapes[tuple(nbrs.shape)] += 1
+        return ops.hype_scores(nbrs, fringe)
+
     bp = BatchedParams(seed=0, t=16)
-    (a, st), wall, counts = launches.drive(lambda: hype_batched_partition(
-        hg, 32, bp, return_stats=True, device="cuda"))
+    batched_mod.hype_scores = spy_scores
+    try:
+        (a, st), wall, counts = launches.drive(
+            lambda: hype_batched_partition(hg, 32, bp, return_stats=True,
+                                           device="cuda"))
+    finally:
+        batched_mod.hype_scores = ops.hype_scores
+    emit(batched_scores_row(score_shapes, per_bl, scores_floor))
     row = path_row("batched", hg, a, 32, wall)
     row.update(kernel_calls=st.kernel_calls, kernel_rows=st.kernel_rows,
                host_rows=st.host_rows, steps=st.steps)

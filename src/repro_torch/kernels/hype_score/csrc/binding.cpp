@@ -46,8 +46,9 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            cudaStream_t stream);
 extern "C" cudaError_t neighbor_agg_bwd_launch(
     const float* g, const int32_t* cnt, const int64_t* rowptr,
-    const int32_t* rows, void* grad_x, int64_t N, int D, int out_bf16,
-    int vec, cudaStream_t stream);
+    const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
+    float* partials, int32_t* tickets, int64_t cap, void* grad_x, int64_t N,
+    int D, int out_bf16, int vec, cudaStream_t stream);
 
 namespace {
 
@@ -294,19 +295,26 @@ std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
 
 // grad_x (N, D) in ``bf16 ? bfloat16 : float32`` from g (B, D) float32,
 // the per-row valid counts (B,), and the transposed index: rowptr (N + 1)
-// int64 and rows (rowptr[N]) int32.
+// int64, rows (rowptr[N]) int32, and the chunk units of the ids with
+// more than 32 slots: hptr (N + 1) int64 and hunit (at least hptr[N])
+// int32, whose length sizes the units' scratch.
 torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
                                const torch::Tensor& cnt,
                                const torch::Tensor& rowptr,
-                               const torch::Tensor& rows, bool bf16) {
+                               const torch::Tensor& rows,
+                               const torch::Tensor& hptr,
+                               const torch::Tensor& hunit, bool bf16) {
   TORCH_CHECK(g.is_cuda(), "g must be a CUDA tensor");
   const torch::Device device = g.device();
   check_input(g, "g", torch::kFloat32, 2, device);
   check_input(cnt, "cnt", torch::kInt32, 1, device);
   check_input(rowptr, "rowptr", torch::kInt64, 1, device);
   check_input(rows, "rows", torch::kInt32, 1, device);
+  check_input(hptr, "hptr", torch::kInt64, 1, device);
+  check_input(hunit, "hunit", torch::kInt32, 1, device);
   const int64_t B = g.size(0), D = g.size(1), N = rowptr.size(0) - 1;
   TORCH_CHECK(N >= 0, "rowptr must hold N + 1 offsets");
+  TORCH_CHECK(hptr.size(0) == N + 1, "hptr must hold N + 1 offsets");
   TORCH_CHECK(cnt.size(0) == B, "cnt must be (B,)");
   TORCH_CHECK(D < (int64_t{1} << 31), "shape too large");
 
@@ -314,10 +322,15 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
   torch::Tensor grad_x = torch::empty(
       {N, D}, g.options().dtype(bf16 ? torch::kBFloat16 : torch::kFloat32));
   if (N == 0 || D == 0) return grad_x;
+  const int64_t cap = hunit.size(0);
+  torch::Tensor partials = torch::empty({cap, D}, g.options());
+  torch::Tensor tickets = torch::empty({cap}, hunit.options());
   const int vec = D % 4 == 0 && aligned16(g);
   C10_CUDA_CHECK(neighbor_agg_bwd_launch(
       g.data_ptr<float>(), cnt.data_ptr<int32_t>(),
       rowptr.data_ptr<int64_t>(), rows.data_ptr<int32_t>(),
+      hptr.data_ptr<int64_t>(), hunit.data_ptr<int32_t>(),
+      partials.data_ptr<float>(), tickets.data_ptr<int32_t>(), cap,
       grad_x.data_ptr(), N, static_cast<int>(D), bf16, vec,
       at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

@@ -10,12 +10,24 @@
 // never match a valid (>= 0) entry.
 //
 // What bounds it on the H100: bytes, and at the batched engine's shapes
-// (B <= 256 rows, at most 2 MB) the launch. It is the scoring loop of
-// score_select.cu without the selection: one warp per row, lanes over
-// the row with 16-byte loads where the row is aligned, a warp-shuffle
-// sum per row. The fringe sits in shared memory, read as a broadcast by
-// every lane, opted in past 48 KB up to the card's 227 KB (58,112 ids); a
-// wider fringe is read from global memory (through L1) in place.
+// (B in {64, 256}, L in {32, 128, 512, 2048}, s = 16: at most 2 MB, 0.6
+// us of bytes) the launch. The TPU kernel broadcasts the fringe against
+// a (TB, L) VMEM tile, one compare per fringe slot. Here:
+//   * s <= 32 (the engine's s = 16 is the main case): every thread holds
+//     the fringe in registers, padded with -1 to 16 or 32 slots (the same
+//     for the whole grid, so uniform values), and the membership test is
+//     a fully unrolled chain of compares: no memory read per element;
+//   * the rows are spread over the card: a row's L ids go to a power of
+//     two of threads (tpr, up to the 128 of a block) so that each thread
+//     loads about four 16-byte vectors, all in flight before its
+//     compares; a block holds 128 / tpr rows. At L = 2048 a row is one
+//     block (256 blocks at B = 256), at L = 32 two threads. A row's count
+//     is a sum of integer partials (shuffles within a warp, then shared
+//     memory across warps), exact in any order;
+//   * a wider fringe keeps the general loop: one warp per row, the
+//     fringe in shared memory (opted in past 48 KB up to the card's 227
+//     KB, 58,112 ids) and read as a broadcast, or, wider still, read
+//     from global memory (through L1) in place.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,6 +37,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRegThreads = 128;  // block of the register-fringe kernel
+constexpr int kItems = 4;         // loads in flight per thread
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int external(int32_t x, const int32_t* f,
@@ -33,6 +47,73 @@ __device__ __forceinline__ int external(int32_t x, const int32_t* f,
   bool m = false;
   for (int j = 0; j < s; ++j) m |= (x == f[j]);
   return m ? 0 : 1;
+}
+
+template <int kS>
+__device__ __forceinline__ int external_reg(int32_t x,
+                                            const int32_t (&f)[kS]) {
+  bool m = false;
+#pragma unroll
+  for (int j = 0; j < kS; ++j) m |= x == f[j];
+  return x >= 0 && !m ? 1 : 0;
+}
+
+// The fringe in registers (kS >= s slots, -1 past s); tpr threads a row.
+template <int kS>
+__global__ void __launch_bounds__(kRegThreads)
+scores_reg_kernel(const int32_t* __restrict__ nbrs,
+                  const int32_t* __restrict__ fringe,
+                  int32_t* __restrict__ out, int B, int L, int s, int vec4,
+                  int tpr) {
+  int32_t f[kS];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) f[j] = j < s ? __ldg(fringe + j) : -1;
+  const int r = threadIdx.x & (tpr - 1);
+  const int64_t b = (int64_t)blockIdx.x * (kRegThreads / tpr) +
+                    threadIdx.x / tpr;
+  int cnt = 0;
+  if (b < B) {
+    const int32_t* row = nbrs + b * L;
+    if (vec4) {
+      const int4* row4 = reinterpret_cast<const int4*>(row);
+      const int n = L >> 2;
+      for (int c = r; c < n; c += kItems * tpr) {
+        int4 q[kItems];
+#pragma unroll
+        for (int k = 0; k < kItems; ++k)
+          q[k] = c + k * tpr < n ? __ldg(row4 + c + k * tpr)
+                                 : make_int4(-1, -1, -1, -1);
+#pragma unroll
+        for (int k = 0; k < kItems; ++k)
+          cnt += external_reg(q[k].x, f) + external_reg(q[k].y, f) +
+                 external_reg(q[k].z, f) + external_reg(q[k].w, f);
+      }
+    } else {
+      for (int c = r; c < L; c += kItems * tpr) {
+        int32_t x[kItems];
+#pragma unroll
+        for (int k = 0; k < kItems; ++k)
+          x[k] = c + k * tpr < L ? __ldg(row + c + k * tpr) : -1;
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) cnt += external_reg(x[k], f);
+      }
+    }
+  }
+  // a row's threads are an aligned run of tpr lanes (tpr a power of two)
+  for (int o = (tpr < 32 ? tpr : 32) >> 1; o > 0; o >>= 1)
+    cnt += __shfl_xor_sync(kFull, cnt, o);
+  if (tpr <= 32) {
+    if (r == 0 && b < B) out[b] = cnt;
+    return;
+  }
+  __shared__ int part[kRegThreads / 32];  // one row spans tpr / 32 warps
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = cnt;
+  __syncthreads();
+  if (r == 0 && b < B) {
+    int sum = 0;
+    for (int w = 0; w < tpr / 32; ++w) sum += part[(threadIdx.x >> 5) + w];
+    out[b] = sum;
+  }
 }
 
 // kGlobalFringe: read the fringe where it lies instead of staging it.
@@ -80,6 +161,22 @@ extern "C" cudaError_t hype_scores_launch(const int32_t* nbrs,
                                           const int32_t* fringe,
                                           int32_t* out, int B, int L, int s,
                                           int vec4, cudaStream_t stream) {
+  if (s <= 32) {
+    // about kItems loads a thread: 16-byte vectors, or ids when the rows
+    // are not 16-byte aligned
+    const int items = vec4 ? L / 4 : L;
+    int tpr = 1;
+    while (tpr < kRegThreads && tpr * kItems < items) tpr <<= 1;
+    const int rows = kRegThreads / tpr;
+    const unsigned blocks = (unsigned)(((int64_t)B + rows - 1) / rows);
+    if (s <= 16)
+      scores_reg_kernel<16><<<blocks, kRegThreads, 0, stream>>>(
+          nbrs, fringe, out, B, L, s, vec4, tpr);
+    else
+      scores_reg_kernel<32><<<blocks, kRegThreads, 0, stream>>>(
+          nbrs, fringe, out, B, L, s, vec4, tpr);
+    return cudaGetLastError();
+  }
   int blocks = (B + kWarps - 1) / kWarps;
   if (blocks > 65535) blocks = 65535;
   const size_t smem = sizeof(int32_t) * (size_t)s;

@@ -23,14 +23,35 @@
 // this kernel). With g = grad_out @ w^T (B, D) float32, computed by the
 // caller:
 //   grad_x[u, :] = sum of g[b, :] / max(cnt_b, 1) over the valid slots
-//                  (b, j) with nbrs[b, j] = u, in (b, j) order
-// through a transposed index built by the caller: ``rows``, the b of
-// every valid slot sorted stably by its id, and ``rowptr`` over the N + 1
-// ids. One warp owns one id u (lanes over D, eight slots' loads in flight
-// before their in-order adds: a hub id of a power-law graph names a
-// thousand slots of one batch) and writes its row once: no float atomics,
-// so the result is the same bits on every run, and equal to the plain
-// version's (index_add_ in index order) on the CPU.
+//                  (b, j) with nbrs[b, j] = u
+// in a fixed order (ref.py): u's slots in (b, j) order are cut into
+// chunks of kChunk; each chunk is summed in order from 0, and the chunk
+// partials are added in chunk order from 0. No float atomics, so the
+// result is the same bits on every run whichever warp does what, and
+// equal to the plain version's on the CPU (index_add_ in index order).
+// The caller's transposed index gives ``rows``, the b of every valid
+// slot sorted stably by id, ``rowptr`` over the N + 1 ids, and the chunk
+// units of the ids with more than kChunk slots (``hptr``, ``hunit``).
+// A hub id of a power-law batch names a thousand slots, and one warp
+// walking them in order took 0.29 ms on the H100 at the GraphSAGE
+// layer, so:
+//   * light ids (at most kChunk slots, one chunk): a warp owns kIds
+//     consecutive ids, lane t holding id t's slot range. A warp scan
+//     packs their slots into one list; the lanes load 32 slots' rows and
+//     counts at a time (one coalesced load each), then the warp walks
+//     the list with kFlight rows of g in flight, lanes over D, and
+//     writes each id's row after its last slot (zeros for an id without
+//     one). The walk is serial, so a warp takes few ids and many warps
+//     hide the chain rowptr -> rows -> cnt -> g (of 1 to 32 ids a warp,
+//     4 ran fastest on the H100 at the GraphSAGE layer);
+//   * heavy ids: every chunk is a unit of its own, spread over the
+//     first blocks of the grid. A warp sums its chunk into a float32
+//     scratch row, then takes a ticket (an integer atomic on the id's
+//     counter, zeroed before the launch); the warp that draws the last
+//     ticket adds the id's partials in chunk order and writes its row.
+// Every id's row is written once. Offsets are 64-bit. What bounds the
+// backward: bytes, mostly the N x D output (87 MB at the GraphSAGE
+// layer, most rows zeros: 0.029 ms at 3.35 TB/s).
 //
 // What bounds it on the H100. Forward at the GraphSAGE layer shape
 // (B = N = 169,984, K = 25, D = F = 128, float32): the gather reads the
@@ -61,7 +82,9 @@ constexpr int kRows = 16 * kRowTile;  // output rows per block
 constexpr int kFC = 64;       // columns of w per shared tile
 constexpr int kDC = 32;       // rows of w per shared tile
 constexpr int kSlots = 4;     // slots' loads in flight per lane
-constexpr int kBwdSlots = 8;  // entries' loads in flight per lane (bwd)
+constexpr int kChunk = 32;    // slots per chunk (bwd; ref.py's CHUNK)
+constexpr int kFlight = 8;    // rows of g in flight per lane (bwd)
+constexpr int kIds = 4;       // light ids per warp (bwd), at most 32
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -283,75 +306,231 @@ neighbor_agg_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbrs,
   }
 }
 
-// grad_x: one warp per row id u, lanes over D.
-template <typename T>
+// ---- backward. V floats per lane: 4 (16-byte loads) or 1.
+
+template <int V>
+__device__ __forceinline__ void load_g(const float* p, float* v) {
+  if constexpr (V == 4) {
+    load_vec(p, v);
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// A partial written by another warp during this launch: read from L2.
+template <int V>
+__device__ __forceinline__ void load_partial(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_row(const float* a, T* dst) {
+  if constexpr (V == 4) {
+    store4(a, dst);
+  } else {
+    narrow(a[0], dst);
+  }
+}
+
+// Adds slots s0 .. s0 + n - 1 (n <= 32) of the lanes' list into acc, in
+// order: lane s holds slot s's row b and divisor. When ``out`` is set,
+// lane s also holds the owner t (row out + t * D) and whether the slot
+// is its owner's last, and the warp writes acc there and restarts from 0
+// after each last slot.
+template <int V, typename T>
+__device__ __forceinline__ void add_slots(
+    const float* __restrict__ g, int D, int col, bool mine, int n,
+    int32_t my_b, float my_den, int my_t, bool my_last, T* out,
+    float* acc) {
+  for (int s0 = 0; s0 < n; s0 += kFlight) {
+    float v[kFlight][V];
+    float den[kFlight];
+#pragma unroll
+    for (int s = 0; s < kFlight; ++s) {
+      // s0 + s < 32: kFlight divides 32
+      const int32_t b = __shfl_sync(kFull, my_b, s0 + s);
+      den[s] = __shfl_sync(kFull, my_den, s0 + s);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[s][i] = 0.0f;
+      if (s0 + s < n && mine)
+        load_g<V>(g + (int64_t)b * D + (int64_t)col * V, v[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < kFlight; ++s) {
+      const int t = __shfl_sync(kFull, my_t, s0 + s);
+      const bool last = __shfl_sync(kFull, (int)my_last, s0 + s) != 0;
+      if (s0 + s >= n) break;  // the same for every lane
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] += v[s][i] / den[s];
+      if (out && last) {
+        if (mine) store_row<V>(acc, out + (int64_t)t * D + (int64_t)col * V);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+      }
+    }
+  }
+}
+
+// The ids u0 .. u0 + kIds - 1 with at most kChunk slots (one warp).
+template <int V, typename T>
+__device__ void light_ids(const float* __restrict__ g,
+                          const int32_t* __restrict__ cnt,
+                          const int64_t* __restrict__ rowptr,
+                          const int32_t* __restrict__ rows,
+                          T* __restrict__ grad_x, int64_t N, int D,
+                          int64_t u0) {
+  const int lane = threadIdx.x & 31;
+  const int64_t u = lane < kIds ? u0 + lane : N;  // lanes past kIds: none
+  int64_t lo = 0, hi = 0;
+  if (u < N) {
+    lo = rowptr[u];
+    hi = rowptr[u + 1];
+  }
+  const int nl = hi - lo <= kChunk ? (int)(hi - lo) : 0;  // heavy: skip
+  int off = nl;  // inclusive scan of nl over the lanes, then exclusive
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, off, o);
+    if (lane >= o) off += y;
+  }
+  const int total = __shfl_sync(kFull, off, 31);
+  off -= nl;
+  const unsigned empty = __ballot_sync(kFull, u < N && hi == lo);
+  T* out = grad_x + u0 * D;
+  const int ncol = V == 4 ? D / 4 : D;
+  for (int c0 = 0; c0 < ncol; c0 += 32) {
+    const int col = c0 + lane;
+    const bool mine = col < ncol;
+    const float zero[V] = {};
+    for (unsigned m = empty; m; m &= m - 1) {
+      if (mine)
+        store_row<V>(zero, out + (int64_t)(__ffs(m) - 1) * D +
+                               (int64_t)col * V);
+    }
+    float acc[V] = {};
+    for (int qb = 0; qb < total; qb += 32) {
+      // lane l: packed slot q = qb + l, owned by the last lane t with
+      // off_t <= q (off does not decrease over the lanes)
+      const int q = qb + lane;
+      int t = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(kFull, off, t + step) <= q) t += step;
+      const int64_t lo_t = __shfl_sync(kFull, lo, t);
+      const int off_t = __shfl_sync(kFull, off, t);
+      const int nl_t = __shfl_sync(kFull, nl, t);
+      int32_t my_b = 0;
+      float my_den = 1.0f;
+      if (q < total) {
+        my_b = rows[lo_t + (q - off_t)];
+        const int c = cnt[my_b];
+        my_den = (float)(c > 1 ? c : 1);
+      }
+      add_slots<V>(g, D, col, mine, total - qb < 32 ? total - qb : 32, my_b,
+                   my_den, t, q == off_t + nl_t - 1, out, acc);
+    }
+  }
+}
+
+// Chunk unit i of a heavy id: its partial, then, for the warp that draws
+// the id's last ticket, the sum of the id's partials in chunk order.
+template <int V, typename T>
+__device__ void heavy_unit(const float* __restrict__ g,
+                           const int32_t* __restrict__ cnt,
+                           const int64_t* __restrict__ rowptr,
+                           const int32_t* __restrict__ rows,
+                           const int64_t* __restrict__ hptr,
+                           const int32_t* __restrict__ hunit,
+                           float* __restrict__ partials,
+                           int32_t* __restrict__ tickets,
+                           T* __restrict__ grad_x, int D, int64_t i) {
+  const int lane = threadIdx.x & 31;
+  const int64_t u = hunit[i];
+  const int64_t base = hptr[u], units = hptr[u + 1] - base;
+  const int64_t s0 = rowptr[u] + (i - base) * kChunk;
+  const int64_t left = rowptr[u + 1] - s0;
+  const int n = left < kChunk ? (int)left : kChunk;
+  int32_t my_b = 0;
+  float my_den = 1.0f;
+  if (lane < n) {
+    my_b = rows[s0 + lane];
+    const int c = cnt[my_b];
+    my_den = (float)(c > 1 ? c : 1);
+  }
+  const int ncol = V == 4 ? D / 4 : D;
+  for (int c0 = 0; c0 < ncol; c0 += 32) {
+    const int col = c0 + lane;
+    const bool mine = col < ncol;
+    float acc[V] = {};
+    add_slots<V, T>(g, D, col, mine, n, my_b, my_den, 0, false, nullptr,
+                    acc);
+    if (mine) store_row<V>(acc, partials + i * D + (int64_t)col * V);
+  }
+  __threadfence();  // the partial is visible before the ticket is taken
+  __syncwarp();
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(tickets + base, 1);
+  if (__shfl_sync(kFull, ticket, 0) != units - 1) return;
+  __threadfence();
+  for (int c0 = 0; c0 < ncol; c0 += 32) {
+    const int col = c0 + lane;
+    const bool mine = col < ncol;
+    float acc[V] = {};
+    for (int64_t k0 = 0; k0 < units; k0 += kFlight) {
+      float v[kFlight][V];
+#pragma unroll
+      for (int s = 0; s < kFlight; ++s) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[s][e] = 0.0f;
+        if (k0 + s < units && mine)
+          load_partial<V>(partials + (base + k0 + s) * D + (int64_t)col * V,
+                          v[s]);
+      }
+#pragma unroll
+      for (int s = 0; s < kFlight; ++s) {
+        if (k0 + s >= units) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] += v[s][e];
+      }
+    }
+    if (mine) store_row<V>(acc, grad_x + u * D + (int64_t)col * V);
+  }
+}
+
+// Blocks below ``heavy_blocks`` walk the chunk units; the others own 32
+// ids a warp.
+template <int V, typename T>
 __global__ void __launch_bounds__(kThreads)
 neighbor_agg_bwd_kernel(const float* __restrict__ g,
                         const int32_t* __restrict__ cnt,
                         const int64_t* __restrict__ rowptr,
                         const int32_t* __restrict__ rows,
-                        T* __restrict__ grad_x, int64_t N, int D, int vec) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * kWarps;
-  const int nvec = vec ? D / 4 : 0;  // float4 vectors of g per row
-  for (int64_t u = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); u < N;
-       u += warps) {
-    const int64_t lo = rowptr[u], hi = rowptr[u + 1];
-    T* outr = grad_x + u * D;
-
-    for (int c0 = 0; c0 < nvec; c0 += 32) {
-      const int c = c0 + lane;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int64_t i0 = lo; i0 < hi; i0 += 32) {
-        const bool have = i0 + lane < hi;
-        const int32_t my_b = have ? rows[i0 + lane] : 0;
-        const int my_c = have ? cnt[my_b] : 1;
-        const float my_den = (float)(my_c > 1 ? my_c : 1);
-        const int n = hi - i0 < 32 ? (int)(hi - i0) : 32;
-        for (int t0 = 0; t0 < n; t0 += kBwdSlots) {
-          // kBwdSlots entries' loads in flight, then their adds in order
-          float4 v[kBwdSlots];
-          float den[kBwdSlots];
-#pragma unroll
-          for (int s = 0; s < kBwdSlots; ++s) {
-            const int32_t b = __shfl_sync(kFull, my_b, t0 + s);  // < 32
-            den[s] = __shfl_sync(kFull, my_den, t0 + s);
-            v[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (t0 + s < n && c < nvec)
-              v[s] = __ldg(reinterpret_cast<const float4*>(
-                  g + (int64_t)b * D + (int64_t)c * 4));
-          }
-#pragma unroll
-          for (int s = 0; s < kBwdSlots; ++s) {
-            if (t0 + s >= n) break;  // the same for every lane
-            acc[0] += v[s].x / den[s];
-            acc[1] += v[s].y / den[s];
-            acc[2] += v[s].z / den[s];
-            acc[3] += v[s].w / den[s];
-          }
-        }
-      }
-      if (c < nvec) store4(acc, outr + c * 4);  // D % 4 == 0: aligned
-    }
-
-    for (int d0 = nvec * 4; d0 < D; d0 += 32) {
-      const int d = d0 + lane;
-      float acc = 0.0f;
-      for (int64_t i0 = lo; i0 < hi; i0 += 32) {
-        const bool have = i0 + lane < hi;
-        const int32_t my_b = have ? rows[i0 + lane] : 0;
-        const int my_c = have ? cnt[my_b] : 1;
-        const float my_den = (float)(my_c > 1 ? my_c : 1);
-        const int n = hi - i0 < 32 ? (int)(hi - i0) : 32;
-        for (int t = 0; t < n; ++t) {
-          const int32_t b = __shfl_sync(kFull, my_b, t);
-          const float den = __shfl_sync(kFull, my_den, t);
-          if (d < D) acc += g[(int64_t)b * D + d] / den;
-        }
-      }
-      if (d < D) narrow(acc, outr + d);
-    }
+                        const int64_t* __restrict__ hptr,
+                        const int32_t* __restrict__ hunit,
+                        float* __restrict__ partials,
+                        int32_t* __restrict__ tickets,
+                        T* __restrict__ grad_x, int64_t N, int D,
+                        int heavy_blocks) {
+  const int warp = threadIdx.x >> 5;
+  if ((int)blockIdx.x < heavy_blocks) {
+    const int64_t units = hptr[N];
+    for (int64_t i = (int64_t)blockIdx.x * kWarps + warp; i < units;
+         i += (int64_t)heavy_blocks * kWarps)
+      heavy_unit<V>(g, cnt, rowptr, rows, hptr, hunit, partials, tickets,
+                    grad_x, D, i);
+    return;
   }
+  const int64_t u0 =
+      ((int64_t)(blockIdx.x - heavy_blocks) * kWarps + warp) * kIds;
+  if (u0 < N) light_ids<V>(g, cnt, rowptr, rows, grad_x, N, D, u0);
 }
 
 // Dynamic shared memory of the forward: the block's means (kRows rows of
@@ -379,15 +558,32 @@ cudaError_t launch_fwd(const void* x, const int32_t* nbrs, const void* w,
 }
 
 
-template <typename T>
+template <int V, typename T>
 cudaError_t launch_bwd(const float* g, const int32_t* cnt,
                        const int64_t* rowptr, const int32_t* rows,
-                       void* grad_x, int64_t N, int D, int vec,
-                       cudaStream_t stream) {
-  int64_t blocks = (N + kWarps - 1) / kWarps;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
-  neighbor_agg_bwd_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      g, cnt, rowptr, rows, static_cast<T*>(grad_x), N, D, vec);
+                       const int64_t* hptr, const int32_t* hunit,
+                       float* partials, int32_t* tickets, int64_t cap,
+                       void* grad_x, int64_t N, int D, cudaStream_t stream) {
+  int heavy_blocks = 0;
+  if (cap > 0) {
+    cudaError_t err =
+        cudaMemsetAsync(tickets, 0, sizeof(int32_t) * cap, stream);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    // at most two blocks a streaming multiprocessor: the units' count is
+    // on the device, and a block past it returns at once
+    const int64_t want = (cap + kWarps - 1) / kWarps;
+    heavy_blocks = (int)(want < 2 * sms ? want : 2 * sms);
+  }
+  const int64_t light = (N + kIds * kWarps - 1) / (kIds * kWarps);
+  neighbor_agg_bwd_kernel<V, T>
+      <<<(unsigned)(heavy_blocks + light), kThreads, 0, stream>>>(
+          g, cnt, rowptr, rows, hptr, hunit, partials, tickets,
+          static_cast<T*>(grad_x), N, D, heavy_blocks);
   return cudaGetLastError();
 }
 
@@ -421,12 +617,25 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
 }
 
 // ``vec`` says that D is a multiple of 4 and g is 16-byte aligned.
+// ``partials`` (cap x D float32) and ``tickets`` (cap int32) are scratch
+// for the chunk units, ``cap`` the length of ``hunit``; the tickets are
+// zeroed here, on the stream, before the launch.
 extern "C" cudaError_t neighbor_agg_bwd_launch(
     const float* g, const int32_t* cnt, const int64_t* rowptr,
-    const int32_t* rows, void* grad_x, int64_t N, int D, int out_bf16,
-    int vec, cudaStream_t stream) {
+    const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
+    float* partials, int32_t* tickets, int64_t cap, void* grad_x, int64_t N,
+    int D, int out_bf16, int vec, cudaStream_t stream) {
+  if (out_bf16 && vec)
+    return launch_bwd<4, __nv_bfloat16>(g, cnt, rowptr, rows, hptr, hunit,
+                                        partials, tickets, cap, grad_x, N, D,
+                                        stream);
   if (out_bf16)
-    return launch_bwd<__nv_bfloat16>(g, cnt, rowptr, rows, grad_x, N, D, vec,
-                                     stream);
-  return launch_bwd<float>(g, cnt, rowptr, rows, grad_x, N, D, vec, stream);
+    return launch_bwd<1, __nv_bfloat16>(g, cnt, rowptr, rows, hptr, hunit,
+                                        partials, tickets, cap, grad_x, N, D,
+                                        stream);
+  if (vec)
+    return launch_bwd<4, float>(g, cnt, rowptr, rows, hptr, hunit, partials,
+                                tickets, cap, grad_x, N, D, stream);
+  return launch_bwd<1, float>(g, cnt, rowptr, rows, hptr, hunit, partials,
+                              tickets, cap, grad_x, N, D, stream);
 }

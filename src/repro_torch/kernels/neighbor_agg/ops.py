@@ -22,9 +22,9 @@ from typing import NamedTuple
 import torch
 
 from .._build import load_extension, on_cuda
-from .ref import acc_dtype, neighbor_agg_bwd_ref, neighbor_mean_ref
+from .ref import CHUNK, acc_dtype, neighbor_agg_bwd_ref, neighbor_mean_ref
 
-__all__ = ["SlotIndex", "neighbor_agg", "neighbor_agg_bwd",
+__all__ = ["SlotIndex", "chunk_units", "neighbor_agg", "neighbor_agg_bwd",
            "transpose_index"]
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -35,10 +35,32 @@ CPU_DTYPES = DTYPES + (torch.float64,)
 class SlotIndex(NamedTuple):
     """The valid slots of a neighbour matrix (B, K) grouped by id, for
     the backward kernel: ``rows[rowptr[u]:rowptr[u + 1]]`` holds the b of
-    every slot (b, j) naming id u, in (b, j) order."""
+    every slot (b, j) naming id u, in (b, j) order. An id with more than
+    ``CHUNK`` slots is split: its chunks (``ref.py``'s order) are units
+    ``hptr[u]`` .. ``hptr[u + 1] - 1`` of a list that the card sums on
+    many warps, and ``hunit`` maps each unit back to its id."""
     cnt: torch.Tensor     # (B,) int32: valid slots of each row
     rowptr: torch.Tensor  # (n_rows + 1,) int64
     rows: torch.Tensor    # int32, at least rowptr[n_rows] entries
+    hptr: torch.Tensor    # (n_rows + 1,) int64: each id's first unit
+    hunit: torch.Tensor   # int32, at least hptr[n_rows] entries: unit -> id
+
+
+def chunk_units(rowptr: torch.Tensor, max_slots: int):
+    """``(hptr, hunit)`` of a ``SlotIndex`` from its ``rowptr``, in torch
+    ops on rowptr's device and with no sync: ``max_slots``, a host-known
+    bound on the valid slots, sizes ``hunit``. An id of n > CHUNK slots
+    has ceil(n / CHUNK) < 2 n / CHUNK units, so 2 max_slots // CHUNK
+    entries always hold them; the entries past ``hptr[n_rows]`` name
+    ``n_rows`` and are never read."""
+    count = rowptr[1:] - rowptr[:-1]
+    units = torch.where(count > CHUNK, (count + CHUNK - 1) // CHUNK, 0)
+    hptr = torch.zeros_like(rowptr)
+    torch.cumsum(units, 0, out=hptr[1:])
+    cap = torch.arange(2 * max_slots // CHUNK, dtype=hptr.dtype,
+                       device=hptr.device)
+    hunit = torch.searchsorted(hptr, cap, right=True) - 1
+    return hptr, hunit.to(torch.int32)
 
 
 def transpose_index(nbrs: torch.Tensor, n_rows: int) -> SlotIndex:
@@ -52,7 +74,8 @@ def transpose_index(nbrs: torch.Tensor, n_rows: int) -> SlotIndex:
     rows = torch.div(pos[perm], K, rounding_mode="floor").to(torch.int32)
     rowptr = torch.searchsorted(
         ids, torch.arange(n_rows + 1, dtype=ids.dtype, device=ids.device))
-    return SlotIndex((nbrs >= 0).sum(1, dtype=torch.int32), rowptr, rows)
+    return SlotIndex((nbrs >= 0).sum(1, dtype=torch.int32), rowptr, rows,
+                     *chunk_units(rowptr, pos.numel()))
 
 
 def neighbor_agg_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
@@ -62,9 +85,10 @@ def neighbor_agg_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
     (``grad_out @ w^T``; float64 on the CPU), nbrs (B, K) int32 with -1
     pad. Returns (n_rows, D) in ``dtype``: ``sum of g[b] /
     max(count_b, 1)`` over the valid slots (b, j) of each id, added in
-    (b, j) order, as ``ref.neighbor_agg_bwd_ref`` defines it. ``index``
+    the chunk order that ``ref.neighbor_agg_bwd_ref`` defines. ``index``
     is ``transpose_index(nbrs, n_rows)`` when given (the card's route
-    reads it; the plain version does not need it)."""
+    reads it; the plain version does not need it). The result is the
+    same bits on every run and on either device."""
     if g.dim() != 2 or nbrs.dim() != 2 or g.shape[0] != nbrs.shape[0]:
         raise ValueError(f"neighbor_agg_bwd takes g (B, D) and nbrs (B, K), "
                          f"got {tuple(g.shape)} and {tuple(nbrs.shape)}")
@@ -76,9 +100,9 @@ def neighbor_agg_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
     if g.dtype != torch.float32 or dtype not in DTYPES:
         raise ValueError(f"on the card g must be float32 and dtype one of "
                          f"{DTYPES}, got {g.dtype} and {dtype}")
-    cnt, rowptr, rows = index or transpose_index(nbrs, n_rows)
     out = load_extension().neighbor_agg_bwd(
-        g.contiguous(), cnt, rowptr, rows, dtype == torch.bfloat16)
+        g.contiguous(), *(index or transpose_index(nbrs, n_rows)),
+        dtype == torch.bfloat16)
     neighbor_agg_bwd.launches += 1
     return out
 

@@ -15,8 +15,16 @@ rounding, then rounds once to ``x.dtype``.
 
 Backward, for ``x``: ``grad_x[u] = sum of g[b] / max(count_b, 1)`` over
 every valid slot (b, j) with ``nbrs[b, j] = u``, where ``g = grad_out @
-w^T``. ``index_add_`` on the CPU adds in index order, which is the (b,
-j) order the CUDA kernel keeps, so the two agree bit for bit there.
+w^T``, in a fixed order that the CUDA kernel shares: id u's slots, in
+(b, j) order, are cut into chunks of ``CHUNK`` consecutive slots; each
+chunk is summed in order from 0.0, and the chunk partials are added in
+chunk order from 0.0. An id with at most ``CHUNK`` slots is one chunk,
+summed in (b, j) order. ``index_add_`` on the CPU adds in index order,
+so the two ``index_add_`` calls below (slots into one partial row per
+(id, chunk), then partials into the output) compute exactly that order,
+and the kernel's result equals this one bit for bit. On the card
+``index_add_`` adds with atomics, in an order that changes from run to
+run: there this version is a yardstick of time, not of bits.
 
 A float64 input is summed in float64 (the CPU route only, for
 ``torch.autograd.gradcheck``); every other dtype in float32.
@@ -24,6 +32,10 @@ A float64 input is summed in float64 (the CPU route only, for
 from __future__ import annotations
 
 import torch
+
+# Slots per chunk of an id's slot list in the backward's summation order
+# (``kChunk`` in csrc/neighbor_agg.cu).
+CHUNK = 32
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -63,12 +75,23 @@ def neighbor_agg_bwd_ref(g: torch.Tensor, nbrs: torch.Tensor,
     """The gradient of ``x`` through the mean: g (B, D) float32 (the
     output's gradient times ``w^T``), nbrs (B, K). Returns (n_rows, D)
     float32, ``sum of g[b] / max(count_b, 1)`` over the valid slots of
-    each row id, added in (b, j) order."""
+    each row id, in the chunk order of the module's docstring."""
     B, K = nbrs.shape
     flat = nbrs.reshape(-1)
     pos = (flat >= 0).nonzero().squeeze(1)
-    b = pos // K
+    # the valid slots grouped by id, each id's in (b, j) order
+    ids, perm = torch.sort(flat[pos].long(), stable=True)
+    b = torch.div(pos[perm], K, rounding_mode="floor")
     denom = (nbrs >= 0).sum(1).clamp_min(1).to(g.dtype)
     contrib = g.index_select(0, b) / denom.index_select(0, b)[:, None]
+    count = torch.bincount(ids, minlength=n_rows)
+    nchunk = (count + CHUNK - 1) // CHUNK
+    rank = (torch.arange(ids.numel(), device=g.device)
+            - (torch.cumsum(count, 0) - count)[ids])
+    chunk = (torch.cumsum(nchunk, 0) - nchunk)[ids] + rank // CHUNK
+    partial = torch.zeros((int(nchunk.sum()), g.shape[1]), dtype=g.dtype,
+                          device=g.device).index_add_(0, chunk, contrib)
+    owner = torch.repeat_interleave(
+        torch.arange(n_rows, device=g.device), nchunk)
     out = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype, device=g.device)
-    return out.index_add_(0, flat[pos].long(), contrib)
+    return out.index_add_(0, owner, partial)

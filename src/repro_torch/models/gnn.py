@@ -38,7 +38,7 @@ import dataclasses
 import torch
 
 from ..configs import PENDING_FULL_BATCH, PENDING_GNN_ARCHS
-from ..kernels.neighbor_agg.ops import SlotIndex, neighbor_agg
+from ..kernels.neighbor_agg.ops import SlotIndex, chunk_units, neighbor_agg
 from .common import (DEFAULT_DTYPE, mlp_apply, mlp_init,
                      softmax_cross_entropy)
 
@@ -136,7 +136,8 @@ def in_neighbors(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     ``max(valid in-degree, 1) / max(in-degree, 1)`` with padding edges
     counted, as the JAX mean counts them; index, the backward's
     ``SlotIndex`` of nbrs, from a second stable sort (by source) of the
-    same edges, so both layers' backwards share it. Reading K syncs
+    same edges, so both layers' backwards share it (its chunk units
+    sized by the E edges, a bound on the valid slots). Reading K syncs
     once. Raises ``NotImplementedError`` when the matrix would pass 2**31
     slots.
     """
@@ -170,7 +171,7 @@ def in_neighbors(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     torch.cumsum(torch.bincount(skey2, minlength=n_nodes + 1)[:n_nodes], 0,
                  out=rowptr[1:])
     index = SlotIndex(cnt_valid.to(torch.int32), rowptr,
-                      row[by_src].to(torch.int32))
+                      row[by_src].to(torch.int32), *chunk_units(rowptr, E))
     return nbrs[:n_nodes * K].view(n_nodes, K), scale, index
 
 

@@ -83,6 +83,26 @@ def test_cuda_scores_equal_plain_version(B, L, s):
     assert torch.equal(got, hype_scores_ref(*x))
 
 
+@pytest.mark.parametrize("s", [1, 16, 32, 33])
+@pytest.mark.parametrize("L", [32, 128, 512, 2048])
+@pytest.mark.parametrize("B", [1, 64, 256])
+def test_cuda_scores_fringe_widths_equal_plain_version(B, L, s):
+    """The register-fringe paths (s <= 16, s <= 32) and the shared-memory
+    path past them, at every L bucket: bit-equal to the plain version."""
+    _need_card()
+    rng = np.random.default_rng(3 * B + L + s)
+    nbrs = rng.integers(-1, 2 * L, size=(B, L)).astype(np.int32)
+    nbrs[-1, : L // 2] = -1                        # pad slots
+    fringe = rng.choice(nbrs[nbrs >= 0], size=s).astype(np.int32)
+    if s >= 3:
+        fringe[1] = fringe[0]                      # a duplicated id
+        fringe[-1] = -1                            # a pad slot
+    x = [torch.from_numpy(a).cuda() for a in (nbrs, fringe)]
+    got = hype_scores(*x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hype_scores_ref(*x))
+
+
 @pytest.mark.parametrize("B,L,k", [
     (4096, 2048, 32), (4096, 32, 2), (300, 512, 67), (17, 33, 5),
     (8, 128, 1), (4096, 512, 2048), (4096, 512, 7264), (2048, 512, 10_000)])
@@ -250,9 +270,10 @@ def test_cuda_neighbor_agg_close_to_plain_version(N, D, F, B, K, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,F,B,K", NA_SHAPES)
 def test_cuda_neighbor_agg_backward_is_deterministic(N, D, F, B, K, dtype):
-    """The backward kernel adds in (b, j) order without float atomics: the
-    same bits on every run, within float32 rounding of the plain version
-    (whose index_add_ on the card uses atomics)."""
+    """The backward kernel adds in ref.py's chunk order without float
+    atomics: the same bits on every run, and equal bit for bit to the
+    plain version on the CPU (whose index_add_ adds in index order; on the
+    card it adds with atomics)."""
     _need_card()
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.kernels.neighbor_agg import ref as nref
@@ -265,8 +286,38 @@ def test_cuda_neighbor_agg_backward_is_deterministic(N, D, F, B, K, dtype):
     torch.cuda.synchronize()
     assert nops.neighbor_agg_bwd.launches == before + 2
     assert first.dtype == dtype and torch.equal(first, again)
-    torch.testing.assert_close(first.float(), nref.neighbor_agg_bwd_ref(
-        g, nbrs, N).to(dtype).float(), **NA_TOL[dtype])
+    assert torch.equal(first.cpu(), nref.neighbor_agg_bwd_ref(
+        g.cpu(), nbrs.cpu(), N).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hub,D", [(1386, 128), (100_000, 128),
+                                   (100_000, 33)])
+def test_cuda_neighbor_agg_backward_hub_equals_plain_version(hub, D, dtype):
+    """A hub id named by ``hub`` slots (the train launcher's 1,386, and
+    100,000) among light ids: its chunks spread over many warps and are
+    added in chunk order, bit-equal to the CPU plain version and to a
+    second run."""
+    _need_card()
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.kernels.neighbor_agg import ref as nref
+    rng = np.random.default_rng(hub + D)
+    N, K = 5000, 4
+    B = hub + 1000
+    nbrs = rng.integers(-1, N, size=(B, K)).astype(np.int32)
+    nbrs[nbrs == 7] = 8
+    nbrs[1 + rng.permutation(B - 1)[:hub], 0] = 7  # the hub, id 7
+    nbrs[0] = -1                                   # an all-pad row
+    assert (nbrs == 7).sum() == hub
+    nbrs = torch.from_numpy(nbrs).cuda()
+    g = torch.randn((B, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(D))
+    first = nops.neighbor_agg_bwd(g, nbrs, N, dtype)
+    again = nops.neighbor_agg_bwd(g, nbrs, N, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first.cpu(), nref.neighbor_agg_bwd_ref(
+        g.cpu(), nbrs.cpu(), N).to(dtype))
 
 
 def test_cuda_neighbor_agg_backward_index_from_edges():

@@ -166,14 +166,19 @@ def test_in_neighbors_keeps_edge_order_and_duplicates():
     assert index.rows[:5].tolist() == [0, 2, 2, 1, 2]
 
 
-@pytest.mark.parametrize("kind", ["graph", "sampled"])
+@pytest.mark.parametrize("kind", ["graph", "sampled", "hubs"])
 def test_in_neighbors_index_equals_transpose_index(kind):
     """The backward's index that in_neighbors builds from its edges (no
     sync) equals the one ``transpose_index`` builds from the matrix, on
-    batches with padding edges."""
+    batches with padding edges, the chunk units of the ids with more than
+    CHUNK slots included (a power-law batch has such hubs)."""
     from repro_torch.kernels.neighbor_agg.ops import transpose_index
     cfg, _ = configs()
-    b = graph_batch(cfg) if kind == "graph" else sampled_batch(cfg)
+    if kind == "hubs":
+        b = graph_batch(cfg, n=3000, e=18000, pad_nodes=3072,
+                        pad_edges=20480, seed=2)
+    else:
+        b = graph_batch(cfg) if kind == "graph" else sampled_batch(cfg)
     tb = to_torch(b)
     n = tb["nodes"].shape[0]
     nbrs, _, index = gnn.in_neighbors(tb["edge_src"], tb["edge_dst"],
@@ -182,7 +187,15 @@ def test_in_neighbors_index_equals_transpose_index(kind):
     assert torch.equal(index.cnt, want.cnt)
     assert torch.equal(index.rowptr, want.rowptr)
     assert torch.equal(index.rows[:int(index.rowptr[-1])], want.rows)
+    assert torch.equal(index.hptr, want.hptr)
+    units = int(index.hptr[-1])
+    assert torch.equal(index.hunit[:units], want.hunit[:units])
+    assert units <= min(index.hunit.numel(), want.hunit.numel())
+    if kind == "hubs":
+        assert units > 0
     assert index.cnt.dtype == torch.int32 and index.rows.dtype == torch.int32
+    assert index.hptr.dtype == torch.int64
+    assert index.hunit.dtype == torch.int32
 
 
 def test_in_neighbors_past_2_31_slots_raises(monkeypatch):

@@ -9,7 +9,9 @@ trace; the JAX comparison therefore covers every value of every axis on
 nine shapes, and the whole (G, R, L, s, select_k) grid is held against
 the JAX package's numpy oracle instead. The plain ``hype_scores`` is
 held against the JAX kernel at every L bucket, B in {8, 33, 64, 256}
-and s in {1, 10, 16}, with duplicated fringe ids and all-pad rows.
+and s in {1, 10, 16}, and at B = 64 with s in {1, 16, 17, 32, 33} (the
+card kernel's register paths and past them), with duplicated fringe ids
+and all-pad rows.
 """
 import itertools
 
@@ -190,6 +192,17 @@ def test_hype_scores_matches_jax_kernel(L, B, s):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0] == 0 and got[B - 1] == 0       # all-pad rows
+
+
+@pytest.mark.parametrize("s", (1, 16, 17, 32, 33))
+@pytest.mark.parametrize("L", L_BUCKETS)
+def test_hype_scores_fringe_widths_match_jax_kernel(L, s):
+    """The fringe widths around the card kernel's register paths (up to
+    16 and up to 32 slots) and past them (shared memory)."""
+    nbrs, fringe = make_score_inputs(64, L, s, seed=7 * L + s)
+    want = np.asarray(jax_scores(nbrs, fringe))
+    got = hype_scores(torch.from_numpy(nbrs), torch.from_numpy(fringe))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_hype_scores_counts_a_duplicated_fringe_id_once():

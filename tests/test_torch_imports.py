@@ -6,8 +6,9 @@ launcher for two-tower and LM serving, the flash-attention wrapper,
 the HYPE row placement, the train launcher for GraphSAGE (neighbour
 aggregation forward and backward, AdamW, checkpoints), the sampler and
 the partitioned-GNN placement on the CPU, then no ``jax`` and no
-``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch`` or
-``chip_smoke.py`` names them, lazy imports inside functions included).
+``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch``,
+``chip_smoke.py`` or ``kernel_ab.py`` names them, lazy imports inside
+functions included).
 """
 import ast
 import os
@@ -19,7 +20,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
 
 _PROBE = """
 import sys

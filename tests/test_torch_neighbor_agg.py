@@ -162,11 +162,35 @@ def test_backward_equals_jax_grad(N, D, F, B, K):
     np.testing.assert_allclose(wt.grad.numpy(), gw, **TOL)
 
 
+def chunk_order_oracle(g, nbrs, n_rows):
+    """numpy float32: each id's slots in (b, j) order, cut into chunks of
+    CHUNK slots, each chunk summed in order from 0, the chunk partials
+    added in chunk order from 0 (the order of ref.py and the kernel)."""
+    B, K = nbrs.shape
+    cnt = np.maximum((nbrs >= 0).sum(1), 1).astype(np.float32)
+    slots = [[] for _ in range(n_rows)]
+    for b in range(B):
+        for j in range(K):
+            if nbrs[b, j] >= 0:
+                slots[nbrs[b, j]].append(b)
+    out = np.zeros((n_rows, g.shape[1]), np.float32)
+    for u, bs in enumerate(slots):
+        for c0 in range(0, len(bs), ref.CHUNK):
+            part = np.zeros(g.shape[1], np.float32)
+            for b in bs[c0:c0 + ref.CHUNK]:
+                part = part + g[b] / cnt[b]
+            out[u] = out[u] + part
+    return out
+
+
 def test_backward_adds_in_slot_order():
-    """grad_x of each id is the float32 sum of g[b] / count_b over its
-    slots in (b, j) order: the bits the CUDA kernel reproduces."""
+    """The case of ids with at most CHUNK slots: grad_x of each id is the
+    float32 sum of g[b] / count_b over its slots in (b, j) order, which
+    is the chunk order's one chunk; the bits the CUDA kernel
+    reproduces."""
     x, nbrs, w = inputs(12, 8, 5, 20, 7, seed=7)
     nbrs[3] = -1
+    assert np.bincount(nbrs[nbrs >= 0]).max() <= ref.CHUNK
     g = np.random.default_rng(8).normal(size=(20, 8)).astype(np.float32)
     got = ops.neighbor_agg_bwd(torch.from_numpy(g), torch.from_numpy(nbrs),
                                12).numpy()
@@ -177,18 +201,78 @@ def test_backward_adds_in_slot_order():
             if nbrs[b, j] >= 0:
                 want[nbrs[b, j]] = want[nbrs[b, j]] + g[b] / cnt[b]
     assert np.array_equal(got, want)
+    assert np.array_equal(chunk_order_oracle(g, nbrs, 12), want)
+
+
+# slots per id: 0, 1, C, C + 1, 3C + 5 and a power-law hub's 1,386 (the
+# train launcher's batch); ids 1 and 7 name no slot
+C = ref.CHUNK
+ID_SLOTS = [1386, 0, 1, C, C + 1, 3 * C + 5, 2, 0]
+
+
+@pytest.mark.parametrize("seed,D,K", [(0, 8, 7), (1, 33, 5), (2, 1, 16)])
+def test_backward_adds_in_chunk_order(seed, D, K):
+    """The plain backward (and the wrapper's CPU route) equals the numpy
+    oracle of the chunk order bit for bit, on ids of 0, 1, C, C + 1,
+    3C + 5 and 1,386 slots, with all-pad rows between."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(np.repeat(np.arange(len(ID_SLOTS)), ID_SLOTS))
+    B = -(-ids.size // K) + 40
+    flat = np.full(B * K, -1, np.int32)
+    keep = rng.choice(np.arange(K, B * K - K), size=ids.size, replace=False)
+    flat[np.sort(keep)] = ids                # rows 0 and B - 1 all pad
+    nbrs = flat.reshape(B, K)
+    assert (nbrs[0] < 0).all() and (nbrs[-1] < 0).all()
+    assert np.bincount(nbrs[nbrs >= 0], minlength=8).tolist() == ID_SLOTS
+    g = rng.normal(size=(B, D)).astype(np.float32)
+    want = chunk_order_oracle(g, nbrs, len(ID_SLOTS))
+    got = ref.neighbor_agg_bwd_ref(torch.from_numpy(g), torch.from_numpy(nbrs),
+                                   len(ID_SLOTS))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(ops.neighbor_agg_bwd(
+        torch.from_numpy(g), torch.from_numpy(nbrs), len(ID_SLOTS)).numpy(),
+        want)
 
 
 def test_transpose_index_groups_slots_by_id_in_order():
     nbrs = torch.tensor([[2, -1, 0], [0, 2, 2], [-1, -1, -1], [1, 0, -1]],
                         dtype=torch.int32)
-    cnt, rowptr, rows = ops.transpose_index(nbrs, 4)
+    cnt, rowptr, rows, hptr, hunit = ops.transpose_index(nbrs, 4)
     assert rowptr.tolist() == [0, 3, 4, 7, 7]
     # id 0: (0, 2), (1, 0), (3, 1); id 1: (3, 0); id 2: (0, 0), (1, 1), (1, 2)
     assert rows.tolist() == [0, 1, 3, 3, 0, 1, 1]
     assert cnt.tolist() == [2, 3, 0, 2]
     assert rows.dtype == torch.int32 and rowptr.dtype == torch.int64
     assert cnt.dtype == torch.int32
+    # no id has more than CHUNK slots: no chunk unit
+    assert hptr.tolist() == [0, 0, 0, 0, 0] and hptr.dtype == torch.int64
+    assert hunit.dtype == torch.int32
+
+
+@pytest.mark.parametrize("counts", [
+    [0, 33, 5, 64, 100], [C + 1] * 7, [1] * 50 + [1386], [C] * 9, [0, 0],
+    [100_000, 3, C + 1]])
+def test_chunk_units_map_every_chunk_to_its_id(counts):
+    """hptr counts ceil(n / CHUNK) units for each id of n > CHUNK slots
+    and none for the others; hunit names each unit's id and holds them
+    all within its 2 * slots // CHUNK entries."""
+    rowptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                          dtype=torch.int64)
+    hptr, hunit = ops.chunk_units(rowptr, sum(counts))
+    units = [-(-n // C) if n > C else 0 for n in counts]
+    assert hptr.tolist() == np.concatenate([[0], np.cumsum(units)]).tolist()
+    want = np.repeat(np.arange(len(counts)), units)
+    assert want.size <= hunit.numel() == 2 * sum(counts) // C
+    assert hunit[:want.size].tolist() == want.tolist()
+
+
+def test_chunk_constant_matches_the_kernel_source():
+    """ref.CHUNK defines the order; the CUDA kernel's kChunk must be the
+    same number (the card's tests hold the bits)."""
+    import pathlib
+    src = (pathlib.Path(ops.__file__).parent / "csrc"
+           / "neighbor_agg.cu").read_text()
+    assert f"constexpr int kChunk = {ref.CHUNK};" in src
 
 
 @pytest.mark.parametrize("K,pad", [(4, 0.3), (1, 0.0), (6, 1.0)])
