@@ -365,8 +365,23 @@ def max_abs_err(outs, refs) -> float:
 
 
 def phase_kernel(ops, ref):
+    """hype_score_select against its plain version, bit for bit: the
+    superstep path's shape (G=32, R=16, s=1, P=64, select_k=16) at every L
+    bucket, timed eagerly and in a CUDA graph beside the launch floor (a
+    one-element ``add_`` timed the same two ways), then hub rows, ties,
+    pads, wide fringes and R + P past shared memory; a NaN in one row of a
+    phase that spans several blocks (held as the op's contract allows:
+    the other phases bit-equal, every index in [0, R + P]); and two calls
+    back to back plus a CUDA graph replay, equal to one eager call (the
+    kernel's ticket counters reset themselves). Returns the timed rows by
+    L, the floor row and the worst error."""
     import numpy as np
     import torch
+    one = torch.zeros(1, device="cuda")
+    floor = {"phase": "kernel", "launch_floor": "add_ of one float32 "
+             "element", "ms": cuda_ms(lambda: one.add_(1.0)),
+             "graph_ms": graph_ms(lambda: one.add_(1.0))}
+    emit(floor)
     rng = np.random.default_rng(0)
     P, s, R, k = 64, 1, 16, 16
     cases = [(32, R, L, s, P, k, "random") for L in (32, 128, 512, 2048)]
@@ -405,12 +420,65 @@ def phase_kernel(ops, ref):
                                  **({"iters": 20} | few)),
                 bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
             if kind == "random":
+                row["graph_ms"] = graph_ms(
+                    lambda: ops.hype_score_select(*x, select_k=k_))
                 per_l[L] = row
         emit(row)
         if not equal:
             raise SystemExit(f"kernel disagrees with its plain version: "
                              f"{row}")
-    return per_l, worst
+
+    # a NaN score in phase 3 (16 blocks a phase at L = 2048)
+    G, R, L, P, k = 8, 16, 2048, 64, 16
+    x = kernel_inputs(rng, G, R, L, 1, P, "random")
+    x[2][3, 5] = float("nan")
+    out = ops.hype_score_select(*x, select_k=k)
+    torch.cuda.synchronize()
+    want = ref.hype_score_select_ref(*x, k)
+    fin = torch.tensor([g for g in range(G) if g != 3], device="cuda")
+    row = {"phase": "kernel", "G": G, "R": R, "L": L, "s": 1, "P": P,
+           "select_k": k, "inputs": "nan in phase 3",
+           "finite_phases_equal": all(torch.equal(a[fin], b[fin])
+                                      for a, b in zip(out, want)),
+           "indices_in_range": bool(((out[1] >= 0)
+                                     & (out[1] <= R + P)).all()),
+           "nan_phase": {"sel_idx_all_R_plus_P": bool((out[1][3]
+                                                       == R + P).all()),
+                         "sel_val_all_nan": bool(out[2][3].isnan().all()),
+                         "rem": int(out[3][3]), "plain_rem": int(want[3][3])}}
+    emit(row)
+    if not (row["finite_phases_equal"] and row["indices_in_range"]):
+        raise SystemExit(f"kernel breaks its NaN contract: {row}")
+
+    # the ticket counters reset: two calls back to back, then a graph of
+    # one call replayed three times, all equal to the first call
+    for L in (512, 2048):
+        x = kernel_inputs(rng, 32, 16, L, 1, 64, "random")
+        first = ops.hype_score_select(*x, select_k=16)
+        second = ops.hype_score_select(*x, select_k=16)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.hype_score_select(*x, select_k=16)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ops.hype_score_select(*x, select_k=16)
+        replays = []
+        for _ in range(3):
+            graph.replay()
+            replays.append(all(torch.equal(a, b)
+                               for a, b in zip(captured, first)))
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "G": 32, "R": 16, "L": L,
+               "inputs": "repeat and graph replay",
+               "second_call_equal": all(torch.equal(a, b)
+                                        for a, b in zip(second, first)),
+               "replays_equal": replays}
+        emit(row)
+        if not (row["second_call_equal"] and all(replays)):
+            raise SystemExit(f"kernel differs between calls: {row}")
+    return per_l, floor, worst
 
 
 def compare_and_time(phase, fn, plain, x, row, timed, time_plain=True,
@@ -1545,7 +1613,7 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
     layer's N (slot chunks of 32 and a partial last one), bf16 x and w,
     each with an all-pad row and a row naming N - 1 in every slot; the
     train launcher's batch (B = N = 169,984, K = 1,340 from node 0's
-    in-degree); then the full-width layer shape from a real sampled batch
+    in-degree), its forward timed; then the full-width layer shape from a real sampled batch
     (B = N = 169,984, the batch's K, D = F = 128, float32 x and bf16 w
     as the model has them), timed beside the plain versions and the
     nearest library calls. Returns the timed row and the worst forward
@@ -1580,7 +1648,9 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
              "B": B, "K": K})
         worst = tuple(map(max, worst, errs))
 
-    # the launcher's batch: a hub row of 1,340 slots
+    # the launcher's batch: a hub row of 1,340 slots, the other rows
+    # nearly all pads; the forward timed (its plain version walks the
+    # 1,340 slots in Python: checked, not timed)
     gen = torch.Generator("cuda").manual_seed(11)
     N, K = launcher_nbrs.shape
     x, w = layer_x_w(N, gen)
@@ -1589,6 +1659,15 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
         {"phase": "kernel_neighbor_agg", "shape": "launcher batch", "N": N,
          "D": 128, "F": 128, "B": N, "K": K,
          "valid_slots": int((launcher_nbrs >= 0).sum())})))
+    flops, nbytes, bound_ms, bound_by = neighbor_agg_bound(
+        x, launcher_nbrs, w, 4, True)
+    launcher = {"ms": cuda_ms(lambda: ext.neighbor_agg(
+        x, launcher_nbrs, w, True), reps=5, iters=10, warmup=3),
+        "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "live_rows": int(((launcher_nbrs >= 0).sum(1) > 0).sum())}
+    emit({"phase": "kernel_neighbor_agg", "shape": "launcher batch timing",
+          "K": K, **launcher})
     del x, w
 
     # a synthetic hub: id 7 named by 100,000 slots (3,125 chunks spread
@@ -1679,6 +1758,7 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
     bwd.update(library_ms=cuda_ms(lambda: a @ g, reps=5, iters=20, warmup=3),
                library_call="torch.sparse CSR (N x B, weights 1/count) @ g")
     row["backward"] = bwd
+    row["launcher_batch"] = launcher
     emit({"phase": "kernel_neighbor_agg", "shape": "layer timing", **{
         k: v for k, v in row.items() if k not in ("phase", "shape")}})
     del x, g, a, lib, index
@@ -2022,7 +2102,7 @@ def main() -> int:
           "device_name": torch.cuda.get_device_name(0),
           "build_s": build_s, "flash_sass": flash_sass(ext.__file__)})
 
-    per_l, worst_err = phase_kernel(ops, ref)
+    per_l, select_floor, worst_err = phase_kernel(ops, ref)
     per_bl, scores_floor, worst_scores = phase_kernel_scores(ops, ref)
     per_lk, worst_kway = phase_kernel_kway(kops, kref)
     phase_goldens(partition, synth, Hypergraph)
@@ -2196,7 +2276,10 @@ def main() -> int:
     emit({"kernels": [
         entry("hype_score_select", csrc + "hype_score/csrc/score_select.cu",
               "src/repro/kernels/hype_score/kernel.py:160",
-              per_l[runs[1]["tile_l"]], worst_err),
+              per_l[runs[1]["tile_l"]], worst_err,
+              graph_ms=per_l[runs[1]["tile_l"]]["graph_ms"],
+              launch_floor_ms=select_floor["ms"],
+              launch_floor_graph_ms=select_floor["graph_ms"]),
         entry("hype_scores", csrc + "hype_score/csrc/scores.cu",
               "src/repro/kernels/hype_score/kernel.py:50",
               per_bl[(256, 2048)], worst_scores),
@@ -2212,7 +2295,7 @@ def main() -> int:
               flash_rows["layer"], worst_flash),
         entry("neighbor_agg", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               "src/repro/kernels/neighbor_agg/kernel.py:72", na_row,
-              worst_na),
+              worst_na, launcher_batch=na_row["launcher_batch"]),
         entry("neighbor_agg_bwd", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               None, na_row["backward"], worst_na_bwd,
               note="the backward (grad of x) of neighbor_agg_kernel, "

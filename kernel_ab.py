@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ``hype_scores`` and ``neighbor_agg_bwd`` kernels of one source
-tree on one CUDA card, so that two commits can be compared on one card.
+"""Time the scoring and neighbour-aggregation kernels of one source tree on
+one CUDA card, so that two commits can be compared on one card.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -11,16 +11,24 @@ tree, in turns (A, B, B, A), inside one machine: both trees' extensions
 share a module name, so they cannot live in one process.
 
 Measures, each on inputs made from fixed seeds:
+  * ``hype_score_select`` at the superstep path's shape (G = 32 phases,
+    R = 16 rows, s = 1, P = 64, select_k = 16) at L = 32, 128, 512 and
+    2048 (the main one), eagerly and in a CUDA graph, beside the launch
+    floor below;
   * ``hype_scores`` at the batched engine's shapes (B in {64, 256}, L in
     {32, 128, 512, 2048}, s = 16), timed eagerly (host launch included,
     as the engine calls it) and in a CUDA graph (the device alone), beside
     a one-element ``add_`` timed the same two ways (the launch floor);
+  * the ``neighbor_agg`` forward (the kernel alone, float32 x with unit
+    rows, bfloat16 w, D = F = 128, the float32 mean kept, as the GNN step
+    calls it) at the GraphSAGE layer shape (the first sampled batch of
+    ``chip_smoke.py``'s gnn_train: 169,984 nodes, K = 25, about 148k
+    valid slots) and on the train launcher's batch (``random_graph`` over
+    169,984 nodes, K = 1,340 from one hub, nearly all slots pads);
   * ``neighbor_agg_bwd`` (the kernel alone, its index built once, D =
-    128, float32) at the GraphSAGE layer shape (the first sampled batch
-    of ``chip_smoke.py``'s gnn_train: 169,984 nodes, about 148k valid
-    slots, a hub of 1,056), on the train launcher's batch
-    (``random_graph`` over 169,984 nodes; a hub of 1,386 slots) and on a
-    synthetic hub of 100,000 slots.
+    128, float32) at the same two batches (a hub of 1,056 slots at the
+    layer, 1,386 on the launcher's batch) and on a synthetic hub of
+    100,000 slots.
 Prints one JSON line per measurement, then the card's name and power
 limit. Exits 1 without a CUDA device.
 """
@@ -45,7 +53,8 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import card_line, cuda_ms, gnn_sample, graph_ms
+    from chip_smoke import (card_line, cuda_ms, gnn_sample, graph_ms,
+                            kernel_inputs, layer_x_w)
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.configs import get_arch
@@ -64,6 +73,14 @@ def main(argv=None) -> int:
     one = torch.zeros(1, device="cuda")
     emit({"kernel": "launch_floor", "ms": cuda_ms(lambda: one.add_(1.0)),
           "graph_ms": graph_ms(lambda: one.add_(1.0))})
+    rng = np.random.default_rng(0)
+    for L in (32, 128, 512, 2048):
+        x = kernel_inputs(rng, 32, 16, L, 1, 64, "random")
+        emit({"kernel": "hype_score_select", "G": 32, "R": 16, "L": L,
+              "s": 1, "P": 64, "select_k": 16,
+              "ms": cuda_ms(lambda: ops.hype_score_select(*x, select_k=16)),
+              "graph_ms": graph_ms(
+                  lambda: ops.hype_score_select(*x, select_k=16))})
     rng = np.random.default_rng(1)
     for B in (64, 256):
         for L in (32, 128, 512, 2048):
@@ -101,6 +118,15 @@ def main(argv=None) -> int:
     cases = {"layer": (layer, n), "launcher batch": (launcher, n),
              "hub": (torch.from_numpy(hub).cuda(), 5000)}
     gen = torch.Generator("cuda").manual_seed(3)
+    x, w = layer_x_w(n, gen)
+    for name in ("layer", "launcher batch"):
+        nb = cases[name][0]
+        emit({"kernel": "neighbor_agg", "shape": name, "B": nb.shape[0],
+              "K": nb.shape[1], "valid_slots": int((nb >= 0).sum()),
+              "live_rows": int(((nb >= 0).sum(1) > 0).sum()),
+              "ms": cuda_ms(lambda: ext.neighbor_agg(x, nb, w, True),
+                            reps=5, iters=10, warmup=3)})
+    del x, w
     for name, (nb, N) in cases.items():
         g = torch.randn((nb.shape[0], 128), device="cuda", generator=gen)
         index = nops.transpose_index(nb, N)

@@ -9,14 +9,21 @@
 #include <cuda_runtime.h>
 #include <torch/extension.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 #include <vector>
+
+#include "../../smem_optin.cuh"
 
 extern "C" cudaError_t hype_score_select_launch(
     const int32_t* nbrs, const int32_t* fringe, const float* bias,
     const float* prev, float* scores, int32_t* sel_idx, float* sel_val,
-    int32_t* rem, float* scratch, int G, int R, int L, int s, int P,
-    int select_k, int vec4, cudaStream_t stream);
+    int32_t* rem, float* scratch, int32_t* tickets, int G, int R, int L,
+    int s, int P, int select_k, int vec4, cudaStream_t stream);
 extern "C" int64_t hype_score_select_scratch_len(int G, int R, int P);
 extern "C" cudaError_t hype_scores_launch(const int32_t* nbrs,
                                           const int32_t* fringe,
@@ -37,13 +44,13 @@ extern "C" cudaError_t flash_attention_launch(
     int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
     const int64_t* ost, float scale, int causal, int window, int bf16,
     cudaStream_t stream);
-extern "C" size_t neighbor_agg_smem_bytes(int D);
+extern "C" size_t neighbor_agg_smem_bytes(int D, int F);
 extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            const void* w, void* out,
                                            float* mean_out, int64_t B, int K,
                                            int D, int F, int x_bf16,
-                                           int w_bf16, int vec,
-                                           cudaStream_t stream);
+                                           int w_bf16, int vec, int id_vec,
+                                           int out_vec, cudaStream_t stream);
 extern "C" cudaError_t neighbor_agg_bwd_launch(
     const float* g, const int32_t* cnt, const int64_t* rowptr,
     const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
@@ -66,11 +73,57 @@ void check_input(const torch::Tensor& t, const char* name,
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-std::vector<torch::Tensor> score_select(const torch::Tensor& nbrs,
-                                        const torch::Tensor& fringe,
-                                        const torch::Tensor& bias,
-                                        const torch::Tensor& prev,
-                                        int64_t select_k) {
+// At least G zeroed int32 ticket counters for score_select on this device
+// and stream. The kernel leaves them zero, so they are allocated once (on
+// the stream, so the zeroing precedes the first launch) and kept for the
+// process; a larger G takes a larger array and keeps the old one, whose
+// address a captured CUDA graph may hold. One array per stream, so that
+// launches on concurrent streams never share a counter; the last lookup
+// is remembered per host thread.
+int32_t* select_tickets(int64_t G, const torch::Device& device,
+                        cudaStream_t stream) {
+  thread_local int last_dev = -1;
+  thread_local cudaStream_t last_stream = nullptr;
+  thread_local int64_t last_len = 0;
+  thread_local int32_t* last_ptr = nullptr;
+  if (last_ptr && last_dev == device.index() && last_stream == stream &&
+      last_len >= G)
+    return last_ptr;
+  static std::mutex mu;
+  static auto* held = new std::map<std::pair<int, cudaStream_t>,
+                                   std::vector<torch::Tensor>>();
+  const std::lock_guard<std::mutex> lock(mu);
+  auto& mine = (*held)[{device.index(), stream}];
+  if (mine.empty() || mine.back().numel() < G)
+    mine.push_back(torch::zeros({std::max<int64_t>(G, 1024)},
+                                torch::dtype(torch::kInt32).device(device)));
+  last_dev = device.index();
+  last_stream = stream;
+  last_len = mine.back().numel();
+  last_ptr = mine.back().data_ptr<int32_t>();
+  return last_ptr;
+}
+
+// A contiguous tensor of ``sizes`` and ``dtype`` at byte ``offset`` of
+// ``storage``: score_select's four outputs share one allocation, since an
+// allocation costs the host about as much as the kernel's launch.
+torch::Tensor carve(const c10::Storage& storage, int64_t offset,
+                    at::IntArrayRef sizes, caffe2::TypeMeta dtype) {
+  torch::Tensor t = at::detail::make_tensor<c10::TensorImpl>(
+      c10::Storage(storage), c10::DispatchKeySet(c10::DispatchKey::CUDA),
+      dtype);
+  t.unsafeGetTensorImpl()->set_sizes_contiguous(sizes);
+  t.unsafeGetTensorImpl()->set_storage_offset(
+      offset / static_cast<int64_t>(dtype.itemsize()));
+  return t;
+}
+
+using Four = std::tuple<torch::Tensor, torch::Tensor, torch::Tensor,
+                        torch::Tensor>;
+
+Four score_select(const torch::Tensor& nbrs, const torch::Tensor& fringe,
+                  const torch::Tensor& bias, const torch::Tensor& prev,
+                  int64_t select_k) {
   TORCH_CHECK(nbrs.is_cuda(), "nbrs must be a CUDA tensor");
   const torch::Device device = nbrs.device();
   check_input(nbrs, "nbrs", torch::kInt32, 3, device);
@@ -89,31 +142,42 @@ std::vector<torch::Tensor> score_select(const torch::Tensor& nbrs,
               "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
-  auto f32 = nbrs.options().dtype(torch::kFloat32);
-  auto i32 = nbrs.options().dtype(torch::kInt32);
-  torch::Tensor scores = torch::empty({G, R}, f32);
-  torch::Tensor sel_idx = torch::empty({G, select_k}, i32);
-  torch::Tensor sel_val = torch::empty({G, select_k}, f32);
-  torch::Tensor rem = torch::empty({G}, i32);
+  // scores (G, R) f32 | sel_idx (G, k) i32 | sel_val (G, k) f32 | rem (G,)
+  // i32, each at a 16-byte boundary of one allocation
+  auto up16 = [](int64_t n) { return (n * 4 + 15) / 16 * 16; };
+  const int64_t at_idx = up16(G * R), at_val = at_idx + up16(G * select_k),
+                at_rem = at_val + up16(G * select_k);
+  const c10::Storage storage =
+      torch::empty({at_rem + up16(G)}, nbrs.options().dtype(torch::kUInt8))
+          .storage();
+  const auto f32 = caffe2::TypeMeta::Make<float>();
+  const auto i32 = caffe2::TypeMeta::Make<int32_t>();
+  torch::Tensor scores = carve(storage, 0, {G, R}, f32);
+  torch::Tensor sel_idx = carve(storage, at_idx, {G, select_k}, i32);
+  torch::Tensor sel_val = carve(storage, at_val, {G, select_k}, f32);
+  torch::Tensor rem = carve(storage, at_rem, {G}, i32);
   if (G == 0) return {scores, sel_idx, sel_val, rem};
   // the R + P slots of each phase, where they overflow shared memory
   const int64_t n_scratch = hype_score_select_scratch_len(
       static_cast<int>(G), static_cast<int>(R), static_cast<int>(P));
   torch::Tensor scratch;
-  if (n_scratch) scratch = torch::empty({n_scratch}, f32);
+  if (n_scratch)
+    scratch = torch::empty({n_scratch}, nbrs.options().dtype(torch::kFloat32));
 
   const int vec4 =
       (L % 4 == 0) &&
       (reinterpret_cast<std::uintptr_t>(nbrs.data_ptr<int32_t>()) % 16 == 0);
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream().stream();
+  int32_t* tickets = select_tickets(G, device, stream);
   const cudaError_t err = hype_score_select_launch(
       nbrs.data_ptr<int32_t>(), fringe.data_ptr<int32_t>(),
       bias.data_ptr<float>(), prev.data_ptr<float>(),
       scores.data_ptr<float>(), sel_idx.data_ptr<int32_t>(),
       sel_val.data_ptr<float>(), rem.data_ptr<int32_t>(),
-      scratch.defined() ? scratch.data_ptr<float>() : nullptr,
+      scratch.defined() ? scratch.data_ptr<float>() : nullptr, tickets,
       static_cast<int>(G), static_cast<int>(R), static_cast<int>(L),
       static_cast<int>(s), static_cast<int>(P), static_cast<int>(select_k),
-      vec4, at::cuda::getCurrentCUDAStream().stream());
+      vec4, stream);
   C10_CUDA_CHECK(err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {scores, sel_idx, sel_val, rem};
@@ -269,10 +333,13 @@ std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
   const int64_t D = x.size(1), B = nbrs.size(0), K = nbrs.size(1);
   const int64_t F = w.size(1);
   TORCH_CHECK(w.size(0) == D, "w must be (D, F) with D = ", D);
-  TORCH_CHECK(D < (int64_t{1} << 31) && K < (int64_t{1} << 31) &&
-                  F < (int64_t{1} << 31),
+  TORCH_CHECK(D < kInt31 && K < kInt31 && F < kInt31 && B < kInt31,
               "shape too large");
-  TORCH_CHECK(neighbor_agg_smem_bytes(static_cast<int>(D)) <= 227 * 1024,
+  const int w_bf16 = w.scalar_type() == torch::kBFloat16;
+  // the dynamic shared memory of the kernel's plan
+  TORCH_CHECK(neighbor_agg_smem_bytes(static_cast<int>(D),
+                                      static_cast<int>(F)) <=
+                  static_cast<size_t>(max_smem_optin()),
               "D = ", D, " exceeds the kernel's shared memory");
 
   const c10::cuda::CUDAGuard guard(device);
@@ -282,12 +349,13 @@ std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
       x.options().dtype(torch::kFloat32));
   if (B == 0) return {out, mean};
   const int vec = (D * x.element_size()) % 16 == 0 && aligned16(x);
+  const int id_vec = K % 4 == 0 && aligned16(nbrs);
+  const int out_vec = (F * out.element_size()) % 16 == 0 && aligned16(out);
   C10_CUDA_CHECK(neighbor_agg_launch(
       x.data_ptr(), nbrs.data_ptr<int32_t>(), w.data_ptr(), out.data_ptr(),
       want_mean ? mean.data_ptr<float>() : nullptr, B, static_cast<int>(K),
       static_cast<int>(D), static_cast<int>(F),
-      x.scalar_type() == torch::kBFloat16,
-      w.scalar_type() == torch::kBFloat16, vec,
+      x.scalar_type() == torch::kBFloat16, w_bf16, vec, id_vec, out_vec,
       at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {out, mean};

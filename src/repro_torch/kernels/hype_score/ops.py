@@ -48,7 +48,7 @@ def hype_score_select(nbrs: torch.Tensor, fringe: torch.Tensor,
     out = load_extension().score_select(nbrs, fringe, bias, prev,
                                         int(select_k))
     hype_score_select.launches += 1
-    return tuple(out)
+    return out  # a tuple from the binding
 
 
 hype_score_select.launches = 0

@@ -12,12 +12,11 @@
 // The additions run in slot order and the mean is one IEEE division, so
 // the mean equals the plain version (ref.py) bit for bit; the product
 // sums over the depth in order here and in a library order there, so the
-// output agrees within float32 rounding. A block whose rows all have no
-// valid slot, or a warp whose rows have none, skips the product and
-// writes zeros: the same +0 as 0 @ w for a finite w (the plain version's
-// 0 @ w is NaN where a column of w is not finite). On request the kernel
-// also writes the float32 mean, which the backward's grad_w needs, so
-// the backward does not gather again.
+// output agrees within float32 rounding. A row with no valid slot skips
+// the product and writes zeros: the same +0 as 0 @ w for a finite w (the
+// plain version's 0 @ w is NaN where a column of w is not finite). On
+// request the kernel also writes the float32 mean, which the backward's
+// grad_w needs, so the backward does not gather again.
 //
 // Backward (no TPU counterpart: the JAX package has no custom_vjp for
 // this kernel). With g = grad_out @ w^T (B, D) float32, computed by the
@@ -53,22 +52,48 @@
 // backward: bytes, mostly the N x D output (87 MB at the GraphSAGE
 // layer, most rows zeros: 0.029 ms at 3.35 TB/s).
 //
-// What bounds it on the H100. Forward at the GraphSAGE layer shape
-// (B = N = 169,984, K = 25, D = F = 128, float32): the gather reads the
-// live rows (about 77 MB), the output and the kept mean are 87 MB each:
-// about 0.07 ms of bytes. Only the 16k rows with a valid slot (the seeds
-// and the first hop) need the product, 0.56 GFLOP on the float32 CUDA
-// cores; the padding rows' blocks and the warps whose rows are sources
-// only skip it. The TPU kernel walks a sequential (row, slot) grid with a
-// VMEM accumulator and feeds each row's mean to the MXU. Here a block of
-// 8 warps owns 32 rows: each warp gathers 4 of them (the lane whose index
-// is j holds slot j's id, read once and broadcast by shuffle, so a pad
-// slot is skipped by the whole warp; lanes stride over D with 16-byte
-// loads, four slots' loads in flight before their in-order adds), and
-// puts the 32 means in shared memory. Then the block multiplies the
-// (32, D) tile by w, staged through shared memory in (32, 64) float32
-// tiles, each thread holding a 2 x 4 register tile of outputs. Every row
-// offset is 64-bit (N * D may pass 2**31).
+// What bounds the forward on the H100: bytes. At the GraphSAGE layer
+// (B = N = 169,984, K = 25, D = F = 128, float32 x, bfloat16 w) the
+// gather reads the named rows (about 77 MB), the output and the kept
+// mean are 87 MB each, most of them zeros: about 0.07 ms. Only the 14k
+// rows with a valid slot, scattered over the batch, need the product,
+// 0.5 GFLOP: 0.008 ms on the float32 CUDA cores (not on tensor cores:
+// TF32 would break the float32 tolerance). On the train launcher's batch
+// (K = 1,340, nearly all pad slots) the ids alone are 911 MB. The TPU
+// kernel walks a sequential (row, slot) grid with a VMEM accumulator and
+// feeds each row's mean to the MXU. Here, in persistent blocks of 8
+// warps (two an SM) that share nothing but w (widened to float32 in
+// shared memory once per block, or read from global memory where it
+// does not fit), each warp walks sets of rows on its own, with no block
+// barrier:
+//   * compacted slots: a set is 32 / sw rows whose ids the warp loads at
+//     once, sw lanes a row and kIdLoads x 4 ids a lane (16-byte loads
+//     where the rows allow; sw as small as the row's K allows: 8 rows of
+//     K = 25 at once). A set's rows are strided by the number of sets, so
+//     that a run of live rows (a sampled batch's seeds and first hop
+//     come first) spreads over the warps. Three ballots of each lane's
+//     valid count give every valid id its place in slot order in the
+//     row's list in shared memory, so a pad costs a compare, not a round
+//     trip. The next set's (or span's) ids are loaded while this one is
+//     walked;
+//   * a row without a valid slot writes its zeros for out and the mean
+//     with 16-byte stores, before the set's live rows are walked;
+//   * rows in flight: lpr lanes take a live row's list (a half-warp where
+//     a row is at most 16 vectors, as bfloat16 at D = 128, so two rows
+//     share the warp's loads; else the warp), lanes over D with 16-byte
+//     loads, kFlightX rows of x in flight per lane, added in order. A
+//     row wider than the lanes takes passes of lpr vectors, one row a
+//     set;
+//   * a live row's mean goes to the warp's next place (kPlaces of them,
+//     fewer for a wide D), and when the places may not hold the next
+//     rows the warp multiplies them by w on the CUDA cores: lane l owns
+//     columns 4l .. 4l + 3 of a 128-column pass, a places x 4 register
+//     tile fed by 16-byte shared loads (the means broadcast, w
+//     conflict-free), up to 64 FMAs to 8 shared loads.
+// The sizes were tuned on the H100 at the layer: 16 rows of x in flight
+// or 8 places spill registers at two blocks an SM and ran slower; 4 id
+// loads a lane ran slower at the layer, faster on the launcher's batch.
+// Every row offset is 64-bit (N * D may pass 2**31).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,11 +102,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 2;   // output rows per thread in the product
-constexpr int kRows = 16 * kRowTile;  // output rows per block
-constexpr int kFC = 64;       // columns of w per shared tile
-constexpr int kDC = 32;       // rows of w per shared tile
-constexpr int kSlots = 4;     // slots' loads in flight per lane
+constexpr int kPlaces = 4;      // live rows a warp's product takes, at most
+constexpr int kColTile = 128;   // output columns a product pass (4 a lane)
+constexpr int kFlightX = 8;     // rows of x in flight per lane (fwd)
+constexpr int kIdLoads = 2;     // id loads in flight per lane, 4 ids each
+constexpr int kBufPerWarp = 32 * 4 * kIdLoads;  // compacted ids a warp
+constexpr size_t kWarpsBudget = 96 * 1024;     // the warps' buffers, at most
+constexpr size_t kBlockBudget = 110 * 1024;    // two blocks an SM
 constexpr int kChunk = 32;    // slots per chunk (bwd; ref.py's CHUNK)
 constexpr int kFlight = 8;    // rows of g in flight per lane (bwd)
 constexpr int kIds = 4;       // light ids per warp (bwd), at most 32
@@ -94,6 +121,14 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
 __device__ __forceinline__ void narrow(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void narrow(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16_rn(x);
+}
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (sizeof(T) == 4) {
+    return 0.0f;
+  } else {
+    return __ushort_as_bfloat16(0);
+  }
 }
 
 // Four float32 values to four consecutive elements (16-byte aligned for
@@ -110,12 +145,13 @@ __device__ __forceinline__ void store4(const float* a, __nv_bfloat16* dst) {
   *reinterpret_cast<uint2*>(dst) = q;
 }
 
-template <typename T>
-struct Vec {
-  static constexpr int kN = 16 / sizeof(T);  // elements per 16-byte load
-};
+// bfloat16 -> float32 is exact: the 16 bits become the high half
+__device__ __forceinline__ void widen2(uint32_t w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
 
-// One 16-byte vector of x, widened to float32.
+// One 16-byte vector of float32 (the backward's rows of g).
 __device__ __forceinline__ void load_vec(const float* src, float* v) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(src));
   v[0] = q.x;
@@ -123,186 +159,421 @@ __device__ __forceinline__ void load_vec(const float* src, float* v) {
   v[2] = q.z;
   v[3] = q.w;
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
-                                         float* v) {
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(src));
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // bfloat16 -> float32 is exact: the 16 bits become the high half
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+
+// V elements of a row of x, loaded raw (kept in flight as loaded) and
+// added into a float32 accumulator: V = 16 / sizeof(T) (one 16-byte
+// load), or 1 where the rows are not 16-byte aligned.
+template <typename T, int V>
+struct XLoad {  // V == 1
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return __ldg(p); }
+  static __device__ __forceinline__ void add(Raw q, float* acc) {
+    acc[0] += widen(q);
   }
+};
+template <>
+struct XLoad<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void add(Raw q, float* acc) {
+    acc[0] += q.x;
+    acc[1] += q.y;
+    acc[2] += q.z;
+    acc[3] += q.w;
+  }
+};
+template <>
+struct XLoad<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void add(Raw q, float* acc) {
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v[2];
+      widen2(w[i], v);
+      acc[2 * i] += v[0];
+      acc[2 * i + 1] += v[1];
+    }
+  }
+};
+
+// Four consecutive elements of w in shared memory (16-byte aligned).
+__device__ __forceinline__ void w4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
 }
 
-// The float32 mean of row b's valid neighbours into ``dst`` (shared
-// memory, D floats) and, when ``mean_out`` is set, into mean_out[b, :].
-// Called by a whole warp; returns the row's count of valid slots.
-template <typename T>
-__device__ int gather_mean(const T* __restrict__ x,
-                            const int32_t* __restrict__ idr, int K, int D,
-                            int vec, float* dst, float* mean_out) {
-  constexpr int N = Vec<T>::kN;
+// The forward's shared-memory plan: w resident (ld x wld float32, ld = D
+// and wld = F rounded up to 4, zero past them) when it fits beside the
+// warps' buffers, else read from global memory; per warp
+// ``places`` rows of means awaiting the product (ld floats each), the
+// compacted-id list, the rows' list lengths and the places' rows;
+// ``smem`` dynamic bytes in all.
+struct FwdPlan {
+  int ld, wld, resident, places;
+  size_t warp_bytes, smem;
+};
+
+size_t warp_bytes(int places, int ld) {
+  return sizeof(float) * places * ld +
+         sizeof(int32_t) * (kBufPerWarp + 32 + kPlaces);
+}
+
+FwdPlan fwd_plan(int D, int F) {
+  FwdPlan p;
+  p.ld = (D + 3) & ~3;
+  p.wld = (F + 3) & ~3;
+  const size_t w_bytes = sizeof(float) * p.ld * p.wld;
+  // w resident with as many places as fit two blocks an SM, else w from
+  // global memory and as many places as the warps' budget holds
+  p.places = kPlaces;
+  while (p.places > 1 &&
+         kWarps * warp_bytes(p.places, p.ld) + w_bytes > kBlockBudget)
+    --p.places;
+  p.resident = kWarps * warp_bytes(p.places, p.ld) + w_bytes <= kBlockBudget;
+  if (!p.resident) {
+    p.places = kPlaces;
+    while (p.places > 1 &&
+           kWarps * warp_bytes(p.places, p.ld) > kWarpsBudget)
+      --p.places;
+  }
+  p.warp_bytes = warp_bytes(p.places, p.ld);
+  p.smem = kWarps * p.warp_bytes + (p.resident ? w_bytes : 0);
+  return p;
+}
+
+// The product of a warp's p <= kPlaces pending means (pm, row stride ld)
+// with w, into their rows of out: lane l owns columns f0 + 4l .. + 3 of
+// each 128-column pass, a p x 4 register tile; w from shared memory
+// (kResident: zero-padded, row stride wld) or from global memory.
+template <bool kResident, typename T, typename W>
+__device__ void product(const float* pm, const int* prow, int p,
+                        const W* __restrict__ w, const float* w_s, int wld,
+                        T* __restrict__ out, int D, int F, int ld) {
   const int lane = threadIdx.x & 31;
-  int cnt = 0;
-  for (int j0 = 0; j0 < K; j0 += 32) {
-    const int32_t id = j0 + lane < K ? idr[j0 + lane] : -1;
-    cnt += __popc(__ballot_sync(kFull, id >= 0));
-  }
-  const float denom = (float)(cnt > 1 ? cnt : 1);
-
-  // vector part: lane owns vector c = c0 + lane of the row
-  const int nvec = vec ? D / N : 0;
-  for (int c0 = 0; c0 < nvec; c0 += 32) {
-    const int c = c0 + lane;
-    float acc[N];
+  for (int f0 = 0; f0 < F; f0 += kColTile) {
+    const int f = f0 + 4 * lane;
+    if (f >= F) continue;
+    float acc[kPlaces][4];
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] = 0.0f;
-    for (int j0 = 0; j0 < K; j0 += 32) {
-      const int32_t mine = j0 + lane < K ? idr[j0 + lane] : -1;
-      const int nj = K - j0 < 32 ? K - j0 : 32;
-      for (int jj = 0; jj < nj; jj += kSlots) {
-        int32_t id[kSlots];
-        float v[kSlots][N];
+    for (int i = 0; i < kPlaces; ++i)
 #pragma unroll
-        for (int t = 0; t < kSlots; ++t) {
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+    for (int d = 0; d < ld; d += 4) {
+      float wv[4][4];
 #pragma unroll
-          for (int i = 0; i < N; ++i) v[t][i] = 0.0f;
-          // lanes at or past nj hold -1, and jj + t < 32
-          id[t] = __shfl_sync(kFull, mine, jj + t);
-          if (id[t] >= 0 && c < nvec)
-            load_vec(x + (int64_t)id[t] * D + (int64_t)c * N, v[t]);
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kResident) {
+          w4(w_s + (size_t)(d + e) * wld + f, wv[e]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            wv[e][c] = d + e < D && f + c < F
+                           ? widen(__ldg(w + (int64_t)(d + e) * F + f + c))
+                           : 0.0f;
         }
+      }
 #pragma unroll
-        for (int t = 0; t < kSlots; ++t) {
-          if (id[t] < 0) continue;  // the same for every lane
+      for (int i = 0; i < kPlaces; ++i) {
+        if (i >= p) break;
+        const float4 a = *reinterpret_cast<const float4*>(pm + i * ld + d);
 #pragma unroll
-          for (int i = 0; i < N; ++i) acc[i] += v[t][i];
+        for (int c = 0; c < 4; ++c) {
+          acc[i][c] += a.x * wv[0][c];
+          acc[i][c] += a.y * wv[1][c];
+          acc[i][c] += a.z * wv[2][c];
+          acc[i][c] += a.w * wv[3][c];
         }
       }
     }
-    if (c < nvec) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        acc[i] = acc[i] / denom;
-        dst[c * N + i] = acc[i];
-      }
-      if (mean_out) {
-#pragma unroll
-        for (int i = 0; i < N; i += 4) store4(acc + i, mean_out + c * N + i);
-      }
-    }
-  }
-
-  // scalar part: the elements past the last whole vector (all of them
-  // when the rows are not 16-byte aligned)
-  for (int d0 = nvec * N; d0 < D; d0 += 32) {
-    const int d = d0 + lane;
-    float acc = 0.0f;
-    for (int j0 = 0; j0 < K; j0 += 32) {
-      const int32_t mine = j0 + lane < K ? idr[j0 + lane] : -1;
-      const int nj = K - j0 < 32 ? K - j0 : 32;
-      for (int jj = 0; jj < nj; ++jj) {
-        const int32_t id = __shfl_sync(kFull, mine, jj);
-        if (id >= 0 && d < D) acc += widen(x[(int64_t)id * D + d]);
-      }
-    }
-    if (d < D) {
-      const float m = acc / denom;
-      dst[d] = m;
-      if (mean_out) mean_out[d] = m;
-    }
-  }
-  return cnt;
-}
-
-template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
-neighbor_agg_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbrs,
-                    const W* __restrict__ w, T* __restrict__ out,
-                    float* __restrict__ mean_out, int64_t B, int K, int D,
-                    int F, int vec) {
-  extern __shared__ float smem[];
-  const int ld = D | 1;  // odd row stride: no bank conflicts below
-  float* mean_s = smem;                       // kRows x ld
-  float* w_s = smem + kRows * ld;             // kDC x kFC, 16-byte aligned
-  const int64_t row0 = (int64_t)blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5;
-
-  __shared__ int live_s[kRows];  // the row has a valid slot
-
-  // 1. gather: each warp owns kRows / kWarps rows of the tile
-  int live = 0;
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int64_t b = row0 + r;
-    const int l = b < B && gather_mean(x, nbrs + b * K, K, D, vec,
-                                       mean_s + r * ld,
-                                       mean_out ? mean_out + b * D
-                                                : nullptr) > 0;
-    if ((threadIdx.x & 31) == 0) live_s[r] = l;
-    live |= l;
-  }
-  // A row without a valid slot has a zero mean and a zero output, so the
-  // product skips it: the whole block when none of its rows has a slot,
-  // else each warp whose rows have none (in a sampled batch only the
-  // seeds and the first hop have in-edges).
-  if (!__syncthreads_or(live)) {
-    const int64_t nrows = B - row0 < kRows ? B - row0 : kRows;
-    for (int64_t i = threadIdx.x; i < nrows * F; i += kThreads)
-      narrow(0.0f, out + row0 * F + i);
-    return;
-  }
-
-  // 2. product: thread (ty, tx) owns rows kRowTile * ty + r (r <
-  //    kRowTile) and columns f0 + 4tx .. f0 + 4tx + 3 of the tile
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  bool mine = false;
-#pragma unroll
-  for (int r = 0; r < kRowTile; ++r) mine |= live_s[kRowTile * ty + r] != 0;
-  const bool warp_live = __any_sync(kFull, mine);
-  for (int f0 = 0; f0 < F; f0 += kFC) {
-    float acc[kRowTile][4];
-#pragma unroll
-    for (int r = 0; r < kRowTile; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    for (int d0 = 0; d0 < D; d0 += kDC) {
-      __syncthreads();  // the last w tile is consumed
-      for (int i = threadIdx.x; i < kDC * kFC; i += kThreads) {
-        const int dd = i / kFC, ff = i % kFC;
-        w_s[i] = (d0 + dd < D && f0 + ff < F)
-                     ? widen(w[(int64_t)(d0 + dd) * F + f0 + ff])
-                     : 0.0f;
-      }
-      __syncthreads();
-      const int nd = warp_live ? (D - d0 < kDC ? D - d0 : kDC) : 0;
-      const float* a = mean_s + (kRowTile * ty) * ld + d0;
-      for (int dd = 0; dd < nd; ++dd) {
-        const float4 bv = reinterpret_cast<const float4*>(w_s + dd * kFC)[tx];
-#pragma unroll
-        for (int r = 0; r < kRowTile; ++r) {
-          const float xr = a[r * ld + dd];
-          acc[r][0] += xr * bv.x;
-          acc[r][1] += xr * bv.y;
-          acc[r][2] += xr * bv.z;
-          acc[r][3] += xr * bv.w;
-        }
-      }
-    }
-    const int f = f0 + 4 * tx;
-#pragma unroll
-    for (int r = 0; r < kRowTile; ++r) {
-      const int64_t b = row0 + kRowTile * ty + r;
-      if (b >= B) continue;
-      if ((F & 3) == 0 && f < F) {
-        store4(acc[r], out + b * F + f);  // F % 4 == 0: aligned
+    for (int i = 0; i < kPlaces; ++i) {
+      if (i >= p) break;
+      T* dst = out + (int64_t)prow[i] * F + f;
+      if ((F & 3) == 0) {
+        store4(acc[i], dst);  // F % 4 == 0: aligned
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (f + c < F) narrow(acc[r][c], out + b * F + f + c);
+          if (f + c < F) narrow(acc[i][c], dst + c);
       }
     }
+  }
+}
+
+// id_vec: every row of nbrs starts 16-byte aligned (K % 4 == 0);
+// out_vec: every row of out does (F * sizeof(T) % 16 == 0).
+template <typename T, typename W, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+neighbor_agg_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbrs,
+                    const W* __restrict__ w, T* __restrict__ out,
+                    float* __restrict__ mean_out, int64_t B, int K, int D,
+                    int F, int id_vec, int out_vec, int ld, int wld,
+                    int resident, int places, int warp_stride) {
+  using XL = XLoad<T, V>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* w_s = reinterpret_cast<float*>(smem_raw);
+  unsigned char* mine = smem_raw +
+                        (resident ? sizeof(float) * (size_t)ld * wld : 0) +
+                        (size_t)warp * warp_stride;
+  float* pm = reinterpret_cast<float*>(mine);            // places x ld
+  int32_t* buf = reinterpret_cast<int32_t*>(pm + places * ld);
+  int32_t* n_s = buf + kBufPerWarp;                      // list lengths
+  int32_t* prow = n_s + 32;                              // places' rows
+  if (resident) {
+    // rows d < D of w widened to float32, then zero rows up to ld; with
+    // F % 4 == 0 the rows are wld = F wide and w is read as it lies, 16
+    // bytes a thread
+    using XW = XLoad<W, 16 / sizeof(W)>;
+    constexpr int WV = 16 / sizeof(W);
+    if ((F & 3) == 0 && (D * F) % WV == 0 &&
+        reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+      for (int i = threadIdx.x; i < D * F / WV; i += kThreads) {
+        float v[WV];
+#pragma unroll
+        for (int e = 0; e < WV; ++e) v[e] = 0.0f;
+        XW::add(XW::load(w + i * WV), v);
+#pragma unroll
+        for (int e = 0; e < WV; e += 4) store4(v + e, w_s + i * WV + e);
+      }
+      for (int i = D * F + threadIdx.x; i < ld * wld; i += kThreads)
+        w_s[i] = 0.0f;
+    } else {
+      for (int d = warp; d < ld; d += kWarps)
+        for (int f = lane; f < wld; f += 32)
+          w_s[d * wld + f] =
+              d < D && f < F ? widen(w[(int64_t)d * F + f]) : 0.0f;
+    }
+    __syncthreads();  // the kernel's only barrier: warps run on their own
+  }
+
+  // gather lanes: lpr a row (a half-warp where a row is at most 16
+  // vectors), gpw rows at once; a row is one pass over its columns when
+  // they fit the lanes, else passes of lpr columns
+  const int ncols = V > 1 ? D / V : ld;
+  const int lpr = V > 1 && ncols <= 16 ? 16 : 32;
+  const int gpw = 32 / lpr;
+  const int glane = lane & (lpr - 1);
+  const int ggroup = lane / lpr;
+  const int npass = ncols > lpr ? (ncols + lpr - 1) / lpr : 1;
+  // scan lanes: sw a row, so that a set of 32 / sw rows is loaded at once
+  // (one row a set when a row takes several passes)
+  int sw = 32;
+  if (npass == 1)
+    while (sw > 1 && (sw / 2) * 4 * kIdLoads >= K) sw >>= 1;
+  const int rs = 32 / sw;
+  const int span = sw * 4 * kIdLoads;  // slots a scan group loads at once
+  const int nbatch = K > span ? (K + span - 1) / span : 1;
+  const int sgroup = lane / sw;
+  const unsigned smask = sw == 32 ? kFull : ((1u << sw) - 1) << (sgroup * sw);
+  const unsigned slower = smask & ((1u << lane) - 1);
+  // row indices fit 32 bits (the binding checks B < 2**31); offsets are
+  // 64-bit where they are used
+  const int nsets = (int)((B + rs - 1) / rs);
+  const int warps = gridDim.x * kWarps;
+
+  // a set's rows are set, set + nsets, set + 2 nsets, ...: a run of live
+  // rows (a batch's seeds come first) spreads over the warps. A lane
+  // loads slots (t * sw + its lane of the group) * 4 + 0..3 of its group's
+  // row, t < kIdLoads, in the span ``batch``
+  auto load_ids = [&](int4* q, int set, int batch) {
+    const int b = sgroup * nsets + set;
+#pragma unroll
+    for (int t = 0; t < kIdLoads; ++t) {
+      const int j = batch * span + (t * sw + (lane & (sw - 1))) * 4;
+      q[t] = make_int4(-1, -1, -1, -1);
+      if (b < B && j < K) {
+        const int32_t* p = nbrs + (int64_t)b * K + j;
+        if (id_vec) {
+          q[t] = __ldg(reinterpret_cast<const int4*>(p));
+        } else {
+          q[t].x = __ldg(p);
+          if (j + 1 < K) q[t].y = __ldg(p + 1);
+          if (j + 2 < K) q[t].z = __ldg(p + 2);
+          if (j + 3 < K) q[t].w = __ldg(p + 3);
+        }
+      }
+    }
+  };
+
+  // a live row's mean into the warp's next place (the order of places
+  // changes nothing), and the product once the places may not hold the
+  // next rows; called by the whole warp, ``has``: this group has a row
+  float acc[V];
+  int cnt = 0, place = -1, pending = 0;
+  auto finish_live = [&](bool has, int b, int pass, int col) {
+    if (pass == 0) {
+      const unsigned lead = __ballot_sync(kFull, glane == 0 && has);
+      place = has ? pending + __popc(lead & ((1u << (ggroup * lpr)) - 1))
+                  : -1;
+      pending += __popc(lead);
+      if (glane == 0 && has) prow[place] = b;
+    }
+    if (has && col < ncols) {
+      const float denom = (float)(cnt > 1 ? cnt : 1);
+      float m[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) m[e] = acc[e] / denom;
+      if constexpr (V == 1) {
+        pm[place * ld + col] = m[0];
+        if (mean_out && col < D) mean_out[(int64_t)b * D + col] = m[0];
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; e += 4) {
+          store4(m + e, pm + place * ld + col * V + e);
+          if (mean_out)
+            store4(m + e, mean_out + (int64_t)b * D + col * V + e);
+        }
+      }
+    }
+    if (pass == npass - 1 && pending + gpw > places) {
+      __syncwarp();
+      if (resident)
+        product<true>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
+      else
+        product<false>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
+      __syncwarp();
+      pending = 0;
+    }
+  };
+
+  // the rows of a set in ``dead`` (bit i: row i * nsets + set) have no
+  // valid slot: their zeros for out and the mean, 16 bytes a lane
+  auto zero_rows = [&](unsigned dead, int set) {
+    for (unsigned m = dead; m; m &= m - 1) {
+      const int b = (__ffs(m) - 1) * nsets + set;
+      T* dst = out + (int64_t)b * F;
+      constexpr int OV = 16 / sizeof(T);
+      if (out_vec) {
+        for (int f = lane * OV; f < F; f += 32 * OV)
+          *reinterpret_cast<uint4*>(dst + f) = make_uint4(0, 0, 0, 0);
+      } else {
+        for (int f = lane; f < F; f += 32) dst[f] = zero_of<T>();
+      }
+      if (mean_out) {
+        float* md = mean_out + (int64_t)b * D;
+        if ((D & 3) == 0) {
+          for (int d = lane * 4; d < D; d += 128)
+            *reinterpret_cast<float4*>(md + d) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          for (int d = lane; d < D; d += 32) md[d] = 0.0f;
+        }
+      }
+    }
+  };
+
+  int set = blockIdx.x * kWarps + warp;
+  int pass = 0, batch = 0;
+  int4 q[kIdLoads];
+  if (set < nsets) load_ids(q, set, batch);
+  while (set < nsets) {
+    // each row's valid ids in slot order (load t, lane, component) into
+    // its list: three ballots of each lane's count (0..4) give the count
+    // of the group's lanes below
+    int n = 0;
+#pragma unroll
+    for (int t = 0; t < kIdLoads; ++t) {
+      const int c = (q[t].x >= 0) + (q[t].y >= 0) + (q[t].z >= 0) +
+                    (q[t].w >= 0);
+      const unsigned b0 = __ballot_sync(kFull, c & 1);
+      const unsigned b1 = __ballot_sync(kFull, c & 2);
+      const unsigned b2 = __ballot_sync(kFull, c & 4);
+      int at = sgroup * span + n + __popc(b0 & slower) +
+               2 * __popc(b1 & slower) + 4 * __popc(b2 & slower);
+      if (q[t].x >= 0) buf[at++] = q[t].x;
+      if (q[t].y >= 0) buf[at++] = q[t].y;
+      if (q[t].z >= 0) buf[at++] = q[t].z;
+      if (q[t].w >= 0) buf[at] = q[t].w;
+      n += __popc(b0 & smask) + 2 * __popc(b1 & smask) +
+           4 * __popc(b2 & smask);
+    }
+    if ((lane & (sw - 1)) == 0) n_s[sgroup] = n;
+    __syncwarp();
+
+    // the next (set, pass, batch): its ids in flight during this walk
+    int nset = set;
+    int npass_ = pass, nbatch_ = batch + 1;
+    if (nbatch_ == nbatch) {
+      nbatch_ = 0;
+      if (++npass_ == npass) {
+        npass_ = 0;
+        nset += warps;
+      }
+    }
+    if (nset < nsets) load_ids(q, nset, nbatch_);
+
+    const int rows = (int)((B - set + nsets - 1) / nsets) < rs
+                         ? (int)((B - set + nsets - 1) / nsets)
+                         : rs;  // rows i * nsets + set < B, a prefix of i
+    const int col = pass * lpr + glane;
+    const bool last = batch == nbatch - 1;
+    if (rs == 1 && batch == 0) {  // one row a set: summed over its spans
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+      cnt = 0;
+    }
+    // the rows with slots in this span, gpw at a time (a set of several
+    // rows is one span, so each is a whole live row); dead rows cost
+    // nothing here
+    const unsigned with = __ballot_sync(kFull, lane < rows && n_s[lane] > 0);
+    // several rows a set: one span, so a row without slots is dead; its
+    // stores go out before the walk waits on the gathers
+    if (rs > 1)
+      zero_rows(~with & (rows == 32 ? kFull : (1u << rows) - 1), set);
+    for (unsigned todo = with; todo;) {
+      int i = -1;
+      for (int g = 0; g < gpw && todo; ++g, todo &= todo - 1)
+        if (g == ggroup) i = __ffs(todo) - 1;
+      const bool has = i >= 0;
+      const bool load_col = has && col < ncols && (V > 1 || col < D);
+      if (rs > 1) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+        cnt = 0;
+      }
+      const int len = has ? n_s[i] : 0;
+      const int32_t* lst = buf + i * span;
+      // kFlightX rows of x in flight, added in slot order
+      for (int s0 = 0; __any_sync(kFull, s0 < len); s0 += kFlightX) {
+        typename XL::Raw v[kFlightX];
+#pragma unroll
+        for (int k = 0; k < kFlightX; ++k)
+          if (s0 + k < len && load_col)
+            v[k] = XL::load(x + (int64_t)lst[s0 + k] * D + (int64_t)col * V);
+#pragma unroll
+        for (int k = 0; k < kFlightX; ++k)
+          if (s0 + k < len && load_col) XL::add(v[k], acc);
+      }
+      cnt += len;
+      if (rs > 1) finish_live(has, i * nsets + set, pass, col);
+    }
+    if (rs == 1 && last) {  // one row a set, summed over its spans
+      const bool live = __shfl_sync(kFull, cnt, 0) > 0;
+      if (live) finish_live(ggroup == 0, set, pass, col);
+      if (!live && pass == 0) zero_rows(1u, set);
+    }
+    __syncwarp();  // the lists are read before the next span fills them
+    set = nset;
+    pass = npass_;
+    batch = nbatch_;
+  }
+  if (pending > 0) {
+    __syncwarp();
+    if (resident)
+      product<true>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
+    else
+      product<false>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
   }
 }
 
@@ -533,30 +804,36 @@ neighbor_agg_bwd_kernel(const float* __restrict__ g,
   if (u0 < N) light_ids<V>(g, cnt, rowptr, rows, grad_x, N, D, u0);
 }
 
-// Dynamic shared memory of the forward: the block's means (kRows rows of
-// stride D | 1) and one w tile.
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)kRows * (D | 1) + (size_t)kDC * kFC);
-}
-
 template <typename T, typename W>
 cudaError_t launch_fwd(const void* x, const int32_t* nbrs, const void* w,
                        void* out, float* mean_out, int64_t B, int K, int D,
-                       int F, int vec, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  auto kernel = neighbor_agg_kernel<T, W>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int64_t blocks = (B + kRows - 1) / kRows;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+                       int F, int vec, int id_vec, int out_vec,
+                       cudaStream_t stream) {
+  const FwdPlan p = fwd_plan(D, F);
+  auto kernel = vec ? neighbor_agg_kernel<T, W, (int)(16 / sizeof(T))>
+                    : neighbor_agg_kernel<T, W, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, p.smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // persistent blocks: as many as the card holds at once, fewer when the
+  // rows do not give every warp a set
+  const int64_t want = (B + kWarps - 1) / kWarps;
+  const int64_t fit = (int64_t)per_sm * sms;
+  const unsigned blocks = (unsigned)(want < fit ? want : fit);
+  kernel<<<blocks, kThreads, p.smem, stream>>>(
       static_cast<const T*>(x), nbrs, static_cast<const W*>(w),
-      static_cast<T*>(out), mean_out, B, K, D, F, vec);
+      static_cast<T*>(out), mean_out, B, K, D, F, id_vec, out_vec, p.ld,
+      p.wld, p.resident, p.places, (int)p.warp_bytes);
   return cudaGetLastError();
 }
-
 
 template <int V, typename T>
 cudaError_t launch_bwd(const float* g, const int32_t* cnt,
@@ -593,27 +870,32 @@ cudaError_t launch_bwd(const float* g, const int32_t* cnt,
 // checks the arguments, allocates the outputs and passes the current
 // stream. ``x_bf16`` and ``w_bf16`` pick the element types (0: float32,
 // 1: bfloat16); ``vec`` says that every row of x starts 16-byte aligned
-// (the binding checks the pointer and D * itemsize); ``mean_out`` may be
-// null.
-extern "C" size_t neighbor_agg_smem_bytes(int D) { return smem_bytes(D); }
+// (the binding checks the pointer and D * itemsize), ``id_vec`` the same
+// of nbrs (K % 4 == 0), ``out_vec`` of out (F * itemsize % 16 == 0);
+// ``mean_out`` may be null.
+extern "C" size_t neighbor_agg_smem_bytes(int D, int F) {
+  return fwd_plan(D, F).smem;
+}
 
 extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            const void* w, void* out,
                                            float* mean_out, int64_t B, int K,
                                            int D, int F, int x_bf16,
-                                           int w_bf16, int vec,
-                                           cudaStream_t stream) {
+                                           int w_bf16, int vec, int id_vec,
+                                           int out_vec, cudaStream_t stream) {
   if (x_bf16 && w_bf16)
-    return launch_fwd<__nv_bfloat16, __nv_bfloat16>(x, nbrs, w, out, mean_out,
-                                                    B, K, D, F, vec, stream);
+    return launch_fwd<__nv_bfloat16, __nv_bfloat16>(
+        x, nbrs, w, out, mean_out, B, K, D, F, vec, id_vec, out_vec, stream);
   if (x_bf16)
     return launch_fwd<__nv_bfloat16, float>(x, nbrs, w, out, mean_out, B, K,
-                                            D, F, vec, stream);
+                                            D, F, vec, id_vec, out_vec,
+                                            stream);
   if (w_bf16)
     return launch_fwd<float, __nv_bfloat16>(x, nbrs, w, out, mean_out, B, K,
-                                            D, F, vec, stream);
+                                            D, F, vec, id_vec, out_vec,
+                                            stream);
   return launch_fwd<float, float>(x, nbrs, w, out, mean_out, B, K, D, F, vec,
-                                  stream);
+                                  id_vec, out_vec, stream);
 }
 
 // ``vec`` says that D is a multiple of 4 and g is 16-byte aligned.

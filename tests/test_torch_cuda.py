@@ -37,7 +37,19 @@ def _need_card():
     # a block can have (a global scratch)
     (32, 16, 2048, 24, 64, 16), (32, 16, 512, 64, 64, 16),
     (4, 16, 128, 16, 12_300, 40), (3, 16, 64, 3, 58_200, 40),
-    (2, 8, 64, 100, 60_000, 12)])
+    (2, 8, 64, 100, 60_000, 12),
+    # the rows spread over blocks, each phase selected by its last block:
+    # one phase; one row; R not a multiple of the rows a block holds
+    # (4 at L = 512, 64 at L = 32); rows not 16-byte aligned (L % 4 != 0);
+    # fringe widths around the register paths (16, 32) and past them
+    (1, 16, 2048, 1, 64, 16), (4, 1, 2048, 1, 64, 8),
+    (6, 13, 512, 1, 64, 20), (3, 70, 32, 1, 10, 40),
+    (5, 16, 2047, 1, 64, 16), (3, 16, 33, 16, 64, 16),
+    (4, 16, 2048, 16, 64, 16), (4, 16, 2048, 17, 64, 16),
+    (4, 16, 2048, 33, 64, 16),
+    # rank selection up to R + P = 256 slots, the block's rounds past it
+    (2, 16, 128, 1, 240, 30), (2, 16, 128, 1, 241, 30),
+    (2, 16, 512, 1, 300, 50)])
 def test_cuda_kernel_equals_plain_version(G, R, L, s, P, select_k):
     _need_card()
     rng = np.random.default_rng(G + L)
@@ -53,6 +65,39 @@ def test_cuda_kernel_equals_plain_version(G, R, L, s, P, select_k):
     assert hype_score_select.launches == before + 1
     for g, w in zip(got, hype_score_select_ref(*x, select_k)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("G,L", [(32, 2048), (32, 128), (1, 512)])
+def test_cuda_select_repeats_and_graph_replays_equal(G, L):
+    """Two calls back to back, then a CUDA graph of one call replayed three
+    times, all bit-equal to the first call: the per-phase ticket counters
+    are left zero by every launch, with no memset between."""
+    _need_card()
+    rng = np.random.default_rng(L)
+    nbrs = rng.integers(-1, 3 * L, size=(G, 16, L)).astype(np.int32)
+    fringe = rng.integers(0, 3 * L, size=(G, 1)).astype(np.int32)
+    bias = np.zeros((G, 16), np.float32)
+    prev = rng.integers(0, L, size=(G, 64)).astype(np.float32)
+    x = [torch.from_numpy(a).cuda() for a in (nbrs, fringe, bias, prev)]
+    first = hype_score_select(*x, select_k=16)
+    second = hype_score_select(*x, select_k=16)
+    for a, b in zip(first, hype_score_select_ref(*x, 16)):
+        assert torch.equal(a, b)
+    for a, b in zip(second, first):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hype_score_select(*x, select_k=16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = hype_score_select(*x, select_k=16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, first):
+            assert torch.equal(a, b)
 
 
 def test_cuda_partition_matches_golden():
@@ -288,6 +333,42 @@ def test_cuda_neighbor_agg_backward_is_deterministic(N, D, F, B, K, dtype):
     assert first.dtype == dtype and torch.equal(first, again)
     assert torch.equal(first.cpu(), nref.neighbor_agg_bwd_ref(
         g.cpu(), nbrs.cpu(), N).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,F,B,K,live", [
+    (3000, 128, 128, 2000, 1340, 3),   # the launcher's K, 3 slots a row
+    (3000, 128, 128, 2000, 1339, 3),   # K % 4 != 0: ids loaded one by one
+    (300, 130, 66, 70, 25, 9),         # D % 4 != 0: one element a lane
+    (64, 128, 128, 3, 25, 9),          # B smaller than one set of rows
+    (5000, 128, 128, 700, 25, 25),     # bf16 x: a half-warp a row
+    (500, 256, 128, 90, 40, 30)])      # a row wider than the lanes
+def test_cuda_neighbor_agg_sparse_slots_close_to_plain_version(
+        N, D, F, B, K, live, dtype):
+    """The forward's compacted slot lists: ``live`` valid slots scattered
+    among pads in every third row, all-pad rows between them, one row
+    valid in every slot: the output within NA_TOL of the plain version,
+    the mean bit-equal, and a second run equal."""
+    _need_card()
+    from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.neighbor_agg import ref as nref
+    rng = np.random.default_rng(N + D + K)
+    x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(D, F)) * 0.1).astype(np.float32))
+    nbrs = np.full((B, K), -1, np.int32)
+    for b in range(0, B, 3):
+        pos = rng.choice(K, size=min(live, K), replace=False)
+        nbrs[b, pos] = rng.integers(0, N, size=pos.size)
+    nbrs[B // 2] = rng.integers(0, N, size=K)
+    x, nbrs, w = x.to(dtype).cuda(), torch.from_numpy(nbrs).cuda(), w.cuda()
+    out, mean = load_extension().neighbor_agg(x, nbrs, w, True)
+    again, _ = load_extension().neighbor_agg(x, nbrs, w, False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               nref.neighbor_agg_ref(x, nbrs, w).float(),
+                               **NA_TOL[dtype])
+    assert torch.equal(mean, nref.neighbor_mean_ref(x, nbrs)[0])
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -132,6 +132,35 @@ def test_matches_numpy_oracle_grid(G, R, L, s, ksel):
     assert_bits(got[3], np_remaining(*args, select_k))
 
 
+@pytest.mark.parametrize("L", (128, 2048))
+def test_select_ties_across_fresh_and_pool_match_jax_kernel(L):
+    """select_k = 16 over R + P = 80 slots (the main path's shape, which
+    the card selects by rank in one block) where fresh rows and pool slots
+    tie on one score: the lower slot index wins, so fresh rows come before
+    equal pool slots; a hub row, a pad row and empty pool slots beside."""
+    G, R, s, select_k = 3, 16, 1, 16
+    rng = np.random.default_rng(L)
+    nbrs = np.full((G, R, L), -1, np.int32)
+    nbrs[:, :, : L // 2 : L // 16] = rng.integers(10, 3 * L, size=(G, R, 8))
+    nbrs[:, 1::4, 0] = 3                   # a fringe member: score 7
+    fringe = np.full((G, s), 3, np.int32)
+    bias = np.zeros((G, R), np.float32)
+    bias[:, 2] = TRUNC_PENALTY             # a hub row
+    nbrs[:, 5] = -1
+    bias[:, 5] = np.inf                    # a pad row
+    prev = np.full((G, P), 8.0, np.float32)  # ties with the fresh 8s
+    prev[:, 1::5] = 7.0                    # ties with the fresh 7s
+    prev[:, 3::11] = np.inf                # empty pool slots
+    prev[1, :3] = 6.0                      # pool slots ahead of all
+    args = (nbrs, fringe, bias, prev)
+    want = jax_select(*args, select_k=select_k, with_remaining=True)
+    got = port(*args, select_k)
+    for g, w in zip(got, want):
+        assert_bits(g, w)
+    # the fresh 7s, then the pool 7s, then fresh 8s, in index order
+    assert (got[1][0, :4] == [1, 9, 13, R + 1]).all()
+
+
 def test_nan_phase_matches_jax_and_stays_in_range():
     """A NaN score poisons its phase: every round returns (NaN, R + P) as
     the TPU kernel does; the other phases are untouched."""

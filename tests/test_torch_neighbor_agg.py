@@ -109,6 +109,44 @@ def test_bf16_x_rounds_once_to_bf16():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("D,x_dtype", [(128, np.float32), (33, np.float32),
+                                       (128, "bfloat16")])
+def test_sparse_slots_among_pads_match_jax_kernel(D, x_dtype):
+    """Rows of K = 64 slots with 3 valid ones scattered among the pads (the
+    launcher batch's shape of row, which the card walks as a compacted
+    list), all-pad rows between live ones, and a row valid only in its
+    last slot: the plain version against the JAX Pallas kernel, and its
+    mean against the slot-order sum."""
+    N, F, B, K = 300, 128, 9, 64
+    x, _, w = inputs(N, D, F, B, K, seed=D)
+    rng = np.random.default_rng(D + 1)
+    nbrs = np.full((B, K), -1, np.int32)
+    for b in (0, 3, 4, 8):
+        nbrs[b, np.sort(rng.choice(K, size=3, replace=False))] = \
+            rng.integers(0, N, size=3)
+    nbrs[6, K - 1] = N - 1                 # valid in its last slot only
+    xt = torch.from_numpy(x)
+    if x_dtype == "bfloat16":              # the card's half-warp route
+        xt = xt.to(torch.bfloat16)
+        x = xt.float().numpy()
+    got = ops.neighbor_agg(xt, torch.from_numpy(nbrs), torch.from_numpy(w))
+    want = np.asarray(jax_neighbor_agg(jnp.asarray(x), jnp.asarray(nbrs),
+                                       jnp.asarray(w)))
+    tol = TOL if x_dtype != "bfloat16" else dict(rtol=2 ** -7, atol=1e-5)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    for b in (1, 2, 5, 7):                 # all-pad rows: exact zeros
+        assert not got[b].any()
+    mean, cnt = ref.neighbor_mean_ref(xt, torch.from_numpy(nbrs))
+    np.testing.assert_array_equal(cnt.numpy(), (nbrs >= 0).sum(1))
+    for b in (0, 3, 6):
+        acc = np.float32(0) * x[0]
+        for j in range(K):
+            if nbrs[b, j] >= 0:
+                acc = acc + x[nbrs[b, j]]
+        assert np.array_equal(mean[b].numpy(),
+                              acc / np.float32((nbrs[b] >= 0).sum()))
+
+
 def test_wrapper_rejects_bad_inputs():
     x, nbrs, w = (torch.from_numpy(a) for a in inputs(8, 4, 2, 3, 2))
     with pytest.raises(ValueError, match="int32"):
