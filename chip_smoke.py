@@ -13,10 +13,11 @@ prints one JSON line per phase:
   kernel    each CUDA kernel against its plain PyTorch version on the card,
             compared exactly, with times per launch: score + select per L,
             hype_scores per (B, L) (eagerly and in a CUDA graph, beside
-            the launch floor of a one-element add_), kway_gains per
-            (L, k), plus edge cases and the shapes past the limits the
-            port once had (a fringe of 24 to 60,000 ids, R + P up to
-            60,016 slots, k up to 10,000)
+            the launch floor of a one-element add_), kway_gains (the
+            tile front end) per (L, k) and on a path-like tile of ragged
+            rows and trailing pads, plus edge cases and the shapes past
+            the limits the port once had (a fringe of 24 to 60,000 ids,
+            R + P up to 60,016 slots, k up to 10,000)
   goldens   the seven small depth-1 golden digests of the JAX package and
             six of the refinement, batched and multilevel paths (pl600),
             reproduced through ``partition(..., device="cuda")``
@@ -27,7 +28,13 @@ prints one JSON line per phase:
             of each hype_scores launch counted and summed over this run's
             times per shape
   quality   the same graph through hype_superstep, t=16, preset="quality"
-            (the refinement post-pass on the card)
+            (the refinement post-pass on the card, 104 screens, each one
+            kway_gains_csr launch)
+  kernel_kway_screen  kway_gains_csr at the quality path's first screen
+            (its 4,096 boundary ids, tile_l 2,048, k=32): the tile's fill,
+            bit-equal to its plain version, timed with and without the
+            screen's delta, eagerly and in a CUDA graph, beside the launch
+            floor and the gather + tile kernel chain it replaced
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
   profile   the depth-1 slice, the batched and the quality path each run
             twice more, under torch.profiler (the card's busy time) and
@@ -562,37 +569,159 @@ def phase_kernel_scores(ops, ref):
     return per_shape, floor, worst
 
 
+def kway_tile(rng, B, L, k, kind="synthetic"):
+    """A seeded (parts (B, L), own (B,)) int32 pair, numpy. ``synthetic``:
+    every slot filled, 60% of a row's ids one hot part, 20% -1 pads
+    anywhere, the last eighth of the rows pad rows. ``path``: rows as the
+    refinement screen's tile holds them, ragged (heavy-tailed lengths,
+    median 17, a few at L) and -1 past their length, about 96% of the
+    tile trailing pads at L = 2048; the same hot part."""
+    import numpy as np
+    parts = rng.integers(0, k, size=(B, L)).astype(np.int32)
+    hot = rng.integers(0, k, size=(B, 1))
+    parts = np.where(rng.random((B, L)) < 0.6, hot, parts)
+    own = rng.integers(0, k, size=B).astype(np.int32)
+    if kind == "path":
+        lens = np.minimum((rng.pareto(1.0, size=B) * 17).astype(np.int64), L)
+        parts[np.arange(L)[None, :] >= lens[:, None]] = -1
+    else:
+        parts[rng.random((B, L)) < 0.2] = -1
+        parts[B - B // 8:] = -1                    # pad rows
+        own[B - B // 8:] = -1
+    return parts.astype(np.int32), own
+
+
 def phase_kernel_kway(kops, kref):
-    """kway_gains at the refinement screen's tile (B=4096, every L
-    bucket, k in {2, 32, 67}) and edge cases, against its plain version."""
+    """kway_gains (the tile front end) at the refinement screen's tile
+    width (B=4096, every L bucket, k in {2, 32, 67}), a path-like tile
+    (ragged rows, about 96% trailing pads) and edge cases, against its
+    plain version. Returns the timed rows by (L, k) (the path-like tile
+    under (2048, "path")) and the worst error."""
     import numpy as np
     import torch
     rng = np.random.default_rng(2)
-    cases = [(4096, L, k) for L in (32, 128, 512, 2048) for k in (2, 32, 67)]
-    cases += [(17, 33, 5), (8, 128, 1), (4096, 2048, 1024)]
-    # past the old k <= 1,536: the opted-in shared histogram up to its
-    # last k (7,264) and the global-scratch histogram beyond
-    cases += [(4096, 512, 2048), (4096, 512, 7264), (4096, 512, 10_000)]
+    cases = [(4096, L, k, "synthetic") for L in (32, 128, 512, 2048)
+             for k in (2, 32, 67)]
+    cases += [(4096, 2048, 32, "path"), (17, 33, 5, "synthetic"),
+              (8, 128, 1, "synthetic"), (4096, 2048, 1024, "synthetic")]
+    # past the lane-private counters (k > 64): the shared counters up to
+    # their last k (7,257), then the global scratch
+    cases += [(4096, 512, k, "synthetic") for k in (64, 65, 2048, 7257,
+                                                    7264, 10_000)]
     per_shape, worst = {}, 0.0
-    for B, L, k in cases:
-        parts = rng.integers(0, k, size=(B, L)).astype(np.int32)
-        hot = rng.integers(0, k, size=(B, 1))
-        parts = np.where(rng.random((B, L)) < 0.6, hot, parts)
-        parts[rng.random((B, L)) < 0.2] = -1
-        own = rng.integers(0, k, size=B).astype(np.int32)
-        parts[B - B // 8:] = -1                        # pad rows
-        own[B - B // 8:] = -1
-        x = [torch.from_numpy(a.astype(np.int32)).cuda()
-             for a in (parts, own)]
+    for B, L, k, kind in cases:
+        parts, own = kway_tile(rng, B, L, k, kind)
+        x = [torch.from_numpy(a).cuda() for a in (parts, own)]
+        info = {"B": B, "L": L, "k": k, "inputs": kind}
+        if kind == "path":
+            info["fill"] = float((parts >= 0).mean())
         row = compare_and_time(
             "kernel_kway_gains", lambda p, o: kops.kway_gains(p, o, k=k),
-            lambda p, o: kref.kway_gains_ref(p, o, k), x,
-            {"B": B, "L": L, "k": k},
-            timed=B == 4096 and (k in (2, 32, 67) or k >= 2048))
+            lambda p, o: kref.kway_gains_ref(p, o, k), x, info,
+            timed=B == 4096 and (k in (2, 32, 67) or k >= 2048),
+            graph=kind == "path" or (L, k) == (2048, 32))
         worst = max(worst, row["max_abs_err"])
         if "ms" in row:
-            per_shape[(L, k)] = row
+            per_shape[(L, "path" if kind == "path" else k)] = row
     return per_shape, worst
+
+
+class FirstScreen:
+    """While active, ``scoring.refine_gains_device`` keeps a copy of its
+    first call's arguments (``args``, the assignment and delta cloned
+    before the call writes into them), then runs as it would."""
+
+    def __init__(self, scoring):
+        self.scoring, self.real, self.args = scoring, None, None
+
+    def __enter__(self):
+        self.real = self.scoring.refine_gains_device
+        self.scoring.refine_gains_device = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        self.scoring.refine_gains_device = self.real
+
+    def _spy(self, indptr, indices, assign, delta_ids, delta_vals, cand, *,
+             tile_l, k):
+        if self.args is None:
+            self.args = dict(indptr=indptr, indices=indices,
+                             assign=assign.clone(),
+                             delta_ids=delta_ids.clone(),
+                             delta_vals=delta_vals.clone(),
+                             cand=cand.clone(), tile_l=tile_l, k=k)
+        return self.real(indptr, indices, assign, delta_ids, delta_vals,
+                         cand, tile_l=tile_l, k=k)
+
+
+def phase_kernel_kway_screen(kops, kref, scoring, args):
+    """kway_gains_csr at the quality path's first screen (``args``, from
+    ``FirstScreen``: github_like(1.0, seed=0), the supersteps' assignment,
+    the first 4,096 boundary ids, tile_l 2,048, k=32): its fill, the
+    kernel bit-equal to its plain version, ``refine_gains_device`` whole
+    and the kernel alone timed eagerly and in a CUDA graph beside the
+    launch floor, and the tile chain this route replaced (the gather into
+    a (B, tile_l) tile, the own parts and the tile kernel) on the same
+    inputs, as the yardstick."""
+    import torch
+    indptr, indices, cand = args["indptr"], args["indices"], args["cand"]
+    tile_l, k = args["tile_l"], args["k"]
+    assign = args["assign"].clone()
+    # the first screen's delta applied, as refine_gains_device applies it
+    delta = [args["delta_ids"], args["delta_vals"]]
+    assign, _ = scoring.refine_gains_device(indptr, indices, assign, *delta,
+                                            cand, tile_l=tile_l, k=k)
+    x = (indptr, indices, assign, cand)
+
+    def kernel():
+        return kops.kway_gains_csr(*x, tile_l=tile_l, k=k)
+
+    def plain():
+        return kref.kway_gains_csr_ref(*x, tile_l, k)
+
+    def chain():
+        csafe = torch.where(cand >= 0, cand, 0).long()
+        own = torch.where(cand >= 0, assign[csafe], -1).to(torch.int32)
+        return kops.kway_gains(kref.gather_part_tiles(*x, tile_l), own, k=k)
+
+    def screen():
+        return scoring.refine_gains_device(indptr, indices, assign, *delta,
+                                           cand, tile_l=tile_l, k=k)[1]
+
+    out, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_abs_err([out], [want])
+    # the bytes the screen must move: the candidates, two offsets and the
+    # own part of each real one, its ids up to the cut and their parts,
+    # and the gains; the fill is the mean of min(deg, tile_l) / tile_l
+    real = cand >= 0
+    c = cand[real].long()
+    ids = int((indptr[c + 1] - indptr[c]).clamp(0, tile_l).sum())
+    nbytes = (cand.nbytes + int(real.sum()) * (2 * indptr.element_size() + 4)
+              + ids * 8 + out.nbytes)
+    fill = ids / (cand.shape[0] * tile_l)
+    one = torch.zeros(1, device="cuda")
+    row = {"phase": "kernel_kway_screen", "B": cand.shape[0],
+           "real_rows": int((cand >= 0).sum()), "tile_l": tile_l, "k": k,
+           "indptr_dtype": str(indptr.dtype).split(".")[1], "fill": fill,
+           "equal": torch.equal(out, want), "max_abs_err": err,
+           "second_call_equal": torch.equal(again, out),
+           "chain_equal": torch.equal(chain(), want),
+           "screen_equal": torch.equal(screen(), want),
+           "ms": cuda_ms(kernel), "graph_ms": graph_ms(kernel),
+           "plain_ms": cuda_ms(plain, iters=20),
+           "screen_ms": cuda_ms(screen), "screen_graph_ms": graph_ms(screen),
+           "chain_ms": cuda_ms(chain), "chain_graph_ms": graph_ms(chain),
+           "launch_floor_ms": cuda_ms(lambda: one.add_(1.0)),
+           "launch_floor_graph_ms": graph_ms(lambda: one.add_(1.0)),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    emit(row)
+    if not (row["equal"] and row["second_call_equal"] and row["chain_equal"]
+            and row["screen_equal"]):
+        raise SystemExit(f"kway_gains_csr disagrees with its plain "
+                         f"version: {row}")
+    return row
 
 
 def phase_goldens(partition, synth, Hypergraph):
@@ -2073,7 +2202,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
-    from repro_torch.core import metrics
+    from repro_torch.core import metrics, scoring
     from repro_torch.core.hypergraph import Hypergraph
     from repro_torch.data import synthetic as synth
     from repro_torch.engines.batched import (BatchedParams,
@@ -2120,6 +2249,7 @@ def main() -> int:
     launches = Launches({"hype_score_select": ops.hype_score_select,
                          "hype_scores": ops.hype_scores,
                          "kway_gains": kops.kway_gains,
+                         "kway_gains_csr": kops.kway_gains_csr,
                          "embedding_bag": bops.embedding_bag,
                          "flash_attention": fops.flash_attention,
                          "neighbor_agg": nops.neighbor_agg,
@@ -2185,10 +2315,12 @@ def main() -> int:
 
     # hype_superstep, t=16, preset="quality": supersteps, then the
     # refinement post-pass with its kway_gains screen on the card
+    # (the first screen's arguments kept for the kernel_kway_screen phase)
     qp = SuperstepParams(seed=0, t=16, **PRESETS["hype_superstep"]["quality"])
-    (a, st), wall, counts = launches.drive(
-        lambda: hype_superstep_partition(hg, 32, qp, return_stats=True,
-                                         device="cuda"))
+    with FirstScreen(scoring) as first:
+        (a, st), wall, counts = launches.drive(
+            lambda: hype_superstep_partition(hg, 32, qp, return_stats=True,
+                                             device="cuda"))
     row = path_row("quality", hg, a, 32, wall)
     row.update(supersteps=st.supersteps, tile_l=st.tile_l,
                refine=dataclasses.asdict(st.refine))
@@ -2200,11 +2332,14 @@ def main() -> int:
                          f"run screened {QUALITY_SCREENS}")
     check_path(row, PATH_DIGESTS["quality"], PATH_KM1["quality"], cpu,
                counts, {"hype_score_select": st.supersteps,
-                        "kway_gains": screens})
+                        "kway_gains_csr": screens})
     quality_tile_l = st.tile_l
+    if first.args is None:
+        raise SystemExit("the quality path made no refinement screen")
+    screen_row = phase_kernel_kway_screen(kops, kref, scoring, first.args)
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
-    # the coarsest graph, kway_gains screens at the finest level
+    # the coarsest graph, kway_gains_csr screens at the finest level
     t0 = time.perf_counter()
     hq = synth.github_like(0.25, seed=0)
     fq = hq.fingerprint()
@@ -2235,7 +2370,7 @@ def main() -> int:
         hq, 32, "hype_multilevel", device="cpu"))
     check_path(row, PATH_DIGESTS["multilevel"], PATH_KM1["multilevel"], cpu,
                counts, {"hype_score_select": coarsest[0]["supersteps"],
-                        "kway_gains": None})
+                        "kway_gains_csr": None})
 
     phase_profile("slice_depth1", lambda: run_slice(
         hg, 1, "cuda", metrics, SuperstepParams, hype_superstep_partition))
@@ -2271,6 +2406,7 @@ def main() -> int:
               "library_ms": na_row["backward"]["library_ms"],
               "call": na_row["backward"]["library_call"]}},
           "hype_score_select": None, "hype_scores": None, "kway_gains": None,
+          "kway_gains_csr": None,
           "why_none": "no single PyTorch call computes the functions of "
                       "the three partitioning kernels"})
     emit({"kernels": [
@@ -2283,9 +2419,31 @@ def main() -> int:
         entry("hype_scores", csrc + "hype_score/csrc/scores.cu",
               "src/repro/kernels/hype_score/kernel.py:50",
               per_bl[(256, 2048)], worst_scores),
-        entry("kway_gains", csrc + "kway_refine/csrc/kway_gains.cu",
-              "src/repro/kernels/kway_refine/kernel.py:65",
-              per_lk[(quality_tile_l, 32)], worst_kway),
+        # the tile front end; the paths run the row routine through the
+        # CSR front end, so its launches are both front ends' sum
+        dict(entry("kway_gains", csrc + "kway_refine/csrc/kway_gains.cu",
+                   "src/repro/kernels/kway_refine/kernel.py:65",
+                   per_lk[(quality_tile_l, 32)], worst_kway,
+                   graph_ms=per_lk[(quality_tile_l, 32)]["graph_ms"],
+                   path_like_tile={key: per_lk[(2048, "path")][key] for key
+                                   in ("fill", "ms", "graph_ms", "bound_ms",
+                                       "plain_ms")}),
+             launches=launches.total["kway_gains"]
+             + launches.total["kway_gains_csr"],
+             launches_by_front_end={
+                 "tile": launches.total["kway_gains"],
+                 "csr": launches.total["kway_gains_csr"]}),
+        entry("kway_gains_csr", csrc + "kway_refine/csrc/kway_gains.cu",
+              "src/repro/kernels/kway_refine/kernel.py:65", screen_row,
+              screen_row["max_abs_err"],
+              **{key: screen_row[key] for key in (
+                  "graph_ms", "screen_ms", "screen_graph_ms", "chain_ms",
+                  "chain_graph_ms", "launch_floor_ms",
+                  "launch_floor_graph_ms", "fill")},
+              note="the refinement screen's front end of the same row "
+                   "routine: the candidates' parts read through the CSR "
+                   "in place of the (B, tile_l) tile; chain_ms is the "
+                   "gather + tile kernel it replaced"),
         entry("embedding_bag", csrc + "embedding_bag/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag/kernel.py:73", bulk,
               worst_bag),

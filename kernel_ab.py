@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the scoring and neighbour-aggregation kernels of one source tree on
-one CUDA card, so that two commits can be compared on one card.
+"""Time the scoring, refinement-screen and neighbour-aggregation kernels of
+one source tree on one CUDA card, so that two commits can be compared on
+one card.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -19,6 +20,16 @@ Measures, each on inputs made from fixed seeds:
     {32, 128, 512, 2048}, s = 16), timed eagerly (host launch included,
     as the engine calls it) and in a CUDA graph (the device alone), beside
     a one-element ``add_`` timed the same two ways (the launch floor);
+  * the ``kway_gains`` tile kernel at B = 4,096, L = 2,048, k = 32, on
+    ``chip_smoke.py``'s synthetic tile and its path-like one (ragged rows,
+    about 96% trailing pads), and at k = 67 on the synthetic one, eagerly
+    and in a CUDA graph;
+  * the refinement screen, ``core.scoring.refine_gains_device`` whole
+    (the delta, then the gains), at the quality path's first screen
+    (github_like(1.0, seed=0), k = 32, t = 16, preset "quality": the
+    supersteps' assignment and the first 4,096 boundary ids, taken from
+    the tree's own run), eagerly and in a CUDA graph, and that path's
+    wall time in two more runs (host clock, ending in a synchronise);
   * the ``neighbor_agg`` forward (the kernel alone, float32 x with unit
     rows, bfloat16 w, D = F = 128, the float32 mean kept, as the GNN step
     calls it) at the GraphSAGE layer shape (the first sampled batch of
@@ -38,6 +49,7 @@ import argparse
 import json
 import pathlib
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 
@@ -53,16 +65,18 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (card_line, cuda_ms, gnn_sample, graph_ms,
-                            kernel_inputs, layer_x_w)
+    from chip_smoke import (FirstScreen, card_line, cuda_ms, gnn_sample,
+                            graph_ms, kernel_inputs, kway_tile, layer_x_w)
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.configs import get_arch
-    from repro_torch.data import graphs
+    from repro_torch.core import scoring
+    from repro_torch.data import graphs, synthetic
     from repro_torch.kernels._build import load_extension
     from repro_torch.kernels.hype_score import ops
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.models.gnn import in_neighbors
+    from repro_torch.partition_api import partition
 
     label = args.label or tree.name
     ext = load_extension()
@@ -91,6 +105,38 @@ def main(argv=None) -> int:
             emit({"kernel": "hype_scores", "B": B, "L": L, "s": 16,
                   "ms": cuda_ms(lambda: ops.hype_scores(*x)),
                   "graph_ms": graph_ms(lambda: ops.hype_scores(*x))})
+
+    krng = np.random.default_rng(2)
+    for kind, k in (("synthetic", 32), ("path", 32), ("synthetic", 67)):
+        x = [torch.from_numpy(a).cuda()
+             for a in kway_tile(krng, 4096, 2048, k, kind)]
+        emit({"kernel": "kway_gains", "B": 4096, "L": 2048, "k": k,
+              "inputs": kind, "ms": cuda_ms(lambda: ext.kway_gains(*x, k)),
+              "graph_ms": graph_ms(lambda: ext.kway_gains(*x, k))})
+    hg = synthetic.github_like(1.0, seed=0)
+
+    def quality():
+        partition(hg, 32, "hype_superstep", device="cuda", t=16,
+                  preset="quality")
+        torch.cuda.synchronize()
+
+    with FirstScreen(scoring) as first:
+        quality()
+    args = first.args
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        quality()
+        walls.append(time.perf_counter() - t0)
+    emit({"path": "quality", "wall_s": walls})
+
+    def screen():
+        return scoring.refine_gains_device(**args)
+
+    emit({"kernel": "refine_gains_device", "B": args["cand"].shape[0],
+          "tile_l": args["tile_l"], "k": args["k"], "ms": cuda_ms(screen),
+          "graph_ms": graph_ms(screen)})
+    del hg, args, first
 
     def matrix(src, dst, mask, n):
         return in_neighbors(*(torch.from_numpy(a).cuda()

@@ -8,12 +8,12 @@ guarantee. Each pass is screen -> verify -> admit:
   1. **boundary detection** (host, one vectorized pin scan): vertices on
      cut hyperedges, the only vertices whose move can change (k-1);
   2. **screening** (device): the boundary ids go down in fixed-size
-     tiles, and the ``kway_gains`` kernel ranks every candidate's k move
-     targets by connectivity gain over its (B, L) neighbour-partition
-     tile, gathered from ``Hypergraph.device_adjacency`` against a
-     device assignment that the host's admitted-move deltas keep in
-     sync (``scoring.refine_gains_device``); only (B, k) gain rows come
-     back;
+     tiles, and the ``kway_gains_csr`` kernel ranks every candidate's k
+     move targets by connectivity gain over its first ``tile_l``
+     neighbours' partitions, read in one launch from
+     ``Hypergraph.device_adjacency`` and a device assignment that the
+     host's admitted-move deltas keep in sync
+     (``scoring.refine_gains_device``); only (B, k) gain rows come back;
   3. **exact verification** (host, vectorized): the top screened
      candidates get their exact per-edge (k-1) deltas. The screen only
      ranks, but the rank decides which ``cand_cap`` candidates are
@@ -225,7 +225,7 @@ def refine_kway(hg: Hypergraph, assignment: np.ndarray, k: int,
     when those already sit outside it. ``weights``/``lo``/``hi`` switch
     to weighted windows (the multilevel uncoarsening path; the swap
     matcher is unit-weight-only and disabled there). The screen runs on
-    ``device`` through the ``kway_gains`` kernel unless ``use_device``
+    ``device`` through the ``kway_gains_csr`` kernel unless ``use_device``
     is False or the adjacency guard trips, and on the host otherwise;
     ``use_device=None`` means True. A device screen needs ``device``.
     ``passes <= 0`` or ``k <= 1`` return the input unchanged (same

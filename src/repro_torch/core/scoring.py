@@ -6,8 +6,9 @@ kernel consumes (``neighbor_tile_adj``, ``neighbor_tile``) and the
 direct d_ext counts of the host-scored dribbles (``batched_dext_adj``,
 ``batched_dext_numpy``). Device side: torch versions of the four helpers
 the JAX superstep programs trace around the fused score + select kernel,
-and of the refinement screen around the ``kway_gains`` kernel
-(``src/repro/core/scoring.py``), with the same semantics on any device.
+and the refinement screen, which the ``kway_gains_csr`` kernel computes
+from the device CSR in one launch (``src/repro/core/scoring.py``), with
+the same semantics on any device.
 
 JAX's ``mode="drop"`` scatters have no torch counterpart. The port's
 image tensors therefore carry one scratch element at the end (``assign``
@@ -23,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..kernels.kway_refine.ops import kway_gains
+from ..kernels.kway_refine.ops import kway_gains_csr
 
 # Width buckets for the (B, L) neighbour tile; rows wider than the last
 # bucket are truncated and penalized.
@@ -325,26 +326,11 @@ def _poison_guard(flat, scores_flat, poison, reset):
 
 # ------------------------------------------------------------ k-way refine
 # Device half of the refinement screen: apply the host's admitted-move
-# delta to the device assignment, gather the candidates' neighbour
-# *partitions* from the device CSR, and run the ``kway_gains`` kernel, so
-# only candidate ids go down and (B, k) gain rows come back.
-
-def _gather_part_tiles(indptr, indices, assign, cand, tile_l: int):
-    """Neighbour-partition tile for ``cand`` at the fixed width ``tile_l``.
-
-    The refinement sibling of ``_gather_fresh_tiles``: the same CSR
-    gather, but rows hold the neighbours' partition ids (every
-    neighbour, assigned or not) instead of unassigned vertex ids. Pads
-    are -1; every gather index is clamped first.
-    """
-    csafe = torch.where(cand >= 0, cand, 0).long()
-    start = indptr[csafe]
-    deg = indptr[csafe + 1] - start
-    col = torch.arange(tile_l, dtype=indptr.dtype, device=indptr.device)
-    valid = (col < deg[:, None]) & (cand >= 0)[:, None]
-    nbr = indices[torch.where(valid, start[:, None] + col, 0).long()]
-    return torch.where(valid, assign[nbr.long()], -1).to(torch.int32)
-
+# delta to the device assignment, then one ``kway_gains_csr`` launch reads
+# the candidates' neighbour partitions through the device CSR and counts
+# them, so only candidate ids go down and (B, k) gain rows come back. The
+# (B, tile_l) neighbour-partition tile of the JAX program is built only by
+# the plain version (``kernels/kway_refine/ref.py``), on the CPU.
 
 def refine_gains_device(indptr, indices, assign, delta_ids, delta_vals,
                         cand, *, tile_l: int, k: int):
@@ -356,12 +342,11 @@ def refine_gains_device(indptr, indices, assign, delta_ids, delta_vals,
     into it in place, pads landing on the scratch slot. ``cand`` is the
     (-1 padded) int32 candidate tile. ``gains`` is (B, k) float32:
     ``gains[b, q]`` is the connectivity gain of moving ``cand[b]`` to
-    partition ``q`` (0 for ``q == own`` and for pad rows).
+    partition ``q`` over its first ``tile_l`` neighbours (0 for
+    ``q == own`` and for pad rows).
     """
     n = assign.shape[0] - 1
     inj = delta_ids >= 0
     assign.index_put_((torch.where(inj, delta_ids, n).long(),), delta_vals)
-    parts = _gather_part_tiles(indptr, indices, assign, cand, tile_l)
-    csafe = torch.where(cand >= 0, cand, 0).long()
-    own = torch.where(cand >= 0, assign[csafe], -1).to(torch.int32)
-    return assign, kway_gains(parts, own, k=k)
+    return assign, kway_gains_csr(indptr, indices, assign, cand,
+                                  tile_l=tile_l, k=k)

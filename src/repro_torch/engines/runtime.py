@@ -202,7 +202,7 @@ def maybe_refine(hg: Hypergraph, k: int, params, assignment: np.ndarray,
                  stats: BatchedStats, device) -> np.ndarray:
     """Run the k-way refinement post-pass when ``refine_passes`` > 0.
 
-    Boundary vertices are screened on ``device`` by the ``kway_gains``
+    Boundary vertices are screened on ``device`` by the ``kway_gains_csr``
     kernel and moved under exact-gain, balance-capped admission, so the
     engine's ``max - min <= 1`` contract survives. ``refine_passes = 0``
     returns the assignment object untouched.

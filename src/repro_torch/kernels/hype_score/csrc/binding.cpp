@@ -33,6 +33,10 @@ extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
                                          const int32_t* own, float* gains,
                                          int* scratch, int B, int L, int k,
                                          int vec4, cudaStream_t stream);
+extern "C" cudaError_t kway_gains_csr_launch(
+    const void* indptr, int indptr64, const int32_t* indices,
+    const int32_t* assign, const int32_t* cand, float* gains, int* scratch,
+    int B, int tile_l, int k, cudaStream_t stream);
 extern "C" int64_t kway_gains_scratch_len(int B, int k);
 extern "C" cudaError_t embedding_bag_launch(const void* table,
                                             const int32_t* ids, void* out,
@@ -60,6 +64,9 @@ extern "C" cudaError_t neighbor_agg_bwd_launch(
 namespace {
 
 constexpr int64_t kInt31 = int64_t{1} << 31;
+// kway_gains: row lengths below 2**30, kRows * k counters below 2**31
+constexpr int64_t kKwayLen = int64_t{1} << 30;
+constexpr int64_t kKwayK = int64_t{1} << 28;
 
 void check_input(const torch::Tensor& t, const char* name,
                  torch::ScalarType dtype, int64_t dim,
@@ -209,6 +216,19 @@ torch::Tensor scores(const torch::Tensor& nbrs, const torch::Tensor& fringe) {
   return out;
 }
 
+// The int32 scratch of kway_gains' global-counter route (past shared
+// memory), or an undefined tensor.
+torch::Tensor kway_scratch(int64_t B, int64_t k, const torch::Tensor& like) {
+  const int64_t n =
+      kway_gains_scratch_len(static_cast<int>(B), static_cast<int>(k));
+  return n ? torch::empty({n}, like.options().dtype(torch::kInt32))
+           : torch::Tensor();
+}
+
+int* data_or_null(const torch::Tensor& t) {
+  return t.defined() ? t.data_ptr<int32_t>() : nullptr;
+}
+
 torch::Tensor kway_gains(const torch::Tensor& parts, const torch::Tensor& own,
                          int64_t k) {
   TORCH_CHECK(parts.is_cuda(), "parts must be a CUDA tensor");
@@ -217,28 +237,61 @@ torch::Tensor kway_gains(const torch::Tensor& parts, const torch::Tensor& own,
   check_input(own, "own", torch::kInt32, 1, device);
   const int64_t B = parts.size(0), L = parts.size(1);
   TORCH_CHECK(own.size(0) == B, "own must be (B,)");
-  TORCH_CHECK(k >= 1, "k must be >= 1, got ", k);
-  TORCH_CHECK(B < kInt31 && L < kInt31 && k < kInt31 &&
-                  B * L < (int64_t{1} << 40),
+  TORCH_CHECK(k >= 1 && k < kKwayK, "k must lie in [1, 2**28), got ", k);
+  TORCH_CHECK(B < kInt31 && L < kKwayLen && B * L < (int64_t{1} << 40),
               "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
   torch::Tensor gains =
       torch::empty({B, k}, parts.options().dtype(torch::kFloat32));
   if (B == 0) return gains;
-  // one row of k counters per warp in flight, where the histograms
-  // overflow shared memory
-  const int64_t n_scratch =
-      kway_gains_scratch_len(static_cast<int>(B), static_cast<int>(k));
-  torch::Tensor scratch;
-  if (n_scratch) scratch = torch::empty({n_scratch}, parts.options());
+  const torch::Tensor scratch = kway_scratch(B, k, parts);
   const int vec4 = (L % 4 == 0) && aligned16(parts);
   C10_CUDA_CHECK(kway_gains_launch(
       parts.data_ptr<int32_t>(), own.data_ptr<int32_t>(),
-      gains.data_ptr<float>(),
-      scratch.defined() ? scratch.data_ptr<int32_t>() : nullptr,
-      static_cast<int>(B), static_cast<int>(L),
-      static_cast<int>(k), vec4, at::cuda::getCurrentCUDAStream().stream()));
+      gains.data_ptr<float>(), data_or_null(scratch), static_cast<int>(B),
+      static_cast<int>(L), static_cast<int>(k), vec4,
+      at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return gains;
+}
+
+// The screen: gains of the candidates ``cand`` (B,) read through the CSR
+// (indptr int32 or int64, indices int32) and the (n + 1,) assignment, each
+// row cut to its first ``tile_l`` neighbours. Ids must lie in range: the
+// kernel reads what they point at.
+torch::Tensor kway_gains_csr(const torch::Tensor& indptr,
+                             const torch::Tensor& indices,
+                             const torch::Tensor& assign,
+                             const torch::Tensor& cand, int64_t tile_l,
+                             int64_t k) {
+  TORCH_CHECK(cand.is_cuda(), "cand must be a CUDA tensor");
+  const torch::Device device = cand.device();
+  const auto ptr_type = indptr.scalar_type();
+  TORCH_CHECK(ptr_type == torch::kInt32 || ptr_type == torch::kInt64,
+              "indptr must be int32 or int64, got ", ptr_type);
+  check_input(indptr, "indptr", ptr_type, 1, device);
+  check_input(indices, "indices", torch::kInt32, 1, device);
+  check_input(assign, "assign", torch::kInt32, 1, device);
+  check_input(cand, "cand", torch::kInt32, 1, device);
+  TORCH_CHECK(indptr.size(0) >= 1, "indptr must hold n + 1 offsets");
+  TORCH_CHECK(k >= 1 && k < kKwayK, "k must lie in [1, 2**28), got ", k);
+  TORCH_CHECK(tile_l >= 1 && tile_l < kKwayLen,
+              "tile_l must lie in [1, 2**30), got ", tile_l);
+  const int64_t B = cand.size(0);
+  TORCH_CHECK(B < kInt31, "shape too large");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor gains =
+      torch::empty({B, k}, cand.options().dtype(torch::kFloat32));
+  if (B == 0) return gains;
+  const torch::Tensor scratch = kway_scratch(B, k, cand);
+  C10_CUDA_CHECK(kway_gains_csr_launch(
+      indptr.data_ptr(), ptr_type == torch::kInt64,
+      indices.data_ptr<int32_t>(), assign.data_ptr<int32_t>(),
+      cand.data_ptr<int32_t>(), gains.data_ptr<float>(),
+      data_or_null(scratch), static_cast<int>(B), static_cast<int>(tile_l),
+      static_cast<int>(k), at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return gains;
 }
@@ -412,6 +465,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Fused HYPE score + per-phase select (CUDA, sm_90a)");
   m.def("scores", &scores, "HYPE external-neighbours scores (CUDA, sm_90a)");
   m.def("kway_gains", &kway_gains, "K-way move gains (CUDA, sm_90a)");
+  m.def("kway_gains_csr", &kway_gains_csr,
+        "K-way move gains of candidates read through a CSR (CUDA, sm_90a)");
   m.def("embedding_bag", &embedding_bag,
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
   m.def("flash_attention", &flash_attention,

@@ -1,38 +1,63 @@
-// K-way move gains, hand-written for Hopper (sm_90a).
+// K-way move gains, hand-written for Hopper (sm_90a): one row routine with
+// two front ends.
 //
 // Replaces the Pallas TPU kernel ``kway_gains_kernel`` (body
-// ``_gain_kernel``) in src/repro/kernels/kway_refine/kernel.py.
+// ``_gain_kernel``) in src/repro/kernels/kway_refine/kernel.py, and, in the
+// refinement screen, the gather in front of it (``_gather_part_tiles`` of
+// src/repro/core/scoring.py).
 //
-// Per row b of the (B, L) neighbour-partition tile:
-//   cnt[q]     = #(parts[b, :] == q)               for q in [0, k)
-//   cnt_own    = #(parts[b, :] == own[b] and parts[b, :] >= 0)
+// Per row b:
+//   cnt[q]     = #(parts of row b == q)                  for q in [0, k)
+//   cnt_own    = #(parts of row b == own[b], own[b] >= 0)
 //   gain[b, q] = float(cnt[q] - cnt_own)
-// so column own[b] comes out 0, and a pad row (own = -1, parts all -1)
-// all zero. Values outside [0, k) count for no column, as the TPU
-// kernel's k compare passes count them for none.
+// so column own[b] comes out 0, and a row with no parts all zero. A part
+// outside [0, k) counts for no column, as the TPU kernel's k compare
+// passes count it for none.
 //
-// What bounds it on the H100: bytes. The tile (B * L int32, 33.5 MB on
-// the main path: B = 4096, L = 2048) is read once; own and the (B, k)
-// gains are small, and the work is a few integer operations per loaded
-// id. The TPU kernel makes k broadcast-compare passes over the tile,
-// which on this card would cost k times the loads' issue slots; the
-// design here is one pass with a histogram instead. Each warp owns one
-// row and k int32 counters in shared memory. Its lanes stride over the
-// row with 16-byte loads where the row is aligned (every L bucket is a
-// multiple of 4); lanes that hold the same partition id are grouped by
-// ``__match_any_sync`` and their leader adds the group's size with one
-// shared-memory atomic, so a row whose neighbours sit in few partitions
-// (the common case on a boundary) does not serialise 32 atomics on one
-// counter. cnt_own is a per-lane count and a warp-shuffle sum. Every
-// lane runs the same number of iterations, so the warp-wide intrinsics
-// always see all 32 lanes. The histograms take k * 8 * 4 bytes of shared
-// memory a block, opted in past 48 KB up to the card's 227 KB (k <= 7,264);
-// for a larger k each warp keeps its row of k counters in a global int32
-// scratch that the binding allocates (one row per warp in flight, the grid
-// capped at kGlobalBlocks), with the same grouped atomics. Each warp zeroes
-// its histogram before each vertex, so the scratch needs no clearing. The
-// counts are integers either way: both routes give the plain version's
-// bits.
+// The two front ends:
+//   tile (kway_gains_launch): row b is parts[b, 0:L], -1 pads anywhere;
+//     own[b] is given.
+//   CSR (kway_gains_csr_launch): row b is assign[indices[indptr[c] + j]]
+//     for j < min(deg(c), tile_l), c = cand[b], and own[b] = assign[c]; a
+//     pad candidate (c < 0) has no parts and own -1. This is the tile of
+//     the screen's plain version without building it: only the first
+//     tile_l neighbours in CSR order count, as there.
+//
+// What bounds it on the H100. The CSR front end on the screen's path reads
+// a few MB (the candidates' ids up to the cut, their parts from assign,
+// which stays in L2) and writes the (B, k) gains; most rows are short
+// (median degree 10) and few long (up to tile_l = 2,048), so it is bound
+// by the latency of the chain cand -> indptr -> indices -> assign, by its
+// longest rows, and by the random assign gathers (one L1 wavefront per
+// id). The tile front end reads the whole (B, L) tile once: bytes.
+//
+// The design.
+// - A block takes kRows rows at a time (a group: rows g, g + G, g + 2G,
+//   ... of the G groups, so that a run of long rows spreads over the
+//   blocks). Each row is cut into chunks of 32 * kPer ids; the group's
+//   chunks are split evenly, in order, over the block's warps, so a long
+//   row runs on several warps while short rows share one. A lane loads
+//   all kPer ids of its chunk before it uses any (CSR: kPer loads of
+//   indices, then kPer gathers of assign), so kPer loads are in flight
+//   per lane. A warp whose chunk holds only pads skips the counting
+//   after one vote.
+// - Counting, k <= kPrivateK: every lane owns k counters in shared memory,
+//   laid out [q][lane], so a lane always hits its own bank: a plain
+//   increment, no atomic and no conflict, however many lanes hold the same
+//   part. When a warp leaves a row it sums each column over its lanes
+//   (lane q reads column q's 32 counters starting at its own bank, so the
+//   lanes hit 32 banks), zeroes them, and adds the sums to the group's row
+//   counters with shared atomics.
+// - Larger k: lanes holding the same part are grouped by __match_any_sync
+//   and the group's leader adds its size to the row counter, in shared
+//   memory while the group's kRows rows of k counters fit the block's
+//   opted-in shared memory (227 KB on an H100), else in a global int32
+//   scratch that the binding allocates (kRows rows of k per block, the grid
+//   capped at kGlobalBlocks; each block zeroes its rows before each group).
+// - After a barrier the block writes the group's gains, each row's k
+//   floats contiguous.
+// Counts are integers, so a row's partial counts add to the same value in
+// any order: every route gives the plain version's bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,110 +67,301 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 8;        // rows a block takes at a time
+constexpr int kPrivateK = 64;   // the largest k of lane-private counters
 constexpr unsigned kFull = 0xffffffffu;
-// blocks of the global-histogram route: 2,048 warps' rows of k counters
-// (82 MB at k = 10,000)
+// blocks of the global-counter route: 2,048 rows of k counters (82 MB at
+// k = 10,000)
 constexpr int kGlobalBlocks = 256;
 
-// One id: add it to the warp's histogram (grouped by value) and to the
-// lane's own-partition count. Called by all 32 lanes together.
-__device__ __forceinline__ void tally(int32_t x, int32_t own, int k,
-                                      int lane, int* hist, int& own_cnt) {
-  own_cnt += (x == own && x >= 0) ? 1 : 0;
-  const unsigned same = __match_any_sync(kFull, x);
-  if (x >= 0 && x < k && lane == __ffs(same) - 1)
-    atomicAdd(hist + x, __popc(same));
+enum Route { kPrivate, kShared, kGlobal };
+
+// The rows of the block's current group, filled by its first warp.
+struct Group {
+  int64_t start[kRows];   // offset of the row's first id
+  int len[kRows];         // ids in the row
+  int own[kRows];
+  int own_cnt[kRows];     // #(parts == own, own >= 0), summed over warps
+  int first[kRows + 1];   // the rows' first chunks (a prefix sum)
+};
+
+__device__ __forceinline__ int64_t load_ptr(const int32_t* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ int64_t load_ptr(const int64_t* p) {
+  return __ldg(reinterpret_cast<const long long*>(p));
 }
 
-// kGlobal: the histograms live in ``scratch`` (one row of k per warp of the
-// grid), not in shared memory; a template, so that the shared route keeps
-// its shared-memory atomics.
-template <bool kGlobal>
-__global__ void __launch_bounds__(kThreads)
-kway_gains_kernel(const int32_t* __restrict__ parts,
-                  const int32_t* __restrict__ own,
-                  float* __restrict__ gains, int* __restrict__ scratch,
-                  int B, int L, int k, int vec4) {
-  extern __shared__ int hist_smem[];  // kWarps rows of k counters
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int* hist =
-      (kGlobal ? scratch + (int64_t)blockIdx.x * kWarps * k : hist_smem) +
-      (int64_t)warp * k;
+// The screen's front end: parts gathered through the CSR.
+template <typename Ptr>
+struct CsrRows {
+  static constexpr int kPer = 8;
+  const Ptr* indptr;
+  const int32_t* indices;
+  const int32_t* assign;
+  const int32_t* cand;
+  int tile_l;
 
-  for (int b = blockIdx.x * kWarps + warp; b < B;
-       b += gridDim.x * kWarps) {
-    for (int q = lane; q < k; q += 32) hist[q] = 0;
-    __syncwarp();
-    const int32_t o = own[b];
-    const int32_t* row = parts + (int64_t)b * L;
-    int own_cnt = 0;
+  __device__ __forceinline__ void row(int b, int64_t& start, int& len,
+                                      int& own) const {
+    start = 0;
+    len = 0;
+    own = -1;
+    const int32_t c = __ldg(cand + b);
+    if (c < 0) return;
+    const int64_t s = load_ptr(indptr + c);
+    const int64_t deg = load_ptr(indptr + c + 1) - s;
+    own = __ldg(assign + c);
+    start = s;
+    len = deg <= 0 ? 0 : (deg < tile_l ? (int)deg : tile_l);
+  }
+
+  // The parts of the chunk's ids at ``off`` (-1 past the row's end).
+  __device__ __forceinline__ void load(int64_t start, int off, int len,
+                                       int lane, int32_t (&x)[kPer]) const {
+    const int32_t* ids = indices + start + off + lane;
+    const int left = len - off - lane;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      x[i] = 32 * i < left ? __ldg(ids + 32 * i) : -1;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      x[i] = x[i] >= 0 ? __ldg(assign + x[i]) : -1;
+  }
+};
+
+// The tile's front end: rows of stride L hold the parts themselves.
+struct TileRows {
+  static constexpr int kPer = 16;
+  const int32_t* parts;
+  const int32_t* own;
+  int L;
+  int vec4;  // L % 4 == 0 and parts 16-byte aligned
+
+  __device__ __forceinline__ void row(int b, int64_t& start, int& len,
+                                      int& o) const {
+    start = (int64_t)b * L;
+    len = L;
+    o = __ldg(own + b);
+  }
+
+  __device__ __forceinline__ void load(int64_t start, int off, int len,
+                                       int lane, int32_t (&x)[kPer]) const {
+    const int32_t* row = parts + start;
     if (vec4) {
-      const int4* row4 = reinterpret_cast<const int4*>(row);
-      const int n4 = L >> 2;
-      for (int base = 0; base < n4; base += 32) {
-        const int c = base + lane;
-        const int4 v = c < n4 ? __ldg(row4 + c) : make_int4(-1, -1, -1, -1);
-        tally(v.x, o, k, lane, hist, own_cnt);
-        tally(v.y, o, k, lane, hist, own_cnt);
-        tally(v.z, o, k, lane, hist, own_cnt);
-        tally(v.w, o, k, lane, hist, own_cnt);
+#pragma unroll
+      for (int h = 0; h < kPer / 4; ++h) {
+        const int p = off + 128 * h + 4 * lane;
+        const int4 v = p < len ? __ldg(reinterpret_cast<const int4*>(row + p))
+                               : make_int4(-1, -1, -1, -1);
+        x[4 * h] = v.x;
+        x[4 * h + 1] = v.y;
+        x[4 * h + 2] = v.z;
+        x[4 * h + 3] = v.w;
       }
     } else {
-      for (int base = 0; base < L; base += 32) {
-        const int c = base + lane;
-        tally(c < L ? __ldg(row + c) : -1, o, k, lane, hist, own_cnt);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int p = off + 32 * i + lane;
+        x[i] = p < len ? __ldg(row + p) : -1;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      own_cnt += __shfl_xor_sync(kFull, own_cnt, off);
+  }
+};
+
+// A warp leaves row r: add its lane-private counts (kPrivate) and its own
+// count to the group's row r. Called by all 32 lanes together.
+template <Route R>
+__device__ __forceinline__ void flush(int* hist, int* row_acc, int* own_slot,
+                                      int& own_cnt, int lane, int k) {
+  if constexpr (R == kPrivate) {
     __syncwarp();
-    float* out = gains + (int64_t)b * k;
-    for (int q = lane; q < k; q += 32) out[q] = (float)(hist[q] - own_cnt);
-    __syncwarp();  // the next row's zeroing must not overtake these reads
+    for (int q = lane; q < k; q += 32) {
+      int* col = hist + q * 32;
+      int s = 0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int a = (j + lane) & 31;
+        s += col[a];
+        col[a] = 0;
+      }
+      if (s) atomicAdd(row_acc + q, s);
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    own_cnt += __shfl_xor_sync(kFull, own_cnt, o);
+  if (lane == 0 && own_cnt) atomicAdd(own_slot, own_cnt);
+  own_cnt = 0;
+}
+
+template <class Rows, Route R>
+__global__ void __launch_bounds__(kThreads, 4)
+kway_gains_kernel(Rows rows, float* __restrict__ gains,
+                  int* __restrict__ scratch, int B, int k) {
+  constexpr int kChunk = 32 * Rows::kPer;
+  extern __shared__ int smem[];
+  __shared__ Group grp;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* hist = smem + warp * k * 32;  // kPrivate: this warp's [q][lane]
+  int* acc = R == kPrivate ? smem + kWarps * k * 32
+             : R == kShared ? smem
+                            : scratch + (int64_t)blockIdx.x * kRows * k;
+  if constexpr (R == kPrivate)
+    for (int q = 0; q < k; ++q) hist[q * 32 + lane] = 0;
+
+  // group g holds rows g, g + G, g + 2G, ...: a run of long rows (ids of
+  // alike degree often sit together) spreads over the blocks
+  const int G = (B + kRows - 1) / kRows;
+  for (int g = blockIdx.x; g < G; g += gridDim.x) {
+    if (warp == 0) {
+      int64_t start = 0;
+      int len = 0, own = -1;
+      if (lane < kRows && g + lane * G < B)
+        rows.row(g + lane * G, start, len, own);
+      int n = (len + kChunk - 1) / kChunk;
+#pragma unroll
+      for (int d = 1; d < kRows; d <<= 1) {
+        const int t = __shfl_up_sync(kFull, n, d);
+        if (lane >= d) n += t;
+      }
+      if (lane < kRows) {
+        grp.start[lane] = start;
+        grp.len[lane] = len;
+        grp.own[lane] = own;
+        grp.own_cnt[lane] = 0;
+        grp.first[lane + 1] = n;
+      }
+      if (lane == 0) grp.first[0] = 0;
+    }
+    for (int i = threadIdx.x; i < kRows * k; i += kThreads) acc[i] = 0;
+    __syncthreads();
+
+    // this warp's share of the group's chunks, in order
+    const int n = grp.first[kRows];
+    const int j1 = (int)((int64_t)n * (warp + 1) / kWarps);
+    int r = -1, own_cnt = 0;
+    for (int j = (int)((int64_t)n * warp / kWarps); j < j1; ++j) {
+      int nr = r < 0 ? 0 : r;
+      while (j >= grp.first[nr + 1]) ++nr;
+      if (nr != r) {
+        if (r >= 0)
+          flush<R>(hist, acc + r * k, grp.own_cnt + r, own_cnt, lane, k);
+        r = nr;
+      }
+      int32_t x[Rows::kPer];
+      rows.load(grp.start[r], (j - grp.first[r]) * kChunk, grp.len[r], lane,
+                x);
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < Rows::kPer; ++i) any |= x[i] >= 0;
+      if (!__any_sync(kFull, any)) continue;
+      const int o = grp.own[r];
+      int* row_acc = acc + r * k;
+#pragma unroll
+      for (int i = 0; i < Rows::kPer; ++i) {
+        own_cnt += (x[i] == o && x[i] >= 0) ? 1 : 0;
+        const bool in = (unsigned)x[i] < (unsigned)k;
+        if constexpr (R == kPrivate) {
+          if (in) hist[x[i] * 32 + lane] += 1;
+        } else {
+          const unsigned same = __match_any_sync(kFull, x[i]);
+          if (in && lane == __ffs(same) - 1)
+            atomicAdd(row_acc + x[i], __popc(same));
+        }
+      }
+    }
+    if (r >= 0)
+      flush<R>(hist, acc + r * k, grp.own_cnt + r, own_cnt, lane, k);
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < kRows * k; i += kThreads) {
+      const int r = i / k;
+      const int b = g + r * G;
+      if (b >= B) break;
+      int c;
+      if constexpr (R == kGlobal)
+        c = __ldcg(acc + i);  // the counters' atomics were made in L2
+      else
+        c = acc[i];
+      gains[(int64_t)b * k + (i - r * k)] = (float)(c - grp.own_cnt[r]);
+    }
+    __syncthreads();  // the next group's counters must not overtake reads
   }
 }
 
-size_t smem_bytes(int k) { return sizeof(int) * (size_t)k * kWarps; }
+Route route(int k) {
+  if (k <= kPrivateK) return kPrivate;
+  if (sizeof(int) * (size_t)kRows * k + sizeof(Group) <=
+      (size_t)max_smem_optin())
+    return kShared;
+  return kGlobal;
+}
 
-int grid_blocks(int B, bool global_hist) {
-  const int blocks = (B + kWarps - 1) / kWarps;
-  const int cap = global_hist ? kGlobalBlocks : 65535;
-  return blocks < cap ? blocks : cap;
+size_t smem_bytes(Route r, int k) {
+  if (r == kPrivate) return sizeof(int) * (size_t)(kWarps * 32 + kRows) * k;
+  return r == kShared ? sizeof(int) * (size_t)kRows * k : 0;
+}
+
+int grid_blocks(int B, Route r) {
+  const int groups = (B + kRows - 1) / kRows;
+  return r == kGlobal && groups > kGlobalBlocks ? kGlobalBlocks : groups;
+}
+
+template <class Rows>
+cudaError_t launch(const Rows& rows, float* gains, int* scratch, int B, int k,
+                   cudaStream_t stream) {
+  const Route r = route(k);
+  const int blocks = grid_blocks(B, r);
+  if (r == kGlobal) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    kway_gains_kernel<Rows, kGlobal><<<blocks, kThreads, 0, stream>>>(
+        rows, gains, scratch, B, k);
+    return cudaGetLastError();
+  }
+  auto kernel = r == kPrivate ? kway_gains_kernel<Rows, kPrivate>
+                              : kway_gains_kernel<Rows, kShared>;
+  const size_t smem = smem_bytes(r, k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(rows, gains, scratch, B, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The int32 scratch kway_gains_launch needs, in counters: 0 when the
-// histograms fit the block's shared memory.
+// The int32 scratch either launch needs, in counters: 0 unless k's
+// counters overflow the block's shared memory.
 extern "C" int64_t kway_gains_scratch_len(int B, int k) {
-  if (smem_bytes(k) <= (size_t)max_smem_optin()) return 0;
-  return (int64_t)grid_blocks(B, true) * kWarps * k;
+  if (route(k) != kGlobal) return 0;
+  return (int64_t)grid_blocks(B, kGlobal) * kRows * k;
 }
 
-// Plain C entry point; the PyTorch binding (hype_score/csrc/binding.cpp)
+// Plain C entry points; the PyTorch binding (hype_score/csrc/binding.cpp)
 // checks the arguments, allocates the output and the scratch
 // (``kway_gains_scratch_len`` counters, or none) and passes the current
-// stream.
+// stream. L and tile_l are below 2**30.
 extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
                                          const int32_t* own, float* gains,
                                          int* scratch, int B, int L, int k,
                                          int vec4, cudaStream_t stream) {
-  if (kway_gains_scratch_len(B, k) > 0) {
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    kway_gains_kernel<true><<<grid_blocks(B, true), kThreads, 0, stream>>>(
-        parts, own, gains, scratch, B, L, k, vec4);
-    return cudaGetLastError();
-  }
-  const size_t smem = smem_bytes(k);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kway_gains_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kway_gains_kernel<false><<<grid_blocks(B, false), kThreads, smem, stream>>>(
-      parts, own, gains, nullptr, B, L, k, vec4);
-  return cudaGetLastError();
+  return launch(TileRows{parts, own, L, vec4}, gains, scratch, B, k, stream);
+}
+
+extern "C" cudaError_t kway_gains_csr_launch(
+    const void* indptr, int indptr64, const int32_t* indices,
+    const int32_t* assign, const int32_t* cand, float* gains, int* scratch,
+    int B, int tile_l, int k, cudaStream_t stream) {
+  if (indptr64)
+    return launch(CsrRows<int64_t>{static_cast<const int64_t*>(indptr),
+                                   indices, assign, cand, tile_l},
+                  gains, scratch, B, k, stream);
+  return launch(CsrRows<int32_t>{static_cast<const int32_t*>(indptr), indices,
+                                 assign, cand, tile_l},
+                gains, scratch, B, k, stream);
 }

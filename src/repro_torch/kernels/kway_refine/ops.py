@@ -1,20 +1,23 @@
-"""The k-way move-gain wrapper: the tensors' device picks the kernel.
+"""The k-way move-gain wrappers: the tensors' device picks the kernel.
 
 A CUDA tensor goes to the hand-written Hopper kernel
 (``csrc/kway_gains.cu``, built by ``kernels._build``); a CPU tensor goes
 to the plain version in ``ref.py``. There is no other switch and no
-fallback: a failed build or launch raises. ``kway_gains.launches``
-counts the CUDA launches, so a run can show that its path went through
-the kernel.
+fallback: a failed build or launch raises. The kernel has two front
+ends: ``kway_gains`` counts a (B, L) tile of partition ids, and
+``kway_gains_csr`` (the refinement screen's) reads each candidate's
+neighbours through the CSR and the assignment, so the tile is never
+built. Each wrapper's ``launches`` counts its CUDA launches, so a run can
+show that its path went through the kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import load_extension, on_cuda
-from .ref import kway_gains_ref
+from .ref import kway_gains_csr_ref, kway_gains_ref
 
-__all__ = ["kway_gains"]
+__all__ = ["kway_gains", "kway_gains_csr"]
 
 
 def kway_gains(parts: torch.Tensor, own: torch.Tensor, *,
@@ -34,3 +37,27 @@ def kway_gains(parts: torch.Tensor, own: torch.Tensor, *,
 
 
 kway_gains.launches = 0
+
+
+def kway_gains_csr(indptr: torch.Tensor, indices: torch.Tensor,
+                   assign: torch.Tensor, cand: torch.Tensor, *,
+                   tile_l: int, k: int) -> torch.Tensor:
+    """Move gains of the candidates ``cand``, read through the CSR.
+
+    indptr (n + 1,) int32 or int64 and indices int32 (as
+    ``Hypergraph.device_adjacency`` gives them), assign (n + 1,) int32,
+    cand (B,) int32 (-1 pad). Row b counts the partitions of the first
+    ``min(deg, tile_l)`` neighbours of ``cand[b]`` against its own,
+    ``assign[cand[b]]``. Returns (B, k) float32 gains as
+    ``ref.kway_gains_csr_ref`` defines them, bit for bit on either
+    device; ids must lie in range.
+    """
+    if not on_cuda(cand, "kway_gains_csr"):
+        return kway_gains_csr_ref(indptr, indices, assign, cand, tile_l, k)
+    out = load_extension().kway_gains_csr(indptr, indices, assign, cand,
+                                          int(tile_l), int(k))
+    kway_gains_csr.launches += 1
+    return out
+
+
+kway_gains_csr.launches = 0

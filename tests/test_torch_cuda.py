@@ -17,8 +17,9 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.hype_score.ops import hype_score_select, hype_scores
 from repro_torch.kernels.hype_score.ref import (hype_score_select_ref,
                                                 hype_scores_ref)
-from repro_torch.kernels.kway_refine.ops import kway_gains
-from repro_torch.kernels.kway_refine.ref import kway_gains_ref
+from repro_torch.kernels.kway_refine.ops import kway_gains, kway_gains_csr
+from repro_torch.kernels.kway_refine.ref import (kway_gains_csr_ref,
+                                                 kway_gains_ref)
 from repro_torch.partition_api import partition
 
 pytestmark = pytest.mark.cuda
@@ -150,7 +151,10 @@ def test_cuda_scores_fringe_widths_equal_plain_version(B, L, s):
 
 @pytest.mark.parametrize("B,L,k", [
     (4096, 2048, 32), (4096, 32, 2), (300, 512, 67), (17, 33, 5),
-    (8, 128, 1), (4096, 512, 2048), (4096, 512, 7264), (2048, 512, 10_000)])
+    (8, 128, 1), (4096, 512, 2048), (4096, 512, 7264), (2048, 512, 10_000),
+    # either side of the lane-private counters' last k, and of the shared
+    # counters' (past it, the global scratch)
+    (4096, 512, 64), (4096, 512, 65), (4096, 512, 7257)])
 def test_cuda_kway_gains_equal_plain_version(B, L, k):
     _need_card()
     rng = np.random.default_rng(B + L + k)
@@ -164,6 +168,49 @@ def test_cuda_kway_gains_equal_plain_version(B, L, k):
     torch.cuda.synchronize()
     assert kway_gains.launches == before + 1
     assert torch.equal(got, kway_gains_ref(*x, k))
+
+
+def _csr_screen(k, ptr_dtype, seed=7):
+    """A seeded screen on the card: mostly short rows, rows of 200-700
+    and of 2,100-2,600 neighbours, vertices with none, parts at -1 and
+    at k + 1 in the assignment, and -1 candidates among the real ones."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    deg = rng.integers(0, 20, size=n)
+    long_rows = rng.choice(n, size=25, replace=False)
+    deg[long_rows[:5]] = rng.integers(2100, 2600, size=5)
+    deg[long_rows[5:]] = rng.integers(200, 700, size=20)
+    indptr = np.zeros(n + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    assign = rng.integers(0, k, size=n + 1).astype(np.int32)
+    odd = rng.choice(n, size=40, replace=False)
+    assign[odd[:20]] = -1
+    assign[odd[20:]] = k + 1
+    cand = np.full(300, -1, np.int32)
+    cand[:280] = rng.choice(n, size=280, replace=False)
+    cand[:25] = long_rows
+    cand[25:28] = np.flatnonzero(deg == 0)[:3]
+    cand[100] = -1
+    return (torch.from_numpy(indptr).to(ptr_dtype).cuda(),
+            *(torch.from_numpy(a).cuda() for a in (indices, assign, cand)))
+
+
+@pytest.mark.parametrize("ptr_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k", [2, 32, 64, 65, 2048, 7264, 10_000])
+@pytest.mark.parametrize("tile_l", [32, 128, 512, 2048])
+def test_cuda_kway_gains_csr_equal_plain_version(tile_l, k, ptr_dtype):
+    """The screen's front end against its plain version on the card, bit
+    for bit; two calls give the same bits, each one launch."""
+    _need_card()
+    x = _csr_screen(k, ptr_dtype)
+    before = kway_gains_csr.launches
+    got = kway_gains_csr(*x, tile_l=tile_l, k=k)
+    again = kway_gains_csr(*x, tile_l=tile_l, k=k)
+    torch.cuda.synchronize()
+    assert kway_gains_csr.launches == before + 2
+    assert torch.equal(got, kway_gains_csr_ref(*x, tile_l, k))
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("method,kw,want", [

@@ -1,13 +1,16 @@
 """The port's k-way move gains and refinement against the JAX package.
 
-On the CPU the port's ``kway_gains`` runs its plain version; the JAX
-kernel runs in Pallas interpret mode. The refinement screen, the exact
+On the CPU the port's ``kway_gains`` and ``kway_gains_csr`` run their
+plain versions; the JAX kernel runs in Pallas interpret mode. The
+refinement screen (the CSR front end against JAX's gather + kernel
+program, over every tile width and rows longer than it), the exact
 gains, the admission, the rebalance and whole ``refine_kway`` runs
 (device screen and host screen) are held against the JAX package on the
 same seeded inputs. Every output is an integer count or an assignment,
 so the tolerance is 0.
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +24,10 @@ from repro.kernels.kway_refine.ops import kway_gains as jax_gains
 from repro_torch.core import refine, scoring
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic
-from repro_torch.kernels.kway_refine.ops import kway_gains
-from repro_torch.kernels.kway_refine.ref import kway_gains_ref
+from repro_torch.kernels.kway_refine import ref as kref
+from repro_torch.kernels.kway_refine.ops import kway_gains, kway_gains_csr
+from repro_torch.kernels.kway_refine.ref import (kway_gains_csr_ref,
+                                                 kway_gains_ref)
 
 L_BUCKETS = (32, 128, 512, 2048)
 
@@ -123,11 +128,131 @@ def test_gather_part_tiles_matches_jax():
     want = jax_scoring._gather_part_tiles(
         jnp.asarray(indptr, jnp.int32), jnp.asarray(indices),
         jnp.asarray(assign), jnp.asarray(cand), 32)
-    got = scoring._gather_part_tiles(
+    got = kref.gather_part_tiles(
         torch.from_numpy(indptr.astype(np.int32)),
         torch.from_numpy(indices), torch.from_numpy(assign),
         torch.from_numpy(cand), 32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------- the screen's CSR front end
+
+def csr_screen_inputs(k, seed=7):
+    """A seeded CSR screen with every row shape the kernel splits.
+
+    Degrees are mostly short, with rows of 200-700 and of 2,100-2,600
+    neighbours (longer than every tile width, so the tile cut shows) and
+    vertices with none. The assignment puts a few vertices at -1 and at
+    k + 1 (parts that count for no column) and has its scratch slot. The
+    64 candidates hold the long rows, a vertex with no neighbours, moved
+    vertices and -1 pads in the middle and at the end. Returns numpy
+    ``(indptr int64, indices, assign (n + 1,), delta_ids, delta_vals,
+    cand)``.
+    """
+    rng = np.random.default_rng(seed)
+    n = 3000
+    deg = rng.integers(0, 20, size=n)
+    long_rows = rng.choice(n, size=25, replace=False)
+    deg[long_rows[:5]] = rng.integers(2100, 2600, size=5)
+    deg[long_rows[5:]] = rng.integers(200, 700, size=20)
+    empty = np.flatnonzero(deg == 0)[:3]
+    indptr = np.zeros(n + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, n, size=int(indptr[-1])).astype(np.int32)
+    assign = rng.integers(0, k, size=n + 1).astype(np.int32)
+    odd = rng.choice(n, size=40, replace=False)
+    assign[odd[:20]] = -1
+    assign[odd[20:]] = k + 1
+    assign[n] = -1                               # the scratch slot
+    delta_ids = np.full(96, -1, np.int32)
+    delta_vals = np.zeros(96, np.int32)
+    moved = rng.choice(n, size=30, replace=False)
+    delta_ids[:30] = moved
+    delta_vals[:30] = rng.integers(0, k, size=30)
+    cand = np.full(64, -1, np.int32)
+    cand[:50] = rng.choice(n, size=50, replace=False)
+    cand[:5] = long_rows[:5]
+    cand[5:10] = long_rows[5:10]
+    cand[10:13] = empty
+    cand[13:18] = moved[:5]                     # rows that see the delta
+    cand[20] = -1                               # a pad among real rows
+    return indptr, indices, assign, delta_ids, delta_vals, cand
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_screen(tile_l, k):
+    indptr, indices, assign, d_ids, d_vals, cand = csr_screen_inputs(k)
+    want_assign, want = jax_scoring.refine_gains_device(
+        jnp.asarray(indptr, jnp.int32), jnp.asarray(indices),
+        jnp.asarray(assign[:-1]), jnp.asarray(d_ids), jnp.asarray(d_vals),
+        jnp.asarray(cand), tile_l=tile_l, k=k, interpret=True)
+    return np.asarray(want_assign), np.asarray(want)
+
+
+def _torch_screen(k, ptr_dtype):
+    indptr, indices, assign, d_ids, d_vals, cand = csr_screen_inputs(k)
+    return (torch.from_numpy(indptr).to(ptr_dtype),
+            torch.from_numpy(indices), torch.from_numpy(assign),
+            torch.from_numpy(d_ids), torch.from_numpy(d_vals),
+            torch.from_numpy(cand))
+
+
+SCREEN_CASES = [pytest.param(tile_l, k, ptr, id=f"L{tile_l}-k{k}-{name}")
+                for tile_l in L_BUCKETS for k in (1, 2, 32, 67)
+                for name, ptr in (("int32", torch.int32),
+                                  ("int64", torch.int64))]
+
+
+@pytest.mark.parametrize("tile_l,k,ptr_dtype", SCREEN_CASES)
+def test_kway_gains_csr_ref_matches_jax_screen(tile_l, k, ptr_dtype):
+    """The plain CSR front end on the assignment after JAX's delta: JAX's
+    screen gains, and the tile route (gather + ``kway_gains_ref``), bit
+    for bit."""
+    want_assign, want = _jax_screen(tile_l, k)
+    indptr, indices, _, _, _, cand = _torch_screen(k, ptr_dtype)
+    assign = torch.from_numpy(np.append(want_assign, np.int32(-1)))
+    got = kway_gains_csr_ref(indptr, indices, assign, cand, tile_l, k)
+    assert got.dtype == torch.float32 and got.shape == (cand.shape[0], k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    own = torch.where(cand >= 0, assign[cand.clamp(min=0).long()], -1)
+    tile = kref.gather_part_tiles(indptr, indices, assign, cand, tile_l)
+    assert torch.equal(kway_gains_ref(tile, own, k), got)
+    # the cut shows (rows past tile_l), pads and empty rows are zero
+    deg = (indptr[1:] - indptr[:-1])[cand[:5].long()]
+    assert (deg > tile_l).all()
+    assert (got[cand < 0] == 0).all() and (got[10:13] == 0).all()
+    assert torch.equal(kway_gains_csr(indptr, indices, assign, cand,
+                                      tile_l=tile_l, k=k), got)
+
+
+@pytest.mark.parametrize("tile_l,k,ptr_dtype", SCREEN_CASES)
+def test_refine_gains_device_csr_matches_jax(tile_l, k, ptr_dtype,
+                                             monkeypatch):
+    """``refine_gains_device`` on the CPU: the delta, then one call of the
+    CSR front end's plain entry; equal to JAX's program."""
+    want_assign, want = _jax_screen(tile_l, k)
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return kway_gains_csr(*args, **kw)
+
+    monkeypatch.setattr(scoring, "kway_gains_csr", spy)
+    indptr, indices, assign, d_ids, d_vals, cand = _torch_screen(
+        k, ptr_dtype)
+    got_assign, got = scoring.refine_gains_device(
+        indptr, indices, assign, d_ids, d_vals, cand, tile_l=tile_l, k=k)
+    assert calls == [{"tile_l": tile_l, "k": k}]
+    np.testing.assert_array_equal(got_assign.numpy()[:-1], want_assign)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kway_gains_csr_refuses_other_devices():
+    meta = dict(dtype=torch.int32, device="meta")
+    args = (torch.empty(5, **meta), torch.empty(8, **meta),
+            torch.empty(5, **meta), torch.empty(4, **meta))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kway_gains_csr(*args, tile_l=32, k=4)
 
 
 # ------------------------------------------- host half of a refinement
