@@ -35,10 +35,19 @@ prints one JSON line per phase:
             bit-equal to its plain version, timed with and without the
             screen's delta, eagerly and in a CUDA graph, beside the launch
             floor and the gather + tile kernel chain it replaced
+  device    the same graph through hype_device, t=16: the whole growth
+            loop on the card, one round captured as a CUDA graph and
+            replayed 64 times a chunk, held to the depth-1 slice's digest,
+            k-1 and supersteps, with its replays, graph nodes and capture
+            time (score + select launches = replays + one warm-up round a
+            capture); then preset="quality" held to the quality path's
+            digest and 104 screens; then the depth-1 slice and hype_device
+            in turns, three times each (wall, host_s, device_s)
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
-  profile   the depth-1 slice, the batched and the quality path each run
-            twice more, under torch.profiler (the card's busy time) and
-            under cProfile (the host's time per function)
+  profile   the depth-1 slice, the batched and the quality path and
+            hype_device each run twice more, under torch.profiler (the
+            card's busy time) and under cProfile (the host's time per
+            function)
   kernel_embedding_bag  the EmbeddingBag kernel against its plain version
             (fp32 and bf16, mean and sum, edge cases, ids near V-1 of a
             full-width 16,777,216 x 256 table), timed at the serving
@@ -2140,6 +2149,82 @@ class Launches:
         return out, wall, counts
 
 
+def device_row(phase, hg, a, st, wall):
+    """A hype_device run's row: the path's metrics, the loop's counters
+    and its CUDA graph (replays, nodes, warm-up + capture seconds)."""
+    row = path_row(phase, hg, a, 32, wall)
+    row.update(supersteps=st.supersteps, loop_chunks=st.loop_chunks,
+               loop_rounds=st.loop_rounds, loop_pack_only=st.loop_pack_only,
+               loop_store_peak=st.loop_store_peak,
+               graph_captures=st.graph_captures,
+               graph_replays=st.graph_replays, graph_nodes=st.graph_nodes,
+               graph_capture_s=st.graph_capture_s, host_s=st.host_s,
+               device_s=st.device_s,
+               host_share=st.host_s / max(st.host_s + st.device_s, 1e-12),
+               tile_l=st.tile_l)
+    return row
+
+
+def phase_device(hg, same_graph, slice_row, launches, metrics,
+                 SuperstepParams, hype_superstep_partition, DeviceParams,
+                 hype_device_partition, PRESETS):
+    """hype_device on the slice's graph: the whole growth loop on the card,
+    one round captured as a CUDA graph and replayed a chunk at a time.
+    Held to the depth-1 slice's digest, k-1 and supersteps; every replay
+    launches score + select once, and each capture's warm-up round once
+    more (a capacity rerun captures anew). Then preset="quality" (the same
+    schedule, then the refinement post-pass), held to the quality path's
+    digest and screens. Then the depth-1 slice and hype_device in turns,
+    three times each, in this process."""
+    import torch
+    dp = DeviceParams(seed=0, t=16)
+    (a, st), wall, counts = launches.drive(lambda: hype_device_partition(
+        hg, 32, dp, return_stats=True, device="cuda"))
+    row = device_row("device", hg, a, st, wall)
+    cpu = None if same_graph else slice_row["expected_digest"]
+    check_path(row, SLICE_DIGESTS[1], SLICE_KM1[1], cpu, counts,
+               {"hype_score_select": st.graph_replays + st.graph_captures})
+    if st.supersteps != slice_row["supersteps"]:
+        raise SystemExit(f"hype_device ran {st.supersteps} supersteps; the "
+                         f"depth-1 slice {slice_row['supersteps']}")
+    if st.graph_replays < st.supersteps or st.graph_nodes <= 0:
+        raise SystemExit(f"hype_device did not run as graph replays: {row}")
+    qp = DeviceParams(seed=0, t=16, **PRESETS["hype_device"]["quality"])
+    (a, st), wall, counts = launches.drive(lambda: hype_device_partition(
+        hg, 32, qp, return_stats=True, device="cuda"))
+    row = device_row("device_quality", hg, a, st, wall)
+    row["refine"] = dataclasses.asdict(st.refine)
+    screens = st.refine.kernel_calls
+    if same_graph and screens != QUALITY_SCREENS:
+        raise SystemExit(f"hype_device quality screened {screens} tiles; "
+                         f"the JAX run screened {QUALITY_SCREENS}")
+    cpu = None if same_graph else digest(hype_device_partition(
+        hg, 32, qp, device="cpu"))
+    check_path(row, PATH_DIGESTS["quality"], PATH_KM1["quality"], cpu,
+               counts, {"hype_score_select": st.graph_replays
+                        + st.graph_captures, "kway_gains_csr": screens})
+    turns = []
+    for _ in range(3):
+        _, srow = run_slice(hg, 1, "cuda", metrics, SuperstepParams,
+                            hype_superstep_partition)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, st = hype_device_partition(hg, 32, dp, return_stats=True,
+                                      device="cuda")
+        drow = device_row("device", hg, a, st, time.perf_counter() - t0)
+        if drow["digest"] != srow["digest"]:
+            raise SystemExit(f"hype_device and the slice differ: {drow}")
+        turns.append({
+            "slice": {key: srow[key] for key in ("wall_s", "host_s",
+                                                 "device_s")},
+            "device": {key: drow[key] for key in (
+                "wall_s", "host_s", "device_s", "host_share",
+                "graph_captures", "graph_replays", "graph_nodes",
+                "graph_capture_s",
+                "loop_chunks", "loop_rounds")}})
+    emit({"phase": "device_turns", "turns": turns})
+
+
 def check_path(row, want_digest, want_km1, cpu_digest, counts, need):
     """Hold a path's digest against the JAX constant (or, when the graph
     differs from the one the constant was taken on, against the port's
@@ -2207,6 +2292,8 @@ def main() -> int:
     from repro_torch.data import synthetic as synth
     from repro_torch.engines.batched import (BatchedParams,
                                              hype_batched_partition)
+    from repro_torch.engines.device import (DeviceParams,
+                                            hype_device_partition)
     from repro_torch.engines.superstep import (SuperstepParams,
                                                hype_superstep_partition)
     from repro_torch.kernels import _build
@@ -2337,6 +2424,9 @@ def main() -> int:
     if first.args is None:
         raise SystemExit("the quality path made no refinement screen")
     screen_row = phase_kernel_kway_screen(kops, kref, scoring, first.args)
+    phase_device(hg, same_graph, runs[1], launches, metrics, SuperstepParams,
+                 hype_superstep_partition, DeviceParams,
+                 hype_device_partition, PRESETS)
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
     # the coarsest graph, kway_gains_csr screens at the finest level
@@ -2378,6 +2468,8 @@ def main() -> int:
         hg, 32, bp, device="cuda"))
     phase_profile("quality", lambda: hype_superstep_partition(
         hg, 32, qp, device="cuda"))
+    phase_profile("device", lambda: hype_device_partition(
+        hg, 32, DeviceParams(seed=0, t=16), device="cuda"))
 
     bag_rows, worst_bag = run_recsys(launches, bops, bref)
     flash_rows, worst_flash = run_lm(launches, fops, fref)

@@ -4,7 +4,10 @@ The port imports nothing of ``repro``, so a caller holding the JAX
 package's objects hands over their arrays or fields instead:
 ``hypergraph_from_arrays(hg.n, hg.m, hg.v2e_indptr, hg.v2e_indices,
 hg.e2v_indptr, hg.e2v_indices)``, ``superstep_params_from_dict(dataclasses.asdict(
-params))``, ``batched_params_from_dict(dataclasses.asdict(params))`` and
+params))``, ``device_params_from_dict(dataclasses.asdict(params))``,
+``device_carry_from_numpy(carry, device)`` (the device loop's carry, as
+``engines.device._device_export`` builds it),
+``batched_params_from_dict(dataclasses.asdict(params))`` and
 ``twotower_params_from_numpy(jax.tree.map(np.asarray, params), cfg,
 device)``, ``transformer_params_from_numpy(jax.tree.map(np.asarray,
 params), cfg, device)`` and ``gnn_params_from_numpy(jax.tree.map(
@@ -18,7 +21,9 @@ import numpy as np
 import torch
 
 from .core.hypergraph import Hypergraph
+from .core import device_loop
 from .engines.batched import BatchedParams
+from .engines.device import DeviceParams
 from .engines.superstep import SuperstepParams
 from .models.gnn import GNNConfig, gnn_param_shapes
 from .models.recsys import PARAM_NAMES, TwoTowerConfig
@@ -48,6 +53,18 @@ def _params_from_dict(cls, d: dict):
 def superstep_params_from_dict(d: dict) -> SuperstepParams:
     """The port's ``SuperstepParams`` from a dict of the JAX fields."""
     return _params_from_dict(SuperstepParams, d)
+
+
+def device_params_from_dict(d: dict) -> DeviceParams:
+    """The port's ``DeviceParams`` from a dict of the JAX fields."""
+    return _params_from_dict(DeviceParams, d)
+
+
+def device_carry_from_numpy(carry: dict, device="cpu") -> dict:
+    """The JAX device loop's carry (a dict of numpy arrays and scalars) as
+    the port's tensors on ``device``, with their scratch slots
+    (``core.device_loop.carry_to_device``)."""
+    return device_loop.carry_to_device(carry, device)
 
 
 def batched_params_from_dict(d: dict) -> BatchedParams:

@@ -42,6 +42,20 @@ class BatchedStats:
     stale_redraws: int = 0          # pool slots skipped on device because
     #                                 an interleaved superstep had already
     #                                 assigned them
+    # device-loop counters (hype_device):
+    loop_chunks: int = 0            # host-visible chunks of rounds
+    loop_rounds: int = 0            # pack + dispatch rounds run on device
+    loop_pack_only: int = 0         # rounds that had nothing to score
+    loop_store_peak: int = 0        # peak live rows across phase stores
+    loop_state_bytes: int = 0       # device-resident carry (loop state)
+    refill_signals: int = 0         # phases whose candidate slots ran out
+    #                                 during selection (the kernel's rem)
+    # the device loop's CUDA graphs (0 on the CPU; the port's own),
+    # summed over a run's capacity attempts:
+    graph_captures: int = 0         # rounds captured (one warm-up each)
+    graph_replays: int = 0          # replays of the captured rounds
+    graph_nodes: int = 0            # nodes of the last captured graph
+    graph_capture_s: float = 0.0    # warm-up + capture + instantiate
     # refinement post-pass (None unless refine_passes > 0 ran):
     refine: Optional[object] = None     # core.refine.RefineStats
 

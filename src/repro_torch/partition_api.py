@@ -16,10 +16,11 @@ from .core.hype import HypeParams, hype_partition
 from .core.hypergraph import Hypergraph
 from .core.multilevel import hype_multilevel_partition, multilevel_partition
 from .engines.batched import BatchedParams, hype_batched_partition
+from .engines.device import DeviceParams, hype_device_partition
 from .engines.superstep import SuperstepParams, hype_superstep_partition
 
-METHODS = ("hype_batched", "hype_superstep", "hype_multilevel",
-           "multilevel", "hype", "hype_weighted")
+METHODS = ("hype_batched", "hype_superstep", "hype_device",
+           "hype_multilevel", "multilevel", "hype", "hype_weighted")
 
 _HOST = "host-only methods (numpy copies)"
 PENDING = {
@@ -28,7 +29,6 @@ PENDING = {
     "shp": _HOST,
     "random": _HOST,
     "hashing": _HOST,
-    "hype_device": "hype_device",
     "hype_sharded": "hype_sharded",
     "hype_stream": "hype_stream",
     "hype_jax": "hype_jax and hype_parallel",
@@ -42,7 +42,8 @@ _PRESETS_HOST = {"fast": {}, "balanced": {"refine_passes": 1},
                  "quality": {"refine_passes": 4}}
 _PRESETS_PIPE = {"fast": {}, "balanced": {"refine_passes": 1},
                  "quality": {"refine_passes": 4, "pipeline_depth": 1}}
-PRESETS = {"hype_batched": _PRESETS_HOST, "hype_superstep": _PRESETS_PIPE}
+PRESETS = {"hype_batched": _PRESETS_HOST, "hype_superstep": _PRESETS_PIPE,
+           "hype_device": _PRESETS_HOST}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,10 +81,11 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     ``device`` is ``None`` (the card), ``"cuda"`` or ``"cpu"``. ``seed``,
     ``preset``, ``validate`` and ``auto_validate_max_n`` mean what they
     mean in ``repro.core.partition_api.partition``: ``preset`` is
-    ``"fast"``, ``"balanced"`` or ``"quality"`` on ``hype_batched`` and
-    ``hype_superstep`` (explicit knobs win) and a ``ValueError`` on the
-    other methods. ``knobs`` go to ``BatchedParams`` or
-    ``SuperstepParams``, are ``refine_passes`` and ``coarsest`` of
+    ``"fast"``, ``"balanced"`` or ``"quality"`` on ``hype_batched``,
+    ``hype_superstep`` and ``hype_device`` (explicit knobs win) and a
+    ``ValueError`` on the other methods. ``knobs`` go to
+    ``BatchedParams``, ``SuperstepParams`` or ``DeviceParams``, are
+    ``refine_passes`` and ``coarsest`` of
     ``hype_multilevel``, or go to ``HypeParams`` for ``hype`` and
     ``hype_weighted`` (the host partitioner, numpy on any ``device``;
     ``hype_weighted`` pins ``balance="weighted"``). A method or knob of
@@ -112,6 +114,9 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     if method == "hype_superstep":
         return hype_superstep_partition(
             hg, k, SuperstepParams(seed=seed, **knobs), device=dev)
+    if method == "hype_device":
+        return hype_device_partition(
+            hg, k, DeviceParams(seed=seed, **knobs), device=dev)
     if method == "hype_multilevel":
         return hype_multilevel_partition(hg, k, seed=seed, device=dev,
                                          **knobs)

@@ -497,3 +497,85 @@ def test_cuda_graphsage_step_launches_two_forward_two_backward():
         assert (after[0] - before[0], after[1] - before[1]) == want
         losses[dev] = float(loss)
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
+
+
+# ------------------------------------------------ the device loop (hype_device)
+
+_DEVICE_GOLD = {"pl600": (16, 8, "bbcd2f732e03af91"),     # test_hype_device.py
+                "reddit": (32, 16, "13f232f653c9c752")}
+
+
+def _device_graph(name):
+    from repro_torch.data.synthetic import reddit_like
+    if name == "pl600":
+        return powerlaw_hypergraph(600, 400, seed=11, max_edge=30,
+                                   max_degree=20)
+    return reddit_like(scale=0.005, seed=0)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+@pytest.mark.parametrize("graph", sorted(_DEVICE_GOLD))
+def test_cuda_device_loop_replays_equal_cpu_and_golden(graph, chunk):
+    """The captured round replayed ``chunk`` times a chunk lands on the
+    CPU run's bits and the golden; every replay launches score + select
+    once, and each capture's warm-up round once more (reddit's planned
+    capacities overflow twice, so three attempts capture)."""
+    _need_card()
+    from repro_torch.engines.device import DeviceParams, hype_device_partition
+    from repro_torch.kernels.hype_score import ops
+    k, t, want = _DEVICE_GOLD[graph]
+    hg = _device_graph(graph)
+    p = DeviceParams(seed=0, t=t, chunk_supersteps=chunk)
+    before = ops.hype_score_select.launches
+    a, st = hype_device_partition(hg, k, p, True, device="cuda")
+    launched = ops.hype_score_select.launches - before
+    cpu = hype_device_partition(hg, k, p, device="cpu")
+    got = hashlib.sha256(a.astype(np.int32).tobytes()).hexdigest()[:16]
+    assert got == want
+    np.testing.assert_array_equal(a, cpu)
+    assert st.graph_nodes > 0 and st.graph_replays >= st.supersteps
+    assert st.graph_captures >= 1
+    assert launched == st.graph_replays + st.graph_captures
+
+
+def test_cuda_device_loop_two_runs_same_bits():
+    _need_card()
+    from repro_torch.engines.device import DeviceParams, hype_device_partition
+    hg = _device_graph("reddit")
+    p = DeviceParams(seed=0, t=16)
+    a1, st1 = hype_device_partition(hg, 32, p, True, device="cuda")
+    a2, st2 = hype_device_partition(hg, 32, p, True, device="cuda")
+    np.testing.assert_array_equal(a1, a2)
+    assert (st1.supersteps, st1.loop_rounds, st1.graph_nodes) == (
+        st2.supersteps, st2.loop_rounds, st2.graph_nodes)
+
+
+def test_cuda_device_loop_overflow_recaptures(monkeypatch):
+    """A store too small for the run raises FLAG_STORE on the card; the
+    rerun with the doubled store captures a new graph and lands on the
+    golden."""
+    _need_card()
+    from repro_torch.core import device_loop
+    from repro_torch.engines import device
+    captures = []
+    real = device_loop.DeviceLoop._capture
+
+    def spy(self, dev):
+        real(self, dev)
+        captures.append(self.cfg.sp)
+
+    monkeypatch.setattr(device_loop.DeviceLoop, "_capture", spy)
+    a, st = device.hype_device_partition(
+        _device_graph("pl600"), 16,
+        device.DeviceParams(seed=0, t=8, store_cap=32), True, device="cuda")
+    got = hashlib.sha256(a.astype(np.int32).tobytes()).hexdigest()[:16]
+    assert got == _DEVICE_GOLD["pl600"][2]
+    assert captures == [32, 64] and st.graph_captures == 2
+
+
+def test_cuda_device_quality_matches_superstep_quality():
+    _need_card()
+    hg = _device_graph("pl600")
+    a = partition(hg, 16, "hype_device", device="cuda", preset="quality")
+    got = hashlib.sha256(a.astype(np.int32).tobytes()).hexdigest()[:16]
+    assert got == "8356b306cfe516d5"    # JAX hype_superstep, preset quality
