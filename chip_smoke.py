@@ -43,6 +43,21 @@ prints one JSON line per phase:
             capture); then preset="quality" held to the quality path's
             digest and 104 screens; then the depth-1 slice and hype_device
             in turns, three times each (wall, host_s, device_s)
+  resilience  the same graph: hype_device clean, snapshotting every 64
+            supersteps, killed by dispatch@200:fatal and resumed (from
+            the snapshot at 192), and with dispatch@50;nan@120 (the
+            poisoned round off the captured graph), each on the depth-1
+            digest; hype_superstep killed and resumed at depth 1 (the
+            digest) and 2 (the uninterrupted run with the same cadence,
+            held to JAX's); hype_batched with a NaN tile at launch 3,000
+            (the batched digest, the tile rescored on the host); then
+            partition_resilient from hype_device killed at 100, finishing
+            on hype_superstep from the snapshot at 64 (held to JAX's
+            ladder). Each run prints wall, host_s, device_s, snapshots,
+            snapshot_s, restore_s and a snapshot's bytes
+  report    partition_and_report on the same graph for minmax_nb,
+            minmax_eb, shp, random, hashing and hype_device, each report
+            held to the JAX package's key for key (runtime_s aside)
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
   profile   the depth-1 slice, the batched and the quality path and
             hype_device each run twice more, under torch.profiler (the
@@ -133,11 +148,56 @@ SLICE_KM1 = {1: 61457, 2: 61526}
 # defaults on github_like(0.25, seed=0))
 PATH_DIGESTS = {"batched": "fcf79576d996c475",
                 "quality": "ff5a93e5d0575075",
-                "multilevel": "f69b4e70314aafbb"}
+                "multilevel": "f69b4e70314aafbb",
+                # hype_superstep at depth 2 with snapshot_every=64 (the
+                # drain at a snapshot is part of the schedule)
+                "pd2_cadence64": "62ea00d540e4ddea"}
 PATH_KM1 = {"batched": 52658, "quality": 60847, "multilevel": 28860}
 ML_FINGERPRINT = "e3c67ff51a35cfd8"
 # RefineStats.kernel_calls of the quality path in the JAX package's run
 QUALITY_SCREENS = 104
+# nodes of hype_device's captured round on github_like(1.0), k=32, t=16
+# (torch 2.11.0+cu128 on an H100): a clean run keeps them within 2%
+DEVICE_GRAPH_NODES = 1822
+# partition_resilient("hype_device", t=16, snapshot_every=64,
+# fault_plan="dispatch@100:fatal"): JAX's ladder raises KeyError reading
+# its device snapshot's assignment, so this is JAX's superstep rung
+# (depth 2, the same cadence) warm-started from the assignment of JAX's
+# hype_device snapshot at 64, the run killed at 100: k-1 61685.
+LADDER_DIGEST = "4ae54e05b401a645"
+# partition_and_report(hg, 32, method, seed=0) in the JAX package, its
+# runtime_s left out (hype_device with t=16)
+REPORTS = {
+    "minmax_nb": {"digest": "0e52c320b9e81963", "report": {
+        "k_minus_1": 66413, "hyperedge_cut": 34654, "soed": 101067,
+        "vertex_imbalance": 0.017917331914138725,
+        "replication_factor": 2.1750561757992886, "method": "minmax_nb",
+        "k": 32}},
+    "minmax_eb": {"digest": "5ae6b38082dc6102", "report": {
+        "k_minus_1": 85152, "hyperedge_cut": 39456, "soed": 124608,
+        "vertex_imbalance": 0.015498287979816183,
+        "replication_factor": 2.506608397176171, "method": "minmax_eb",
+        "k": 32}},
+    "shp": {"digest": "bc43b408a6faaba5", "report": {
+        "k_minus_1": 95756, "hyperedge_cut": 33999, "soed": 129755,
+        "vertex_imbalance": 0.00018037518037518038,
+        "replication_factor": 2.69422672021798, "method": "shp", "k": 32}},
+    "random": {"digest": "93b5be10a9cd0e81", "report": {
+        "k_minus_1": 175001, "hyperedge_cut": 48368, "soed": 223369,
+        "vertex_imbalance": 0.00018037518037518038,
+        "replication_factor": 4.096321590969408, "method": "random",
+        "k": 32}},
+    "hashing": {"digest": "78f41066a7acbc7e", "report": {
+        "k_minus_1": 175942, "hyperedge_cut": 48386, "soed": 224328,
+        "vertex_imbalance": 0.0027036770007209804,
+        "replication_factor": 4.112970859357031, "method": "hashing",
+        "k": 32}},
+    "hype_device": {"digest": "11af1dd01f862a04", "report": {
+        "k_minus_1": 61457, "hyperedge_cut": 15306, "soed": 76763,
+        "vertex_imbalance": 0.00018037518037518038,
+        "replication_factor": 2.0873688494134717, "method": "hype_device",
+        "k": 32}},
+}
 
 # The two-tower serving slice. Tolerance of the reduced config's card
 # run against the CPU run (tests/test_torch_recsys.py holds the CPU run
@@ -2225,6 +2285,235 @@ def phase_device(hg, same_graph, slice_row, launches, metrics,
     emit({"phase": "device_turns", "turns": turns})
 
 
+def snapshot_root(name):
+    """A fresh snapshot directory for one run, under the checkout's
+    gitignored build/ (nothing is written outside the checkout)."""
+    import shutil
+    root = pathlib.Path(__file__).resolve().parent
+    d = root / "build" / "snapshots" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return str(d)
+
+
+def snapshot_bytes(d):
+    """Bytes of one snapshot file in ``d`` (the newest)."""
+    files = sorted(pathlib.Path(d).glob("snap_*.ckpt"))
+    return files[-1].stat().st_size if files else 0
+
+
+def resilience_row(label, hg, a, st, wall, snap_dir=None):
+    """A resilient run's row: the path's metrics, its time split, the
+    fault and snapshot counters, and its CUDA graph where it has one."""
+    row = path_row(f"resilience_{label}", hg, a, 32, wall)
+    row.update({key: getattr(st, key) for key in (
+        "supersteps", "host_s", "device_s", "snapshots", "snapshot_s",
+        "restore_s", "resumed_at", "faults_injected", "retries",
+        "fallbacks", "graph_captures", "graph_replays", "graph_nodes",
+        "graph_off_rounds", "kernel_calls", "host_rows")})
+    if snap_dir is not None:
+        row["snapshot_bytes"] = snapshot_bytes(snap_dir)
+    return row
+
+
+def phase_resilience(hg, same_graph, launches, metrics, res, DeviceParams,
+                     hype_device_partition, SuperstepParams,
+                     hype_superstep_partition, BatchedParams,
+                     hype_batched_partition, partition_resilient,
+                     batched_host_rows):
+    """Snapshots, resume, fault plans and the degradation ladder on the
+    card, github_like(1.0), k=32, t=16. hype_device clean, snapshotting
+    every 64 supersteps, killed by a fatal fault at 200 and resumed, and
+    with a transient dispatch fault and a NaN tile: each on the depth-1
+    digest; the same kill and resume on hype_superstep at depth 1 (the
+    digest) and depth 2 (the uninterrupted run with the same cadence);
+    hype_batched with a NaN tile in the middle (the batched digest, the
+    tile's rows rescored on the host); partition_resilient from
+    hype_device killed at 100, finishing on hype_superstep from the
+    snapshot at 64, held to the JAX package's ladder."""
+    want = SLICE_DIGESTS[1] if same_graph else None
+    rows = {}
+
+    def check(row, want_digest, counts, need):
+        """Emit the row; fail on another digest than ``want_digest`` (when
+        known) or a launch count other than ``need``."""
+        row["launches"] = counts
+        row["expected_launches"] = need
+        row["expected_digest"] = want_digest
+        emit(row)
+        if want_digest is not None and row["digest"] != want_digest:
+            raise SystemExit(f"{row['phase']} digest differs: {row}")
+        for name, n in need.items():
+            got = counts[name]
+            if got == 0 or got != n:
+                raise SystemExit(f"{row['phase']} launched {name} {got} "
+                                 f"times; expected {n}")
+        rows[row["phase"]] = row
+
+    def dev(**kw):
+        return lambda: hype_device_partition(
+            hg, 32, DeviceParams(seed=0, t=16, **kw), return_stats=True,
+            device="cuda")
+
+    # hype_device: clean, then snapshotting, killed and resumed
+    (a, st), wall, counts = launches.drive(dev(fault_plan=res.FaultPlan()))
+    clean = resilience_row("device_clean", hg, a, st, wall)
+    check(clean, want, counts,
+          {"hype_score_select": st.graph_replays + st.graph_captures})
+    if (st.graph_off_rounds
+            or abs(st.graph_nodes - DEVICE_GRAPH_NODES)
+            > 0.02 * DEVICE_GRAPH_NODES
+            or st.graph_replays < st.supersteps):
+        raise SystemExit(f"a clean hype_device left its graph: {clean}")
+    want = want or clean["digest"]
+    d = snapshot_root("device_full")
+    (a, st), wall, counts = launches.drive(dev(
+        snapshot_every=64, snapshot_dir=d, keep_last=100,
+        fault_plan=res.FaultPlan()))
+    row = resilience_row("device_snapshotting", hg, a, st, wall, d)
+    check(row, want, counts,
+          {"hype_score_select": st.graph_replays + st.graph_captures})
+    if st.snapshots != st.supersteps // 64:
+        raise SystemExit(f"hype_device published {st.snapshots} snapshots")
+    d = snapshot_root("device_killed")
+    t0 = time.perf_counter()
+    try:
+        dev(snapshot_every=64, snapshot_dir=d,
+            fault_plan="dispatch@200:fatal")()
+        raise SystemExit("hype_device survived a fatal fault")
+    except res.UnrecoverableFault as exc:
+        emit({"phase": "resilience_device_killed", "error": str(exc),
+              "wall_s": time.perf_counter() - t0,
+              "snapshot_bytes": snapshot_bytes(d)})
+    (a, st), wall, counts = launches.drive(dev(
+        snapshot_every=64, snapshot_dir=d, resume=d,
+        fault_plan=res.FaultPlan()))
+    row = resilience_row("device_resumed", hg, a, st, wall, d)
+    check(row, want, counts,
+          {"hype_score_select": st.graph_replays + st.graph_captures})
+    if st.resumed_at != 192:
+        raise SystemExit(f"hype_device resumed at {st.resumed_at}")
+    (a, st), wall, counts = launches.drive(dev(
+        fault_plan="dispatch@50;nan@120"))
+    row = resilience_row("device_faults", hg, a, st, wall)
+    # the poisoned round and those before it in its chunk run off the
+    # graph; its replay launches score + select once more
+    check(row, want, counts, {"hype_score_select": st.graph_replays
+                              + st.graph_captures + st.graph_off_rounds
+                              + 1})
+    if ((st.faults_injected, st.retries) != (2, 2)
+            or not st.graph_off_rounds):
+        raise SystemExit(f"hype_device fault counters: {row}")
+
+    # hype_superstep at depth 1 and 2: kill at 200, resume
+    def ss(depth, **kw):
+        return lambda: hype_superstep_partition(
+            hg, 32, SuperstepParams(seed=0, t=16, pipeline_depth=depth,
+                                    snapshot_every=64, **kw),
+            return_stats=True, device="cuda")
+
+    for depth in (1, 2):
+        base = None
+        if depth == 2:
+            d = snapshot_root("superstep_d2_full")
+            (a, st), wall, counts = launches.drive(ss(
+                2, snapshot_dir=d, fault_plan=res.FaultPlan()))
+            row = resilience_row("superstep_d2_full", hg, a, st, wall, d)
+            check(row, PATH_DIGESTS["pd2_cadence64"] if same_graph
+                  else None, counts, {"hype_score_select": st.supersteps})
+            base = row["digest"]
+        d = snapshot_root(f"superstep_d{depth}")
+        try:
+            ss(depth, snapshot_dir=d, fault_plan="dispatch@200:fatal")()
+            raise SystemExit("hype_superstep survived a fatal fault")
+        except res.UnrecoverableFault:
+            pass
+        (a, st), wall, counts = launches.drive(ss(
+            depth, snapshot_dir=d, resume=d, fault_plan=res.FaultPlan()))
+        row = resilience_row(f"superstep_d{depth}_resumed", hg, a, st, wall,
+                             d)
+        check(row, want if depth == 1 else base, counts,
+              {"hype_score_select": st.supersteps - st.resumed_at})
+        if st.resumed_at != 192:
+            raise SystemExit(f"hype_superstep resumed at {st.resumed_at}")
+
+    # hype_batched: a NaN tile in the middle, rescored on the host
+    (a, st), wall, counts = launches.drive(
+        lambda: hype_batched_partition(
+            hg, 32, BatchedParams(seed=0, t=16, fault_plan="nan@3000"),
+            return_stats=True, device="cuda"))
+    row = resilience_row("batched_nan", hg, a, st, wall)
+    row["tile_rows"] = st.host_rows - batched_host_rows
+    check(row, PATH_DIGESTS["batched"] if same_graph else None, counts,
+          {"hype_scores": st.kernel_calls})
+    if st.faults_injected != 1 or not 0 < row["tile_rows"] <= 256:
+        raise SystemExit(f"hype_batched quarantined nothing: {row}")
+
+    # the ladder's first rung alone, killed as the ladder kills it: its
+    # launches before it dies (replays, and a warm-up round a capture)
+    def device_rung():
+        try:
+            dev(snapshot_every=64, snapshot_dir=snapshot_root("ladder_rung"),
+                fault_plan="dispatch@100:fatal")()
+        except res.UnrecoverableFault:
+            return
+        raise SystemExit("hype_device survived a fatal fault")
+
+    _, _, rung_counts = launches.drive(device_rung)
+    # the ladder: hype_device killed at 100 -> hype_superstep from 64
+    d = snapshot_root("ladder")
+    (a, rep), wall, counts = launches.drive(lambda: partition_resilient(
+        hg, 32, "hype_device", device="cuda", seed=0, t=16,
+        snapshot_dir=d, snapshot_every=64, fault_plan="dispatch@100:fatal"))
+    st = rep["stats"]
+    row = resilience_row("ladder", hg, a, st, wall, d)
+    row.update(method=rep["method"], degraded_from=rep["degraded_from"],
+               k_minus_1_report=rep["k_minus_1"])
+    # the superstep rung's supersteps (a warm start counts from 0), plus
+    # the hype_device rung's launches before it died
+    row["device_rung_launches"] = rung_counts
+    check(row, LADDER_DIGEST if same_graph else digest(partition_resilient(
+        hg, 32, "hype_device", device="cpu", seed=0, t=16,
+        snapshot_dir=snapshot_root("ladder_cpu"), snapshot_every=64,
+        fault_plan="dispatch@100:fatal")[0]), counts,
+        {"hype_score_select": st.supersteps
+         + rung_counts["hype_score_select"]})
+    if (rep["method"] != "hype_superstep" or rep["fallbacks"] != 1
+            or st.fallbacks != 1 or st.resumed_at < 64):
+        raise SystemExit(f"the ladder did not land as expected: {row}")
+    return rows
+
+
+def phase_report(hg, same_graph, launches, partition_and_report):
+    """partition_and_report on the slice's graph at k=32: the five host
+    baselines and hype_device, each report equal to the JAX package's key
+    for key (runtime_s aside)."""
+    import numpy as np
+    rows = {}
+    for method, kw in (("minmax_nb", {}), ("minmax_eb", {}), ("shp", {}),
+                       ("random", {}), ("hashing", {}),
+                       ("hype_device", {"t": 16})):
+        (rep, a), wall, counts = launches.drive(
+            lambda: partition_and_report(hg, 32, method, device="cuda",
+                                         seed=0, **kw))
+        row = {"phase": f"report_{method}", "wall_s": wall,
+               "digest": digest(a), "report": rep, "launches": counts}
+        want = REPORTS.get(method) if same_graph else None
+        row["expected"] = want
+        emit(row)
+        if want is not None:
+            got = {k: v for k, v in rep.items() if k != "runtime_s"}
+            if got != want["report"] or row["digest"] != want["digest"]:
+                raise SystemExit(f"{row['phase']} differs from JAX: {row}")
+        sizes = np.bincount(a, minlength=32)
+        if (a < 0).any() or (method == "hype_device"
+                             and sizes.max() - sizes.min() > 1):
+            raise SystemExit(f"{row['phase']} assignment is not complete")
+        if method == "hype_device" and counts["hype_score_select"] == 0:
+            raise SystemExit("the report's hype_device launched nothing")
+        rows[method] = row
+    return rows
+
+
 def check_path(row, want_digest, want_km1, cpu_digest, counts, need):
     """Hold a path's digest against the JAX constant (or, when the graph
     differs from the one the constant was taken on, against the port's
@@ -2306,7 +2595,10 @@ def main() -> int:
     from repro_torch.kernels.kway_refine import ref as kref
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.kernels.neighbor_agg import ref as nref
-    from repro_torch.partition_api import PRESETS, partition
+    from repro_torch.core import resilience as res
+    from repro_torch.partition_api import (PRESETS, partition,
+                                           partition_and_report,
+                                           partition_resilient)
 
     t_start = time.perf_counter()
     t0 = time.perf_counter()
@@ -2399,6 +2691,7 @@ def main() -> int:
         hg, 32, bp, device="cpu"))
     check_path(row, PATH_DIGESTS["batched"], PATH_KM1["batched"], cpu,
                counts, {"hype_scores": st.kernel_calls})
+    batched_host_rows = st.host_rows
 
     # hype_superstep, t=16, preset="quality": supersteps, then the
     # refinement post-pass with its kway_gains screen on the card
@@ -2427,6 +2720,12 @@ def main() -> int:
     phase_device(hg, same_graph, runs[1], launches, metrics, SuperstepParams,
                  hype_superstep_partition, DeviceParams,
                  hype_device_partition, PRESETS)
+    phase_resilience(hg, same_graph, launches, metrics, res, DeviceParams,
+                     hype_device_partition, SuperstepParams,
+                     hype_superstep_partition, BatchedParams,
+                     hype_batched_partition, partition_resilient,
+                     batched_host_rows)
+    phase_report(hg, same_graph, launches, partition_and_report)
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
     # the coarsest graph, kway_gains_csr screens at the finest level

@@ -46,9 +46,15 @@ The invariants are the JAX module's (its docstring); the port adds:
 * Flag values past a mask are built from 0-d tensors made once
   (:class:`Scalars`), and a walk's unused slots read valid indices, so a
   round launches no fill kernel per ``torch.where`` and few masks.
-* A non-finite score of a real row raises ``FLAG_POISON``; without a
-  fault plan the JAX replay calls the kernel again on the same inputs,
-  so the driver raises instead.
+* The injected ``nan`` fault (``poison_at``): JAX's round scores with
+  a NaN bias at that ordinal and replays with ``lax.cond``. A captured
+  graph has no data-dependent branch, and scoring twice in every round
+  would double the kernel's launches, so the round takes ``poison_at``
+  only off the graph: the driver runs the chunk up to the ordinal
+  before it on the graph and the rest eagerly, where the replay is a
+  host branch. Without ``poison_at`` a non-finite score of a real row
+  raises ``FLAG_POISON`` (JAX's replay would score the same inputs
+  again), and the driver raises.
 """
 from __future__ import annotations
 
@@ -347,8 +353,10 @@ def rand_draw(avail, stream: dict, ptr, cnt, t: int, *, jt=None, out=None,
 
 
 def make_round(cfg: DeviceLoopConfig, consts: dict):
-    """The round as a function ``carry -> new carry`` on ``consts``'
-    device. It reads the carry and never writes it."""
+    """The round as a function ``(carry, poison_at=None) -> new carry`` on
+    ``consts``' device. It reads the carry and never writes it.
+    ``poison_at`` (a 0-d int32 tensor) poisons the superstep of that
+    ordinal and replays it; the round then synchronizes once."""
     n, m, kG = cfg.n, cfg.m, cfg.kG
     R, P, t, L = cfg.rows, cfg.pool_cap, cfg.t, cfg.tile_l
     PP, SP = cfg.pp, cfg.sp
@@ -503,7 +511,7 @@ def make_round(cfg: DeviceLoopConfig, consts: dict):
         pend[:n] += buf[:n]
         return flags | sc.where(total > RAWD, FLAG_RAWD, 0)
 
-    def _round(c):
+    def _round(c, poison_at=None):
         assign = c["assign"].clone()
         acc, pool, pool_n = c["acc"], c["pool"], c["pool_n"]
         in_pool = c["in_pool"].clone()
@@ -740,9 +748,27 @@ def make_round(cfg: DeviceLoopConfig, consts: dict):
         tile = scoring._gather_fresh_tiles(adj_indptr, adj_indices, assign,
                                            flat, L)
         prev, n_stale = scoring._stale_masked_prev(pool_arr, assign, c32)
-        scores, sel_idx, sel_val, rem = hype_score_select(
-            tile.view(kG, R, L), fringe, bias, prev, select_k=t)
-        pois = (real & ~torch.isfinite(scores.reshape(-1))).any()
+
+        def kernel(b):
+            return hype_score_select(tile.view(kG, R, L), fringe, b, prev,
+                                     select_k=t)
+
+        def bad(out):
+            return (real & ~torch.isfinite(out[0].reshape(-1))).any()
+
+        if poison_at is None:
+            out = kernel(bias)
+            pois = retried = bad(out)
+        else:
+            # the superstep of ordinal poison_at scores a NaN bias on its
+            # fresh rows, finds the poison and replays with the clean one
+            out = kernel(torch.where((ss + 1 == poison_at) & (fresh >= 0),
+                                     float("nan"), bias))
+            retried = bad(out)
+            if bool(retried):
+                out = kernel(bias)
+            pois = bad(out)
+        scores, sel_idx, sel_val, rem = out
         flags = flags | sc.where(pois, FLAG_POISON, 0)
         phase_has = (fresh >= 0).any(1) | (pool_arr >= 0).any(1)
         refill = (phase_has & (rem < t)).sum(dtype=i32)
@@ -784,7 +810,7 @@ def make_round(cfg: DeviceLoopConfig, consts: dict):
             sc.where(is_p_o, held_o + nh[:, 0], 0).sum(dtype=i32),
             (nv_o > 0).sum(dtype=i32),                          # RESTARTS
             n_stale.to(i32),                                    # STALE
-            pois.to(i32),                                       # RETRIES
+            retried.to(i32),                                    # RETRIES
             refill,                                             # REFILL
             (~packed_any).to(i32),                              # PACK_ONLY
             zero])
@@ -828,8 +854,10 @@ class DeviceLoop:
     ``hype_score_select.launches`` then counts the replays times the
     launches in one captured round (the capture itself launches nothing).
     On the CPU ``run_chunk`` runs rounds eagerly while the loop's
-    condition holds, as the JAX while_loop does. Either way the host
-    downloads flags, progress, supersteps and acc in one copy a chunk.
+    condition holds, as the JAX while_loop does; so does a chunk that
+    holds an injected ``nan`` fault, on the card too (``off_rounds``
+    counts those rounds there). Either way the host downloads flags,
+    progress, supersteps and acc in one copy a chunk.
     """
 
     def __init__(self, cfg: DeviceLoopConfig, consts: dict, carry: dict):
@@ -843,13 +871,14 @@ class DeviceLoop:
         self.nodes = 0
         self.capture_s = 0.0
         self.launches_per_round = 0
+        self.off_rounds = 0
         if dev.type == "cuda":
             self._capture(dev)
 
-    def _step(self) -> None:
+    def _step(self, poison_at=None) -> None:
         c = self.carry
         live = loop_live(c, self.targets, self.chunk_cap)
-        new = self._round(c)
+        new = self._round(c, poison_at)
         for name, v in c.items():     # same-index aliasing: one kernel
             torch.where(live, new[name], v, out=v)
 
@@ -877,15 +906,20 @@ class DeviceLoop:
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
-    def run_chunk(self, cap: int):
+    def run_chunk(self, cap: int, poison_at: int = 0):
         """Run up to ``cap`` supersteps; returns ``(flags, progress,
-        supersteps, acc)`` from one download."""
+        supersteps, acc)`` from one download. ``poison_at`` > 0 runs the
+        rounds eagerly with the superstep of that ordinal poisoned."""
         c = self.carry
         c["ss_in_chunk"].zero_()
         self.chunk_cap.fill_(int(cap))
-        if self.graph is None:
+        if self.graph is None or poison_at > 0:
+            pa = (torch.full((), int(poison_at), dtype=torch.int32,
+                             device=self.targets.device)
+                  if poison_at > 0 else None)
             while bool(loop_live(c, self.targets, self.chunk_cap)):
-                self._step()
+                self._step(pa)
+                self.off_rounds += self.graph is not None
         else:
             for _ in range(int(cap)):
                 self.graph.replay()

@@ -306,10 +306,10 @@ def hype_partition(hg: Hypergraph, k: int,
     assigned to exactly one partition in [0, k).
 
     ``warm_start`` adopts a (possibly partial, -1 = unassigned)
-    assignment before growing — in the JAX package the degradation
-    ladder's last rung (``core/resilience.py``, not ported yet: ROADMAP.md,
-    queue 1, item 8) resumes here from the last snapshot when every
-    device engine failed; values must lie in [-1, k).
+    assignment before growing: the degradation ladder's last rung
+    (``partition_api.partition_resilient``) resumes here from the last
+    snapshot when every engine above it failed; values must lie in
+    [-1, k).
     """
     if params is None:
         params = HypeParams()

@@ -1,4 +1,10 @@
-"""Partitioning quality metrics (paper §IV), vectorized over the pins."""
+"""Partitioning quality metrics (paper §IV), vectorized over the pins.
+
+Every spans-derived metric takes an optional explicit ``k`` (the keying
+of the (edge, partition) dedup) and an optional precomputed ``spans``
+array: ``spans_per_edge`` sorts the whole pin array, so a report that
+needs several metrics computes it once and shares it (``all_metrics``).
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -34,16 +40,38 @@ def spans_per_edge(hg: Hypergraph, assignment: np.ndarray,
     return spans
 
 
+def _spans(hg, assignment, k, spans):
+    return spans if spans is not None else spans_per_edge(hg, assignment,
+                                                          k)
+
+
 def k_minus_1(hg: Hypergraph, assignment: np.ndarray,
-              k: Optional[int] = None) -> int:
+              k: Optional[int] = None, *,
+              spans: Optional[np.ndarray] = None) -> int:
     """The (k-1) metric: sum over hyperedges of (#partitions spanned - 1).
 
     The paper's primary quality objective (§II); empty hyperedges
-    contribute 0.
+    contribute 0. ``spans`` (a ``spans_per_edge`` result) shares one
+    spans computation across several metrics.
     """
-    spans = spans_per_edge(hg, assignment, k)
+    spans = _spans(hg, assignment, k, spans)
     nonempty = hg.edge_sizes > 0
     return int(np.sum(spans[nonempty] - 1))
+
+
+def hyperedge_cut(hg: Hypergraph, assignment: np.ndarray,
+                  k: Optional[int] = None, *,
+                  spans: Optional[np.ndarray] = None) -> int:
+    """Number of hyperedges spanning more than one partition."""
+    return int(np.sum(_spans(hg, assignment, k, spans) > 1))
+
+
+def sum_external_degree(hg: Hypergraph, assignment: np.ndarray,
+                        k: Optional[int] = None, *,
+                        spans: Optional[np.ndarray] = None) -> int:
+    """SOED: sum of spans over cut hyperedges."""
+    spans = _spans(hg, assignment, k, spans)
+    return int(np.sum(spans[spans > 1]))
 
 
 def partition_sizes(assignment: np.ndarray, k: int) -> np.ndarray:
@@ -57,3 +85,27 @@ def vertex_imbalance(assignment: np.ndarray, k: int) -> float:
     sizes = partition_sizes(assignment, k)
     mx = sizes.max()
     return float((mx - sizes.min()) / mx) if mx > 0 else 0.0
+
+
+def replication_factor(hg: Hypergraph, assignment: np.ndarray,
+                       k: Optional[int] = None, *,
+                       spans: Optional[np.ndarray] = None) -> float:
+    """Average #partitions spanned per non-empty hyperedge (proportional
+    to the halo volume of a vertex-partitioned computation)."""
+    spans = _spans(hg, assignment, k, spans)
+    nonempty = hg.edge_sizes > 0
+    return float(spans[nonempty].mean()) if nonempty.any() else 0.0
+
+
+def all_metrics(hg: Hypergraph, assignment: np.ndarray, k: int) -> dict:
+    """The report of ``partition_and_report``: every metric above, the
+    spans computed once."""
+    spans = spans_per_edge(hg, assignment, k)
+    return {
+        "k_minus_1": k_minus_1(hg, assignment, k, spans=spans),
+        "hyperedge_cut": hyperedge_cut(hg, assignment, k, spans=spans),
+        "soed": sum_external_degree(hg, assignment, k, spans=spans),
+        "vertex_imbalance": vertex_imbalance(assignment, k),
+        "replication_factor": replication_factor(hg, assignment, k,
+                                                 spans=spans),
+    }

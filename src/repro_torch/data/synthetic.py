@@ -53,6 +53,31 @@ def powerlaw_hypergraph(n: int, m: int, *, alpha_edge: float = 2.2,
     return Hypergraph.from_pins(n, m, pins, edge_of_pin)
 
 
+def community_hypergraph(n: int, m: int, n_communities: int, *,
+                         p_intra: float = 0.95, alpha_edge: float = 2.3,
+                         max_edge: int | None = None,
+                         seed: int = 0) -> Hypergraph:
+    """Planted-community hypergraph.
+
+    Each hyperedge belongs to a community; ``p_intra`` of its pins come
+    from that community, the rest are global. The planted assignment
+    gives a quality reference point for partitioners.
+    """
+    rng = np.random.default_rng(seed)
+    max_edge = max_edge or max(4, n // n_communities)
+    sizes = _powerlaw_sizes(rng, m, alpha_edge, 2, max_edge)
+    total = int(sizes.sum())
+    comm_of_edge = rng.integers(0, n_communities, size=m)
+    edge_of_pin = np.repeat(np.arange(m, dtype=np.int64), sizes)
+    comm_of_pin = comm_of_edge[edge_of_pin]
+    csize = n // n_communities
+    intra = rng.random(total) < p_intra
+    local_pins = comm_of_pin * csize + rng.integers(0, csize, size=total)
+    global_pins = rng.integers(0, n, size=total)
+    pins = np.clip(np.where(intra, local_pins, global_pins), 0, n - 1)
+    return Hypergraph.from_pins(n, m, pins, edge_of_pin)
+
+
 def github_like(scale: float = 1.0, seed: int = 0) -> Hypergraph:
     """Github: 177,386 vertices / 56,519 hyperedges / 440,237 pins."""
     n = int(177_386 * scale)

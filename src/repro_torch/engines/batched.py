@@ -14,36 +14,35 @@ another; per growth step:
   4. keep scored candidates in a pool sorted by score (the paper's
      s-sized fringe is its top s) and admit the top ``t`` per step.
 
-``t=1`` recovers the sequential admission order. Snapshots, resume and
-fault plans are not ported: their knobs raise ``NotImplementedError``
-(ROADMAP.md, queue 1). With them goes the JAX engine's NaN quarantine of
-a poisoned score tile (``_rescore_rows``): only an injected fault can
-poison a tile, and the port's int32 scores are always finite.
+``t=1`` recovers the sequential admission order. Snapshots are
+phase-granular: between phases every transient (score cache, pool,
+buckets) is empty, so a checkpoint is the assignment, the edge flags and
+the random stream. Each kernel call runs under ``_guarded_kernel``; a
+tile poisoned by an injected ``nan`` fault is quarantined and its rows
+rescored on the host (``_rescore_rows``), bit-equal to a clean call. A
+non-finite score from a call that no fault poisoned is the kernel's own
+fault and raises ``RuntimeError``: nothing moves its work to the host.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.hypergraph import Hypergraph
-from ..core import scoring
+from ..core import resilience, scoring
 from ..kernels.hype_score.ops import hype_scores
 from .runtime import BatchedStats, EngineRuntime, maybe_refine
-
-_RESILIENCE = "resilience (snapshots, resume, fault plans)"
 
 
 @dataclasses.dataclass
 class BatchedParams:
     """Knobs of the batched engine: the JAX ``BatchedParams`` fields with
-    the same defaults. ``snapshot_every``, ``resume`` and ``fault_plan``
-    raise ``NotImplementedError`` when set away from their defaults;
-    ``snapshot_dir``, ``keep_last``, ``max_retries`` and
-    ``retry_backoff_s`` belong to those features and have no effect."""
+    the same defaults and meaning."""
     b: int = 256           # rows per kernel tile (the paper's r=2)
     s: int = 16            # max fringe size (kernel compares vs s slots)
     t: int = 8             # admissions per step; 1 = sequential order
@@ -55,28 +54,19 @@ class BatchedParams:
     #                        truncation convention as the kernel tiles)
     refine_passes: int = 0  # post-pass boundary-refinement passes; 0 = off
     seed: int = 0
+    # checkpoint cadence in completed phases (batched) or supersteps
+    # (the device engines); 0 = never. A resumed run equals the
+    # uninterrupted run with the same cadence.
     snapshot_every: int = 0
-    snapshot_dir: Optional[str] = None
-    keep_last: int = 3
-    resume: Optional[str] = None
-    fault_plan: Optional[object] = None
-    max_retries: int = 2
-    retry_backoff_s: float = 0.01
-
-
-# knob -> the ROADMAP.md item (queue 1) that brings its feature
-UNPORTED_KNOBS = {"snapshot_every": _RESILIENCE, "resume": _RESILIENCE,
-                  "fault_plan": _RESILIENCE}
-
-
-def check_ported(p, unported: dict) -> None:
-    """Raise ``NotImplementedError`` for a knob of an unported feature."""
-    defaults = type(p)()
-    for knob, item in unported.items():
-        if getattr(p, knob) != getattr(defaults, knob):
-            raise NotImplementedError(
-                f"{knob}={getattr(p, knob)!r} needs a feature the torch "
-                f"port does not have yet; see ROADMAP.md, queue 1: {item}")
+    snapshot_dir: Optional[str] = None   # where snapshots are published
+    keep_last: int = 3          # snapshots the GC keeps per directory
+    resume: Optional[str] = None    # snapshot file or directory; a
+    #                                 missing or empty one starts fresh
+    fault_plan: Optional[object] = None  # resilience.FaultPlan, a spec
+    #                                      string, or None: the
+    #                                      REPRO_FAULT_PLAN variable
+    max_retries: int = 2        # injected transient faults a call retries
+    retry_backoff_s: float = 0.01   # linear backoff between retries
 
 
 class BatchedState(EngineRuntime):
@@ -211,9 +201,26 @@ class BatchedState(EngineRuntime):
                     tile, truncated = scoring.neighbor_tile(
                         self.hg, chunk, self.assignment,
                         cap_pins=self.p.cap_pins, pad_b=pad_b)
-                out = hype_scores(torch.from_numpy(tile).to(self.device),
-                                  fringe_dev).cpu().numpy()
-                sc = out[:chunk.size].astype(np.float64)
+                ordinal = self.stats.kernel_calls + 1
+                out = self._guarded_kernel(
+                    lambda: hype_scores(
+                        torch.from_numpy(tile).to(self.device),
+                        fringe_dev).cpu().numpy(),
+                    ordinal).astype(np.float64)
+                sc = out[:chunk.size]
+                if not np.isfinite(sc).all():
+                    # the kernel's int32 counts are always finite: any
+                    # other score is its own fault, and nothing rescores it
+                    raise RuntimeError(
+                        f"the hype_scores kernel gave non-finite scores "
+                        f"at kernel call {ordinal} with no injected fault")
+                if self.fire_fault(("nan",), ordinal,
+                                   f"injected fatal nan tile at kernel "
+                                   f"call {ordinal}") is not None:
+                    # the injected tile is poisoned whole: quarantine it
+                    # and rescore its rows on the host
+                    sc[:] = self._rescore_rows(chunk)
+                    self.stats.host_rows += int(chunk.size)
                 sc[truncated] += scoring.TRUNC_PENALTY
                 self.cache[chunk] = sc
                 self.stats.kernel_calls += 1
@@ -230,8 +237,29 @@ class BatchedState(EngineRuntime):
             self.stats.host_rows += int(miss.size)
             self.cache[miss] = sc
 
+    def _rescore_rows(self, ids: np.ndarray) -> np.ndarray:
+        """Host rescore of quarantined kernel rows.
 
-def _grow_partition(st: BatchedState, phase: int, target: int) -> None:
+        Rebuilds the clipped neighbour tile the kernel saw and counts as
+        it does (valid entries minus fringe members), so the scores are
+        bit-equal to a clean kernel call: its integer counts are exact in
+        float32, and the caller adds the hub penalty either way.
+        """
+        if self.adj is not None:
+            tile, _ = scoring.neighbor_tile_adj(
+                self.adj, ids, self.assignment)
+        else:
+            tile, _ = scoring.neighbor_tile(
+                self.hg, ids, self.assignment, cap_pins=self.p.cap_pins)
+        tile = tile[:ids.size]
+        valid = tile >= 0
+        ent = np.where(valid, tile, 0)
+        return (valid & ~self.in_fringe[ent]).sum(axis=1).astype(
+            np.float64)
+
+
+def _grow_partition(st: BatchedState, phase: int, target: int,
+                    warm: bool = False) -> None:
     """Grow core set ``phase`` to ``target`` vertices.
 
     The step loop keeps a pool of up to ``pool_cap`` scored candidates
@@ -239,7 +267,9 @@ def _grow_partition(st: BatchedState, phase: int, target: int) -> None:
     ``b`` rows) whenever the pool runs low; between refills a step is
     "admit the t best, queue their edges". The paper's s-sized fringe is
     the top s of the pool: what the scoring kernel subtracts, exactly
-    like F in Eq. 1.
+    like F in Eq. 1. ``warm`` continues a phase that already has members
+    (a warm start from another engine's snapshot): they are activated
+    instead of a seed, and growth resumes from their count.
     """
     p = st.p
     st.cache[:] = -1.0
@@ -247,12 +277,21 @@ def _grow_partition(st: BatchedState, phase: int, target: int) -> None:
     pool = np.empty(0, dtype=np.int64)       # kept sorted by score asc
     pending: list = []                       # admitted, edges not yet queued
 
-    seeds = st.random_unassigned(1)
-    if seeds.size == 0:
-        return
-    st.assignment[seeds] = phase
-    st.activate(seeds, phase)
-    acc = 1
+    acc = 0
+    if warm:
+        members = np.flatnonzero(st.assignment == phase)
+        acc = int(members.size)
+        if acc >= target:
+            return
+        if acc:
+            st.activate(members.astype(np.int64), phase)
+    if acc == 0:
+        seeds = st.random_unassigned(1)
+        if seeds.size == 0:
+            return
+        st.assignment[seeds] = phase
+        st.activate(seeds, phase)
+        acc = 1
 
     while acc < target:
         st.stats.steps += 1
@@ -300,7 +339,10 @@ def hype_batched_partition(hg: Hypergraph, k: int,
 
     Returns a complete int32 assignment with ``max - min <= 1`` vertex
     balance (and the ``BatchedStats`` with ``return_stats``). ``device``
-    is where the score tiles go (``"cuda"`` or ``"cpu"``).
+    is where the score tiles go (``"cuda"`` or ``"cpu"``). Every
+    ``snapshot_every`` completed phases a checkpoint goes to
+    ``snapshot_dir``; ``resume`` continues a same-config snapshot bit
+    for bit and warm-starts every phase from another engine's.
     """
     if params is None:
         params = BatchedParams()
@@ -310,16 +352,64 @@ def hype_batched_partition(hg: Hypergraph, k: int,
         raise ValueError("b, s, t must all be >= 1")
     if params.pool_cap < 1:
         raise ValueError("pool_cap must be >= 1")
-    check_ported(params, UNPORTED_KNOBS)
+    if params.snapshot_every > 0 and not params.snapshot_dir:
+        raise ValueError("snapshot_every requires snapshot_dir")
     st = BatchedState(hg, k, params, device)
     base, rem = divmod(hg.n, k)
-    for i in range(k):
+    snap_every = max(0, int(params.snapshot_every or 0))
+    config = {"k": k, "t": params.t, "b": params.b, "s": params.s,
+              "pool_cap": params.pool_cap, "refill_lo": params.refill_lo,
+              "cap_pins": params.cap_pins,
+              "kernel_min": params.kernel_min, "seed": params.seed,
+              "snapshot_every": snap_every}
+    start = 0
+    warm = False
+    ckpt = (resilience.load_latest(params.resume) if params.resume
+            else None)
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        resilience.check_checkpoint(ckpt, hg, k)
+        if ckpt.engine == "hype_batched" and ckpt.config == config:
+            pay = ckpt.payload
+            st.assignment = pay["assignment"].copy()
+            st.edge_dead = pay["edge_dead"].copy()
+            st.edge_epoch = pay["edge_epoch"].copy()
+            st.rand_ptr = int(pay["rand_ptr"])
+            st.rng.bit_generator.state = pay["rng_state"]
+            st.stats = dataclasses.replace(pay["stats"])
+            start = int(pay["next_phase"])
+        else:
+            wa = resilience.warm_assignment(ckpt)
+            got = wa >= 0
+            st.assignment[got] = wa[got]
+            warm = True
+        st.stats.resumed_at = int(ckpt.superstep)
+        st.stats.restore_s += time.perf_counter() - t0
+    last_snap = start
+    for i in range(start, k):
         if i == k - 1:
             rem_v = np.flatnonzero(st.assignment < 0)
             st.assignment[rem_v] = i
             st.in_fringe[:] = False
             break
-        _grow_partition(st, i, base + (1 if i < rem else 0))
+        _grow_partition(st, i, base + (1 if i < rem else 0), warm=warm)
+        if snap_every and i + 1 - last_snap >= snap_every:
+            t0 = time.perf_counter()
+            st.stats.snapshots += 1
+            resilience.save_snapshot(
+                params.snapshot_dir,
+                resilience.PartitionCheckpoint(
+                    "hype_batched", i + 1, hg.fingerprint(), dict(config),
+                    {"assignment": st.assignment.copy(),
+                     "edge_dead": st.edge_dead.copy(),
+                     "edge_epoch": st.edge_epoch.copy(),
+                     "rand_ptr": int(st.rand_ptr),
+                     "rng_state": st.rng.bit_generator.state,
+                     "stats": dataclasses.replace(st.stats),
+                     "next_phase": i + 1}),
+                keep_last=int(params.keep_last))
+            st.stats.snapshot_s += time.perf_counter() - t0
+            last_snap = i + 1
     assert (st.assignment >= 0).all()
     assignment = maybe_refine(hg, k, params, st.assignment, st.stats,
                               device)

@@ -13,9 +13,14 @@ The driver builds its first carry from a plain ``PipelineState`` (the
 seeded host bookkeeping and the uploaded CSR image); it never dispatches
 through the pipeline. Falls back to ``hype_superstep`` on the same device
 when the int32 encoding gates reject the graph or the per-phase sequence
-space runs out. Snapshots, resume, fault plans and memory budgets raise
-``NotImplementedError`` (ROADMAP.md, queue 1); a device OOM is raised as
-``torch.OutOfMemoryError`` (the JAX engine falls down its memory rungs).
+space runs out. Snapshots are taken at chunk boundaries (the cadence caps
+a chunk), and a run resumes from the carry (same engine and config: bit
+for bit) or from the assignment (another engine's: warm). Injected
+faults are probed a chunk at a time, as in the JAX engine; a ``nan``
+fault's round runs off the captured graph (``core/device_loop.py``).
+Memory budgets raise ``NotImplementedError`` (ROADMAP.md, queue 1); a
+device OOM is raised as ``torch.OutOfMemoryError`` (the JAX engine falls
+down its memory rungs).
 """
 from __future__ import annotations
 
@@ -25,14 +30,13 @@ from typing import Optional
 
 import numpy as np
 
-from ..core import device_loop
+from ..core import device_loop, resilience
 from ..core.hypergraph import Hypergraph
 from ..core.scoring import gather_csr_rows
 from .pipeline import PipelineState
 from .runtime import BatchedStats, maybe_refine
-from .superstep import SuperstepParams, hype_superstep_partition
-from .superstep import UNPORTED_KNOBS as SUPERSTEP_UNPORTED
-from .batched import check_ported
+from .superstep import (UNPORTED_KNOBS, SuperstepParams, check_ported,
+                        hype_superstep_partition)
 
 
 @dataclasses.dataclass
@@ -52,8 +56,6 @@ class DeviceParams(SuperstepParams):
     act_cap: Optional[int] = None
 
 
-UNPORTED_KNOBS = SUPERSTEP_UNPORTED
-
 # Flat CSR walks wider than this take the planner's heuristic width (and
 # its rerun ladder) instead of the exact bound.
 WALK_LIMIT = 1 << 21
@@ -68,6 +70,31 @@ def _walk_cap(deg: np.ndarray, rows: int) -> Optional[int]:
         else deg
     need = device_loop._pow2ceil(max(int(top.sum()), 1))
     return need if need <= WALK_LIMIT else None
+
+
+def _device_probe_faults(st: PipelineState, lo: int, hi: int) -> None:
+    """Fire the plan's dispatch and oom specs for superstep ordinals
+    [lo, hi]. The host engines fire them one superstep at a time; the
+    loop runs a chunk per host call, so its range is probed up front:
+    the same plan, ordinals and escalation. A transient dispatch fault
+    fires before the (pure) chunk, so its retry is counted and the chunk
+    runs once."""
+    for o in range(lo, hi + 1):
+        if st.fire_fault(("dispatch", "oom"), o,
+                         f"injected fatal {{kind}} fault at superstep {o}"):
+            st.stats.retries += 1
+            time.sleep(float(st.p.retry_backoff_s))
+
+
+def _device_probe_nan(st: PipelineState, lo: int, hi: int) -> int:
+    """The first ordinal in [lo, hi] of an injected nan spec, or 0. The
+    loop poisons that superstep's bias on the device and replays it with
+    the clean bias."""
+    for o in range(lo, hi + 1):
+        if st.fire_fault(("nan",), o,
+                         f"injected fatal nan tile at superstep {o}"):
+            return o
+    return 0
 
 
 def _device_export(st: PipelineState, k: int, acc: np.ndarray, caps: dict,
@@ -128,12 +155,15 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
     """One capacity attempt of the device loop.
 
     Returns ``("ok", assignment, st)``, ``("fallback", reason, None)`` or
-    ``("overflow", flags, caps)``. Raises ``RuntimeError`` when a real
-    row scored non-finite. ``graphs`` sums the CUDA graph's captures,
-    replays and capture seconds over the attempts of one run.
+    ``("overflow", flags, caps)``. Raises ``UnrecoverableFault`` when the
+    round an injected ``nan`` poisoned scores non-finite again in its
+    replay, and ``RuntimeError`` when a round no fault poisoned scores a
+    real row non-finite. ``graphs`` sums the CUDA graph's captures,
+    replays, rounds run off it and capture seconds over the attempts of
+    one run.
     """
     if graphs is None:
-        graphs = dict(captures=0, replays=0, capture_s=0.0)
+        graphs = dict(captures=0, replays=0, off_rounds=0, capture_s=0.0)
     chunk_max = max(1, int(p.chunk_supersteps))
     cache_f16 = p.cache_dtype == "float16"
     st = PipelineState(hg, k, dataclasses.replace(p, pipeline_depth=1),
@@ -163,20 +193,47 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
     if not device_loop.supported(n=n, m=m, kG=k, bud=caps["bud"]):
         return ("fallback", "int32 encoding gates", None)
 
-    # seed every empty phase with one random vertex -- the pipeline
-    # driver's loop, so the schedule starts from the same state and
-    # random stream position
-    seeds = st.random_unassigned(int(((acc == 0) & (targets > 0)).sum()))
-    gi = 0
-    for g in range(k):
-        if targets[g] == 0 or acc[g] > 0 or gi >= seeds.size:
-            continue
-        v = seeds[gi:gi + 1]
-        gi += 1
-        st.assign_now(v, g)
-        st.activate_phase(v, g)
-        acc[g] += 1
-    carry_np, caps = _device_export(st, k, acc, caps, cache_f16)
+    snap_every = max(0, int(p.snapshot_every or 0))
+    config = {"k": k, "devices": 0, "t": t, "rows": R, "pool_cap": P,
+              "s": p.s, "seed": p.seed, "pipeline_depth": 1,
+              "snapshot_every": snap_every, "tile_l": int(st.tile_l),
+              "chunk_supersteps": chunk_max, "cache_dtype": p.cache_dtype}
+    engine = "hype_device"
+    carry_np = None
+    ckpt = resilience.load_latest(p.resume) if p.resume else None
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        resilience.check_checkpoint(ckpt, hg, k)
+        if ckpt.engine == engine and ckpt.config == config:
+            pay = ckpt.payload
+            carry_np = {kk: np.array(vv) for kk, vv in pay["carry"].items()}
+            carry_np["flags"] = np.int32(0)
+            carry_np["progress"] = np.int32(1)
+            caps = dict(pay["caps"])
+            caps.update(caps_over)
+            st.stats = dataclasses.replace(pay["stats"])
+            acc = carry_np["acc"].astype(np.int64)
+        else:
+            acc = st.restore_warm(resilience.warm_assignment(ckpt))
+        st.stats.resumed_at = int(ckpt.superstep)
+        st.stats.restore_s += time.perf_counter() - t0
+
+    if carry_np is None:
+        # seed every empty phase with one random vertex -- the pipeline
+        # driver's loop, so the schedule starts from the same state and
+        # random stream position
+        seeds = st.random_unassigned(
+            int(((acc == 0) & (targets > 0)).sum()))
+        gi = 0
+        for g in range(k):
+            if targets[g] == 0 or acc[g] > 0 or gi >= seeds.size:
+                continue
+            v = seeds[gi:gi + 1]
+            gi += 1
+            st.assign_now(v, g)
+            st.activate_phase(v, g)
+            acc[g] += 1
+        carry_np, caps = _device_export(st, k, acc, caps, cache_f16)
 
     cfg = device_loop.DeviceLoopConfig(
         n=n, m=m, kG=k, rows=R, pool_cap=P, t=t, tile_l=int(st.tile_l),
@@ -201,28 +258,77 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
     st.stats.device_image_bytes = int(sum(
         v.nbytes for v in consts.values())) + st.stats.loop_state_bytes
 
+    def snapshot(ss_now: int) -> None:
+        t0 = time.perf_counter()
+        st.stats.snapshots += 1
+        cn = device_loop.carry_to_numpy(loop.carry)
+        # the assignment under the key every engine's payload has (the
+        # same array: pickled once)
+        pay = {"carry": cn, "caps": dict(caps), "assignment": cn["assign"],
+               "stats": dataclasses.replace(st.stats)}
+        resilience.save_snapshot(
+            p.snapshot_dir, resilience.PartitionCheckpoint(
+                engine, ss_now, hg.fingerprint(), dict(config), pay),
+            keep_last=int(p.keep_last))
+        st.stats.snapshot_s += time.perf_counter() - t0
+
+    # The host loop runs the JAX driver's chunks: each is probed for
+    # faults up front, capped at the snapshot cadence, and ends at an
+    # injected nan's ordinal. On the card a chunk may take several
+    # calls (replays cannot stop early, and pack-only rounds add no
+    # superstep); the poisoned superstep runs off the graph.
+    ss_now = int(carry_np["supersteps"])
+    last_snap = chunk_end = ss_now
+    pending = 0         # the ordinal of the chunk's injected nan, or 0
     progress = 1
     acc_h = acc
     host_accum = 0.0
     while True:
         t_host = time.perf_counter()
-        if (acc_h >= targets).all() or progress == 0:
-            break   # done, or starved: stragglers sit in other pools
-        cap = chunk_max
-        if loop.graph is not None:
-            # replays cannot stop early: cap the chunk at a lower bound of
-            # the rounds still to come (a phase gains at most t a round)
-            cap = min(chunk_max, -(-int((targets - acc_h).max()) // t))
-            graphs["replays"] += cap
+        live = bool((acc_h < targets).any()) and progress > 0
+        if ss_now >= chunk_end or not live:
+            if snap_every and ss_now - last_snap >= snap_every:
+                snapshot(ss_now)
+                last_snap = ss_now
+            if not live:
+                break   # done, or starved: stragglers sit in other pools
+            cap = chunk_max
+            if snap_every:
+                cap = max(1, min(cap, snap_every - (ss_now - last_snap)))
+            _device_probe_faults(st, ss_now + 1, ss_now + cap)
+            pending = _device_probe_nan(st, ss_now + 1, ss_now + cap)
+            if pending:
+                cap = pending - ss_now      # the poisoned step ends it
+            chunk_end = ss_now + cap
+        if pending and ss_now == pending - 1:
+            sub, poison_at = 1, pending
+        else:
+            poison_at = 0
+            sub = (pending - 1 if pending else chunk_end) - ss_now
+            if loop.graph is not None:
+                # cap the replays at a lower bound of the rounds still to
+                # come (a phase gains at most t a round)
+                sub = min(sub, -(-int((targets - acc_h).max()) // t))
+                graphs["replays"] += sub
         host_accum += time.perf_counter() - t_host
         t_dev = time.perf_counter()
-        flags, progress, _, acc_h = loop.run_chunk(cap)
+        flags, progress, ss_now, acc_h = loop.run_chunk(sub, poison_at)
         st.stats.device_s += time.perf_counter() - t_dev
         st.stats.loop_chunks += 1
+        if poison_at:
+            pending = 0
         if flags & device_loop.FLAG_POISON:
+            if poison_at:   # the injected round's clean replay failed too
+                raise resilience.UnrecoverableFault(
+                    f"superstep {poison_at} still poisoned after a clean "
+                    f"replay: the kernel emits non-finite scores for "
+                    f"finite inputs")
+            # a real fault of the kernel: no replay, and not a fault the
+            # degradation ladder takes
             raise RuntimeError(
-                "the device loop scored a real row non-finite: the kernel "
-                "emits non-finite scores for finite inputs")
+                "the device loop scored a real row non-finite: the "
+                "hype_score_select kernel emits non-finite scores for "
+                "finite inputs")
         if flags:
             return ("overflow", flags, caps)
     st.stats.host_s += host_accum
@@ -246,10 +352,13 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
     s.cache_hits += int(dstats[device_loop.S_CACHE_HITS])
     s.random_restarts += int(dstats[device_loop.S_RESTARTS])
     s.stale_redraws += int(dstats[device_loop.S_STALE])
+    s.retries += int(dstats[device_loop.S_RETRIES])
+    graphs["off_rounds"] += loop.off_rounds
     s.graph_captures = graphs["captures"]
     s.graph_replays = graphs["replays"]
     s.graph_nodes = loop.nodes
     s.graph_capture_s = graphs["capture_s"]
+    s.graph_off_rounds = graphs["off_rounds"]
     # safety net: balance-fill any stragglers into underfull phases
     rem_v = np.flatnonzero(st.assignment < 0)
     if rem_v.size:
@@ -271,7 +380,7 @@ def _run_device_loop(hg: Hypergraph, k: int, p: DeviceParams, device,
     doubling answer and falls back.
     """
     caps_over = dict(caps or {})
-    graphs = dict(captures=0, replays=0, capture_s=0.0)
+    graphs = dict(captures=0, replays=0, off_rounds=0, capture_s=0.0)
     for _ in range(5):
         kind, a, b = _device_attempt(hg, k, p, caps_over, device, graphs)
         if kind == "ok":
@@ -301,7 +410,9 @@ def hype_device_partition(hg: Hypergraph, k: int,
     round eagerly). Falls back to ``hype_superstep_partition`` on the
     same device when the int32 encoding gates reject the graph or the
     sequence space runs out, as the JAX engine does. With
-    ``refine_passes`` > 0 the k-way refinement post-pass follows.
+    ``refine_passes`` > 0 the k-way refinement post-pass follows. The
+    fault plan is resolved once, so a spec consumed by one capacity
+    attempt does not fire again in the next.
     """
     if params is None:
         params = DeviceParams()
@@ -321,6 +432,9 @@ def hype_device_partition(hg: Hypergraph, k: int,
     if k == 1:
         out = np.zeros(hg.n, dtype=np.int32)
         return (out, BatchedStats()) if return_stats else out
+    fplan = resilience.resolve_fault_plan(params.fault_plan)
+    if fplan is not None:
+        params = dataclasses.replace(params, fault_plan=fplan)
     assignment, st = _run_device_loop(hg, k, params, device)
     if assignment is None:
         return hype_superstep_partition(hg, k, params, return_stats,

@@ -14,6 +14,13 @@ and the poison flag. The memory plan is
 fixed at the JAX package's unconstrained rung-0 choice (the tile width
 ``tile_l`` below); memory rungs are not ported (ROADMAP.md, queue 1).
 
+Faults (``core/resilience.py``): a ``dispatch`` spec fires before a
+superstep's launch and is retried by ``_guarded_kernel``; a ``nan`` spec
+poisons the bias of the superstep's fresh rows, so the program's
+quarantine reverts it on the device; ``harvest`` (and the driver, for
+the whole in-flight window) then replays it from its clean, already
+uploaded arguments. A bare ``oom`` spec fires at the image upload.
+
 Transfers: one host-to-device copy per superstep (every small id buffer
 packed into one pinned block) and one device-to-host copy (winners,
 n_stale and poison in one int32 tensor), issued right after the
@@ -30,9 +37,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import scoring
+from ..core import resilience, scoring
 from ..core.hypergraph import Hypergraph
-from .runtime import EngineRuntime
+from .runtime import EngineRuntime, SnapshotMixin, raise_kernel_poison
 
 # Flat bucket-store key layout: one sorted int64 per queued (phase,
 # class, edge) activation -- phase in the top bits, the power-of-two
@@ -68,15 +75,23 @@ class _Superstep:
     ``out`` holds ``winners (G*select_k) | n_stale | poison`` as int32 --
     a pinned host tensor on CUDA, filled by an async copy that ``ready``
     (a CUDA event) marks done; the device program's own tensor on CPU.
+    ``args`` are the superstep's clean arguments, for a replay;
+    ``injected`` marks a superstep that an injected ``nan`` poisoned.
     """
     out: torch.Tensor
     ready: Optional[torch.cuda.Event]
     fresh_ids: np.ndarray
     shape: tuple
+    args: _CallArgs
+    injected: bool = False
 
 
-class PipelineState(EngineRuntime):
+class PipelineState(SnapshotMixin, EngineRuntime):
     """The device-resident graph image and per-phase growth state."""
+
+    # injected faults the dispatch site sees ("oom@N" simulates a
+    # mid-run allocation failure)
+    _fault_kinds = ("dispatch", "oom")
 
     def __init__(self, hg: Hypergraph, k: int, p, device):
         super().__init__(hg, k, p)
@@ -95,6 +110,9 @@ class PipelineState(EngineRuntime):
             np.percentile(deg, 99.5) if deg.size else 1,
             scoring.L_BUCKETS[-1])))
         self.stats.tile_l = self.tile_l
+        # a simulated allocation failure at the image-upload site
+        self.fire_fault(("oom",), 0,
+                        "injected fatal OOM during device image upload")
         n, m = hg.n, hg.m
         dev = self.device
         # the CSR image is memoized on hg, so a refinement post-pass on
@@ -107,8 +125,11 @@ class PipelineState(EngineRuntime):
         self.dev_cache = torch.full((n + 1,), -1.0, dtype=torch.float32,
                                     device=dev)
         self.dev_acc = torch.zeros(k + 1, dtype=torch.int32, device=dev)
-        # sticky NaN-quarantine flag (scoring._poison_guard)
+        # sticky NaN-quarantine flag (scoring._poison_guard), and the
+        # replay markers: 0 = a normal superstep, 1 = a replay
         self.dev_poison = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._reset = (torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.ones(1, dtype=torch.int32, device=dev))
         self.cache_scored = np.zeros(n, dtype=bool)
         self.pools = [np.empty(0, dtype=np.int64) for _ in range(k)]
         # flat (phase, class, edge) bucket store: two parallel arrays
@@ -133,6 +154,10 @@ class PipelineState(EngineRuntime):
                                self.dev_acc)))
 
     # ------------------------------------------------------------------ #
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """Upload a host array of the image (a snapshot's copy)."""
+        return torch.from_numpy(np.array(arr)).to(self.device)
+
     def assign_now(self, vs: np.ndarray, phase: int) -> None:
         """Assign ``vs`` to ``phase``; queue the device delta + dirtying."""
         vs = np.asarray(vs, dtype=np.int64)
@@ -448,28 +473,21 @@ class PipelineState(EngineRuntime):
             off += a.size
         return out
 
-    def _call_program(self, args: _CallArgs) -> torch.Tensor:
+    def _call_program(self, args: _CallArgs,
+                      reset: torch.Tensor) -> torch.Tensor:
         """Issue the engine's superstep program; returns its result block.
 
         Abstract here: each engine module co-locates its device program
-        with its state subclass.
+        with its state subclass. ``reset`` is 1 for a replay, which
+        ignores the sticky poison flag of the superstep it repeats.
         """
         raise NotImplementedError(
             "PipelineState subclasses co-locate their device program")
 
-    def dispatch(self, fresh, bias, pool_arr, fringe, fresh_ids,
-                 targets_i32, delta_cap: int, select_k: int) -> _Superstep:
-        """Launch one superstep on the device (async); returns a handle."""
-        tails = self.pending_dirty
-        self.pending_dirty = []
-        delta, vals, dirty, dcnt = self._pack_delta_dirty(
-            delta_cap, extra_dirty=tails)
-        host = (delta, vals, dirty, dcnt, fresh, bias, pool_arr, fringe,
-                targets_i32)
-        self.stats.host_to_device_bytes += sum(a.nbytes for a in host)
-        self.stats.supersteps += 1
-        args = _CallArgs(*self._upload(*host), select_k=select_k)
-        out = self._call_program(args)
+    def _launch(self, args: _CallArgs, reset: torch.Tensor,
+                fresh_ids: np.ndarray, clean: _CallArgs) -> _Superstep:
+        """Launch the program and the async copy of its result block."""
+        out = self._call_program(args, reset)
         ready = None
         if self.device.type == "cuda":
             pinned = torch.empty(out.shape, dtype=out.dtype,
@@ -478,7 +496,79 @@ class PipelineState(EngineRuntime):
             ready = torch.cuda.Event()
             ready.record()
             out = pinned
-        return _Superstep(out, ready, fresh_ids, (fresh.shape[0], select_k))
+        return _Superstep(out, ready, fresh_ids,
+                          (args.fresh.shape[0], args.select_k), clean)
+
+    def dispatch(self, fresh, bias, pool_arr, fringe, fresh_ids,
+                 targets_i32, delta_cap: int, select_k: int) -> _Superstep:
+        """Launch one superstep on the device (async); returns a handle.
+
+        A ``dispatch`` spec of the fault plan fires here and is retried
+        (``_guarded_kernel``); a ``nan`` spec sends the fresh rows' bias
+        as NaN, and the handle keeps the clean arguments for the replay.
+        """
+        tails = self.pending_dirty
+        self.pending_dirty = []
+        delta, vals, dirty, dcnt = self._pack_delta_dirty(
+            delta_cap, extra_dirty=tails)
+        host = (delta, vals, dirty, dcnt, fresh, bias, pool_arr, fringe,
+                targets_i32)
+        self.stats.host_to_device_bytes += sum(a.nbytes for a in host)
+        self.stats.supersteps += 1
+        ordinal = int(self.stats.supersteps)
+        args = _CallArgs(*self._upload(*host), select_k=select_k)
+        send = args
+        injected = self.fire_fault(("nan",), ordinal,
+                                   f"injected fatal nan tile at superstep "
+                                   f"{ordinal}") is not None
+        if injected:
+            send = dataclasses.replace(args, bias=torch.where(
+                args.fresh >= 0, float("nan"), args.bias))
+        h = self._guarded_kernel(
+            lambda: self._launch(send, self._reset[0], fresh_ids, args),
+            ordinal, self._fault_kinds)
+        h.injected = injected
+        return h
+
+    def _result(self, handle: _Superstep) -> np.ndarray:
+        """Block on a superstep's result block; the wait is ``device_s``."""
+        t0 = time.perf_counter()
+        if handle.ready is not None:
+            handle.ready.synchronize()
+        res = handle.out.numpy()
+        self.stats.device_s += time.perf_counter() - t0
+        return res
+
+    def poisoned(self, handle: _Superstep) -> bool:
+        """Whether the superstep reverted itself (a non-finite score, or
+        the sticky flag of an earlier poisoned superstep)."""
+        kG, t = handle.shape
+        return bool(self._result(handle)[kG * t + 1])
+
+    def replay(self, handle: _Superstep) -> _Superstep:
+        """Re-issue a quarantined superstep from its clean arguments.
+
+        The poisoned superstep (and every later one in flight: the flag
+        is sticky) reverted its device mutations, so the image is the
+        state just before it ran, and the same program with the clean
+        arguments and ``reset=1`` computes what a fault-free run did.
+        Counts as a retry, never as a superstep. Still poisoned after a
+        clean replay means the non-finite scores are real: an injected
+        superstep raises ``UnrecoverableFault``, as JAX's does; any
+        other raises a ``RuntimeError`` naming the kernel, which the
+        degradation ladder does not take.
+        """
+        self.stats.retries += 1
+        nh = self._launch(handle.args, self._reset[1], handle.fresh_ids,
+                          handle.args)
+        if self.poisoned(nh):
+            if handle.injected:
+                raise resilience.UnrecoverableFault(
+                    "superstep still poisoned after a clean replay: the "
+                    "non-finite scores did not come from an injected "
+                    "fault")
+            raise_kernel_poison()
+        return nh
 
     def harvest(self, handle: _Superstep, acc: np.ndarray,
                 targets: np.ndarray, exclude=()) -> int:
@@ -487,20 +577,14 @@ class PipelineState(EngineRuntime):
         ``exclude`` carries the fresh-id arrays of the supersteps still
         in flight: their scores were computed *after* this superstep's
         winners were applied, so the queued winner decrements skip them.
+        A quarantined handle was replayed first (the driver replays the
+        whole in-flight window, ``runtime._harvest_next``).
         """
-        t0 = time.perf_counter()
-        if handle.ready is not None:
-            handle.ready.synchronize()
-        res = handle.out.numpy()
-        self.stats.device_s += time.perf_counter() - t0
+        res = self._result(handle)
         t0 = time.perf_counter()
         kG, t = handle.shape
         winners = res[:kG * t].reshape(kG, t)
-        n_stale, poison = int(res[kG * t]), int(res[kG * t + 1])
-        if poison:
-            raise RuntimeError(
-                "superstep produced non-finite scores; quarantine replay "
-                "is not ported (ROADMAP.md, queue 1: resilience)")
+        n_stale = int(res[kG * t])
         self.stats.stale_redraws += n_stale
         fresh_ids = handle.fresh_ids
         if fresh_ids.size:

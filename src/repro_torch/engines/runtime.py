@@ -1,12 +1,20 @@
 """Shared engine runtime: host state core, counters, pipeline driver.
 
 The port of ``src/repro/engines/runtime.py``: ``BatchedStats`` (the
-counters the ported engines fill), ``EngineRuntime`` (the assignment
-mirror, pool membership and the seeded random stream), ``run_pipeline``,
-the double-buffered superstep driver at any ``pipeline_depth``, and
-``maybe_refine``, the k-way refinement post-pass. Snapshots, resume,
-fault plans and the memory-rung retry loop are not ported (ROADMAP.md,
-queue 1).
+counters the ported engines fill, and ``merge``), ``EngineRuntime`` (the
+assignment mirror, pool membership, the seeded random stream, the fault
+plan and ``_guarded_kernel``), ``SnapshotMixin`` (capture, exact restore
+and cross-engine warm start of the pipeline state), ``run_pipeline``,
+the double-buffered superstep driver at any ``pipeline_depth`` with its
+snapshots, resume and poisoned-window replay, and ``maybe_refine``, the
+k-way refinement post-pass. The memory-rung retry loop is not ported
+(ROADMAP.md, queue 1).
+
+Only injected faults are retried or escalated (``_guarded_kernel``): a
+real exception of a kernel, a build or a CUDA call propagates as itself,
+where the JAX package retries any exception and then escalates it. On
+the card a device-side error is sticky, so a retry cannot help, and the
+degradation ladder would carry it down to a rung without the card.
 """
 from __future__ import annotations
 
@@ -17,7 +25,12 @@ from typing import Optional
 
 import numpy as np
 
+from ..core import resilience
 from ..core.hypergraph import Hypergraph
+
+_MEM_RUNGS = ("a non-fatal oom needs the memory-rung retry loop, which "
+              "the torch port does not have yet; see ROADMAP.md, queue "
+              "1: memory rungs")
 
 
 @dataclasses.dataclass
@@ -56,8 +69,47 @@ class BatchedStats:
     graph_replays: int = 0          # replays of the captured rounds
     graph_nodes: int = 0            # nodes of the last captured graph
     graph_capture_s: float = 0.0    # warm-up + capture + instantiate
+    graph_off_rounds: int = 0       # rounds run eagerly beside a captured
+    #                                 graph (a poisoned round's chunk)
+    # resilience counters (core/resilience.py):
+    faults_injected: int = 0        # FaultPlan specs that fired this run
+    retries: int = 0                # transient-fault retries + poisoned-
+    #                                 superstep replays (never counted as
+    #                                 extra kernel_calls / supersteps)
+    fallbacks: int = 0              # ladder rungs abandoned before this
+    #                                 engine ran (partition_resilient)
+    snapshots: int = 0              # checkpoints published
+    snapshot_s: float = 0.0         # wall-clock publishing checkpoints
+    restore_s: float = 0.0          # wall-clock restoring the resume ckpt
+    resumed_at: int = -1            # superstep/phase the run resumed
+    #                                 from; -1 = fresh start
     # refinement post-pass (None unless refine_passes > 0 ran):
     refine: Optional[object] = None     # core.refine.RefineStats
+
+    # high-water marks and identities: ``merge`` keeps the max
+    _MERGE_MAX = ("loop_store_peak", "loop_state_bytes",
+                  "device_image_bytes", "graph_nodes", "tile_l",
+                  "resumed_at")
+
+    def merge(self, other: "BatchedStats") -> "BatchedStats":
+        """Combine two runs' counters into a new ``BatchedStats``.
+
+        Additive counters sum; peak and identity fields keep the max;
+        the later run's ``refine`` record wins (the earlier one refined
+        an assignment that no longer exists). JAX's rule; no path of the
+        port calls it yet: the memory rungs' retry will (ROADMAP.md queue
+        1, item 9).
+        """
+        out = BatchedStats()
+        for f in dataclasses.fields(BatchedStats):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if f.name == "refine":
+                out.refine = b if b is not None else a
+            elif f.name in self._MERGE_MAX:
+                setattr(out, f.name, max(a, b))
+            else:
+                setattr(out, f.name, a + b)
+        return out
 
 
 class EngineRuntime:
@@ -83,6 +135,55 @@ class EngineRuntime:
         # unique-neighbour CSR (memoized on hg); None when the hub
         # expansion guard trips
         self.adj = hg.vertex_adjacency()
+        # the knob's plan (one instance shared across a degradation
+        # ladder) or a fresh parse of REPRO_FAULT_PLAN for each run
+        self.fault_plan = resilience.resolve_fault_plan(p.fault_plan)
+
+    def fire_fault(self, kinds, ordinal: int, fatal_msg=None):
+        """Fire the plan's first pending spec of ``kinds`` at ``ordinal``.
+
+        Returns the spec (counted in ``faults_injected``), or None. A
+        fatal spec raises ``UnrecoverableFault`` with ``fatal_msg``, its
+        ``{kind}`` filled in (by default the JAX engines' message for the
+        dispatch site); a
+        non-fatal ``oom`` raises ``NotImplementedError``: its recovery,
+        the memory rungs, is not ported.
+        """
+        plan = self.fault_plan
+        sp = plan.fire(kinds, ordinal) if plan is not None else None
+        if sp is None:
+            return None
+        self.stats.faults_injected += 1
+        if sp.fatal:
+            raise resilience.UnrecoverableFault(
+                fatal_msg.format(kind=sp.kind) if fatal_msg else
+                str(resilience.FaultInjected(sp.kind, ordinal, True)))
+        if sp.kind == "oom":
+            raise NotImplementedError(_MEM_RUNGS)
+        return sp
+
+    def _guarded_kernel(self, fn, ordinal: int, kinds=("dispatch",)):
+        """Run a device call under fault injection and bounded retry.
+
+        An injected fault fires before the call (the dispatch site), so
+        a retry re-issues the identical computation, which keeps the
+        recovery bit-identical to a fault-free run. A fatal spec or an
+        exhausted retry budget raises ``UnrecoverableFault`` for the
+        ladder. Anything ``fn`` itself raises propagates unchanged.
+        """
+        attempts = 0
+        while True:
+            sp = self.fire_fault(kinds, ordinal)
+            if sp is None:
+                return fn()
+            attempts += 1
+            if attempts > int(self.p.max_retries):
+                err = resilience.FaultInjected(sp.kind, ordinal)
+                raise resilience.UnrecoverableFault(
+                    f"retry budget ({self.p.max_retries}) exhausted: "
+                    f"{err!r}") from err
+            self.stats.retries += 1
+            time.sleep(float(self.p.retry_backoff_s) * attempts)
 
     def random_unassigned(self, count: int = 1) -> np.ndarray:
         """Next ``count`` unassigned non-pool vertices of the random stream.
@@ -119,7 +220,150 @@ class EngineRuntime:
                 else np.empty(0, dtype=np.int64))
 
 
-def run_pipeline(hg: Hypergraph, k: int, p, make_state):
+class SnapshotMixin:
+    """Snapshot and resume of the pipeline state (``PipelineState``).
+
+    Captures the whole engine state at a drained superstep boundary,
+    restores it bit for bit for a same-engine, same-config resume, and
+    warm-starts growth from another engine's snapshot.
+    """
+
+    def capture_payload(self, acc: np.ndarray, cur_depth: int) -> dict:
+        """The engine state at a drained superstep boundary.
+
+        The driver drains the pipeline first, so the live state is the
+        host bookkeeping plus the settled device image (downloaded here,
+        scratch slots included). Static derivatives (adjacency, tile
+        width, random order) are rebuilt from the config at restore.
+        """
+        self._store_flush()
+        return {
+            "assignment": self.assignment.copy(),
+            "acc": acc.copy(),
+            "cur_depth": int(cur_depth),
+            "in_pool": self.in_pool.copy(),
+            "cache_scored": self.cache_scored.copy(),
+            "pools": [ids.copy() for ids in self.pools],
+            "bq_key": self.bq_key.copy(),
+            "bq_edge": self.bq_edge.copy(),
+            "seq_back": int(self._seq_back),
+            "seq_front": int(self._seq_front),
+            "edge_queued": self.edge_queued.copy(),
+            "edge_dead": self.edge_dead.copy(),
+            "delta_ids": [a.copy() for a in self.delta_ids],
+            "delta_vals": [a.copy() for a in self.delta_vals],
+            "pending_dirty": [a.copy() for a in self.pending_dirty],
+            "rand_ptr": int(self.rand_ptr),
+            "rng_state": self.rng.bit_generator.state,
+            "dirty_ratchet": int(self._dirty_ratchet),
+            "stats": dataclasses.replace(self.stats),
+            "dev_assign": self.dev_assign.cpu().numpy(),
+            "dev_cache": self.dev_cache.cpu().numpy(),
+            "dev_acc": self.dev_acc.cpu().numpy(),
+        }
+
+    def restore_exact(self, pay: dict):
+        """Resume bit for bit from a same-engine, same-config payload.
+
+        Returns ``(acc, cur_depth)`` for the driver. The device image is
+        uploaded from the snapshot's copies; the poison flag restarts
+        clean (snapshots are taken only at drained, replayed boundaries).
+        """
+        self.assignment = pay["assignment"].copy()
+        self.in_pool = pay["in_pool"].copy()
+        self.cache_scored = pay["cache_scored"].copy()
+        self.pools = [ids.copy() for ids in pay["pools"]]
+        self.bq_key = pay["bq_key"].copy()
+        self.bq_edge = pay["bq_edge"].copy()
+        self._bq_pending = []
+        self._seq_back = np.int64(pay["seq_back"])
+        self._seq_front = np.int64(pay["seq_front"])
+        self.edge_queued = pay["edge_queued"].copy()
+        self.edge_dead = pay["edge_dead"].copy()
+        self.delta_ids = [a.copy() for a in pay["delta_ids"]]
+        self.delta_vals = [a.copy() for a in pay["delta_vals"]]
+        self.pending_dirty = [a.copy() for a in pay["pending_dirty"]]
+        self.rand_ptr = int(pay["rand_ptr"])
+        self.rng.bit_generator.state = pay["rng_state"]
+        self._dirty_ratchet = int(pay["dirty_ratchet"])
+        self.stats = dataclasses.replace(pay["stats"])
+        self.dev_assign = self._to_device(pay["dev_assign"])
+        self.dev_cache = self._to_device(pay["dev_cache"])
+        self.dev_acc = self._to_device(pay["dev_acc"])
+        self.dev_poison = self._to_device(np.zeros(1, dtype=np.int32))
+        return pay["acc"].copy(), int(pay["cur_depth"])
+
+    def restore_warm(self, warm: np.ndarray) -> np.ndarray:
+        """Cross-engine warm start: adopt a (partial) assignment.
+
+        Mirrors it into the device image and activates the incident
+        edges of every adopted member, so growth continues from the
+        snapshot instead of from scratch (the degradation ladder's path;
+        exactness is not claimed). Returns the per-phase totals.
+        """
+        done = np.flatnonzero(warm >= 0)
+        acc = np.zeros(self.k, dtype=np.int64)
+        if done.size:
+            ph = warm[done].astype(np.int64)
+            self.assignment[done] = warm[done]
+            acc[:int(ph.max()) + 1] = np.bincount(ph)
+            # the scratch slots: -1 past the assignment, 0 past the totals
+            self.dev_assign = self._to_device(
+                np.append(self.assignment, -1).astype(np.int32))
+            self.dev_acc = self._to_device(
+                np.append(acc, 0).astype(np.int32))
+            self.activate_many(done.astype(np.int64), ph)
+        return acc
+
+
+def raise_kernel_poison():
+    """A superstep that no injected ``nan`` poisoned scored a real row
+    non-finite: the kernel is at fault, and nothing retries it."""
+    raise RuntimeError(
+        "a superstep scored a real row non-finite with no injected "
+        "fault: the hype_score_select kernel emits non-finite scores "
+        "for finite inputs")
+
+
+def _harvest_next(st, inflight: collections.deque, acc: np.ndarray,
+                  targets: np.ndarray) -> int:
+    """Harvest the oldest in-flight superstep, replaying a poisoned one.
+
+    When the popped superstep was quarantined (a non-finite score,
+    normally an injected NaN tile), every superstep dispatched after it
+    reverted itself on the sticky poison flag: replay the whole window
+    in FIFO order from the handles' clean arguments, so the device sees
+    its effects in the same order and the recovery is bit-identical.
+    """
+    h = inflight.popleft()
+    if st.poisoned(h):
+        if not h.injected:
+            raise_kernel_poison()
+        h = st.replay(h)
+        redo = list(inflight)
+        inflight.clear()
+        for old in redo:
+            inflight.append(st.replay(old))
+    return st.harvest(h, acc, targets, [e.fresh_ids for e in inflight])
+
+
+def _teardown_pipeline(st, inflight: collections.deque) -> None:
+    """Settle an aborted run: wait for every in-flight superstep's copy,
+    then drop the handles and the queued host transients, so the process
+    is free to start a fresh run."""
+    for h in list(inflight):
+        if h.ready is not None:
+            try:
+                h.ready.synchronize()
+            except Exception:       # the abort may have broken the call
+                pass
+    inflight.clear()
+    st.delta_ids, st.delta_vals = [], []
+    st.pending_dirty = []
+
+
+def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
+                 devices: int = 0):
     """Grow all ``k`` partitions concurrently; returns (assignment, state).
 
     Each superstep is one device program that scores the stacked fresh
@@ -131,7 +375,15 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state):
     mirrored results, never on timing, so a run is seeded-deterministic
     at any depth and equals the JAX package's run at the same depth.
     Returns ``(None, None)`` when the state has no device image (the
-    caller decides what that means).
+    caller decides what that means). ``engine`` and ``devices`` name the
+    schedule in snapshot configs.
+
+    Every ``p.snapshot_every`` supersteps the driver drains the pipeline
+    and publishes a checkpoint to ``p.snapshot_dir``; with ``p.resume``
+    naming a same-engine, same-config snapshot the run restores it and
+    continues bit for bit as an uninterrupted run with the same cadence
+    (another engine's snapshot warm-starts from its assignment). Any
+    exception tears the pipeline down before it propagates.
     """
     st = make_state(p)
     if st.dev is None:
@@ -147,57 +399,96 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state):
     delta_cap = max(2 * kG * t, kG)
     depth = max(1, int(p.pipeline_depth))
     fringe = np.full((kG, 1), -1, dtype=np.int32)   # fringe-free scoring
-
-    # seed every phase with one random vertex (paper §III-B1 step 1)
-    seeds = st.random_unassigned(int((targets > 0).sum()))
-    gi = 0
-    for g in range(kG):
-        if targets[g] == 0 or gi >= seeds.size:
-            continue
-        v = seeds[gi:gi + 1]
-        gi += 1
-        st.assign_now(v, g)
-        st.activate_phase(v, g)
-        acc[g] += 1
+    snap_every = max(0, int(p.snapshot_every or 0))
+    # everything that decides the superstep schedule: an exact restore
+    # needs all of it to match (the cadence too: the drain at a snapshot
+    # is part of the schedule at depth > 1)
+    config = {"k": k, "devices": devices, "t": t, "rows": R,
+              "pool_cap": P, "s": p.s, "seed": p.seed,
+              "pipeline_depth": depth, "snapshot_every": snap_every,
+              "tile_l": int(st.tile_l)}
 
     cur_depth = depth
-    inflight: collections.deque = collections.deque()
-
-    def harvest_next() -> int:
-        h = inflight.popleft()
-        return st.harvest(h, acc, targets, [e.fresh_ids for e in inflight])
-
-    while True:
-        progress = 0
-        active = np.flatnonzero(acc < targets)
-        if active.size == 0:
-            break
-        while len(inflight) >= cur_depth:   # tail heuristic shrank
-            progress += harvest_next()
+    seeded = False
+    ckpt = resilience.load_latest(p.resume) if p.resume else None
+    if ckpt is not None:
         t0 = time.perf_counter()
-        packed, injected = st.pack_superstep(active, R, P, t, targets, acc)
-        progress += injected
-        if packed is not None:
-            fresh, bias, pool_arr, fresh_ids = packed
-            handle = st.dispatch(fresh, bias, pool_arr, fringe, fresh_ids,
-                                 targets_i32, delta_cap, t)
-        st.stats.host_s += time.perf_counter() - t0
-        if packed is not None:
-            inflight.append(handle)
-        elif inflight:
-            st.stats.pipeline_stalls += 1   # device idles this round
-        if inflight and (len(inflight) >= cur_depth or packed is None):
-            harvested = harvest_next()
-            progress += harvested
-            # adaptive depth: while a superstep admits less than half
-            # its capacity, speculative packs only waste device calls;
-            # drop to lock-step until admissions recover. Deterministic:
-            # based solely on mirrored results.
-            cur_depth = 1 if 2 * harvested < active.size * t else depth
-        if progress == 0 and not inflight:
-            break   # starved: remaining vertices sit in other pools
-    while inflight:     # drain the pipeline before the safety net
-        harvest_next()
+        resilience.check_checkpoint(ckpt, hg, k)
+        if ckpt.engine == engine and ckpt.config == config:
+            acc, cur_depth = st.restore_exact(ckpt.payload)
+            seeded = True       # the snapshot carries the seeds
+        else:
+            acc = st.restore_warm(resilience.warm_assignment(ckpt))
+        st.stats.resumed_at = int(ckpt.superstep)
+        st.stats.restore_s += time.perf_counter() - t0
+
+    if not seeded:
+        # seed every empty phase with one random vertex (paper §III-B1
+        # step 1); a warm start seeds only the phases it left empty
+        seeds = st.random_unassigned(
+            int(((acc == 0) & (targets > 0)).sum()))
+        gi = 0
+        for g in range(kG):
+            if targets[g] == 0 or acc[g] > 0 or gi >= seeds.size:
+                continue
+            v = seeds[gi:gi + 1]
+            gi += 1
+            st.assign_now(v, g)
+            st.activate_phase(v, g)
+            acc[g] += 1
+
+    last_snap = int(st.stats.supersteps)
+    inflight: collections.deque = collections.deque()
+    try:
+        while True:
+            progress = 0
+            if snap_every and st.stats.supersteps - last_snap >= snap_every:
+                while inflight:     # drain: snapshots see settled state
+                    progress += _harvest_next(st, inflight, acc, targets)
+                t0 = time.perf_counter()
+                st.stats.snapshots += 1
+                resilience.save_snapshot(
+                    p.snapshot_dir,
+                    resilience.PartitionCheckpoint(
+                        engine, int(st.stats.supersteps),
+                        hg.fingerprint(), dict(config),
+                        st.capture_payload(acc, cur_depth)),
+                    keep_last=int(p.keep_last))
+                st.stats.snapshot_s += time.perf_counter() - t0
+                last_snap = int(st.stats.supersteps)
+            active = np.flatnonzero(acc < targets)
+            if active.size == 0:
+                break
+            while len(inflight) >= cur_depth:   # tail heuristic shrank
+                progress += _harvest_next(st, inflight, acc, targets)
+            t0 = time.perf_counter()
+            packed, injected = st.pack_superstep(active, R, P, t, targets,
+                                                 acc)
+            progress += injected
+            if packed is not None:
+                fresh, bias, pool_arr, fresh_ids = packed
+                handle = st.dispatch(fresh, bias, pool_arr, fringe,
+                                     fresh_ids, targets_i32, delta_cap, t)
+            st.stats.host_s += time.perf_counter() - t0
+            if packed is not None:
+                inflight.append(handle)
+            elif inflight:
+                st.stats.pipeline_stalls += 1   # device idles this round
+            if inflight and (len(inflight) >= cur_depth or packed is None):
+                harvested = _harvest_next(st, inflight, acc, targets)
+                progress += harvested
+                # adaptive depth: while a superstep admits less than half
+                # its capacity, speculative packs only waste device
+                # calls; drop to lock-step until admissions recover.
+                # Deterministic: based solely on mirrored results.
+                cur_depth = 1 if 2 * harvested < active.size * t else depth
+            if progress == 0 and not inflight:
+                break   # starved: remaining vertices sit in other pools
+        while inflight:     # drain the pipeline before the safety net
+            _harvest_next(st, inflight, acc, targets)
+    except BaseException:
+        _teardown_pipeline(st, inflight)
+        raise
 
     # safety net: balance-fill any stragglers into underfull phases
     rem_v = np.flatnonzero(st.assignment < 0)

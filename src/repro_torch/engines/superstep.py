@@ -9,10 +9,11 @@ neighbours' cached scores instead of wiping the cache. Supersteps run
 double-buffered on the shared pipeline driver; ``pipeline_depth=1`` is
 the lock-step schedule.
 
-Only the default device program is ported; the memory-rung variants,
-snapshots and fault plans raise ``NotImplementedError`` (ROADMAP.md,
-queue 1). With ``refine_passes`` > 0 the k-way refinement post-pass runs
-after the pipeline, its screen on the same device.
+Only the default device program is ported; the memory-rung variants
+raise ``NotImplementedError`` (ROADMAP.md, queue 1). Snapshots, resume
+and fault plans run on the shared driver (``runtime.run_pipeline``).
+With ``refine_passes`` > 0 the k-way refinement post-pass runs after the
+pipeline, its screen on the same device.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ from ..core.hypergraph import Hypergraph
 from ..core.scoring import (_apply_host_injections, _gather_fresh_tiles,
                             _poison_guard, _stale_masked_prev)
 from ..kernels.hype_score.ops import SELECT_PAD, hype_score_select
-from .batched import BatchedParams, check_ported, hype_batched_partition
-from .batched import UNPORTED_KNOBS as BATCHED_UNPORTED
+from .batched import BatchedParams, hype_batched_partition
 from .pipeline import PipelineState, _CallArgs
 from .runtime import BatchedStats, maybe_refine
 from .runtime import run_pipeline as _run_pipeline
@@ -42,8 +42,7 @@ class SuperstepParams(BatchedParams):
     ``pipeline_depth``, ``refine_passes`` and ``seed`` steer this
     engine; ``b``, ``s``, ``refill_lo``, ``cap_pins`` and ``kernel_min``
     steer only the ``hype_batched`` fallback, as in the JAX engine.
-    ``snapshot_every``, ``resume``, ``fault_plan`` and ``mem_budget``
-    raise ``NotImplementedError`` when set away from their defaults.
+    ``mem_budget`` raises ``NotImplementedError`` when set.
     """
     # fresh candidate rows per phase per superstep; None = max(8, t)
     rows: Optional[int] = None
@@ -53,7 +52,17 @@ class SuperstepParams(BatchedParams):
 
 
 # knob -> the ROADMAP.md item (queue 1) that brings its feature
-UNPORTED_KNOBS = {**BATCHED_UNPORTED, "mem_budget": "memory rungs"}
+UNPORTED_KNOBS = {"mem_budget": "memory rungs"}
+
+
+def check_ported(p, unported: dict) -> None:
+    """Raise ``NotImplementedError`` for a knob of an unported feature."""
+    defaults = type(p)()
+    for knob, item in unported.items():
+        if getattr(p, knob) != getattr(defaults, knob):
+            raise NotImplementedError(
+                f"{knob}={getattr(p, knob)!r} needs a feature the torch "
+                f"port does not have yet; see ROADMAP.md, queue 1: {item}")
 
 
 def superstep_device(indptr, indices, assign, cache, acc, poison,
@@ -143,10 +152,9 @@ class SuperstepState(PipelineState):
                  debug: bool = False):
         super().__init__(hg, k, p, device)
         self.debug = debug
-        self._reset0 = (torch.zeros(1, dtype=torch.int32, device=device)
-                        if self.dev is not None else None)
 
-    def _call_program(self, args: _CallArgs) -> torch.Tensor:
+    def _call_program(self, args: _CallArgs,
+                      reset: torch.Tensor) -> torch.Tensor:
         """Run the superstep program; rotate the image; return the block
         ``winners | n_stale | poison`` that harvest reads."""
         (self.dev_assign, self.dev_cache, self.dev_acc, self.dev_poison,
@@ -154,7 +162,7 @@ class SuperstepState(PipelineState):
             self.dev[0], self.dev[1], self.dev_assign, self.dev_cache,
             self.dev_acc, self.dev_poison, args.delta, args.vals,
             args.dirty, args.dcnt, args.fresh, args.bias, args.pool_arr,
-            args.fringe, args.targets, self._reset0, tile_l=self.tile_l,
+            args.fringe, args.targets, reset, tile_l=self.tile_l,
             select_k=args.select_k, debug=self.debug)
         return torch.cat([winners.reshape(-1), n_stale.reshape(1),
                           self.dev_poison])
@@ -184,13 +192,16 @@ def hype_superstep_partition(hg: Hypergraph, k: int,
         raise ValueError("rows, pool_cap, t must all be >= 1")
     if params.pipeline_depth < 1:
         raise ValueError("pipeline_depth must be >= 1")
+    if params.snapshot_every > 0 and not params.snapshot_dir:
+        raise ValueError("snapshot_every requires snapshot_dir")
     check_ported(params, UNPORTED_KNOBS)
     if k == 1:
         out = np.zeros(hg.n, dtype=np.int32)
         return (out, BatchedStats()) if return_stats else out
     assignment, st = _run_pipeline(
         hg, k, params,
-        lambda p: SuperstepState(hg, k, p, device, debug=debug))
+        lambda p: SuperstepState(hg, k, p, device, debug=debug),
+        "hype_superstep")
     if assignment is None:
         return hype_batched_partition(hg, k, params, return_stats,
                                       device=device)

@@ -190,15 +190,6 @@ def test_bad_presets_raise_as_in_jax(method, preset, match):
 
 # ----------------------------------------- knobs, params and converters
 
-@pytest.mark.parametrize("knobs", [
-    {"snapshot_every": 2, "snapshot_dir": "x"}, {"resume": "snapshots"},
-    {"fault_plan": "nan@1"}], ids=lambda kw: ",".join(kw))
-def test_unported_batched_knobs_raise(knobs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        partition(_pl600(synthetic), 4, "hype_batched", device="cpu",
-                  **knobs)
-
-
 def test_batched_params_mirror_jax_fields_and_defaults():
     jf = {f.name: f.default for f in
           dataclasses.fields(jax_batched.BatchedParams)}

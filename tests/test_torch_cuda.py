@@ -579,3 +579,77 @@ def test_cuda_device_quality_matches_superstep_quality():
     a = partition(hg, 16, "hype_device", device="cuda", preset="quality")
     got = hashlib.sha256(a.astype(np.int32).tobytes()).hexdigest()[:16]
     assert got == "8356b306cfe516d5"    # JAX hype_superstep, preset quality
+
+
+# ------------------------------------------- resilience on the card
+
+def _pl600_t2_cpu():
+    """pl600 at k=16, t=2 (19 supersteps, no capacity rerun) on the CPU."""
+    from repro_torch.engines.device import DeviceParams, hype_device_partition
+    return hype_device_partition(_device_graph("pl600"), 16,
+                                 DeviceParams(seed=0, t=2), device="cpu")
+
+
+def test_cuda_device_resume_across_captured_graph(tmp_path):
+    """A hype_device run killed after its snapshots resumes on the card
+    with a fresh capture: the snapshot's carry is uploaded before the
+    capture, so the graph reads the restored tensors' addresses, and the
+    run lands on the CPU run's bits with one launch a replay and a
+    warm-up."""
+    _need_card()
+    from repro_torch.core import resilience
+    from repro_torch.engines.device import DeviceParams, hype_device_partition
+    from repro_torch.kernels.hype_score import ops
+    hg = _device_graph("pl600")
+    d = str(tmp_path)
+    with pytest.raises(resilience.UnrecoverableFault):
+        hype_device_partition(hg, 16, DeviceParams(
+            seed=0, t=2, snapshot_every=4, snapshot_dir=d,
+            fault_plan="dispatch@10:fatal"), device="cuda")
+    before = ops.hype_score_select.launches
+    a, st = hype_device_partition(hg, 16, DeviceParams(
+        seed=0, t=2, snapshot_every=4, snapshot_dir=d, resume=d,
+        fault_plan=resilience.FaultPlan()), True, device="cuda")
+    launched = ops.hype_score_select.launches - before
+    np.testing.assert_array_equal(a, _pl600_t2_cpu())
+    assert st.resumed_at == 8 and st.supersteps == 19
+    assert st.graph_captures == 1 and st.graph_replays >= 11
+    assert launched == st.graph_replays + st.graph_captures
+
+
+def test_cuda_device_poisoned_round_runs_off_the_graph():
+    """An injected NaN tile: the rounds of its chunk before the poisoned
+    superstep replay the graph, the poisoned one runs eagerly and scores
+    twice (its replay), and the run keeps the CPU run's bits."""
+    _need_card()
+    from repro_torch.engines.device import DeviceParams, hype_device_partition
+    from repro_torch.kernels.hype_score import ops
+    before = ops.hype_score_select.launches
+    a, st = hype_device_partition(_device_graph("pl600"), 16, DeviceParams(
+        seed=0, t=2, fault_plan="nan@5"), True, device="cuda")
+    launched = ops.hype_score_select.launches - before
+    np.testing.assert_array_equal(a, _pl600_t2_cpu())
+    assert (st.faults_injected, st.retries) == (1, 1)
+    assert st.graph_captures == 1 and st.graph_off_rounds >= 1
+    assert launched == (st.graph_replays + st.graph_captures
+                        + st.graph_off_rounds + 1)
+
+
+def test_cuda_batched_nan_quarantine_is_exact():
+    """A NaN-poisoned hype_scores tile on the card is rescored on the
+    host, bit-equal to the clean run (and to the CPU's)."""
+    _need_card()
+    from repro_torch.engines.batched import (BatchedParams,
+                                             hype_batched_partition)
+    from repro_torch.kernels.hype_score import ops
+    hg = _device_graph("pl600")
+    base, s0 = hype_batched_partition(hg, 16, BatchedParams(seed=0), True,
+                                      device="cuda")
+    before = ops.hype_scores.launches
+    a, st = hype_batched_partition(hg, 16, BatchedParams(
+        seed=0, fault_plan="nan@2"), True, device="cuda")
+    assert ops.hype_scores.launches - before == st.kernel_calls > 0
+    np.testing.assert_array_equal(a, base)
+    np.testing.assert_array_equal(a, hype_batched_partition(
+        hg, 16, BatchedParams(seed=0), device="cpu"))
+    assert st.faults_injected == 1 and st.host_rows > s0.host_rows

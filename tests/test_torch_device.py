@@ -23,6 +23,7 @@ from repro.data import synthetic as jax_synth
 from repro.engines import device as jax_dev
 from repro_torch import convert
 from repro_torch.core import device_loop, metrics
+from repro_torch.core import resilience as port_resilience
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic
 from repro_torch.engines import device
@@ -351,9 +352,6 @@ def test_exhausted_rerun_ladder_falls_back_to_superstep(monkeypatch):
 # ------------------------------------------------ errors and edge cases
 
 @pytest.mark.parametrize("knobs,item", [
-    ({"snapshot_every": 4, "snapshot_dir": "x"}, "resilience"),
-    ({"resume": "snapshots"}, "resilience"),
-    ({"fault_plan": "nan@1"}, "resilience"),
     ({"mem_budget": "1GB"}, "memory rungs"),
 ], ids=lambda v: ",".join(v) if isinstance(v, dict) else v)
 def test_unported_knobs_raise_naming_their_item(knobs, item):
@@ -412,7 +410,8 @@ def test_no_adjacency_falls_back_to_superstep(monkeypatch):
 
 
 def test_non_finite_score_raises(monkeypatch):
-    """A real row scored NaN sets FLAG_POISON; the driver raises."""
+    """A real row scored NaN sets FLAG_POISON; the driver raises, and
+    with no injected fault it is not a fault the ladder takes."""
     real = device_loop.hype_score_select
 
     def poisoned(nbrs, fringe, bias, prev, *, select_k):
@@ -421,8 +420,9 @@ def test_non_finite_score_raises(monkeypatch):
         return torch.full_like(scores, float("nan")), idx, val, rem
 
     monkeypatch.setattr(device_loop, "hype_score_select", poisoned)
-    with pytest.raises(RuntimeError, match="non-finite"):
+    with pytest.raises(RuntimeError, match="non-finite") as err:
         partition(_pl600(synthetic), 16, "hype_device", device="cpu", t=8)
+    assert not isinstance(err.value, port_resilience.UnrecoverableFault)
 
 
 def test_device_params_mirror_jax_fields_and_defaults():

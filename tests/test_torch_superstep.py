@@ -254,8 +254,6 @@ def test_pipelined_run_matches_jax(case, depth):
 # ------------------------------------------------ what is not ported yet
 
 @pytest.mark.parametrize("knobs", [
-    {"snapshot_every": 4, "snapshot_dir": "x"},
-    {"resume": "snapshots"}, {"fault_plan": "nan@1"},
     {"mem_budget": "1GB"},
 ], ids=lambda kw: ",".join(kw))
 def test_unported_knobs_raise(knobs):
