@@ -17,7 +17,8 @@ prints one JSON line per phase:
             tile front end) per (L, k) and on a path-like tile of ragged
             rows and trailing pads, plus edge cases and the shapes past
             the limits the port once had (a fringe of 24 to 60,000 ids,
-            R + P up to 60,016 slots, k up to 10,000)
+            R + P up to 60,016 slots, k up to 10,000), and the chunked
+            memory rung's shapes (16 phases; 3 phases, one all pad)
   goldens   the seven small depth-1 golden digests of the JAX package and
             six of the refinement, batched and multilevel paths (pl600),
             reproduced through ``partition(..., device="cuda")``
@@ -58,6 +59,16 @@ prints one JSON line per phase:
   report    partition_and_report on the same graph for minmax_nb,
             minmax_eb, shp, random, hashing and hype_device, each report
             held to the JAX package's key for key (runtime_s aside)
+  membudget the same graph through hype_superstep at six memory budgets,
+            which plan rungs 0-5 (phase-chunked scoring, tile_l 512,
+            depth 1, the score cache on the host, the CSR paged in 31
+            chunks) with no OOM: the depth-2 digest, JAX's rung-2 digest,
+            JAX's rung-3 digest (rungs 3-5), JAX's planned bytes and page
+            counters; an injected oom and a real allocator failure (a
+            1 TiB torch.empty at a fresh copy's image upload) retried once
+            at rung 1; hype_device with oom@2 and oom@70 falling down the
+            host pipeline's rungs; each with its launches, peak bytes and
+            the card's memory before and after; then a clean hype_device
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
   profile   the depth-1 slice, the batched and the quality path and
             hype_device each run twice more, under torch.profiler (the
@@ -426,6 +437,11 @@ def kernel_inputs(rng, G, R, L, s, P, kind):
         nbrs[:] = -1
         bias[:] = np.inf
         prev[:] = np.inf
+    elif kind == "pad_phase":       # the chunked rung's padded last chunk
+        nbrs[-1] = -1
+        fringe[-1] = -1
+        bias[-1] = np.inf
+        prev[-1] = np.inf
     return [torch.from_numpy(a).cuda() for a in (nbrs, fringe, bias, prev)]
 
 
@@ -464,7 +480,12 @@ def phase_kernel(ops, ref):
     cases += [(32, R, 2048, s, P, k, "hub"), (32, R, 2048, s, P, k, "ties"),
               (32, R, 2048, s, P, k, "pads"),
               (1, R, 2048, 16, P, R + P, "ties"),
-              (5, 8, 33, 3, P, 8 + P, "hub")]
+              (5, 8, 33, 3, P, 8 + P, "hub"),
+              # the chunked memory rung: a chunk of 16 phases (g_chunk 2
+              # at k = 32), and 3 phases the last of which is all pad
+              # (k = 5 in chunks of 3)
+              (16, R, 2048, s, P, k, "chunk"),
+              (3, R, 2048, s, P, k, "pad_phase")]
     # shapes past the old limits, timed too: a fringe wider than the 16
     # register slots (shared memory), R + P slots past 48 KB (opted-in
     # shared memory) and past 227 KB (a global scratch), and a fringe that
@@ -485,11 +506,12 @@ def phase_kernel(ops, ref):
         row = {"phase": "kernel", "G": G, "R": R_, "L": L, "s": s_,
                "P": P_, "select_k": k_, "inputs": kind, "equal": equal,
                "max_abs_err": err}
-        if kind in ("random", "wide"):
+        if kind in ("random", "wide", "chunk"):
             nbytes = sum(t.nbytes for t in x) + sum(t.nbytes for t in out)
             # the plain version loops over the fringe in Python: one run
             # of it for the wide shapes
-            few = {} if kind == "random" else dict(reps=1, iters=1, warmup=1)
+            few = ({} if kind != "wide"
+                   else dict(reps=1, iters=1, warmup=1))
             row.update(
                 ms=cuda_ms(lambda: ops.hype_score_select(*x, select_k=k_)),
                 plain_ms=cuda_ms(lambda: ref.hype_score_select_ref(*x, k_),
@@ -2514,6 +2536,211 @@ def phase_report(hg, same_graph, launches, partition_and_report):
     return rows
 
 
+# mem_budget (bytes) -> the memory rung hype_superstep plans on the slice's
+# graph (k=32, t=16, rows 16, pool_cap 64, depth 2: rung 0 plans
+# 65,114,592 bytes, 55,232,524 of them the CSR image); None = the card's
+# free memory, which rung 0 fits
+MEM_BUDGETS = (None, 62_000_000, 59_000_000, 57_500_000, 57_100_000,
+               32_000_000)
+# the JAX package's run_pipeline(..., mem_rung=r) of the slice's config,
+# computed with the JAX package on the CPU: rung 2 (tile_l 512, depth 2)
+# and rung 3 (tile_l 512, depth 1); rungs 4 and 5 are bit-exact to rung 3
+MEM_RUNG_DIGESTS = {2: "b375f828d4fc1261", 3: "11af1dd01f862a04"}
+# card memory a recovered run may keep: a new stream's score + select
+# ticket counters (4 KiB each)
+MEM_SLACK = 1 << 20
+# and JAX's plans there: each rung's planned bytes, and the pager's
+# (uploads, hits, evictions, bytes) at rung 5 (host logic: equal exactly)
+MEM_PLANNED = (65_114_592, 60_920_288, 57_774_560, 57_213_152, 57_027_896,
+               32_000_000)
+MEM_PAGED_COUNTERS = (5657, 2919, 5646, 14_269_714_616)
+
+
+def mem_row(label, hg, a, st, wall, counts, need):
+    """A memory-budgeted run's row: the path's metrics, its plan, the
+    planned and observed peak bytes, retries, fallbacks, the pager's
+    counters and the time split; fails on a launch count other than
+    ``need`` (kernel name -> count)."""
+    row = path_row(f"membudget_{label}", hg, a, 32, wall)
+    row.update({key: getattr(st, key) for key in (
+        "plan_rung", "peak_bytes_planned", "peak_bytes_observed",
+        "mem_retries", "fallbacks", "faults_injected", "page_uploads",
+        "page_hits", "page_evictions", "page_bytes", "supersteps",
+        "tile_l", "host_s", "device_s")})
+    row["launches"] = counts
+    row["expected_launches"] = need
+    for name, n in need.items():
+        if counts[name] == 0 or counts[name] != n:
+            emit(row)
+            raise SystemExit(f"{row['phase']} launched {name} "
+                             f"{counts[name]} times; expected {n}")
+    return row
+
+
+def phase_membudget(hg, same_graph, launches, SuperstepParams,
+                    hype_superstep_partition, run_pipeline, DeviceParams,
+                    hype_device_partition):
+    """The memory rungs on the card, github_like(1.0), k=32, t=16.
+    hype_superstep at the six budgets of MEM_BUDGETS reaches rungs 0-5 by
+    its plan alone (no OOM, no retry, no fallback): rungs 0-1 on the
+    depth-2 slice's digest, rung 2 on JAX's rung-2 digest, rungs 3-5 on
+    JAX's rung-3 digest, each superstep launching score + select once a
+    phase chunk (twice on rungs 1-3). Then an injected oom at the upload
+    and a real allocator failure (a 1 TiB torch.empty) at the image upload
+    of a fresh copy of the graph: one retry each, rung 1, the depth-2
+    digest, the card's memory back at its level but for the fresh copy's
+    CSR image. Then hype_device with oom@2 and oom@70 (in the first and
+    the second chunk): down the host pipeline's rungs from rung 1 at depth
+    1, warm-started from the seeds (no snapshot in between), complete,
+    balanced, fallbacks 1, on the depth-1 digest, the card's memory
+    released. Last, a clean hype_device on the depth-1 digest."""
+    import gc
+    import torch
+    rows = {}
+
+    def expect(rung):
+        """JAX's digest at ``rung`` (or, on another graph, the port's own
+        CPU run there: rungs 4 and 5 are bit-exact to rung 3)."""
+        if same_graph:
+            return (SLICE_DIGESTS[2] if rung <= 1
+                    else MEM_RUNG_DIGESTS[min(rung, 3)])
+        a, _ = run_pipeline(hg, 32, SuperstepParams(seed=0, t=16, rows=16),
+                            device="cpu", mem_rung=min(rung, 3))
+        return digest(a)
+
+    def check(row, want):
+        row["expected_digest"] = want
+        emit(row)
+        if row["digest"] != want:
+            raise SystemExit(f"{row['phase']} digest differs: {row}")
+        rows[row["phase"]] = row
+
+    for rung, budget in enumerate(MEM_BUDGETS):
+        (a, st), wall, counts = launches.drive(
+            lambda: hype_superstep_partition(
+                hg, 32, SuperstepParams(seed=0, t=16, mem_budget=budget),
+                return_stats=True, device="cuda"))
+        g_chunk = 2 if 1 <= rung <= 3 else 1
+        row = mem_row(f"rung{rung}", hg, a, st, wall, counts,
+                      {"hype_score_select": g_chunk * st.supersteps})
+        row["mem_budget"] = budget
+        if (st.plan_rung, st.mem_retries, st.fallbacks) != (rung, 0, 0):
+            emit(row)
+            raise SystemExit(f"budget {budget} did not plan rung {rung}: "
+                             f"{row}")
+        pages = (st.page_uploads, st.page_hits, st.page_evictions,
+                 st.page_bytes)
+        row["expected_peak_bytes_planned"] = MEM_PLANNED[rung]
+        if same_graph and (
+                st.peak_bytes_planned != MEM_PLANNED[rung]
+                or pages != (MEM_PAGED_COUNTERS if rung == 5 else (0,) * 4)):
+            emit(row)
+            raise SystemExit(f"rung {rung}'s plan or pager differs from "
+                             f"JAX's: {row}")
+        if rung == 5 and not st.page_uploads:
+            raise SystemExit(f"the paged rung paged nothing: {row}")
+        check(row, expect(rung))
+
+    # an injected oom at the upload: one retry, rung 1
+    (a, st), wall, counts = launches.drive(
+        lambda: hype_superstep_partition(
+            hg, 32, SuperstepParams(seed=0, t=16, fault_plan="oom"),
+            return_stats=True, device="cuda"))
+    row = mem_row("injected_oom", hg, a, st, wall, counts,
+                  {"hype_score_select": 2 * st.supersteps})
+    if (st.plan_rung, st.mem_retries, st.fallbacks) != (1, 1, 0):
+        raise SystemExit(f"the injected oom did not retry at rung 1: {row}")
+    check(row, expect(1))
+
+    # a real allocator failure at the image upload of a fresh copy of the
+    # graph (no CSR image memoized on it; the host adjacency shared)
+    fresh = dataclasses.replace(hg)
+    object.__setattr__(fresh, "_adj_cache", dict(hg.__dict__["_adj_cache"]))
+    cls = type(hg)
+    real = cls.device_adjacency
+    tried = []
+
+    def failing_once(self, *args, **kw):
+        if not tried:
+            tried.append(True)
+            torch.empty(1 << 40, dtype=torch.uint8, device="cuda")
+        return real(self, *args, **kw)
+
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    cls.device_adjacency = failing_once
+    try:
+        (a, st), wall, counts = launches.drive(
+            lambda: hype_superstep_partition(
+                fresh, 32, SuperstepParams(seed=0, t=16), return_stats=True,
+                device="cuda"))
+    finally:
+        cls.device_adjacency = real
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    image = sum(t.nbytes for t in fresh.device_adjacency("cuda"))
+    row = mem_row("real_oom", fresh, a, st, wall, counts,
+                  {"hype_score_select": 2 * st.supersteps})
+    row.update(allocated_before=before, allocated_after=after,
+               csr_image_bytes=image)
+    if (st.plan_rung, st.mem_retries, st.fallbacks) != (1, 1, 0):
+        raise SystemExit(f"the real OOM did not retry at rung 1: {row}")
+    # slack: the kernel's ticket counters of a stream not seen before
+    if after - before > image + MEM_SLACK:
+        raise SystemExit(f"the recovered run kept card memory: {row}")
+    check(row, expect(1))
+    del fresh
+
+    # hype_device: an oom in the first chunk and one in the second
+    device_digests = []
+    for plan in ("oom@2", "oom@70"):
+        gc.collect()
+        before = torch.cuda.memory_allocated()
+        (a, st), wall, counts = launches.drive(
+            lambda: hype_device_partition(
+                hg, 32, DeviceParams(seed=0, t=16, fault_plan=plan),
+                return_stats=True, device="cuda"))
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        # two launches a superstep at rung 1, after the loop's: its
+        # warm-up round (oom@2 fires before the first chunk), or that and
+        # the first chunk's replays (64 supersteps and its pack-only rounds)
+        row = mem_row(f"device_{plan}", hg, a, st, wall, counts, {})
+        loop = counts["hype_score_select"] - 2 * st.supersteps
+        row.update(loop_launches=loop, allocated_before=before,
+                   allocated_after=after)
+        emit(row)
+        if (loop != 1 if plan == "oom@2" else not 65 <= loop <= 80):
+            raise SystemExit(f"hype_device launched score + select {loop} "
+                             f"times before its fallback: {row}")
+        if (st.plan_rung, st.mem_retries, st.fallbacks) != (1, 1, 1):
+            raise SystemExit(f"hype_device did not fall down the rungs: "
+                             f"{row}")
+        if after - before > MEM_SLACK:
+            raise SystemExit(f"hype_device's fallback kept card memory: "
+                             f"{row}")
+        device_digests.append(row["digest"])
+        rows[row["phase"]] = row
+    # the rung-1 pipeline at depth 1 from the seeds draws its restarts
+    # past them as a fresh run does: the depth-1 digest
+    want = SLICE_DIGESTS[1] if same_graph else device_digests[0]
+    if device_digests != [want, want]:
+        raise SystemExit(f"hype_device's fallbacks landed on "
+                         f"{device_digests}, not {want}")
+
+    # a clean hype_device after the fallbacks: the depth-1 digest
+    (a, st), wall, counts = launches.drive(lambda: hype_device_partition(
+        hg, 32, DeviceParams(seed=0, t=16), return_stats=True,
+        device="cuda"))
+    row = device_row("membudget_device_clean", hg, a, st, wall)
+    cpu = None if same_graph else digest(run_pipeline(
+        hg, 32, SuperstepParams(seed=0, t=16, rows=16, pipeline_depth=1),
+        device="cpu")[0])
+    check_path(row, SLICE_DIGESTS[1], SLICE_KM1[1], cpu, counts,
+               {"hype_score_select": st.graph_replays + st.graph_captures})
+    return rows
+
+
 def check_path(row, want_digest, want_km1, cpu_digest, counts, need):
     """Hold a path's digest against the JAX constant (or, when the graph
     differs from the one the constant was taken on, against the port's
@@ -2585,6 +2812,8 @@ def main() -> int:
                                             hype_device_partition)
     from repro_torch.engines.superstep import (SuperstepParams,
                                                hype_superstep_partition)
+    from repro_torch.engines.superstep import (
+        run_pipeline as superstep_pipeline)
     from repro_torch.kernels import _build
     from repro_torch.kernels.embedding_bag import ops as bops
     from repro_torch.kernels.embedding_bag import ref as bref
@@ -2726,6 +2955,11 @@ def main() -> int:
                      hype_batched_partition, partition_resilient,
                      batched_host_rows)
     phase_report(hg, same_graph, launches, partition_and_report)
+    t0 = time.perf_counter()
+    phase_membudget(hg, same_graph, launches, SuperstepParams,
+                    hype_superstep_partition, superstep_pipeline,
+                    DeviceParams, hype_device_partition)
+    emit({"phase": "membudget_done", "wall_s": time.perf_counter() - t0})
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
     # the coarsest graph, kway_gains_csr screens at the finest level

@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from ..kernels.hype_score.ops import SELECT_PAD, hype_score_select
-from . import scoring
+from . import membudget, scoring
 
 # int32 key pad: larger than any live key ((cls<=31)<<25 | seq < 2^30).
 PAD32 = 2**31 - 1
@@ -896,10 +896,23 @@ class DeviceLoop:
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = hype_score_select.launches
-        with torch.cuda.graph(graph, stream=stream):
-            self._step()
-        self.launches_per_round = hype_score_select.launches - before
-        hype_score_select.launches = before
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self._step()
+        except Exception as exc:
+            # an allocation that failed mid-capture: the capture has ended
+            # (the context manager's exit). Should ending it raise in turn,
+            # the OOM underneath is what the memory rungs answer.
+            under = exc.__context__
+            if (not membudget.is_oom_error(exc) and under is not None
+                    and membudget.is_oom_error(under)):
+                raise membudget.DeviceOOM(
+                    f"CUDA graph capture failed: {under!r}") from exc
+            raise
+        finally:
+            # the capture launches nothing: its calls count per replay
+            self.launches_per_round = hype_score_select.launches - before
+            hype_score_select.launches = before
         self.nodes = _graph_nodes(graph)
         graph.instantiate()
         torch.cuda.synchronize(dev)

@@ -28,8 +28,9 @@ classes: they are not interchangeable with the JAX package's.
     cannot recover inside the run (a fatal injected fault, an exhausted
     retry budget). ``partition_api.partition_resilient`` catches it and
     walks the degradation ladder from the last snapshot. Only injected
-    faults are retried or escalated: a real exception of a kernel, a
-    build or a CUDA call propagates as itself.
+    faults are retried or escalated, and real allocator failures, which
+    walk the memory rungs (``core/membudget.py``): any other real
+    exception of a kernel, a build or a CUDA call propagates as itself.
 """
 from __future__ import annotations
 
@@ -65,8 +66,10 @@ class UnrecoverableFault(RuntimeError):
     exhausted retry budget of injected transient faults, or a superstep
     still poisoned after its clean replay. ``partition_resilient``
     catches it and falls back down the engine ladder from the last
-    snapshot. A non-fatal injected ``oom`` raises ``NotImplementedError``
-    instead: its recovery, the memory rungs, is not ported.
+    snapshot. A non-fatal ``oom`` (injected, or a real allocator
+    failure) raises ``membudget.DeviceOOM`` instead, which the engine's
+    memory-rung retry loop answers; only an exhausted rung ladder ends
+    as this error.
     """
 
 

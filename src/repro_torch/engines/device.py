@@ -18,25 +18,31 @@ a chunk), and a run resumes from the carry (same engine and config: bit
 for bit) or from the assignment (another engine's: warm). Injected
 faults are probed a chunk at a time, as in the JAX engine; a ``nan``
 fault's round runs off the captured graph (``core/device_loop.py``).
-Memory budgets raise ``NotImplementedError`` (ROADMAP.md, queue 1); a
-device OOM is raised as ``torch.OutOfMemoryError`` (the JAX engine falls
-down its memory rungs).
+
+Memory: the loop has no reduced-memory programs of its own. A budget
+whose plan falls below rung 0 hands the run to ``hype_superstep``, and a
+device OOM (real, at the upload, in the capture or in a chunk; or an
+injected ``oom``) falls down the host pipeline's memory rungs at depth 1,
+warm-started from the assignment at the last logical chunk boundary the
+host saw (``core/membudget.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Optional
 
 import numpy as np
 
-from ..core import device_loop, resilience
+from ..core import device_loop, membudget, resilience
 from ..core.hypergraph import Hypergraph
 from ..core.scoring import gather_csr_rows
+from .batched import hype_batched_partition
 from .pipeline import PipelineState
 from .runtime import BatchedStats, maybe_refine
-from .superstep import (UNPORTED_KNOBS, SuperstepParams, check_ported,
-                        hype_superstep_partition)
+from .superstep import SuperstepParams, hype_superstep_partition
+from .superstep import run_pipeline as superstep_pipeline
 
 
 @dataclasses.dataclass
@@ -81,7 +87,8 @@ def _device_probe_faults(st: PipelineState, lo: int, hi: int) -> None:
     runs once."""
     for o in range(lo, hi + 1):
         if st.fire_fault(("dispatch", "oom"), o,
-                         f"injected fatal {{kind}} fault at superstep {o}"):
+                         f"injected fatal {{kind}} fault at superstep {o}",
+                         f"injected OOM at superstep {o}"):
             st.stats.retries += 1
             time.sleep(float(st.p.retry_backoff_s))
 
@@ -170,6 +177,10 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
                        device)
     if st.dev is None:
         return ("fallback", "no device adjacency", None)
+    if st.mem_plan.rung != 0:
+        # the budget wants a reduced configuration: the rungs are host
+        # pipeline programs, so the whole run goes to that engine
+        return ("fallback", "memory plan below rung 0", None)
     n, m = hg.n, hg.m
     base, rem = divmod(n, k)
     targets = np.zeros(k, dtype=np.int64)
@@ -243,22 +254,29 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
     cls_edge = np.where(
         sizes <= 1, np.int64(0),
         np.ceil(np.log2(np.maximum(sizes, 2))).astype(np.int64))
-    consts = device_loop.consts_to_device(dict(
-        adj_indptr=st.dev[0], adj_indices=st.dev[1],
-        v2e_indptr=hg.v2e_indptr, v2e_indices=hg.v2e_indices,
-        e2v_indptr=hg.e2v_indptr, e2v_indices=hg.e2v_indices,
-        cls_edge=cls_edge, deg=st.deg, vdeg=vdeg, targets=targets,
-        rand_order=st.rand_order,
-        fringe=np.full((k, 1), -1, dtype=np.int32)), st.device)
-    loop = device_loop.DeviceLoop(
-        cfg, consts, device_loop.carry_to_device(carry_np, st.device))
+
+    def upload():
+        consts = device_loop.consts_to_device(dict(
+            adj_indptr=st.dev[0], adj_indices=st.dev[1],
+            v2e_indptr=hg.v2e_indptr, v2e_indices=hg.v2e_indices,
+            e2v_indptr=hg.e2v_indptr, e2v_indices=hg.e2v_indices,
+            cls_edge=cls_edge, deg=st.deg, vdeg=vdeg, targets=targets,
+            rand_order=st.rand_order,
+            fringe=np.full((k, 1), -1, dtype=np.int32)), st.device)
+        return consts, device_loop.DeviceLoop(
+            cfg, consts, device_loop.carry_to_device(carry_np, st.device))
+
+    # the upload and the CUDA graph's capture: an OOM here reruns fresh
+    # at the next rung (no partial)
+    consts, loop = membudget.oom_guard(
+        upload, "device loop image upload failed", st.mem_rung)
     graphs["captures"] += loop.graph is not None
     graphs["capture_s"] += loop.capture_s
     st.stats.loop_state_bytes = device_loop.carry_bytes(carry_np)
     st.stats.device_image_bytes = int(sum(
         v.nbytes for v in consts.values())) + st.stats.loop_state_bytes
 
-    def snapshot(ss_now: int) -> None:
+    def snapshot(ss_now: int) -> np.ndarray:
         t0 = time.perf_counter()
         st.stats.snapshots += 1
         cn = device_loop.carry_to_numpy(loop.carry)
@@ -271,6 +289,7 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
                 engine, ss_now, hg.fingerprint(), dict(config), pay),
             keep_last=int(p.keep_last))
         st.stats.snapshot_s += time.perf_counter() - t0
+        return cn["assign"]
 
     # The host loop runs the JAX driver's chunks: each is probed for
     # faults up front, capped at the snapshot cadence, and ends at an
@@ -283,54 +302,65 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
     progress = 1
     acc_h = acc
     host_accum = 0.0
-    while True:
-        t_host = time.perf_counter()
-        live = bool((acc_h < targets).any()) and progress > 0
-        if ss_now >= chunk_end or not live:
-            if snap_every and ss_now - last_snap >= snap_every:
-                snapshot(ss_now)
-                last_snap = ss_now
-            if not live:
-                break   # done, or starved: stragglers sit in other pools
-            cap = chunk_max
-            if snap_every:
-                cap = max(1, min(cap, snap_every - (ss_now - last_snap)))
-            _device_probe_faults(st, ss_now + 1, ss_now + cap)
-            pending = _device_probe_nan(st, ss_now + 1, ss_now + cap)
-            if pending:
-                cap = pending - ss_now      # the poisoned step ends it
-            chunk_end = ss_now + cap
-        if pending and ss_now == pending - 1:
-            sub, poison_at = 1, pending
-        else:
-            poison_at = 0
-            sub = (pending - 1 if pending else chunk_end) - ss_now
-            if loop.graph is not None:
-                # cap the replays at a lower bound of the rounds still to
-                # come (a phase gains at most t a round)
-                sub = min(sub, -(-int((targets - acc_h).max()) // t))
-                graphs["replays"] += sub
-        host_accum += time.perf_counter() - t_host
-        t_dev = time.perf_counter()
-        flags, progress, ss_now, acc_h = loop.run_chunk(sub, poison_at)
-        st.stats.device_s += time.perf_counter() - t_dev
-        st.stats.loop_chunks += 1
-        if poison_at:
-            pending = 0
-        if flags & device_loop.FLAG_POISON:
-            if poison_at:   # the injected round's clean replay failed too
-                raise resilience.UnrecoverableFault(
-                    f"superstep {poison_at} still poisoned after a clean "
-                    f"replay: the kernel emits non-finite scores for "
-                    f"finite inputs")
-            # a real fault of the kernel: no replay, and not a fault the
-            # degradation ladder takes
-            raise RuntimeError(
-                "the device loop scored a real row non-finite: the "
-                "hype_score_select kernel emits non-finite scores for "
-                "finite inputs")
-        if flags:
-            return ("overflow", flags, caps)
+    # the assignment a memory fallback warm-starts from: the seeded host
+    # state, then each snapshot's (the host sees no assignment between)
+    last_known = st.assignment.copy()
+    try:
+        while True:
+            t_host = time.perf_counter()
+            live = bool((acc_h < targets).any()) and progress > 0
+            if ss_now >= chunk_end or not live:
+                if snap_every and ss_now - last_snap >= snap_every:
+                    last_known = snapshot(ss_now)
+                    last_snap = ss_now
+                if not live:
+                    break   # done, or starved: stragglers sit in other pools
+                cap = chunk_max
+                if snap_every:
+                    cap = max(1, min(cap, snap_every - (ss_now - last_snap)))
+                _device_probe_faults(st, ss_now + 1, ss_now + cap)
+                pending = _device_probe_nan(st, ss_now + 1, ss_now + cap)
+                if pending:
+                    cap = pending - ss_now      # the poisoned step ends it
+                chunk_end = ss_now + cap
+            if pending and ss_now == pending - 1:
+                sub, poison_at = 1, pending
+            else:
+                poison_at = 0
+                sub = (pending - 1 if pending else chunk_end) - ss_now
+                if loop.graph is not None:
+                    # cap the replays at a lower bound of the rounds still to
+                    # come (a phase gains at most t a round)
+                    sub = min(sub, -(-int((targets - acc_h).max()) // t))
+                    graphs["replays"] += sub
+            host_accum += time.perf_counter() - t_host
+            t_dev = time.perf_counter()
+            flags, progress, ss_now, acc_h = membudget.oom_guard(
+                lambda: loop.run_chunk(sub, poison_at),
+                "device loop chunk failed", st.mem_rung)
+            st.stats.device_s += time.perf_counter() - t_dev
+            st.stats.loop_chunks += 1
+            if poison_at:
+                pending = 0
+            if flags & device_loop.FLAG_POISON:
+                if poison_at:   # the injected round's clean replay failed too
+                    raise resilience.UnrecoverableFault(
+                        f"superstep {poison_at} still poisoned after a clean "
+                        f"replay: the kernel emits non-finite scores for "
+                        f"finite inputs")
+                # a real fault of the kernel: no replay, and not a fault the
+                # degradation ladder takes
+                raise RuntimeError(
+                    "the device loop scored a real row non-finite: the "
+                    "hype_score_select kernel emits non-finite scores for "
+                    "finite inputs")
+            if flags:
+                return ("overflow", flags, caps)
+    except membudget.DeviceOOM as exc:
+        if exc.rung is None:
+            exc.rung = int(st.mem_plan.rung)
+        exc.partial = last_known
+        raise
     st.stats.host_s += host_accum
 
     # final download + host mirror
@@ -366,6 +396,9 @@ def _device_attempt(hg: Hypergraph, k: int, p: DeviceParams,
         fill = np.repeat(np.arange(k), deficit)[:rem_v.size]
         st.assignment[rem_v[:fill.size]] = fill.astype(np.int32)
     st.in_pool[:] = False
+    st.stats.peak_bytes_observed = int(
+        membudget.observed_peak_bytes(st.device)
+        or st.stats.peak_bytes_planned)
     return ("ok", st.assignment, st)
 
 
@@ -409,10 +442,13 @@ def hype_device_partition(hg: Hypergraph, k: int,
     one captured round replayed a chunk at a time; ``"cpu"``: the same
     round eagerly). Falls back to ``hype_superstep_partition`` on the
     same device when the int32 encoding gates reject the graph or the
-    sequence space runs out, as the JAX engine does. With
-    ``refine_passes`` > 0 the k-way refinement post-pass follows. The
-    fault plan is resolved once, so a spec consumed by one capacity
-    attempt does not fire again in the next.
+    sequence space runs out, as the JAX engine does, and to it too when
+    ``mem_budget`` plans below rung 0. A device OOM falls down the host
+    pipeline's memory rungs from rung 1, at depth 1, warm-started from
+    the last logical chunk boundary's assignment, with ``fallbacks`` 1
+    (``_oom_fallback``). With ``refine_passes`` > 0 the k-way refinement
+    post-pass follows. The fault plan is resolved once, so a spec
+    consumed by one attempt does not fire again in the next.
     """
     if params is None:
         params = DeviceParams()
@@ -428,14 +464,23 @@ def hype_device_partition(hg: Hypergraph, k: int,
         raise ValueError("cache_dtype must be float32 or float16")
     if params.snapshot_every > 0 and not params.snapshot_dir:
         raise ValueError("snapshot_every requires snapshot_dir")
-    check_ported(params, UNPORTED_KNOBS)
     if k == 1:
         out = np.zeros(hg.n, dtype=np.int32)
         return (out, BatchedStats()) if return_stats else out
     fplan = resilience.resolve_fault_plan(params.fault_plan)
     if fplan is not None:
         params = dataclasses.replace(params, fault_plan=fplan)
-    assignment, st = _run_device_loop(hg, k, params, device)
+    try:
+        assignment, st = _run_device_loop(hg, k, params, device)
+        oom = None
+    except membudget.DeviceOOM as exc:
+        oom = (exc.rung, exc.partial)
+    if oom is not None:
+        # past the except block: the failed attempt's loop, its captured
+        # graph and its carry are unreachable now, so collect them before
+        # the next rung allocates
+        gc.collect()
+        return _oom_fallback(hg, k, params, return_stats, device, *oom)
     if assignment is None:
         return hype_superstep_partition(hg, k, params, return_stats,
                                         device=device)
@@ -444,6 +489,48 @@ def hype_device_partition(hg: Hypergraph, k: int,
     if return_stats:
         return assignment, st.stats
     return assignment
+
+
+def _oom_fallback(hg: Hypergraph, k: int, params: DeviceParams,
+                  return_stats: bool, device, rung: Optional[int],
+                  partial: Optional[np.ndarray]):
+    """The device loop ran out of memory: run ``hype_superstep``'s host
+    pipeline down its memory rungs instead, as the JAX engine does.
+
+    The ladder keeps this engine's lock-step cadence (depth 1) and starts
+    at the rung after the failed one, warm-started from ``partial`` (the
+    assignment at the last logical chunk boundary), so an OOM at the
+    upload reruns fresh and lands on the schedule the loop would have
+    run. Each further ``DeviceOOM`` takes the next rung; an exhausted
+    ladder raises ``UnrecoverableFault``.
+    """
+    params = dataclasses.replace(params, pipeline_depth=1)
+    rung = 1 if rung is None else int(rung) + 1
+    warm = partial if partial is not None and (partial >= 0).any() else None
+    retries = 1
+    while True:
+        try:
+            assignment, pst = superstep_pipeline(
+                hg, k, params, device=device, mem_rung=rung, mem_warm=warm,
+                mem_retries=retries)
+            break
+        except membudget.DeviceOOM as exc:
+            failed, partial = exc.rung, exc.partial
+        except membudget.MemoryLadderExhausted as exc:
+            raise resilience.UnrecoverableFault(
+                f"device memory rungs exhausted: {exc}") from exc
+        gc.collect()
+        retries += 1
+        rung = (rung if failed is None else int(failed)) + 1
+        if partial is not None and (partial >= 0).any():
+            warm = partial
+    if assignment is None:
+        return hype_batched_partition(hg, k, params, return_stats,
+                                      device=device)
+    pst.stats.fallbacks += 1
+    assert (assignment >= 0).all()
+    assignment = maybe_refine(hg, k, params, assignment, pst.stats, device)
+    return (assignment, pst.stats) if return_stats else assignment
 
 
 __all__ = ["DeviceParams", "hype_device_partition"]

@@ -10,20 +10,28 @@ lives in the device cache. ``pack_superstep`` draws the next candidates,
 The device image is uploaded once as torch tensors: the unique-neighbour
 CSR (``Hypergraph.device_adjacency``, ``indptr`` int32 below 2**31
 pins), the assignment, the score cache, the per-phase admission counter
-and the poison flag. The memory plan is
-fixed at the JAX package's unconstrained rung-0 choice (the tile width
-``tile_l`` below); memory rungs are not ported (ROADMAP.md, queue 1).
+and the poison flag. Before the upload the memory plan
+(``core/membudget.py``) sizes all of it against the budget and picks the
+rung: the gather width ``tile_l``, phase chunks ``g_chunk``, the depth
+clamp, the score cache spilled to a host float32 mirror
+(``host_cache``), or a paged CSR (``paged_adj``, with ``dev`` a
+``(None, None)`` sentinel). Every rung runs on the device the state
+was given.
 
 Faults (``core/resilience.py``): a ``dispatch`` spec fires before a
 superstep's launch and is retried by ``_guarded_kernel``; a ``nan`` spec
 poisons the bias of the superstep's fresh rows, so the program's
 quarantine reverts it on the device; ``harvest`` (and the driver, for
 the whole in-flight window) then replays it from its clean, already
-uploaded arguments. A bare ``oom`` spec fires at the image upload.
+uploaded arguments. A bare ``oom`` spec fires at the image upload, an
+``oom@N`` at dispatch N; either, and a real allocator failure at the
+upload, a dispatch or a harvest, raises ``DeviceOOM`` for the
+memory-rung retry loop.
 
 Transfers: one host-to-device copy per superstep (every small id buffer
 packed into one pinned block) and one device-to-host copy (winners,
-n_stale and poison in one int32 tensor), issued right after the
+n_stale and poison in one int32 tensor, and on the spill rung the fresh
+scores bit-cast behind them), issued right after the
 superstep's own launches, so ``harvest`` blocks on that superstep only
 and never on a later one in flight. ``dispatch`` launches nothing that
 synchronizes with the device.
@@ -37,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import resilience, scoring
+from ..core import membudget, resilience, scoring
 from ..core.hypergraph import Hypergraph
 from .runtime import EngineRuntime, SnapshotMixin, raise_kernel_poison
 
@@ -66,13 +74,21 @@ class _CallArgs:
     fringe: torch.Tensor
     targets: torch.Tensor
     select_k: int
+    # the (G, R) fresh ids on the host: the paged rung gathers their rows
+    # and the spill rung adopts their scores
+    host_fresh: np.ndarray
+    # spill rung only: the held pool's scores from the host mirror, taken
+    # after this dispatch's decrements, so a replay never applies them
+    # twice
+    prev: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
 class _Superstep:
     """One in-flight superstep: its result block and what harvest needs.
 
-    ``out`` holds ``winners (G*select_k) | n_stale | poison`` as int32 --
+    ``out`` holds ``winners (G*select_k) | n_stale | poison`` as int32
+    (then the (G*R) fresh scores as float32 bits on the spill rung) --
     a pinned host tensor on CUDA, filled by an async copy that ``ready``
     (a CUDA event) marks done; the device program's own tensor on CPU.
     ``args`` are the superstep's clean arguments, for a replay;
@@ -92,15 +108,25 @@ class PipelineState(SnapshotMixin, EngineRuntime):
     # injected faults the dispatch site sees ("oom@N" simulates a
     # mid-run allocation failure)
     _fault_kinds = ("dispatch", "oom")
+    # memory-rung reductions this engine has programs for
+    _mem_features = membudget.SUPERSTEP_FEATURES
 
-    def __init__(self, hg: Hypergraph, k: int, p, device):
+    def __init__(self, hg: Hypergraph, k: int, p, device,
+                 mem_rung: int = 0):
         super().__init__(hg, k, p)
         self.device = torch.device(device)
         self.dev = None
+        self.dev_cache = None       # device score cache (None when spilled)
+        self.host_cache = None      # host float32 mirror (spill rung)
+        self.paged_adj = None       # membudget.PagedAdjacency (paged rung)
+        self.mem_plan = None
+        self.g_chunk = 1
+        self.mem_rung = int(mem_rung)
         if k >= 1 << (63 - _PH_SHIFT):      # bucket-store key width
             return
         if self.adj is None:        # hub-expansion guard tripped on host
             return
+        membudget.reset_peak(self.device)
         deg = np.diff(self.adj[0])
         self.deg = deg
         # One gather width per run: the bucket of the 99.5th-percentile
@@ -109,27 +135,35 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         self.tile_l = scoring._bucket_width(int(min(
             np.percentile(deg, 99.5) if deg.size else 1,
             scoring.L_BUCKETS[-1])))
+        # the memory plan: every device tensor sized BEFORE the upload
+        # against the resolved budget; ``mem_rung`` > 0 means an earlier
+        # attempt ran out of memory and the retry loop wants a smaller
+        # plan. An unconstrained budget at rung 0 keeps the tile choice
+        # above. MemoryLadderExhausted propagates to the retry loop.
+        rows = p.rows if p.rows else max(8, p.t)
+        self.mem_budget = membudget.resolve_budget(
+            getattr(p, "mem_budget", None), self.device)
+        spec = membudget.MemSpec(
+            n=hg.n, adj_pins=int(self.adj[1].size), k=k, rows=int(rows),
+            pool_cap=int(p.pool_cap), t=int(p.t), tile_l=int(self.tile_l),
+            pipeline_depth=max(1, int(p.pipeline_depth)))
+        plan = membudget.plan_memory(spec, self.mem_budget,
+                                     self._mem_features,
+                                     rung_start=self.mem_rung)
+        self.mem_plan = plan
+        self.mem_rung = plan.rung
+        self.tile_l = plan.tile_l
+        self.g_chunk = plan.g_chunk
         self.stats.tile_l = self.tile_l
+        self.stats.plan_rung = plan.rung
+        self.stats.peak_bytes_planned = int(plan.planned_bytes)
         # a simulated allocation failure at the image-upload site
         self.fire_fault(("oom",), 0,
-                        "injected fatal OOM during device image upload")
+                        "injected fatal OOM during device image upload",
+                        "injected OOM during device image upload")
+        membudget.oom_guard(lambda: self._upload_image(plan),
+                            "device image upload failed", self.mem_rung)
         n, m = hg.n, hg.m
-        dev = self.device
-        # the CSR image is memoized on hg, so a refinement post-pass on
-        # the same device reuses it
-        self.dev = hg.device_adjacency(dev)
-        # (n + 1,) / (k + 1,): the last element is the scratch slot that
-        # absorbs masked-out scatters (see core/scoring.py)
-        self.dev_assign = torch.full((n + 1,), -1, dtype=torch.int32,
-                                     device=dev)
-        self.dev_cache = torch.full((n + 1,), -1.0, dtype=torch.float32,
-                                    device=dev)
-        self.dev_acc = torch.zeros(k + 1, dtype=torch.int32, device=dev)
-        # sticky NaN-quarantine flag (scoring._poison_guard), and the
-        # replay markers: 0 = a normal superstep, 1 = a replay
-        self.dev_poison = torch.zeros(1, dtype=torch.int32, device=dev)
-        self._reset = (torch.zeros(1, dtype=torch.int32, device=dev),
-                       torch.ones(1, dtype=torch.int32, device=dev))
         self.cache_scored = np.zeros(n, dtype=bool)
         self.pools = [np.empty(0, dtype=np.int64) for _ in range(k)]
         # flat (phase, class, edge) bucket store: two parallel arrays
@@ -151,7 +185,40 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         self._dirty_ratchet = 1 << int(np.ceil(np.log2(expect + 1)))
         self.stats.device_image_bytes = int(sum(
             t.nbytes for t in (*self.dev, self.dev_assign, self.dev_cache,
-                               self.dev_acc)))
+                               self.dev_acc) if t is not None))
+
+    def _upload_image(self, plan: membudget.MemPlan) -> None:
+        """Upload the graph image at ``plan``'s rung: the CSR (or the
+        pager that stands in for it), the assignment, the score cache (or
+        its host mirror), the admission totals and the poison flag."""
+        n, dev = self.hg.n, self.device
+        if plan.paged:
+            # no resident CSR: the pager uploads id-range chunks on demand
+            # under its own LRU byte budget; ``dev`` keeps a non-None
+            # sentinel so the driver takes the device path
+            self.paged_adj = membudget.PagedAdjacency(
+                self.adj, plan.page_bytes, self.stats, dev)
+            self.dev = (None, None)
+        else:
+            # memoized on hg, so a refinement post-pass on the same
+            # device reuses it
+            self.dev = self.hg.device_adjacency(dev)
+        # (n + 1,) / (k + 1,): the last element is the scratch slot that
+        # absorbs masked-out scatters (see core/scoring.py)
+        self.dev_assign = torch.full((n + 1,), -1, dtype=torch.int32,
+                                     device=dev)
+        if plan.spill_cache:
+            self.host_cache = np.full(n, -1.0, dtype=np.float32)
+        else:
+            self.dev_cache = torch.full((n + 1,), -1.0,
+                                        dtype=torch.float32, device=dev)
+        self.dev_acc = torch.zeros(self.k + 1, dtype=torch.int32,
+                                   device=dev)
+        # sticky NaN-quarantine flag (scoring._poison_guard), and the
+        # replay markers: 0 = a normal superstep, 1 = a replay
+        self.dev_poison = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._reset = (torch.zeros(1, dtype=torch.int32, device=dev),
+                       torch.ones(1, dtype=torch.int32, device=dev))
 
     # ------------------------------------------------------------------ #
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -514,9 +581,22 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         host = (delta, vals, dirty, dcnt, fresh, bias, pool_arr, fringe,
                 targets_i32)
         self.stats.host_to_device_bytes += sum(a.nbytes for a in host)
+        prev = ()
+        if self.host_cache is not None:
+            # spill rung: the host owns the score cache. Apply the dirty
+            # decrements to the float32 mirror now (the IEEE adds the
+            # device program would have scattered) and ship the held
+            # pool's scores in; the device still masks stale slots itself
+            # against the post-injection assignment.
+            u = dirty >= 0
+            self.host_cache[dirty[u].astype(np.int64)] -= dcnt[u]
+            prev = (self.host_cache[np.where(pool_arr >= 0, pool_arr,
+                                             0)].astype(np.float32),)
         self.stats.supersteps += 1
         ordinal = int(self.stats.supersteps)
-        args = _CallArgs(*self._upload(*host), select_k=select_k)
+        up = self._upload(*host, *prev)
+        args = _CallArgs(*up[:len(host)], select_k=select_k,
+                         host_fresh=fresh, prev=(up[-1] if prev else None))
         send = args
         injected = self.fire_fault(("nan",), ordinal,
                                    f"injected fatal nan tile at superstep "
@@ -531,10 +611,12 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         return h
 
     def _result(self, handle: _Superstep) -> np.ndarray:
-        """Block on a superstep's result block; the wait is ``device_s``."""
+        """Block on a superstep's result block; the wait is ``device_s``.
+        A real allocator failure surfacing here raises ``DeviceOOM``."""
         t0 = time.perf_counter()
         if handle.ready is not None:
-            handle.ready.synchronize()
+            membudget.oom_guard(handle.ready.synchronize,
+                                "superstep harvest failed", self.mem_rung)
         res = handle.out.numpy()
         self.stats.device_s += time.perf_counter() - t0
         return res
@@ -585,6 +667,14 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         kG, t = handle.shape
         winners = res[:kG * t].reshape(kG, t)
         n_stale = int(res[kG * t])
+        if self.host_cache is not None:
+            # spill rung: adopt the fresh scores into the host mirror, the
+            # pad-dropping scatter of the device cache write, after the
+            # poison check (a quarantined superstep was replayed first)
+            flat = handle.args.host_fresh.reshape(-1)
+            real = flat >= 0
+            self.host_cache[flat[real].astype(np.int64)] = \
+                res[kG * t + 2:].view(np.float32)[real]
         self.stats.stale_redraws += n_stale
         fresh_ids = handle.fresh_ids
         if fresh_ids.size:

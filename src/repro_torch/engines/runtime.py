@@ -6,31 +6,31 @@ assignment mirror, pool membership, the seeded random stream, the fault
 plan and ``_guarded_kernel``), ``SnapshotMixin`` (capture, exact restore
 and cross-engine warm start of the pipeline state), ``run_pipeline``,
 the double-buffered superstep driver at any ``pipeline_depth`` with its
-snapshots, resume and poisoned-window replay, and ``maybe_refine``, the
-k-way refinement post-pass. The memory-rung retry loop is not ported
-(ROADMAP.md, queue 1).
+snapshots, resume and poisoned-window replay, ``run_pipeline_budgeted``,
+its memory-rung retry loop (``core/membudget.py``), and ``maybe_refine``,
+the k-way refinement post-pass.
 
 Only injected faults are retried or escalated (``_guarded_kernel``): a
 real exception of a kernel, a build or a CUDA call propagates as itself,
 where the JAX package retries any exception and then escalates it. On
 the card a device-side error is sticky, so a retry cannot help, and the
-degradation ladder would carry it down to a rung without the card.
+degradation ladder would carry it down to a rung without the card. The
+one exception is memory: a real allocator failure (``is_oom_error``), or
+an injected non-fatal ``oom``, raises ``DeviceOOM``, and the retry loop
+runs the same engine again at the next memory rung.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Optional
 
 import numpy as np
 
-from ..core import resilience
+from ..core import membudget, resilience
 from ..core.hypergraph import Hypergraph
-
-_MEM_RUNGS = ("a non-fatal oom needs the memory-rung retry loop, which "
-              "the torch port does not have yet; see ROADMAP.md, queue "
-              "1: memory rungs")
 
 
 @dataclasses.dataclass
@@ -83,22 +83,34 @@ class BatchedStats:
     restore_s: float = 0.0          # wall-clock restoring the resume ckpt
     resumed_at: int = -1            # superstep/phase the run resumed
     #                                 from; -1 = fresh start
+    # memory-budget counters (core/membudget.py):
+    mem_retries: int = 0            # DeviceOOM-driven same-engine retries
+    #                                 (real allocator failures + injected
+    #                                 non-fatal oom faults)
+    plan_rung: int = -1             # memory-plan rung the run executed at;
+    #                                 -1 = engine never planned (host path)
+    peak_bytes_planned: int = 0     # the plan's modeled peak device bytes
+    peak_bytes_observed: int = 0    # max_memory_allocated on the card; the
+    #                                 planned bytes on the CPU
+    page_uploads: int = 0           # paged-adjacency chunk uploads
+    page_hits: int = 0              # chunk requests served LRU-resident
+    page_evictions: int = 0         # chunks evicted to stay under budget
+    page_bytes: int = 0             # total bytes uploaded by the pager
     # refinement post-pass (None unless refine_passes > 0 ran):
     refine: Optional[object] = None     # core.refine.RefineStats
 
     # high-water marks and identities: ``merge`` keeps the max
     _MERGE_MAX = ("loop_store_peak", "loop_state_bytes",
-                  "device_image_bytes", "graph_nodes", "tile_l",
-                  "resumed_at")
+                  "peak_bytes_planned", "peak_bytes_observed",
+                  "device_image_bytes", "plan_rung", "graph_nodes",
+                  "tile_l", "resumed_at")
 
     def merge(self, other: "BatchedStats") -> "BatchedStats":
         """Combine two runs' counters into a new ``BatchedStats``.
 
         Additive counters sum; peak and identity fields keep the max;
         the later run's ``refine`` record wins (the earlier one refined
-        an assignment that no longer exists). JAX's rule; no path of the
-        port calls it yet: the memory rungs' retry will (ROADMAP.md queue
-        1, item 9).
+        an assignment that no longer exists). JAX's rule.
         """
         out = BatchedStats()
         for f in dataclasses.fields(BatchedStats):
@@ -139,15 +151,16 @@ class EngineRuntime:
         # ladder) or a fresh parse of REPRO_FAULT_PLAN for each run
         self.fault_plan = resilience.resolve_fault_plan(p.fault_plan)
 
-    def fire_fault(self, kinds, ordinal: int, fatal_msg=None):
+    def fire_fault(self, kinds, ordinal: int, fatal_msg=None,
+                   oom_msg=None):
         """Fire the plan's first pending spec of ``kinds`` at ``ordinal``.
 
         Returns the spec (counted in ``faults_injected``), or None. A
         fatal spec raises ``UnrecoverableFault`` with ``fatal_msg``, its
         ``{kind}`` filled in (by default the JAX engines' message for the
-        dispatch site); a
-        non-fatal ``oom`` raises ``NotImplementedError``: its recovery,
-        the memory rungs, is not ported.
+        dispatch site); a non-fatal ``oom`` raises ``DeviceOOM`` with
+        ``oom_msg`` (by default the dispatch site's), carrying the rung
+        this state planned.
         """
         plan = self.fault_plan
         sp = plan.fire(kinds, ordinal) if plan is not None else None
@@ -159,7 +172,9 @@ class EngineRuntime:
                 fatal_msg.format(kind=sp.kind) if fatal_msg else
                 str(resilience.FaultInjected(sp.kind, ordinal, True)))
         if sp.kind == "oom":
-            raise NotImplementedError(_MEM_RUNGS)
+            raise membudget.DeviceOOM(
+                oom_msg or str(resilience.FaultInjected(sp.kind, ordinal)),
+                rung=getattr(self, "mem_rung", None))
         return sp
 
     def _guarded_kernel(self, fn, ordinal: int, kinds=("dispatch",)):
@@ -169,13 +184,16 @@ class EngineRuntime:
         a retry re-issues the identical computation, which keeps the
         recovery bit-identical to a fault-free run. A fatal spec or an
         exhausted retry budget raises ``UnrecoverableFault`` for the
-        ladder. Anything ``fn`` itself raises propagates unchanged.
+        ladder. A real allocator failure of ``fn`` (``is_oom_error``)
+        raises ``DeviceOOM`` for the memory-rung retry loop; anything else
+        ``fn`` raises propagates unchanged.
         """
         attempts = 0
         while True:
             sp = self.fire_fault(kinds, ordinal)
             if sp is None:
-                return fn()
+                return membudget.oom_guard(fn, "device allocation failed",
+                                 getattr(self, "mem_rung", None))
             attempts += 1
             if attempts > int(self.p.max_retries):
                 err = resilience.FaultInjected(sp.kind, ordinal)
@@ -258,7 +276,10 @@ class SnapshotMixin:
             "dirty_ratchet": int(self._dirty_ratchet),
             "stats": dataclasses.replace(self.stats),
             "dev_assign": self.dev_assign.cpu().numpy(),
-            "dev_cache": self.dev_cache.cpu().numpy(),
+            # on the spill rung the authoritative cache is the host mirror
+            "dev_cache": (self.host_cache.copy()
+                          if self.host_cache is not None
+                          else self.dev_cache.cpu().numpy()),
             "dev_acc": self.dev_acc.cpu().numpy(),
         }
 
@@ -288,7 +309,14 @@ class SnapshotMixin:
         self._dirty_ratchet = int(pay["dirty_ratchet"])
         self.stats = dataclasses.replace(pay["stats"])
         self.dev_assign = self._to_device(pay["dev_assign"])
-        self.dev_cache = self._to_device(pay["dev_cache"])
+        if self.host_cache is not None:
+            # the payload's cache has the device layout's scratch slot
+            # unless a spill rung captured it
+            self.host_cache = np.array(pay["dev_cache"][:self.hg.n],
+                                       dtype=np.float32)
+        else:
+            self.dev_cache = self._to_device(
+                _with_scratch(pay["dev_cache"], self.hg.n, -1.0))
         self.dev_acc = self._to_device(pay["dev_acc"])
         self.dev_poison = self._to_device(np.zeros(1, dtype=np.int32))
         return pay["acc"].copy(), int(pay["cur_depth"])
@@ -314,6 +342,14 @@ class SnapshotMixin:
                 np.append(acc, 0).astype(np.int32))
             self.activate_many(done.astype(np.int64), ph)
         return acc
+
+
+def _with_scratch(cache: np.ndarray, n: int, pad) -> np.ndarray:
+    """A snapshot's cache in the device layout: (n + 1,), the scratch
+    slot appended when a spill rung captured it without one."""
+    if cache.shape[0] == n:
+        return np.append(cache, np.float32(pad)).astype(np.float32)
+    return cache
 
 
 def raise_kernel_poison():
@@ -363,7 +399,9 @@ def _teardown_pipeline(st, inflight: collections.deque) -> None:
 
 
 def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
-                 devices: int = 0):
+                 devices: int = 0, mem_rung: int = 0,
+                 mem_warm: Optional[np.ndarray] = None,
+                 mem_retries: int = 0):
     """Grow all ``k`` partitions concurrently; returns (assignment, state).
 
     Each superstep is one device program that scores the stacked fresh
@@ -384,10 +422,18 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
     continues bit for bit as an uninterrupted run with the same cadence
     (another engine's snapshot warm-starts from its assignment). Any
     exception tears the pipeline down before it propagates.
+
+    ``make_state(p, mem_rung)`` builds the state at memory rung
+    ``mem_rung`` or the first one from there that fits the budget. A
+    ``DeviceOOM`` leaves enriched with the rung this attempt ran at and
+    the host assignment mirror (``partial``); ``mem_warm``, a failed
+    attempt's mirror, warm-starts the run, and ``mem_retries`` is
+    recorded in its stats (``run_pipeline_budgeted``).
     """
-    st = make_state(p)
+    st = make_state(p, mem_rung)
     if st.dev is None:
         return None, None
+    st.stats.mem_retries = int(mem_retries)
     kG = st.k
     n = hg.n
     base, rem = divmod(n, k)
@@ -397,12 +443,18 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
     acc = np.zeros(kG, dtype=np.int64)
     R, P, t = p.rows, p.pool_cap, p.t
     delta_cap = max(2 * kG * t, kG)
-    depth = max(1, int(p.pipeline_depth))
+    # the memory plan may clamp the pipeline to lock-step (rungs from the
+    # depth reduction on); at rung 0 it echoes the knob
+    depth = max(1, min(int(p.pipeline_depth),
+                       int(st.mem_plan.pipeline_depth)))
     fringe = np.full((kG, 1), -1, dtype=np.int32)   # fringe-free scoring
     snap_every = max(0, int(p.snapshot_every or 0))
     # everything that decides the superstep schedule: an exact restore
     # needs all of it to match (the cadence too: the drain at a snapshot
-    # is part of the schedule at depth > 1)
+    # is part of the schedule at depth > 1). Of the memory plan only the
+    # effective tile width and the depth clamp enter: the chunk, spill
+    # and paged rungs are bit-exact per superstep, so a snapshot restores
+    # exactly across them
     config = {"k": k, "devices": devices, "t": t, "rows": R,
               "pool_cap": P, "s": p.s, "seed": p.seed,
               "pipeline_depth": depth, "snapshot_every": snap_every,
@@ -421,6 +473,11 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
             acc = st.restore_warm(resilience.warm_assignment(ckpt))
         st.stats.resumed_at = int(ckpt.superstep)
         st.stats.restore_s += time.perf_counter() - t0
+    elif mem_warm is not None:
+        # a memory-rung retry: adopt the failed attempt's host mirror so
+        # the members grown so far survive; the seeding below fills only
+        # the phases it left empty
+        acc = st.restore_warm(np.asarray(mem_warm, dtype=np.int32))
 
     if not seeded:
         # seed every empty phase with one random vertex (paper §III-B1
@@ -486,6 +543,15 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
                 break   # starved: remaining vertices sit in other pools
         while inflight:     # drain the pipeline before the safety net
             _harvest_next(st, inflight, acc, targets)
+    except membudget.DeviceOOM as exc:
+        # a memory fault mid-run: settle the pipeline, then give the retry
+        # loop the rung this attempt ran at and the admissions harvested
+        # so far (numpy: nothing of the device image rides the exception)
+        _teardown_pipeline(st, inflight)
+        if exc.rung is None:
+            exc.rung = int(st.mem_plan.rung)
+        exc.partial = st.assignment.copy()
+        raise
     except BaseException:
         _teardown_pipeline(st, inflight)
         raise
@@ -500,7 +566,48 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
     # the host assignment is authoritative; the last injections' delta
     # dies with the state
     st.delta_ids, st.delta_vals = [], []
+    st.stats.peak_bytes_observed = int(
+        membudget.observed_peak_bytes(st.device)
+        or st.stats.peak_bytes_planned)
     return st.assignment, st
+
+
+def run_pipeline_budgeted(hg: Hypergraph, k: int, p, make_state,
+                          engine: str, devices: int = 0):
+    """``run_pipeline`` under the memory-rung retry loop.
+
+    A ``DeviceOOM`` (a real allocator failure at the upload, dispatch or
+    harvest site, or an injected non-fatal ``oom``) runs the same engine
+    again at the next smaller memory plan, warm-started from the failed
+    attempt's host assignment mirror, before the degradation ladder
+    (``partition_resilient``) is consulted. Only an exhausted rung ladder
+    escalates, as ``UnrecoverableFault``. The fault plan is resolved once,
+    so a one-shot injected ``oom`` stays consumed across retries.
+
+    The next rung starts after the ``except`` block has let go of the
+    exception, and with it of the failed attempt's frames (its state, its
+    device image and its queued transfers), so their card memory is back
+    in the allocator before the retry allocates.
+    """
+    fplan = resilience.resolve_fault_plan(p.fault_plan)
+    if fplan is not None:
+        p = dataclasses.replace(p, fault_plan=fplan)
+    rung, warm, retries = 0, None, 0
+    while True:
+        try:
+            return run_pipeline(hg, k, p, make_state, engine, devices,
+                                mem_rung=rung, mem_warm=warm,
+                                mem_retries=retries)
+        except membudget.DeviceOOM as exc:
+            failed, partial = exc.rung, exc.partial
+        except membudget.MemoryLadderExhausted as exc:
+            raise resilience.UnrecoverableFault(
+                f"device memory rungs exhausted: {exc}") from exc
+        gc.collect()
+        retries += 1
+        rung = (rung if failed is None else int(failed)) + 1
+        if partial is not None and (partial >= 0).any():
+            warm = partial
 
 
 def maybe_refine(hg: Hypergraph, k: int, params, assignment: np.ndarray,

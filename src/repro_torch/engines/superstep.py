@@ -9,9 +9,13 @@ neighbours' cached scores instead of wiping the cache. Supersteps run
 double-buffered on the shared pipeline driver; ``pipeline_depth=1`` is
 the lock-step schedule.
 
-Only the default device program is ported; the memory-rung variants
-raise ``NotImplementedError`` (ROADMAP.md, queue 1). Snapshots, resume
-and fault plans run on the shared driver (``runtime.run_pipeline``).
+The memory plan (``core/membudget.py``) picks the device program: the
+default one, or a memory rung's (phase-chunked scoring, the score cache
+spilled to the host, the CSR paged in chunks), each bit-exact to the
+default and each launching ``hype_score_select`` on the state's device.
+A device OOM runs the engine again at the next rung
+(``runtime.run_pipeline_budgeted``). Snapshots, resume and fault plans
+run on the shared driver (``runtime.run_pipeline``).
 With ``refine_passes`` > 0 the k-way refinement post-pass runs after the
 pipeline, its screen on the same device.
 """
@@ -31,6 +35,7 @@ from .batched import BatchedParams, hype_batched_partition
 from .pipeline import PipelineState, _CallArgs
 from .runtime import BatchedStats, maybe_refine
 from .runtime import run_pipeline as _run_pipeline
+from .runtime import run_pipeline_budgeted as _run_pipeline_budgeted
 
 
 @dataclasses.dataclass
@@ -42,7 +47,10 @@ class SuperstepParams(BatchedParams):
     ``pipeline_depth``, ``refine_passes`` and ``seed`` steer this
     engine; ``b``, ``s``, ``refill_lo``, ``cap_pins`` and ``kernel_min``
     steer only the ``hype_batched`` fallback, as in the JAX engine.
-    ``mem_budget`` raises ``NotImplementedError`` when set.
+    ``mem_budget`` is the device byte budget the memory plan is sized
+    against (bytes, ``"512MB"``/``"2GiB"``, or None for the
+    ``REPRO_DEVICE_MEM_BUDGET`` environment variable, then the card's
+    free memory).
     """
     # fresh candidate rows per phase per superstep; None = max(8, t)
     rows: Optional[int] = None
@@ -51,24 +59,10 @@ class SuperstepParams(BatchedParams):
     mem_budget: Optional[object] = None
 
 
-# knob -> the ROADMAP.md item (queue 1) that brings its feature
-UNPORTED_KNOBS = {"mem_budget": "memory rungs"}
-
-
-def check_ported(p, unported: dict) -> None:
-    """Raise ``NotImplementedError`` for a knob of an unported feature."""
-    defaults = type(p)()
-    for knob, item in unported.items():
-        if getattr(p, knob) != getattr(defaults, knob):
-            raise NotImplementedError(
-                f"{knob}={getattr(p, knob)!r} needs a feature the torch "
-                f"port does not have yet; see ROADMAP.md, queue 1: {item}")
-
-
 def superstep_device(indptr, indices, assign, cache, acc, poison,
                      delta_ids, delta_vals, dirty_ids, dirty_counts, fresh,
                      bias, pool, fringe, targets, reset, *, tile_l: int,
-                     select_k: int, debug: bool = False):
+                     select_k: int, g_chunk: int = 1, debug: bool = False):
     """One device superstep: the torch counterpart of the JAX program.
 
     Steps as in ``src/repro/engines/superstep.py::_pipeline_program``:
@@ -82,27 +76,142 @@ def superstep_device(indptr, indices, assign, cache, acc, poison,
     are returned: ``(assign, cache, acc, poison, winners (G, select_k),
     n_stale)``. Nothing here synchronizes with the device unless
     ``debug`` asks for the scatter-uniqueness checks.
+
+    ``g_chunk`` > 1 is the phase-chunked scoring of memory rungs 1-3
+    (JAX's ``chunked_superstep_device``), with the same contract and the
+    same bits: the G phases are padded to a ``g_chunk`` multiple (pad
+    phases hold -1 candidates and fringe, +inf bias and +inf held
+    scores, so they select nothing) and scored in ``g_chunk`` slices,
+    one tile gather and one kernel launch each, so only 1/``g_chunk`` of
+    the phases' tiles exists at a time. Phases are independent until
+    admission, so the slices compute the scores of the full call.
     """
-    n = assign.shape[0] - 1
-    G, R = fresh.shape
-    assign0, cache0, acc0 = assign, cache, acc
-    # 1.-2. host injections and the pre-aggregated dirty decrements
+    image0 = (assign, cache, acc)
     assign, cache, acc = _apply_host_injections(
         assign, cache, acc, delta_ids, delta_vals, dirty_ids, dirty_counts)
-    # 3. gather fresh candidate tiles from the device CSR
-    flat = fresh.reshape(-1)
-    tile = _gather_fresh_tiles(indptr, indices, assign, flat, tile_l)
-    # 4. held pool scores, stale slots masked (the redraw rule)
     prev, n_stale = _stale_masked_prev(pool, assign, cache)
-    # 5. fused score + per-phase top-select
-    scores, sel_idx, sel_val, _ = hype_score_select(
-        tile.view(G, R, tile_l), fringe, bias, prev, select_k=select_k)
-    # 6. fresh scores enter the cache (pad rows go to the scratch slot);
-    #    assign/cache/acc are this step's own tensors from here on, so
-    #    they are updated in place
+
+    def tiles(flat):
+        return _gather_fresh_tiles(indptr, indices, assign, flat, tile_l)
+
+    out = _score_and_admit(image0, (assign, cache, acc), poison, fresh,
+                           bias, pool, prev, n_stale, fringe, targets,
+                           reset, tiles, g_chunk, select_k, debug)
+    return out[:6]
+
+
+def spill_superstep_device(indptr, indices, assign, acc, poison, delta_ids,
+                           delta_vals, fresh, bias, pool, prev_host, fringe,
+                           targets, reset, *, tile_l: int, select_k: int,
+                           debug: bool = False):
+    """``superstep_device`` with the score cache on the host (rung 4).
+
+    The caller applied the dirty decrements to its float32 mirror and
+    ships the held pool's scores in as ``prev_host``; stale slots are
+    still masked here, against the post-injection assignment. Returns
+    ``(assign, acc, poison, winners, n_stale, scores)``: the fresh
+    (G, R) scores go back to the host, which writes them into its mirror
+    after the poison check. Every skipped device add is the same float32
+    add on the host, so the run is bit-identical to the resident cache's.
+    """
+    image0 = (assign, None, acc)
+    n = assign.shape[0] - 1
+    inj = delta_ids >= 0
+    assign = assign.index_put((torch.where(inj, delta_ids, n).long(),),
+                              delta_vals)
+    acc = acc.index_add(0, torch.where(inj, delta_vals,
+                                       acc.shape[0] - 1).long(),
+                        torch.ones_like(delta_vals))
+    psafe = torch.where(pool >= 0, pool, 0).long()
+    pool_ok = (pool >= 0) & (assign[psafe] < 0)
+    prev = torch.where(pool_ok, prev_host, float("inf"))
+    n_stale = ((pool >= 0) & ~pool_ok).sum(dtype=torch.int32)
+
+    def tiles(flat):
+        return _gather_fresh_tiles(indptr, indices, assign, flat, tile_l)
+
+    assign, _, acc, poison, winners, n_stale, scores = _score_and_admit(
+        image0, (assign, None, acc), poison, fresh, bias, pool, prev,
+        n_stale, fringe, targets, reset, tiles, 1, select_k, debug)
+    return assign, acc, poison, winners, n_stale, scores
+
+
+def paged_superstep_device(assign, cache, acc, poison, delta_ids,
+                           delta_vals, dirty_ids, dirty_counts, tile_raw,
+                           fresh, bias, pool, fringe, targets, reset, *,
+                           select_k: int, debug: bool = False):
+    """``superstep_device`` without a resident CSR image (rung 5).
+
+    ``tile_raw`` is the (G*R, tile_l) unmasked neighbour tile that
+    ``membudget.PagedAdjacency.gather`` assembled on the device; masking
+    its assigned neighbours here, against the post-injection assignment,
+    reproduces the resident gather's tile, so the run is bit-identical.
+    The program's only other CSR use, the winners' decrements, lives on
+    the host already. Returns what ``superstep_device`` returns.
+    """
+    image0 = (assign, cache, acc)
+    assign, cache, acc = _apply_host_injections(
+        assign, cache, acc, delta_ids, delta_vals, dirty_ids, dirty_counts)
+    prev, n_stale = _stale_masked_prev(pool, assign, cache)
+    valid = tile_raw >= 0
+    unassigned = assign[torch.where(valid, tile_raw, 0).long()] < 0
+    tile = torch.where(valid & unassigned, tile_raw, -1)
+    out = _score_and_admit(image0, (assign, cache, acc), poison, fresh,
+                           bias, pool, prev, n_stale, fringe, targets,
+                           reset, lambda _flat: tile, 1, select_k, debug)
+    return out[:6]
+
+
+def _pad_phases(a: torch.Tensor, pad: int, fill) -> torch.Tensor:
+    """``a`` with ``pad`` phases of ``fill`` appended (dim 0)."""
+    if pad == 0:
+        return a
+    return torch.cat([a, a.new_full((pad,) + tuple(a.shape[1:]), fill)])
+
+
+def _score_and_admit(image0, image, poison, fresh, bias, pool, prev,
+                     n_stale, fringe, targets, reset, tiles, g_chunk: int,
+                     select_k: int, debug: bool):
+    """Steps 3 and 5-9 of every superstep program, after its injections.
+
+    ``image0`` is the ``(assign, cache, acc)`` the program was given,
+    ``image`` the same after the injections (its own tensors, updated in
+    place here; ``cache`` None on the spill rung). ``tiles(flat)`` gives
+    the masked int32 tile of flat fresh ids. The phases are scored in
+    ``g_chunk`` slices of ``ceil(G / g_chunk)`` phases, the last one
+    padded with pad phases, one ``hype_score_select`` launch each.
+    Returns ``(assign, cache, acc, poison, winners, n_stale, scores)``.
+    """
+    assign0, cache0, acc0 = image0
+    assign, cache, acc = image
+    n = assign.shape[0] - 1
+    G, R = fresh.shape
+    flat = fresh.reshape(-1)
+    if g_chunk == 1:
+        scores, sel_idx, sel_val, _ = hype_score_select(
+            tiles(flat).reshape(G, R, -1), fringe, bias, prev,
+            select_k=select_k)
+    else:
+        # 3.+5. phase-chunked gather + score + select
+        gc_ = -(-G // g_chunk)
+        pad = g_chunk * gc_ - G
+        fresh_p = _pad_phases(fresh, pad, -1)
+        bias_p = _pad_phases(bias, pad, float("inf"))
+        prev_p = _pad_phases(prev, pad, float("inf"))
+        fringe_p = _pad_phases(fringe, pad, -1)
+        outs = []
+        for c in range(g_chunk):
+            ph = slice(c * gc_, (c + 1) * gc_)
+            outs.append(hype_score_select(
+                tiles(fresh_p[ph].reshape(-1)).reshape(gc_, R, -1),
+                fringe_p[ph], bias_p[ph], prev_p[ph], select_k=select_k))
+        scores, sel_idx, sel_val = (torch.cat([o[i] for o in outs])[:G]
+                                    for i in range(3))
+    # 6. fresh scores enter the cache (pad rows go to the scratch slot)
     real = flat >= 0
-    cache.index_put_((torch.where(real, flat, n).long(),),
-                     scores.reshape(-1))
+    if cache is not None:
+        cache.index_put_((torch.where(real, flat, n).long(),),
+                         scores.reshape(-1))
     # 7. map selected slots to vertex ids; admissible = a real score on a
     #    still-unassigned id, capped by the phase's remaining target as
     #    the device counts it. A NaN phase may give index R + P: clamp it
@@ -130,12 +239,13 @@ def superstep_device(indptr, indices, assign, cache, acc, poison,
     #    and admits nothing, decided on the device without a host sync
     poisoned = _poison_guard(flat, scores.reshape(-1), poison, reset)
     assign = torch.where(poisoned, assign0, assign)
-    cache = torch.where(poisoned, cache0, cache)
+    if cache is not None:
+        cache = torch.where(poisoned, cache0, cache)
     acc = torch.where(poisoned, acc0, acc)
     winners = torch.where(poisoned, -1, winners)
     n_stale = torch.where(poisoned, 0, n_stale)
     poison = poisoned.to(torch.int32).reshape(1)
-    return assign, cache, acc, poison, winners, n_stale
+    return assign, cache, acc, poison, winners, n_stale, scores
 
 
 def _check_unique(ids: torch.Tensor, what: str) -> None:
@@ -146,26 +256,74 @@ def _check_unique(ids: torch.Tensor, what: str) -> None:
 
 
 class SuperstepState(PipelineState):
-    """Pipeline state wired to this module's device program."""
+    """Pipeline state wired to this module's device programs."""
 
     def __init__(self, hg: Hypergraph, k: int, p, device,
-                 debug: bool = False):
-        super().__init__(hg, k, p, device)
+                 mem_rung: int = 0, debug: bool = False):
+        super().__init__(hg, k, p, device, mem_rung=mem_rung)
         self.debug = debug
 
     def _call_program(self, args: _CallArgs,
                       reset: torch.Tensor) -> torch.Tensor:
-        """Run the superstep program; rotate the image; return the block
-        ``winners | n_stale | poison`` that harvest reads."""
-        (self.dev_assign, self.dev_cache, self.dev_acc, self.dev_poison,
-         winners, n_stale) = superstep_device(
-            self.dev[0], self.dev[1], self.dev_assign, self.dev_cache,
-            self.dev_acc, self.dev_poison, args.delta, args.vals,
-            args.dirty, args.dcnt, args.fresh, args.bias, args.pool_arr,
-            args.fringe, args.targets, reset, tile_l=self.tile_l,
-            select_k=args.select_k, debug=self.debug)
+        """Run the superstep program of the memory plan's rung; rotate the
+        image; return the block ``winners | n_stale | poison`` that
+        harvest reads (then the fresh scores' float32 bits on the spill
+        rung, which the host adopts after the poison check)."""
+        common = dict(select_k=args.select_k, debug=self.debug)
+        if self.paged_adj is not None:
+            tile_raw = self.paged_adj.gather(args.host_fresh.reshape(-1),
+                                             self.tile_l)
+            (self.dev_assign, self.dev_cache, self.dev_acc, self.dev_poison,
+             winners, n_stale) = paged_superstep_device(
+                self.dev_assign, self.dev_cache, self.dev_acc,
+                self.dev_poison, args.delta, args.vals, args.dirty,
+                args.dcnt, tile_raw, args.fresh, args.bias, args.pool_arr,
+                args.fringe, args.targets, reset, **common)
+        elif self.host_cache is not None:
+            (self.dev_assign, self.dev_acc, self.dev_poison, winners,
+             n_stale, scores) = spill_superstep_device(
+                self.dev[0], self.dev[1], self.dev_assign, self.dev_acc,
+                self.dev_poison, args.delta, args.vals, args.fresh,
+                args.bias, args.pool_arr, args.prev, args.fringe,
+                args.targets, reset, tile_l=self.tile_l, **common)
+            return torch.cat([winners.reshape(-1), n_stale.reshape(1),
+                              self.dev_poison,
+                              scores.reshape(-1).view(torch.int32)])
+        else:
+            (self.dev_assign, self.dev_cache, self.dev_acc, self.dev_poison,
+             winners, n_stale) = superstep_device(
+                self.dev[0], self.dev[1], self.dev_assign, self.dev_cache,
+                self.dev_acc, self.dev_poison, args.delta, args.vals,
+                args.dirty, args.dcnt, args.fresh, args.bias, args.pool_arr,
+                args.fringe, args.targets, reset, tile_l=self.tile_l,
+                g_chunk=self.g_chunk, **common)
         return torch.cat([winners.reshape(-1), n_stale.reshape(1),
                           self.dev_poison])
+
+
+def _state_factory(hg: Hypergraph, k: int, device, debug: bool = False):
+    return lambda p, rung: SuperstepState(hg, k, p, device, mem_rung=rung,
+                                          debug=debug)
+
+
+def run_pipeline(hg: Hypergraph, k: int, p: SuperstepParams, *, device,
+                 mem_rung: int = 0, mem_warm: Optional[np.ndarray] = None,
+                 mem_retries: int = 0, debug: bool = False):
+    """One superstep-engine pipeline run at memory rung ``mem_rung`` (or
+    the first one from there that fits), with no retry loop: for callers
+    that walk the rungs themselves (``hype_device``'s OOM fallback, the
+    tests). ``runtime.run_pipeline`` with this engine's state."""
+    return _run_pipeline(hg, k, p, _state_factory(hg, k, device, debug),
+                         "hype_superstep", mem_rung=mem_rung,
+                         mem_warm=mem_warm, mem_retries=mem_retries)
+
+
+def run_pipeline_budgeted(hg: Hypergraph, k: int, p: SuperstepParams, *,
+                          device, debug: bool = False):
+    """``run_pipeline`` under the memory-rung retry loop."""
+    return _run_pipeline_budgeted(hg, k, p,
+                                  _state_factory(hg, k, device, debug),
+                                  "hype_superstep")
 
 
 def hype_superstep_partition(hg: Hypergraph, k: int,
@@ -194,14 +352,11 @@ def hype_superstep_partition(hg: Hypergraph, k: int,
         raise ValueError("pipeline_depth must be >= 1")
     if params.snapshot_every > 0 and not params.snapshot_dir:
         raise ValueError("snapshot_every requires snapshot_dir")
-    check_ported(params, UNPORTED_KNOBS)
     if k == 1:
         out = np.zeros(hg.n, dtype=np.int32)
         return (out, BatchedStats()) if return_stats else out
-    assignment, st = _run_pipeline(
-        hg, k, params,
-        lambda p: SuperstepState(hg, k, p, device, debug=debug),
-        "hype_superstep")
+    assignment, st = run_pipeline_budgeted(hg, k, params, device=device,
+                                           debug=debug)
     if assignment is None:
         return hype_batched_partition(hg, k, params, return_stats,
                                       device=device)

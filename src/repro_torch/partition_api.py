@@ -381,7 +381,9 @@ def partition_resilient(hg: Hypergraph, k: int,
     fallback resuming from the last snapshot in ``snapshot_dir`` (another
     engine's snapshot warm-starts from its assignment; ``hype`` adopts it
     through ``warm_start=``). Injected transient faults are retried
-    inside each engine; a real exception propagates as itself. The
+    inside each engine, and a device OOM walks the engine's memory rungs
+    first: the ladder takes over only when they are exhausted. Any other
+    real exception propagates as itself. The
     default ``method`` is the JAX package's, ``hype_sharded``, which the
     port does not have yet (``NotImplementedError``).
 

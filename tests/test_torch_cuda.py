@@ -15,7 +15,8 @@ from repro_torch.data.synthetic import powerlaw_hypergraph
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.hype_score.ops import hype_score_select, hype_scores
-from repro_torch.kernels.hype_score.ref import (hype_score_select_ref,
+from repro_torch.kernels.hype_score.ref import (SELECT_PAD,
+                                                hype_score_select_ref,
                                                 hype_scores_ref)
 from repro_torch.kernels.kway_refine.ops import kway_gains, kway_gains_csr
 from repro_torch.kernels.kway_refine.ref import (kway_gains_csr_ref,
@@ -653,3 +654,128 @@ def test_cuda_batched_nan_quarantine_is_exact():
     np.testing.assert_array_equal(a, hype_batched_partition(
         hg, 16, BatchedParams(seed=0), device="cpu"))
     assert st.faults_injected == 1 and st.host_rows > s0.host_rows
+
+
+# ------------------------------------------------ memory rungs on the card
+
+def _digest(a) -> str:
+    return hashlib.sha256(np.asarray(a, dtype=np.int32).tobytes()
+                          ).hexdigest()[:16]
+
+
+def test_cuda_select_pad_phase_equals_plain_version():
+    """The chunked rung's last chunk at k = 5 in chunks of 3: a phase of
+    -1 rows, -1 fringe, +inf bias and +inf held scores selects SELECT_PAD
+    in every slot, bit-equal to the plain version."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    G, R, L, P, k = 3, 8, 2048, 64, 8
+    nbrs = rng.integers(-1, 3 * L, size=(G, R, L)).astype(np.int32)
+    fringe = np.full((G, 1), -1, np.int32)
+    bias = np.zeros((G, R), np.float32)
+    prev = rng.integers(0, L, size=(G, P)).astype(np.float32)
+    nbrs[-1], bias[-1], prev[-1] = -1, np.inf, np.inf
+    x = [torch.from_numpy(a).cuda() for a in (nbrs, fringe, bias, prev)]
+    got = hype_score_select(*x, select_k=k)
+    want = hype_score_select_ref(*[t.cpu() for t in x], k)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool((want[2][-1] == SELECT_PAD).all())
+
+
+@pytest.mark.parametrize("rung", [1, 4, 5])
+def test_cuda_forced_rung_equals_cpu(rung):
+    """The chunked (k = 5: a pad phase in the last chunk), spill and paged
+    programs on the card: the CPU run's bits, with one score + select
+    launch a phase chunk. 16 rows a phase and t = 4, so the select ranks
+    real scores and the held pool serves cached ones."""
+    _need_card()
+    from repro_torch.engines import superstep
+    from repro_torch.kernels.hype_score import ops
+    hg = _device_graph("pl600")
+    p = superstep.SuperstepParams(seed=0, t=4, rows=16)
+    before = ops.hype_score_select.launches
+    a, st = superstep.run_pipeline(hg, 5, p, device="cuda", mem_rung=rung)
+    launched = ops.hype_score_select.launches - before
+    cpu, cst = superstep.run_pipeline(hg, 5, p, device="cpu", mem_rung=rung)
+    np.testing.assert_array_equal(a, cpu)
+    assert st.stats.plan_rung == rung
+    assert launched == st.g_chunk * st.stats.supersteps
+    assert (st.stats.page_uploads, st.stats.page_hits,
+            st.stats.page_evictions, st.stats.page_bytes) == (
+        cst.stats.page_uploads, cst.stats.page_hits,
+        cst.stats.page_evictions, cst.stats.page_bytes)
+
+
+def _fail_once(real, when=lambda: True):
+    """``real`` that first allocates 1 TiB on the card (a real
+    ``torch.OutOfMemoryError`` from the caching allocator) when
+    ``when()``."""
+    tried = []
+
+    def failing(*args, **kw):
+        if not tried and when():
+            tried.append(True)
+            torch.empty(1 << 40, dtype=torch.uint8, device="cuda")
+        return real(*args, **kw)
+
+    failing.tried = tried
+    return failing
+
+
+def test_cuda_real_oom_at_upload_recovers_and_releases(monkeypatch):
+    """A real allocator failure at the image upload of hype_superstep:
+    one retry at rung 1, the clean run's bits, and the card's memory back
+    at its level before the run but for the memoized CSR image."""
+    _need_card()
+    import gc
+    from repro_torch.core.hypergraph import Hypergraph
+    hg = _device_graph("pl600")
+    clean = partition(hg, 5, "hype_superstep", device="cpu", t=8)
+    failing = _fail_once(Hypergraph.device_adjacency)
+    monkeypatch.setattr(Hypergraph, "device_adjacency", failing)
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    from repro_torch.engines import superstep
+    a, st = superstep.hype_superstep_partition(
+        hg, 5, superstep.SuperstepParams(seed=0, t=8), True, device="cuda")
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    image = sum(t.nbytes for t in hg.device_adjacency("cuda"))
+    assert failing.tried
+    np.testing.assert_array_equal(a, clean)
+    assert (st.mem_retries, st.plan_rung, st.fallbacks) == (1, 1, 0)
+    assert after - before <= image + (1 << 20)
+
+
+def test_cuda_real_oom_in_capture_falls_down_the_rungs(monkeypatch):
+    """A real allocator failure inside hype_device's CUDA graph capture:
+    the capture ends, the run falls down the host pipeline's rungs from
+    rung 1 at depth 1 (no partial: the golden schedule), the card's memory
+    is released, and a clean hype_device afterwards captures again and
+    lands on the golden."""
+    _need_card()
+    import gc
+    from repro_torch.core import device_loop
+    from repro_torch.engines.device import DeviceParams, hype_device_partition
+    hg = _device_graph("pl600")
+    k, t, want = _DEVICE_GOLD["pl600"]
+    hype_device_partition(hg, k, DeviceParams(seed=0, t=t), device="cuda")
+    failing = _fail_once(device_loop.DeviceLoop._step,
+                         torch.cuda.is_current_stream_capturing)
+    monkeypatch.setattr(device_loop.DeviceLoop, "_step", failing)
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    a, st = hype_device_partition(hg, k, DeviceParams(seed=0, t=t), True,
+                                  device="cuda")
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    assert failing.tried
+    assert _digest(a) == want
+    assert (st.mem_retries, st.plan_rung, st.fallbacks) == (1, 1, 1)
+    assert after - before <= 1 << 20
+    monkeypatch.undo()
+    a, st = hype_device_partition(hg, k, DeviceParams(seed=0, t=t), True,
+                                  device="cuda")
+    assert _digest(a) == want and st.graph_captures == 1
+    assert st.fallbacks == 0

@@ -352,12 +352,21 @@ def test_exhausted_rerun_ladder_falls_back_to_superstep(monkeypatch):
 # ------------------------------------------------ errors and edge cases
 
 @pytest.mark.parametrize("knobs,item", [
-    ({"mem_budget": "1GB"}, "memory rungs"),
+    ({"mem_budget": "24KB"}, "memory rungs"),
 ], ids=lambda v: ",".join(v) if isinstance(v, dict) else v)
 def test_unported_knobs_raise_naming_their_item(knobs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        partition(_pl600(synthetic), 4, "hype_device", device="cpu",
-                  **knobs)
+    """Once unported (``item`` names the feature), now served: a budget
+    below rung 0 hands the run to hype_superstep's memory rungs, as in
+    JAX, and the stats say which rung ran."""
+    a, st = device.hype_device_partition(
+        _pl600(synthetic), 4, device.DeviceParams(seed=0, **knobs), True,
+        device="cpu")
+    ja, jst = jax_dev.hype_device_partition(
+        _pl600(jax_synth), 4, jax_dev.DeviceParams(seed=0, **knobs), True)
+    assert _digest(a) == _digest(ja)
+    assert (st.plan_rung, st.mem_retries, st.fallbacks, st.loop_rounds) \
+        == (jst.plan_rung, jst.mem_retries, jst.fallbacks, 0) == (
+            5, 0, 0, 0)
 
 
 @pytest.mark.parametrize("knobs,match", [

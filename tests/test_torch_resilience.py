@@ -416,9 +416,32 @@ def test_fatal_oom_is_unrecoverable(method, hg):
 @pytest.mark.parametrize("method,plan", [
     ("hype_superstep", "oom"), ("hype_superstep", "oom@2"),
     ("hype_device", "oom"), ("hype_device", "oom@3")])
-def test_nonfatal_oom_names_memory_rungs(method, plan, hg):
-    with pytest.raises(NotImplementedError, match="memory rungs"):
-        _run(method, hg, None, plan=plan)
+def test_nonfatal_oom_names_memory_rungs(method, plan, hg, jhg):
+    """A non-fatal oom recovers on the same engine down the memory rungs
+    (hype_device down hype_superstep's pipeline): JAX's assignment,
+    mem_retries, plan_rung and fallbacks."""
+    a, st = _run(method, hg, None, plan=plan)
+    params = {"hype_superstep": jax_ss.SuperstepParams,
+              "hype_device": jax_dev.DeviceParams}[method]
+    runner = {"hype_superstep": jax_ss.hype_superstep_partition,
+              "hype_device": jax_dev.hype_device_partition}[method]
+    ja, jst = runner(jhg, 16, params(seed=0, fault_plan=plan), True)
+    assert _digest(a) == _digest(ja)
+    got = (st.mem_retries, st.plan_rung, st.fallbacks, st.faults_injected)
+    assert got == (jst.mem_retries, jst.plan_rung, jst.fallbacks,
+                   jst.faults_injected)
+    assert got[:3] == (1, 1, int(method == "hype_device"))
+
+
+def test_oom_at_upload_recovers_on_same_engine(hg, jhg):
+    """JAX's drill: a non-fatal oom at the upload retries the same engine
+    at a smaller plan, bit-identical to the fault-free run."""
+    base = _run("hype_superstep", hg, None)[0]
+    a, st = _run("hype_superstep", hg, None, plan="oom")
+    assert _digest(a) == _digest(base)
+    assert st.mem_retries == 1 and st.plan_rung >= 1
+    assert _digest(a) == _digest(jax_ss.hype_superstep_partition(
+        jhg, 16, jax_ss.SuperstepParams(seed=0, fault_plan="oom")))
 
 
 def test_stats_merge_rule_equals_jax():

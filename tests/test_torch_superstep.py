@@ -251,15 +251,20 @@ def test_pipelined_run_matches_jax(case, depth):
     assert st.stale_redraws > 0          # the pipeline really overlapped
 
 
-# ------------------------------------------------ what is not ported yet
+# ------------------------------------------------ knobs and pending methods
 
 @pytest.mark.parametrize("knobs", [
-    {"mem_budget": "1GB"},
+    {"mem_budget": "24KB"},
 ], ids=lambda kw: ",".join(kw))
 def test_unported_knobs_raise(knobs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        partition(_pl600(synthetic), 4, "hype_superstep", device="cpu",
-                  **knobs)
+    """Once unported, now served: a budget below the CSR image plans the
+    paged rung and lands on JAX's run (tests/test_torch_membudget.py
+    holds every rung)."""
+    got = partition(_pl600(synthetic), 4, "hype_superstep", device="cpu",
+                    **knobs)
+    want = jax_api.partition(_pl600(jax_synth), 4, "hype_superstep",
+                             **knobs)
+    assert _digest(got) == _digest(want)
 
 
 @pytest.mark.parametrize("method", sorted(PENDING))
