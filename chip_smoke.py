@@ -69,9 +69,22 @@ prints one JSON line per phase:
             at rung 1; hype_device with oom@2 and oom@70 falling down the
             host pipeline's rungs; each with its launches, peak bytes and
             the card's memory before and after; then a clean hype_device
+  stream    the same graph through hype_stream, k=32, StreamParams(seed=0):
+            2,772 micro-batches, each one row 1 launch (G=32 fringes,
+            R=64) and one stream_commit launch, on JAX's digest, k-1,
+            plan and planned bytes, the sketch equal to its recount;
+            stream_commit against its plain version (random cases over k,
+            L and mb, ties, cap hits, pad rows, duplicate buckets, three
+            of the path's micro-batches), timed at k=32, mb=64, Le=2048;
+            row 1 timed at the stream's shape; then mem_budget=20e6 (plan
+            (32, 2048), JAX's digest), a run snapshotting every 512
+            micro-batches killed at 1,500 and resumed at 1,024, a retried
+            dispatch fault, and apply_updates of a seeded 64-op log on the
+            path's state (JAX's digest, the sketch equal to its recount)
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
-  profile   the depth-1 slice, the batched and the quality path and
-            hype_device each run twice more, under torch.profiler (the
+  profile   the depth-1 slice, the batched and the quality path,
+            hype_device and hype_stream each run twice more, under
+            torch.profiler (the
             card's busy time) and under cProfile (the host's time per
             function)
   kernel_embedding_bag  the EmbeddingBag kernel against its plain version
@@ -2741,6 +2754,423 @@ def phase_membudget(hg, same_graph, launches, SuperstepParams,
     return rows
 
 
+# the stream phase: hype_stream_partition(github_like(1.0, seed=0), 32,
+# StreamParams(seed=0)) in the JAX package on the CPU, recomputed by
+# tests/jax_stream_digests.py: the clean pass (plan (64, 2048), 2,772
+# micro-batches), the pass at mem_budget=20_000_000 (plan (32, 2048),
+# 5,544 micro-batches) and apply_updates of stream_ops(state, seed=0) on
+# the clean pass's state
+STREAM_DIGEST = "ba0ebd12c7d73a12"
+STREAM_KM1 = 75023
+STREAM_BATCHES = 2772
+STREAM_PLANNED = 26_225_024
+STREAM_BUDGET = 20_000_000
+STREAM_BUDGET_PLAN = (32, 2048, 17_307_904, 5544)
+STREAM_BUDGET_DIGEST = "5d28ea9a479d7669"
+STREAM_SKETCH_DIGEST = "5a736b1b950e1c03"
+STREAM_OPS = 64
+# the kill-and-resume drill: snapshots every 512 micro-batches, a fatal
+# dispatch fault at 1,500, so the resume continues at 1,024
+STREAM_SNAPSHOT_EVERY = 512
+STREAM_KILL_AT = 1500
+STREAM_UPDATE_DIGEST = "40f2df87d63b41b7"
+# and that call's counters: (inserts, deletes, readmitted, refine_moves,
+# rebalance_moves)
+STREAM_UPDATE_COUNTERS = (42, 22, 28, 49, 0)
+
+
+def stream_ops(state, seed: int = 0, n_ops: int = STREAM_OPS):
+    """A seeded log of mixed stream ops against ``state``, in the form of
+    the JAX package's incremental tests: remove a live vertex, remove a
+    non-empty edge, add an edge over 2-5 live vertices, add a vertex
+    joining 1-3 live edges. Ids are drawn from what the log has left alive
+    so far, as a caller would; ``state`` is read, not changed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, m = state.hg.n, state.hg.m
+    alive_v = set(np.flatnonzero(state.assignment >= 0).tolist())
+    alive_e = set(np.flatnonzero(np.diff(state.hg.e2v_indptr) > 0).tolist())
+    ops = []
+    for _ in range(n_ops):
+        kind = rng.integers(0, 4)
+        if kind == 0 and len(alive_v) > state.k * 2:
+            v = int(rng.choice(sorted(alive_v)))
+            ops.append(("remove_vertex", v))
+            alive_v.discard(v)
+        elif kind == 1 and len(alive_e) > 2:
+            e = int(rng.choice(sorted(alive_e)))
+            ops.append(("remove_edge", e))
+            alive_e.discard(e)
+        elif kind == 2 and len(alive_v) >= 2:
+            pins = rng.choice(sorted(alive_v), size=int(rng.integers(2, 6)),
+                              replace=False)
+            ops.append(("add_edge", [int(x) for x in pins]))
+            alive_e.add(m)
+            m += 1
+        elif alive_e:
+            es = rng.choice(sorted(alive_e),
+                            size=min(int(rng.integers(1, 4)), len(alive_e)),
+                            replace=False)
+            ops.append(("add_vertex", [int(x) for x in es]))
+            alive_v.add(n)
+            n += 1
+    return ops
+
+
+def commit_inputs(seed, k, mb, le, bits=16, kind="random"):
+    """Seeded stream_commit inputs on the card (numpy-made): pads anywhere
+    in a row, a pad row at the end, sketch entries in about 30% of the
+    buckets; ``kind`` forces ties (no fringe or balance term, an empty
+    sketch), partitions at their cap (all but the last, or all), all-pad
+    rows, or duplicate buckets (16 buckets). Returns the five tensors and
+    the scalar knobs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if kind == "dup":
+        bits = 4
+    edge = rng.integers(0, 200_000, size=(mb, le)).astype(np.int32)
+    edge[rng.random((mb, le)) < 0.3] = -1
+    fcnt = rng.integers(0, 5, size=(mb, k)).astype(np.float32)
+    sketch = (rng.integers(1, 3, size=(k, 1 << bits))
+              * (rng.random((k, 1 << bits)) < 0.3)).astype(np.int32)
+    cap = 5 * mb + 3
+    sizes = rng.integers(0, cap, size=k).astype(np.int32)
+    valid = np.ones(mb, bool)
+    valid[-1] = mb == 1
+    alpha, fw = 1.0, 0.5
+    if kind == "ties":
+        alpha, fw = 0.0, 0.0
+        sketch[:] = 0
+    elif kind == "cap":
+        sizes[:-1] = cap
+    elif kind == "full":
+        sizes[:] = cap
+    elif kind == "pad":
+        edge[:] = -1
+        valid[:] = False
+    x = [torch.from_numpy(a).cuda() for a in (edge, fcnt, valid, sketch,
+                                               sizes)]
+    return x, dict(alpha=alpha, fringe_w=fw, inv_target=float(
+        np.float32(k / 177_386)), cap=cap, sketch_bits=bits)
+
+
+def commit_bytes(x, kw) -> int:
+    """The bytes stream_commit must move on ``x``: the tile, fcnt and the
+    row mask read once, the parts written once, the sizes read and
+    written, and per row k sketch entries read for each valid pin and one
+    written for each valid pin of a valid row."""
+    edge, fcnt, valid, sketch, sizes = x
+    pins = (edge >= 0).sum(1)
+    k = sketch.shape[0]
+    entries = int(pins.sum()) * k + int(pins[valid].sum())
+    return (edge.nbytes + fcnt.nbytes + valid.nbytes + 4 * edge.shape[0]
+            + 2 * sizes.nbytes + 4 * entries)
+
+
+def check_commit(ops, ref, x, kw, row):
+    """stream_commit on clones of ``x`` against its plain version on
+    other clones: parts, sketch and sizes bit for bit. Emits ``row`` with
+    the verdict; raises when they differ."""
+    import torch
+    got = [t.clone() for t in x]
+    parts = ops.stream_commit(*got, **kw)
+    torch.cuda.synchronize()
+    want = [t.clone() for t in x]
+    want_parts = ref.stream_commit_ref(*want, **kw)
+    equal = (torch.equal(parts, want_parts) and torch.equal(got[3], want[3])
+             and torch.equal(got[4], want[4]))
+    err = max_abs_err([parts, got[3], got[4]],
+                      [want_parts, want[3], want[4]])
+    row.update(equal=equal, max_abs_err=err)
+    emit(row)
+    if not equal:
+        raise SystemExit(f"stream_commit disagrees with its plain version: "
+                         f"{row}")
+    return err
+
+
+class CaptureCommits:
+    """Within the block, keep clones of the stream_commit arguments that
+    ``scoring`` passes at the given call ordinals (the sketch and sizes
+    as they are before the call)."""
+
+    def __init__(self, scoring, at):
+        self.scoring, self.at, self.calls, self.args = scoring, at, 0, []
+
+    def __enter__(self):
+        real = self.real = self.scoring.stream_commit
+
+        def spy(*args, **kw):
+            if self.calls in self.at:
+                self.args.append(([t.clone() for t in args], dict(kw)))
+            self.calls += 1
+            return real(*args, **kw)
+
+        self.scoring.stream_commit = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.scoring.stream_commit = self.real
+
+
+def stream_run_row(phase, hg, a, state, wall, counts, need, k=32):
+    """A stream run's row: k-1, sizes, digest, plan, counters and
+    launches. Fails on an incomplete assignment, a size gap above k or a
+    launch count other than ``need`` (kernel name -> count)."""
+    from repro_torch.core import metrics
+    st = state.stats
+    sizes = metrics.partition_sizes(a, k)
+    row = {"phase": phase, "wall_s": wall,
+           "k_minus_1": metrics.k_minus_1(hg, a, k),
+           "sizes": [int(sizes.min()), int(sizes.max())],
+           "digest": digest(a), "launches": counts,
+           "expected_launches": need}
+    row.update({key: getattr(st, key) for key in (
+        "micro_batches", "plan_micro_batch", "plan_tile_l", "planned_bytes",
+        "host_to_device_bytes", "stream_s", "vertices_per_s",
+        "faults_injected", "retries", "snapshots", "snapshot_s",
+        "restore_s", "resumed_at")})
+    if (a < 0).any() or sizes.max() - sizes.min() > k:
+        emit(row)
+        raise SystemExit(f"{phase} assignment is incomplete or its sizes "
+                         f"differ by more than k: {row}")
+    for name, n in need.items():
+        if counts[name] == 0 or counts[name] != n:
+            emit(row)
+            raise SystemExit(f"{phase} launched {name} {counts[name]} "
+                             f"times; expected {n}")
+    return row
+
+
+def phase_stream(hg, same_graph, launches, ops, ref, scoring, hs, res):
+    """hype_stream on the card, github_like(1.0), k=32, StreamParams(seed=0).
+
+    The path first: one micro-batch step a row 1 and a stream_commit
+    launch, JAX's digest and k-1, sizes within k, the sketch equal to its
+    recount, JAX's plan and planned bytes, the observed peak beside them
+    (three micro-batches' commit arguments kept on the way). Then the
+    kernel: stream_commit against its plain version over k in {1, 2, 32,
+    67, 300}, every L bucket and mb in {1, 7, 64}, forced ties, partitions
+    at their cap, all-pad rows, duplicate buckets and the kept real
+    micro-batches, bit for bit; timed at (k=32, mb=64, Le=2048, 16 bits)
+    on a real micro-batch (its tile widened to 2,048) eagerly and in a
+    CUDA graph, beside its plain version, its bytes bound, its all-pad
+    row chain and a dense tile; row 1 timed at the stream's shape (G=32,
+    R=64, L=2048, s=16, P=1). Then the budget (mem_budget=20e6: plan (32,
+    2048), JAX's digest), a run snapshotting every 512 micro-batches killed
+    by a fatal dispatch fault at 1,500 and resumed at 1,024, a retried
+    dispatch fault at 3, and apply_updates of a 64-op log on the path's
+    state. Returns the kernel's timed row and its worst error."""
+    import numpy as np
+    import torch
+    p = hs.StreamParams(seed=0)
+    cpu_state = None
+    if not same_graph:
+        _, cpu_state = hs.hype_stream_partition(hg, 32, p, return_state=True,
+                                                device="cpu")
+
+    def want(pinned, cpu_run):
+        return pinned if same_graph else cpu_run()
+
+    clean = want(STREAM_DIGEST, lambda: digest(cpu_state.assignment))
+
+    # 1. the path
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total = -(-hg.n // p.micro_batch)
+    at = (1, total // 2, total - 1)
+    with CaptureCommits(scoring, at) as kept:
+        (a, state), wall, counts = launches.drive(
+            lambda: hs.hype_stream_partition(hg, 32, p, return_state=True,
+                                             device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = state.stats.micro_batches
+    row = stream_run_row("stream", hg, a, state, wall, counts, {
+        "hype_score_select": n_batches, "stream_commit": n_batches})
+    sk, sz = hs.recompute_sketch(hg, a, 32, p.sketch_bits)
+    row.update(expected_digest=clean, allocated_before=before,
+               peak_bytes_observed=peak, peak_over_before=peak - before,
+               sketch_digest=state.sketch_digest(),
+               sketch_equals_recount=bool((sk == state.sketch).all()
+                                          and (sz == state.sizes).all()))
+    emit(row)
+    plan = (state.stats.plan_micro_batch, state.stats.plan_tile_l,
+            state.stats.planned_bytes)
+    if (row["digest"] != clean or not row["sketch_equals_recount"]
+            or (same_graph and (row["k_minus_1"] != STREAM_KM1
+                                or n_batches != STREAM_BATCHES
+                                or plan != (64, 2048, STREAM_PLANNED)
+                                or row["sketch_digest"]
+                                != STREAM_SKETCH_DIGEST))):
+        raise SystemExit(f"the stream differs from JAX's: {row}")
+
+    # 2. the kernel
+    worst = 0.0
+    for k in (1, 2, 32, 67, 300):
+        for le in (32, 128, 512, 2048):
+            for mb in (1, 7, 64):
+                x, kw = commit_inputs(k * 1000 + le + mb, k, mb, le)
+                worst = max(worst, check_commit(ops, ref, x, kw, {
+                    "phase": "kernel_stream_commit", "k": k, "Le": le,
+                    "mb": mb, "inputs": "random"}))
+    for kind in ("ties", "cap", "full", "pad", "dup"):
+        for k in (3, 32):
+            x, kw = commit_inputs(k, k, 64, 128, kind=kind)
+            worst = max(worst, check_commit(ops, ref, x, kw, {
+                "phase": "kernel_stream_commit", "k": k, "Le": 128,
+                "mb": 64, "inputs": kind}))
+    for ordinal, (args, kw) in zip(at, kept.args):
+        worst = max(worst, check_commit(ops, ref, args, kw, {
+            "phase": "kernel_stream_commit", "inputs": "path micro-batch",
+            "ordinal": ordinal, "Le": args[0].shape[1],
+            "pins": int((args[0] >= 0).sum())}))
+    # timed on the mid-stream micro-batch, its tile widened to 2,048 (the
+    # timed launches keep committing into its sketch and sizes)
+    args, kw = kept.args[1]
+    edge = torch.full((64, 2048), -1, dtype=torch.int32, device="cuda")
+    edge[:, :args[0].shape[1]] = args[0]
+    x = [edge] + [t.clone() for t in args[1:]]
+    nbytes = commit_bytes(x, kw)
+    timed = {"phase": "kernel_stream_commit", "inputs": f"path micro-batch "
+             f"{at[1]} at Le=2048", "k": 32, "mb": 64, "Le": 2048,
+             "pins": int((edge >= 0).sum()), "bytes": nbytes,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes",
+             "ms": cuda_ms(lambda: ops.stream_commit(*x, **kw)),
+             "graph_ms": graph_ms(lambda: ops.stream_commit(*x, **kw)),
+             "plain_ms": cuda_ms(lambda: ref.stream_commit_ref(*x, **kw),
+                                 reps=3, iters=5, warmup=1),
+             "library_ms": None, "max_abs_err": worst}
+    pad, pkw = commit_inputs(0, 32, 64, 2048, kind="pad")
+    timed["row_chain_ms"] = graph_ms(lambda: ops.stream_commit(*pad, **pkw))
+    dense, dkw = commit_inputs(1, 32, 64, 2048)
+    timed["dense"] = {"pins": int((dense[0] >= 0).sum()),
+                      "bound_ms": commit_bytes(dense, dkw)
+                      / HBM_BYTES_PER_S * 1e3,
+                      "graph_ms": graph_ms(
+                          lambda: ops.stream_commit(*dense, **dkw))}
+    emit(timed)
+
+    # row 1 at the stream's shape: the path's neighbour tile of the same
+    # micro-batch, widened to 2,048 and broadcast over the 32 fringes
+    order = hs._stream_order(hg.n, p)
+    batch = order[at[1] * 64:(at[1] + 1) * 64]
+    _, nbr = hs._batch_tiles(hg, hg.vertex_adjacency(), batch, 2048, 64)
+    tile = np.full((64, 2048), -1, np.int32)
+    tile[:, :nbr.shape[1]] = nbr
+    nbrs = torch.from_numpy(tile).cuda().expand(32, 64, 2048).contiguous()
+    fringe = torch.from_numpy(np.random.default_rng(2).integers(
+        0, hg.n, size=(32, 16)).astype(np.int32)).cuda()
+    bias = torch.zeros((32, 64), device="cuda")
+    prev = torch.full((32, 1), float("inf"), device="cuda")
+    sel = (nbrs, fringe, bias, prev)
+    out = ops.hype_score_select(*sel, select_k=1)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, w) for g, w in zip(
+        out, ref.hype_score_select_ref(*sel, 1)))
+    nb = sum(t.nbytes for t in sel) + sum(t.nbytes for t in out)
+    row1 = {"phase": "kernel_stream_row1", "G": 32, "R": 64, "L": 2048,
+            "s": 16, "P": 1, "select_k": 1, "equal": equal, "bytes": nb,
+            "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+            "ms": cuda_ms(lambda: ops.hype_score_select(*sel, select_k=1)),
+            "graph_ms": graph_ms(
+                lambda: ops.hype_score_select(*sel, select_k=1))}
+    emit(row1)
+    if not equal:
+        raise SystemExit(f"row 1 at the stream's shape differs: {row1}")
+
+    # 3. the budget, a killed and resumed run, a retried fault
+    def run(label, params, need_batches=None, expect=clean):
+        (a, st), wall, counts = launches.drive(
+            lambda: hs.hype_stream_partition(hg, 32, params,
+                                             return_state=True,
+                                             device="cuda"))
+        nb_ = st.stats.micro_batches
+        need = need_batches if need_batches is not None else nb_
+        row = stream_run_row(f"stream_{label}", hg, a, st, wall, counts,
+                             {"hype_score_select": need,
+                              "stream_commit": need})
+        row["expected_digest"] = expect
+        emit(row)
+        if row["digest"] != expect:
+            raise SystemExit(f"stream_{label} digest differs: {row}")
+        return row
+
+    budget = dataclasses.replace(p, mem_budget=STREAM_BUDGET)
+    row = run("budget", budget, expect=want(
+        STREAM_BUDGET_DIGEST, lambda: digest(hs.hype_stream_partition(
+            hg, 32, budget, device="cpu"))))
+    got_plan = (row["plan_micro_batch"], row["plan_tile_l"],
+                row["planned_bytes"], row["micro_batches"])
+    if same_graph and got_plan != STREAM_BUDGET_PLAN:
+        raise SystemExit(f"the budget planned {got_plan}, JAX "
+                         f"{STREAM_BUDGET_PLAN}")
+    d = snapshot_root("stream")
+    snap = dataclasses.replace(p, snapshot_every=STREAM_SNAPSHOT_EVERY,
+                               snapshot_dir=d)
+    killed = launches.drive(lambda: expect_fault(
+        res, lambda: hs.hype_stream_partition(
+            hg, 32, dataclasses.replace(
+                snap, fault_plan=f"dispatch@{STREAM_KILL_AT}:fatal"),
+            device="cuda")))
+    emit({"phase": "stream_killed", "wall_s": killed[1],
+          "launches": killed[2], "error": killed[0],
+          "snapshot_bytes": snapshot_bytes(d)})
+    if killed[2]["stream_commit"] != STREAM_KILL_AT - 1:
+        raise SystemExit(f"the killed stream launched {killed[2]}")
+    last = (STREAM_KILL_AT - 1) // STREAM_SNAPSHOT_EVERY * STREAM_SNAPSHOT_EVERY
+    row = run("resumed", dataclasses.replace(snap, resume=d),
+              need_batches=n_batches - last)
+    if row["resumed_at"] != last:
+        raise SystemExit(f"the stream resumed at {row['resumed_at']}")
+    row = run("retried", dataclasses.replace(p, fault_plan="dispatch@3"))
+    if (row["faults_injected"], row["retries"]) != (1, 1):
+        raise SystemExit(f"the dispatch fault was not retried once: {row}")
+
+    # 4. the incremental mode on the path's state
+    log = stream_ops(state, seed=0)
+    _, wall, counts = launches.drive(lambda: hs.apply_updates(state, log))
+    st = state.stats
+    readmit = -(-st.readmitted // st.plan_micro_batch)
+    row = {"phase": "stream_updates", "wall_s": wall, "ops": len(log),
+           "digest": digest(state.assignment),
+           "sketch_digest": state.sketch_digest(), "launches": counts,
+           "expected_launches": readmit}
+    row.update({key: getattr(st, key) for key in (
+        "update_s", "updates_per_s", "inserts", "deletes", "readmitted",
+        "refine_moves", "rebalance_moves")})
+    sk, sz = hs.recompute_sketch(state.hg, state.assignment, 32,
+                                 p.sketch_bits)
+    row["sketch_equals_recount"] = bool((sk == state.sketch).all()
+                                        and (sz == state.sizes).all())
+    counters = (st.inserts, st.deletes, st.readmitted, st.refine_moves,
+                st.rebalance_moves)
+    if cpu_state is not None:
+        hs.apply_updates(cpu_state, log)
+    row["expected_digest"] = want(STREAM_UPDATE_DIGEST,
+                                  lambda: digest(cpu_state.assignment))
+    emit(row)
+    if (row["digest"] != row["expected_digest"]
+            or not row["sketch_equals_recount"]
+            or (same_graph and counters != STREAM_UPDATE_COUNTERS)
+            or counts["stream_commit"] != readmit
+            or counts["hype_score_select"] != readmit):
+        raise SystemExit(f"apply_updates differs: {row}")
+    return timed, worst
+
+
+def expect_fault(res, fn):
+    """Run ``fn``, which must raise ``UnrecoverableFault``; returns the
+    error's text."""
+    try:
+        fn()
+    except res.UnrecoverableFault as exc:
+        return str(exc)
+    raise SystemExit("the fatal fault did not stop the run")
+
+
 def check_path(row, want_digest, want_km1, cpu_digest, counts, need):
     """Hold a path's digest against the JAX constant (or, when the graph
     differs from the one the constant was taken on, against the port's
@@ -2824,6 +3254,7 @@ def main() -> int:
     from repro_torch.kernels.kway_refine import ref as kref
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.kernels.neighbor_agg import ref as nref
+    from repro_torch.core import hype_stream
     from repro_torch.core import resilience as res
     from repro_torch.partition_api import (PRESETS, partition,
                                            partition_and_report,
@@ -2856,6 +3287,7 @@ def main() -> int:
     # the main paths: each starts with every launch count at 0
     launches = Launches({"hype_score_select": ops.hype_score_select,
                          "hype_scores": ops.hype_scores,
+                         "stream_commit": ops.stream_commit,
                          "kway_gains": kops.kway_gains,
                          "kway_gains_csr": kops.kway_gains_csr,
                          "embedding_bag": bops.embedding_bag,
@@ -2960,6 +3392,10 @@ def main() -> int:
                     hype_superstep_partition, superstep_pipeline,
                     DeviceParams, hype_device_partition)
     emit({"phase": "membudget_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    commit_row, worst_commit = phase_stream(hg, same_graph, launches, ops,
+                                            ref, scoring, hype_stream, res)
+    emit({"phase": "stream_done", "wall_s": time.perf_counter() - t0})
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
     # the coarsest graph, kway_gains_csr screens at the finest level
@@ -3003,6 +3439,8 @@ def main() -> int:
         hg, 32, qp, device="cuda"))
     phase_profile("device", lambda: hype_device_partition(
         hg, 32, DeviceParams(seed=0, t=16), device="cuda"))
+    phase_profile("stream", lambda: hype_stream.hype_stream_partition(
+        hg, 32, hype_stream.StreamParams(seed=0), device="cuda"))
 
     bag_rows, worst_bag = run_recsys(launches, bops, bref)
     flash_rows, worst_flash = run_lm(launches, fops, fref)
@@ -3031,9 +3469,9 @@ def main() -> int:
               "library_ms": na_row["backward"]["library_ms"],
               "call": na_row["backward"]["library_call"]}},
           "hype_score_select": None, "hype_scores": None, "kway_gains": None,
-          "kway_gains_csr": None,
+          "kway_gains_csr": None, "stream_commit": None,
           "why_none": "no single PyTorch call computes the functions of "
-                      "the three partitioning kernels"})
+                      "the four partitioning kernels"})
     emit({"kernels": [
         entry("hype_score_select", csrc + "hype_score/csrc/score_select.cu",
               "src/repro/kernels/hype_score/kernel.py:160",
@@ -3069,6 +3507,13 @@ def main() -> int:
                    "routine: the candidates' parts read through the CSR "
                    "in place of the (B, tile_l) tile; chain_ms is the "
                    "gather + tile kernel it replaced"),
+        entry("stream_commit", csrc + "hype_score/csrc/stream_commit.cu",
+              None, commit_row, worst_commit,
+              **{key: commit_row[key] for key in (
+                  "graph_ms", "row_chain_ms", "dense")},
+              note="the sequential sketch commit of the streaming engine: "
+                   "the fori_loop body of src/repro/core/scoring.py:545-566, "
+                   "which JAX leaves to XLA (no pallas_call)"),
         entry("embedding_bag", csrc + "embedding_bag/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag/kernel.py:73", bulk,
               worst_bag),

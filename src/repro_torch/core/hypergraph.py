@@ -116,6 +116,18 @@ class Hypergraph:
     def edge_pins(self, e: int) -> np.ndarray:
         return self.e2v_indices[self.e2v_indptr[e]:self.e2v_indptr[e + 1]]
 
+    def vertex_edges(self, v: int) -> np.ndarray:
+        return self.v2e_indices[self.v2e_indptr[v]:self.v2e_indptr[v + 1]]
+
+    def neighbors(self, v: int) -> np.ndarray:
+        """Unique neighbour set N(v). O(sum of incident edge sizes)."""
+        es = self.vertex_edges(v)
+        if es.size == 0:
+            return np.empty(0, dtype=self.e2v_indices.dtype)
+        parts = [self.edge_pins(int(e)) for e in es]
+        nb = np.unique(np.concatenate(parts))
+        return nb[nb != v]
+
     def vertex_adjacency(self, max_expanded: int = 80_000_000):
         """CSR of unique neighbour lists N(v) for ALL vertices, memoized.
 
@@ -177,6 +189,64 @@ class Hypergraph:
                    torch.from_numpy(indices).to(dev))
         cache[key] = out
         return out
+
+    # Delta and append methods of the streaming engine
+    # (core/hype_stream.py): every surviving vertex and edge keeps its id.
+
+    def _pin_arrays(self):
+        """Parallel ``(vertex_ids, edge_ids)`` int64 pin arrays."""
+        edge_ids = np.repeat(np.arange(self.m, dtype=np.int64),
+                             self.edge_sizes)
+        return self.e2v_indices.astype(np.int64), edge_ids
+
+    def with_edges(self, new_edges: Sequence[Iterable[int]],
+                   n: int | None = None) -> "Hypergraph":
+        """Append hyperedges over existing vertex ids (or ids below ``n``
+        when growing the vertex count); they take ids ``m, m+1, ...``."""
+        vids, eids = self._pin_arrays()
+        add_v, add_e = [], []
+        for i, pins in enumerate(new_edges):
+            for v in pins:
+                add_v.append(int(v))
+                add_e.append(self.m + i)
+        vids = np.concatenate([vids, np.asarray(add_v, dtype=np.int64)])
+        eids = np.concatenate([eids, np.asarray(add_e, dtype=np.int64)])
+        return Hypergraph.from_pins(n if n is not None else self.n,
+                                    self.m + len(new_edges), vids, eids)
+
+    def with_vertices(self, memberships: Sequence[Iterable[int]]
+                      ) -> "Hypergraph":
+        """Append vertices, each joining the listed existing hyperedges
+        (possibly none); they take ids ``n, n+1, ...``."""
+        vids, eids = self._pin_arrays()
+        add_v, add_e = [], []
+        for i, edges in enumerate(memberships):
+            for e in edges:
+                add_v.append(self.n + i)
+                add_e.append(int(e))
+        vids = np.concatenate([vids, np.asarray(add_v, dtype=np.int64)])
+        eids = np.concatenate([eids, np.asarray(add_e, dtype=np.int64)])
+        return Hypergraph.from_pins(self.n + len(memberships), self.m,
+                                    vids, eids)
+
+    def without_edges(self, edge_ids: Iterable[int]) -> "Hypergraph":
+        """Drop all pins of the given hyperedges; their slots stay, empty."""
+        drop = np.zeros(self.m, dtype=bool)
+        drop[np.asarray(list(edge_ids), dtype=np.int64)] = True
+        vids, eids = self._pin_arrays()
+        keep = ~drop[eids]
+        return Hypergraph.from_pins(self.n, self.m, vids[keep],
+                                    eids[keep])
+
+    def without_vertices(self, vertex_ids: Iterable[int]) -> "Hypergraph":
+        """Drop all pins of the given vertices; their slots stay,
+        isolated."""
+        drop = np.zeros(self.n, dtype=bool)
+        drop[np.asarray(list(vertex_ids), dtype=np.int64)] = True
+        vids, eids = self._pin_arrays()
+        keep = ~drop[vids]
+        return Hypergraph.from_pins(self.n, self.m, vids[keep],
+                                    eids[keep])
 
     def flip(self) -> "Hypergraph":
         """Swap roles of vertices and hyperedges (paper §III-C).
@@ -256,3 +326,7 @@ class Hypergraph:
             "max_vertex_degree": int(vd.max()) if self.n else 0,
             "mean_vertex_degree": float(vd.mean()) if self.n else 0.0,
         }
+
+    def edges_by_size(self) -> np.ndarray:
+        """Edge ids sorted by size, ascending (stable)."""
+        return np.argsort(self.edge_sizes, kind="stable")

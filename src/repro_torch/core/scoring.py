@@ -6,9 +6,10 @@ kernel consumes (``neighbor_tile_adj``, ``neighbor_tile``) and the
 direct d_ext counts of the host-scored dribbles (``batched_dext_adj``,
 ``batched_dext_numpy``). Device side: torch versions of the four helpers
 the JAX superstep programs trace around the fused score + select kernel,
-and the refinement screen, which the ``kway_gains_csr`` kernel computes
-from the device CSR in one launch (``src/repro/core/scoring.py``), with
-the same semantics on any device.
+the refinement screen, which the ``kway_gains_csr`` kernel computes
+from the device CSR in one launch, and the streaming engine's
+micro-batch step (``src/repro/core/scoring.py``), with the same
+semantics on any device.
 
 JAX's ``mode="drop"`` scatters have no torch counterpart. The port's
 image tensors therefore carry one scratch element at the end (``assign``
@@ -24,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..kernels.hype_score.ops import hype_score_select, stream_commit
+from ..kernels.hype_score.ref import STREAM_HASH_MULT
 from ..kernels.kway_refine.ops import kway_gains_csr
 
 # Width buckets for the (B, L) neighbour tile; rows wider than the last
@@ -350,3 +353,54 @@ def refine_gains_device(indptr, indices, assign, delta_ids, delta_vals,
     assign.index_put_((torch.where(inj, delta_ids, n).long(),), delta_vals)
     return assign, kway_gains_csr(indptr, indices, assign, cand,
                                   tile_l=tile_l, k=k)
+
+
+# ---------------------------------------------------------- streaming step
+# Device half of the single-pass streaming engine (core/hype_stream.py):
+# per micro-batch, row 1 (``hype_score_select``) counts each row's
+# neighbours in each of the k partition fringes at once, then the
+# ``stream_commit`` kernel commits the rows in order against the live
+# partition sketch and sizes, which stay on the device across
+# micro-batches. Only the tiles, the fringe and the row mask go down and
+# only the (mb,) parts come back.
+
+def stream_bucket(edge_ids: np.ndarray, sketch_bits: int) -> np.ndarray:
+    """Host twin of the kernel's bucket hash (the same uint32 math).
+
+    Negative (pad) ids hash like any other bits; callers mask validity
+    separately.
+    """
+    ids = np.asarray(edge_ids).astype(np.uint32)
+    h = ids * np.uint32(STREAM_HASH_MULT)
+    return (h >> np.uint32(32 - sketch_bits)).astype(np.int32)
+
+
+def stream_step_device(edge_tile, nbr_tile, fringe, sketch, sizes,
+                       valid_row, *, alpha: float, fringe_w: float,
+                       inv_target: float, cap: int, sketch_bits: int):
+    """Run one streaming micro-batch; returns ``(parts, sketch, sizes)``.
+
+    ``edge_tile`` (mb, Le) int32 incident-edge ids and ``nbr_tile``
+    (mb, Ln) int32 neighbour ids, both -1 padded; ``fringe`` (k, s) int32
+    per-partition fringes (-1 = empty slot); ``valid_row`` (mb,) bool
+    marks the real rows. ``sketch`` (k, 2**sketch_bits) and ``sizes``
+    (k,) int32 are updated in place and returned. The fringe counts come
+    from row 1 at G = k phases of the one neighbour tile (materialised:
+    the kernel takes contiguous tensors), R = mb rows and one +inf held
+    slot: a row's score is ``#valid - #(valid & in fringe_p)``, so the
+    count is ``#valid - score``, exact in float32.
+    """
+    k = sketch.shape[0]
+    mb, ln = nbr_tile.shape
+    dev = nbr_tile.device
+    nbrs = nbr_tile.expand(k, mb, ln).contiguous()
+    bias = torch.zeros((k, mb), dtype=torch.float32, device=dev)
+    prev = torch.full((k, 1), float("inf"), dtype=torch.float32, device=dev)
+    kscore = hype_score_select(nbrs, fringe, bias, prev, select_k=1)[0]
+    valid_cnt = (nbr_tile >= 0).sum(1, dtype=torch.int32).to(torch.float32)
+    fcnt = (valid_cnt[:, None] - kscore.T).contiguous()
+    parts = stream_commit(edge_tile, fcnt, valid_row, sketch, sizes,
+                          alpha=alpha, fringe_w=fringe_w,
+                          inv_target=inv_target, cap=cap,
+                          sketch_bits=sketch_bits)
+    return parts, sketch, sizes

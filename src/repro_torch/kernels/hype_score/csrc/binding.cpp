@@ -48,6 +48,11 @@ extern "C" cudaError_t flash_attention_launch(
     int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
     const int64_t* ost, float scale, int causal, int window, int bf16,
     cudaStream_t stream);
+extern "C" cudaError_t stream_commit_launch(
+    const int32_t* edge, const float* fcnt, const bool* valid_row,
+    int32_t* sketch, int32_t* sizes, int32_t* parts, int mb, int Le, int k,
+    int bits, float alpha, float fw, float inv_target, int cap,
+    cudaStream_t stream);
 extern "C" size_t neighbor_agg_smem_bytes(int D, int F);
 extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            const void* w, void* out,
@@ -296,6 +301,53 @@ torch::Tensor kway_gains_csr(const torch::Tensor& indptr,
   return gains;
 }
 
+// The stream's sequential commit of one micro-batch: parts (mb,) int32;
+// ``sketch`` (k, 2**sketch_bits) and ``sizes`` (k,) are updated in place.
+// The float knobs are rounded to float32 here, as the JAX program rounds
+// them.
+torch::Tensor stream_commit(const torch::Tensor& edge_tile,
+                            const torch::Tensor& fcnt,
+                            const torch::Tensor& valid_row,
+                            const torch::Tensor& sketch,
+                            const torch::Tensor& sizes, double alpha,
+                            double fringe_w, double inv_target, int64_t cap,
+                            int64_t sketch_bits) {
+  TORCH_CHECK(edge_tile.is_cuda(), "edge_tile must be a CUDA tensor");
+  const torch::Device device = edge_tile.device();
+  check_input(edge_tile, "edge_tile", torch::kInt32, 2, device);
+  check_input(fcnt, "fcnt", torch::kFloat32, 2, device);
+  check_input(valid_row, "valid_row", torch::kBool, 1, device);
+  check_input(sketch, "sketch", torch::kInt32, 2, device);
+  check_input(sizes, "sizes", torch::kInt32, 1, device);
+  const int64_t mb = edge_tile.size(0), Le = edge_tile.size(1);
+  const int64_t k = sketch.size(0);
+  TORCH_CHECK(sketch_bits >= 1 && sketch_bits <= 30,
+              "sketch_bits must lie in [1, 30], got ", sketch_bits);
+  TORCH_CHECK(sketch.size(1) == (int64_t{1} << sketch_bits),
+              "sketch must be (k, 2**sketch_bits)");
+  TORCH_CHECK(k >= 1 && k < kInt31, "k must lie in [1, 2**31)");
+  TORCH_CHECK(sizes.size(0) == k, "sizes must be (k,)");
+  TORCH_CHECK(fcnt.size(0) == mb && fcnt.size(1) == k,
+              "fcnt must be (mb, k)");
+  TORCH_CHECK(valid_row.size(0) == mb, "valid_row must be (mb,)");
+  TORCH_CHECK(mb < kInt31 && Le < kInt31, "shape too large");
+  TORCH_CHECK(cap > -kInt31 && cap < kInt31, "cap must fit int32");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor parts = torch::empty({mb}, edge_tile.options());
+  if (mb == 0) return parts;
+  C10_CUDA_CHECK(stream_commit_launch(
+      edge_tile.data_ptr<int32_t>(), fcnt.data_ptr<float>(),
+      valid_row.data_ptr<bool>(), sketch.data_ptr<int32_t>(),
+      sizes.data_ptr<int32_t>(), parts.data_ptr<int32_t>(),
+      static_cast<int>(mb), static_cast<int>(Le), static_cast<int>(k),
+      static_cast<int>(sketch_bits), static_cast<float>(alpha),
+      static_cast<float>(fringe_w), static_cast<float>(inv_target),
+      static_cast<int>(cap), at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return parts;
+}
+
 torch::Tensor embedding_bag(const torch::Tensor& table,
                             const torch::Tensor& ids, bool mean) {
   TORCH_CHECK(table.is_cuda(), "table must be a CUDA tensor");
@@ -467,6 +519,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kway_gains", &kway_gains, "K-way move gains (CUDA, sm_90a)");
   m.def("kway_gains_csr", &kway_gains_csr,
         "K-way move gains of candidates read through a CSR (CUDA, sm_90a)");
+  m.def("stream_commit", &stream_commit,
+        "The streaming engine's sequential sketch commit (CUDA, sm_90a)");
   m.def("embedding_bag", &embedding_bag,
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
   m.def("flash_attention", &flash_attention,

@@ -1,21 +1,23 @@
 """The scoring wrappers: the tensors' device picks the kernel.
 
 A CUDA tensor goes to the hand-written Hopper kernel
-(``csrc/score_select.cu`` and ``csrc/scores.cu``, built by
-``kernels._build``); a CPU tensor goes to the plain version in
-``ref.py``. There is no other switch and no fallback: a failed build or
-launch raises. ``hype_score_select.launches`` and
-``hype_scores.launches`` count the CUDA launches, so a run can show that
-its path went through the kernels.
+(``csrc/score_select.cu``, ``csrc/scores.cu`` and
+``csrc/stream_commit.cu``, built by ``kernels._build``); a CPU tensor
+goes to the plain version in ``ref.py``. There is no other switch and no
+fallback: a failed build or launch raises. ``hype_score_select.launches``,
+``hype_scores.launches`` and ``stream_commit.launches`` count the CUDA
+launches, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from .._build import load_extension, on_cuda
-from .ref import SELECT_PAD, hype_score_select_ref, hype_scores_ref
+from .ref import (SELECT_PAD, hype_score_select_ref, hype_scores_ref,
+                  stream_commit_ref)
 
-__all__ = ["SELECT_PAD", "hype_score_select", "hype_scores"]
+__all__ = ["SELECT_PAD", "hype_score_select", "hype_scores",
+           "stream_commit"]
 
 
 def hype_scores(nbrs: torch.Tensor, fringe: torch.Tensor) -> torch.Tensor:
@@ -51,5 +53,31 @@ def hype_score_select(nbrs: torch.Tensor, fringe: torch.Tensor,
     return out  # a tuple from the binding
 
 
+def stream_commit(edge_tile: torch.Tensor, fcnt: torch.Tensor,
+                  valid_row: torch.Tensor, sketch: torch.Tensor,
+                  sizes: torch.Tensor, *, alpha: float, fringe_w: float,
+                  inv_target: float, cap: int,
+                  sketch_bits: int) -> torch.Tensor:
+    """The streaming engine's sequential commit of one micro-batch.
+
+    edge_tile (mb, Le) int32 (-1 pad), fcnt (mb, k) float32, valid_row
+    (mb,) bool; sketch (k, 2**sketch_bits) and sizes (k,) int32 are
+    updated in place. Returns parts (mb,) int32 as
+    ``ref.stream_commit_ref`` defines them, with the same sketch and
+    sizes, bit for bit on either device.
+    """
+    if not on_cuda(edge_tile, "stream_commit"):
+        return stream_commit_ref(edge_tile, fcnt, valid_row, sketch, sizes,
+                                 alpha=alpha, fringe_w=fringe_w,
+                                 inv_target=inv_target, cap=cap,
+                                 sketch_bits=sketch_bits)
+    out = load_extension().stream_commit(
+        edge_tile, fcnt, valid_row, sketch, sizes, float(alpha),
+        float(fringe_w), float(inv_target), int(cap), int(sketch_bits))
+    stream_commit.launches += 1
+    return out
+
+
 hype_score_select.launches = 0
 hype_scores.launches = 0
+stream_commit.launches = 0

@@ -19,6 +19,7 @@ import torch
 
 from .core import metrics, resilience
 from .core.hype import HypeParams, hype_partition
+from .core.hype_stream import StreamParams, hype_stream_partition
 from .core.hypergraph import Hypergraph
 from .core.minmax import hashing_partition, minmax_partition, random_partition
 from .core.multilevel import hype_multilevel_partition, multilevel_partition
@@ -96,11 +97,16 @@ METHOD_INFO: Dict[str, dict] = {
         "pending": "hype_sharded",
     },
     "hype_stream": {
-        "desc": "not ported yet: single-pass streaming HYPE, "
-                "micro-batched arrivals scored against a partition "
-                "sketch with a FREIGHT-style balance penalty",
+        "desc": "single-pass streaming HYPE: micro-batched arrivals "
+                "scored against the partition fringes (row 1) and "
+                "committed in order against a partition sketch by the "
+                "stream_commit kernel, with a FREIGHT-style balance "
+                "penalty; apply_updates changes the assignment "
+                "incrementally",
+        # a hard ceil(n/k) capacity cap and no final rebalance: the last
+        # arrivals can leave a gap of up to k
         "balance_slack": lambda n, k: k,
-        "pending": "hype_stream",
+        "params": StreamParams,
     },
     "hype_weighted": {
         "desc": "numpy HYPE with degree-weighted balancing (HypeParams"
@@ -259,7 +265,8 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     ``"fast"``, ``"balanced"`` or ``"quality"`` on ``hype_batched``,
     ``hype_superstep`` and ``hype_device`` (explicit knobs win) and a
     ``ValueError`` on the other methods. ``knobs`` go to
-    ``BatchedParams``, ``SuperstepParams`` or ``DeviceParams``, are
+    ``BatchedParams``, ``SuperstepParams``, ``DeviceParams`` or
+    ``StreamParams`` (``hype_stream``), are
     ``refine_passes`` and ``coarsest`` of ``hype_multilevel``, go to
     ``HypeParams`` for ``hype`` and ``hype_weighted`` (which pins
     ``balance="weighted"``), or are ``slack`` of ``minmax_nb`` and
@@ -284,6 +291,9 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     if method == "hype_multilevel":
         return hype_multilevel_partition(hg, k, seed=seed, device=dev,
                                          **knobs)
+    if method == "hype_stream":
+        return hype_stream_partition(hg, k, StreamParams(seed=seed, **knobs),
+                                     device=dev)
     if method == "hype":
         return hype_partition(hg, k, HypeParams(seed=seed, **knobs))
     if method == "hype_weighted":

@@ -14,8 +14,10 @@ import torch
 from repro_torch.data.synthetic import powerlaw_hypergraph
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.kernels.hype_score.ops import hype_score_select, hype_scores
+from repro_torch.kernels.hype_score.ops import (hype_score_select,
+                                               hype_scores, stream_commit)
 from repro_torch.kernels.hype_score.ref import (SELECT_PAD,
+                                                stream_commit_ref,
                                                 hype_score_select_ref,
                                                 hype_scores_ref)
 from repro_torch.kernels.kway_refine.ops import kway_gains, kway_gains_csr
@@ -779,3 +781,124 @@ def test_cuda_real_oom_in_capture_falls_down_the_rungs(monkeypatch):
                                   device="cuda")
     assert _digest(a) == want and st.graph_captures == 1
     assert st.fallbacks == 0
+
+
+def _commit_inputs(seed, k, mb, le, bits=16, kind="random"):
+    """Seeded stream_commit inputs on the card: pads anywhere in a row, a
+    pad row at the end, sketch entries in about 30% of the buckets;
+    ``kind`` forces ties (no fringe or balance term, an empty sketch),
+    partitions at their cap (all but the last, or all), all-pad rows, or
+    duplicate buckets (16 buckets)."""
+    rng = np.random.default_rng(seed)
+    if kind == "dup":
+        bits = 4
+    edge = rng.integers(0, 200_000, size=(mb, le)).astype(np.int32)
+    edge[rng.random((mb, le)) < 0.3] = -1
+    fcnt = rng.integers(0, 5, size=(mb, k)).astype(np.float32)
+    sketch = (rng.integers(1, 3, size=(k, 1 << bits))
+              * (rng.random((k, 1 << bits)) < 0.3)).astype(np.int32)
+    cap = 5 * mb + 3
+    sizes = rng.integers(0, cap, size=k).astype(np.int32)
+    valid = np.ones(mb, bool)
+    valid[-1] = mb == 1
+    alpha, fw = 1.0, 0.5
+    if kind == "ties":
+        alpha, fw = 0.0, 0.0
+        sketch[:] = 0
+    elif kind == "cap":
+        sizes[:-1] = cap
+    elif kind == "full":
+        sizes[:] = cap
+    elif kind == "pad":
+        edge[:] = -1
+        valid[:] = False
+    x = [torch.from_numpy(a).cuda() for a in (edge, fcnt, valid, sketch,
+                                               sizes)]
+    kw = dict(alpha=alpha, fringe_w=fw, inv_target=float(
+        np.float32(k / 177_386)), cap=cap, sketch_bits=bits)
+    return x, kw
+
+
+@pytest.mark.parametrize("mb", [1, 7, 64])
+@pytest.mark.parametrize("le", [32, 128, 512, 2048])
+@pytest.mark.parametrize("k", [1, 2, 32, 67, 300])
+def test_cuda_stream_commit_equals_plain_version(k, le, mb):
+    _need_card()
+    _check_commit(*_commit_inputs(k * 1000 + le + mb, k, mb, le))
+
+
+@pytest.mark.parametrize("kind", ["ties", "cap", "full", "pad", "dup"])
+@pytest.mark.parametrize("k", [3, 32])
+def test_cuda_stream_commit_edge_cases_equal_plain_version(k, kind):
+    _need_card()
+    _check_commit(*_commit_inputs(k, k, 64, 128, kind=kind))
+
+
+def _check_commit(x, kw):
+    """The kernel on clones of the inputs against the plain version:
+    parts, sketch and sizes bit for bit, one launch counted."""
+    got = [t.clone() for t in x]
+    before = stream_commit.launches
+    parts = stream_commit(*got, **kw)
+    torch.cuda.synchronize()
+    assert stream_commit.launches == before + 1
+    want = [t.clone() for t in x]
+    want_parts = stream_commit_ref(*want, **kw)
+    assert torch.equal(parts, want_parts)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+
+
+def test_cuda_stream_equals_cpu_and_counts_launches():
+    """The stream on the card: the CPU run's assignment, sketch and
+    counters, one row 1 and one stream_commit launch a micro-batch."""
+    _need_card()
+    import dataclasses
+    from repro_torch.core.hype_stream import (StreamParams,
+                                              hype_stream_partition,
+                                              recompute_sketch)
+    hg = powerlaw_hypergraph(400, 300, seed=5, max_edge=14, max_degree=12)
+    p = StreamParams(micro_batch=16, seed=3)
+    _, cpu = hype_stream_partition(hg, 5, p, return_state=True,
+                                   device="cpu")
+    before = (hype_score_select.launches, stream_commit.launches)
+    a, card = hype_stream_partition(hg, 5, p, return_state=True,
+                                    device="cuda")
+    batches = card.stats.micro_batches
+    assert (hype_score_select.launches - before[0],
+            stream_commit.launches - before[1]) == (batches, batches)
+    np.testing.assert_array_equal(a, cpu.assignment)
+    assert card.sketch_digest() == cpu.sketch_digest()
+    sk, _ = recompute_sketch(hg, a, 5, p.sketch_bits)
+    np.testing.assert_array_equal(card.sketch, sk)
+    timing = {"stream_s", "vertices_per_s", "snapshot_s", "restore_s",
+              "update_s", "updates_per_s"}
+    counters = [{key: val for key, val in dataclasses.asdict(s.stats).items()
+                 if key not in timing} for s in (card, cpu)]
+    assert counters[0] == counters[1]
+
+
+def test_cuda_apply_updates_equals_cpu():
+    """apply_updates on the card's state: the CPU state's assignment,
+    sketch and counters after the same mixed log."""
+    _need_card()
+    import copy
+    from repro_torch.core.hype_stream import (StreamParams, apply_updates,
+                                              hype_stream_partition,
+                                              recompute_sketch)
+    hg = powerlaw_hypergraph(400, 300, seed=5, max_edge=14, max_degree=12)
+    ops = [("remove_vertex", 7), ("remove_edge", 3), ("add_edge", [1, 2, 10]),
+           ("add_vertex", [0, 4]), ("add_vertex", []),
+           ("remove_vertex", 250)]
+    states = []
+    for device in ("cpu", "cuda"):
+        _, st = hype_stream_partition(hg, 4, StreamParams(micro_batch=8),
+                                      return_state=True, device=device)
+        states.append(apply_updates(copy.deepcopy(st), ops))
+    cpu, card = states
+    assert card.device.type == "cuda"
+    np.testing.assert_array_equal(card.assignment, cpu.assignment)
+    assert card.sketch_digest() == cpu.sketch_digest()
+    assert card.stats.readmitted == cpu.stats.readmitted == 2
+    sk, sz = recompute_sketch(card.hg, card.assignment, 4, 16)
+    np.testing.assert_array_equal(card.sketch, sk)
+    np.testing.assert_array_equal(card.sizes, sz)

@@ -55,9 +55,9 @@ def test_registry_keys_equal_jax():
             if d.startswith("not ported yet")} == set(api.PENDING)
     assert not any("lax." in d or "Pallas" in d for d in desc.values())
     assert set(api.METHODS) | set(api.PENDING) == set(jax_api.METHODS)
-    assert set(api.PENDING) == {"hype_sharded", "hype_stream", "hype_jax",
+    assert set(api.PENDING) == {"hype_sharded", "hype_jax",
                                 "hype_parallel"}
-    assert len(api.METHODS) == 12
+    assert len(api.METHODS) == 13
 
 
 @pytest.mark.parametrize("method", api.METHODS)
@@ -197,8 +197,8 @@ def test_partition_and_report_equals_jax(method):
 
 def test_partition_and_report_keeps_the_entry_checks():
     hg = _graph(synthetic, "pl600")
-    with pytest.raises(NotImplementedError, match="hype_stream"):
-        api.partition_and_report(hg, 4, "hype_stream", device="cpu")
+    with pytest.raises(NotImplementedError, match="hype_sharded"):
+        api.partition_and_report(hg, 4, "hype_sharded", device="cpu")
     with pytest.raises(ValueError, match="presets"):
         api.partition_and_report(hg, 4, "shp", device="cpu",
                                  preset="quality")
