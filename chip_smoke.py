@@ -43,7 +43,7 @@ prints one JSON line per phase:
             time (score + select launches = replays + one warm-up round a
             capture); then preset="quality" held to the quality path's
             digest and 104 screens; then the depth-1 slice and hype_device
-            in turns, three times each (wall, host_s, device_s)
+            one after the other (wall, host_s, device_s)
   resilience  the same graph: hype_device clean, snapshotting every 64
             supersteps, killed by dispatch@200:fatal and resumed (from
             the snapshot at 192), and with dispatch@50;nan@120 (the
@@ -81,12 +81,22 @@ prints one JSON line per phase:
             micro-batches killed at 1,500 and resumed at 1,024, a retried
             dispatch fault, and apply_updates of a seeded 64-op log on the
             path's state (JAX's digest, the sketch equal to its recount)
+  sharded   the same graph through hype_sharded, k=32, t=16: row 1 at
+            the shard's shapes (a group of 8 of the 32 phases, and all
+            32) against its plain version, timed; one rank with no group
+            at depths 1 and 2 (the slice's digests, 380 collectives
+            counted at depth 2, no conflicts); one rank under a one-rank
+            NCCL group over a file:// store (the digest, NCCL's
+            all_gather timed alone and as a share of a superstep); four
+            spawned ranks sharing the card over gloo (JAX's four-device
+            digest, 391 collectives, 6,406,144 bytes and 2,686 conflicts
+            on every rank, each rank's row 1 launches); partition_resilient
+            with its default method killed at 100 (JAX's ladder at one
+            device); collective@2;nan@3 at one rank (the digest)
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
   profile   the depth-1 slice, the batched and the quality path,
-            hype_device and hype_stream each run twice more, under
-            torch.profiler (the
-            card's busy time) and under cProfile (the host's time per
-            function)
+            hype_device and hype_stream each run once more under
+            torch.profiler (the card's busy time)
   kernel_embedding_bag  the EmbeddingBag kernel against its plain version
             (fp32 and bf16, mean and sum, edge cases, ids near V-1 of a
             full-width 16,777,216 x 256 table), timed at the serving
@@ -125,7 +135,7 @@ prints one JSON line per phase:
             B = N = 169,984, D = F = 128; the backward bit for bit
             against its plain version on the CPU), timed there beside
             F.embedding_bag + matmul and a sparse CSR product
-  gnn_train graphsage-reddit at its published width: 20 AdamW steps on
+  gnn_train graphsage-reddit at its published width: 10 AdamW steps on
             sampled minibatch_lg batches (1,024 seeds, fanout 15-10)
             through run_training, each step launching the forward and the
             backward kernel twice; the first losses held to the JAX
@@ -189,6 +199,16 @@ DEVICE_GRAPH_NODES = 1822
 # (depth 2, the same cadence) warm-started from the assignment of JAX's
 # hype_device snapshot at 64, the run killed at 100: k-1 61685.
 LADDER_DIGEST = "4ae54e05b401a645"
+# hype_sharded on the slice's graph (k=32, t=16), by the JAX package on
+# the CPU with 4 host devices: at one device it is the slice's run at the
+# same depth (SLICE_DIGESTS); at four devices, depth 2: (digest,
+# supersteps = collectives, collective_bytes, admission conflicts, k-1);
+# partition_resilient's default method at devices=1, snapshot_every=64,
+# killed by dispatch@100:fatal, finishing on hype_superstep warm-started
+# from the snapshot at 64: (digest, k-1)
+SHARDED_D4 = ("44e59fd536a9df17", 391, 6_406_144, 2_686, 61_561)
+SHARDED_LADDER = ("6ce8a086dfc9fd63", 61_658)
+SHARDED_RANKS = 4
 # partition_and_report(hg, 32, method, seed=0) in the JAX package, its
 # runtime_s left out (hype_device with t=16)
 REPORTS = {
@@ -287,7 +307,7 @@ LM_BF16_PARITY_TOL = dict(atol=0.1, rtol=0.02)
 # seeds by the functions below, which tests/jax_gnn_losses.py runs with
 # the JAX package's own generators and model to pin GNN_JAX_LOSSES.
 GNN_ARCH, GNN_SHAPE = "graphsage-reddit", "minibatch_lg"
-GNN_STEPS, GNN_PROFILE_STEPS = 20, 3
+GNN_STEPS, GNN_PROFILE_STEPS = 10, 3
 GNN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0)
 GNN_KEYS = ("nodes", "edge_src", "edge_dst", "edge_mask", "node_mask",
             "labels")
@@ -881,18 +901,11 @@ def run_slice(hg, depth, device, metrics, SuperstepParams, run):
 
 
 def phase_profile(label, fn):
-    """Where the time goes in one path, from two more runs of it.
-
-    Under torch.profiler: the card's busy time (kernels and copies,
-    summed over device-side events only) and its largest consumers. Each
-    run ends in a synchronize, so the wall time covers the card's work.
-    Under cProfile: the host's cumulative seconds per function of the
-    port (cProfile inflates Python-heavy code, so read the shares, not
-    the sums).
+    """Where the time goes in one path, from one more run of it under
+    torch.profiler: the card's busy time (kernels and copies, summed over
+    device-side events only) and its largest consumers. The run ends in
+    a synchronize, so the wall time covers the card's work.
     """
-    import cProfile
-    import pstats
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -912,21 +925,6 @@ def phase_profile(label, fn):
     emit({"phase": "profile", "path": label, "wall_s": wall,
           "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
           "top_device_us": top})
-
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    fn()
-    torch.cuda.synchronize()
-    prof.disable()
-    wall = time.perf_counter() - t0
-    host = {}
-    for (path, _, func), row in pstats.Stats(prof).stats.items():
-        if "repro_torch" in path:
-            host[func] = host.get(func, 0.0) + row[3]
-    top = dict(sorted(host.items(), key=lambda kv: -kv[1])[:10])
-    emit({"phase": "host_profile", "path": label,
-          "wall_s_under_cprofile": wall, "cumulative_s": top})
 
 
 def bag_case(bops, bref, table, ids, combine, row, timed):
@@ -2269,8 +2267,8 @@ def phase_device(hg, same_graph, slice_row, launches, metrics,
     launches score + select once, and each capture's warm-up round once
     more (a capacity rerun captures anew). Then preset="quality" (the same
     schedule, then the refinement post-pass), held to the quality path's
-    digest and screens. Then the depth-1 slice and hype_device in turns,
-    three times each, in this process."""
+    digest and screens. Then the depth-1 slice and hype_device one after
+    the other, in this process."""
     import torch
     dp = DeviceParams(seed=0, t=16)
     (a, st), wall, counts = launches.drive(lambda: hype_device_partition(
@@ -2298,26 +2296,22 @@ def phase_device(hg, same_graph, slice_row, launches, metrics,
     check_path(row, PATH_DIGESTS["quality"], PATH_KM1["quality"], cpu,
                counts, {"hype_score_select": st.graph_replays
                         + st.graph_captures, "kway_gains_csr": screens})
-    turns = []
-    for _ in range(3):
-        _, srow = run_slice(hg, 1, "cuda", metrics, SuperstepParams,
-                            hype_superstep_partition)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a, st = hype_device_partition(hg, 32, dp, return_stats=True,
-                                      device="cuda")
-        drow = device_row("device", hg, a, st, time.perf_counter() - t0)
-        if drow["digest"] != srow["digest"]:
-            raise SystemExit(f"hype_device and the slice differ: {drow}")
-        turns.append({
-            "slice": {key: srow[key] for key in ("wall_s", "host_s",
-                                                 "device_s")},
-            "device": {key: drow[key] for key in (
-                "wall_s", "host_s", "device_s", "host_share",
-                "graph_captures", "graph_replays", "graph_nodes",
-                "graph_capture_s",
-                "loop_chunks", "loop_rounds")}})
-    emit({"phase": "device_turns", "turns": turns})
+    _, srow = run_slice(hg, 1, "cuda", metrics, SuperstepParams,
+                        hype_superstep_partition)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, st = hype_device_partition(hg, 32, dp, return_stats=True,
+                                  device="cuda")
+    drow = device_row("device", hg, a, st, time.perf_counter() - t0)
+    if drow["digest"] != srow["digest"]:
+        raise SystemExit(f"hype_device and the slice differ: {drow}")
+    emit({"phase": "device_turns", "turns": [{
+        "slice": {key: srow[key] for key in ("wall_s", "host_s",
+                                             "device_s")},
+        "device": {key: drow[key] for key in (
+            "wall_s", "host_s", "device_s", "host_share",
+            "graph_captures", "graph_replays", "graph_nodes",
+            "graph_capture_s", "loop_chunks", "loop_rounds")}}]})
 
 
 def snapshot_root(name):
@@ -3161,6 +3155,192 @@ def phase_stream(hg, same_graph, launches, ops, ref, scoring, hs, res):
     return timed, worst
 
 
+def sharded_row(label, hg, a, st, wall):
+    """A sharded run's row: the path's metrics, its collective counters
+    and its time split."""
+    row = path_row(f"sharded_{label}", hg, a, 32, wall)
+    row.update({key: getattr(st, key) for key in (
+        "supersteps", "collectives", "collective_bytes",
+        "admission_conflicts", "stale_redraws", "cache_invalidations",
+        "host_s", "device_s", "faults_injected", "retries", "fallbacks",
+        "resumed_at", "tile_l")})
+    return row
+
+
+def phase_sharded(hg, same_graph, runs, launches, ops, ref,
+                  partition_resilient):
+    """hype_sharded on the slice's graph, k=32, t=16. First row 1 at the
+    shard's shapes (a phase group of 8 of the 32 phases at offsets 0 and
+    24, and all 32) against its plain version, timed. Then one rank with
+    no group at depths 1 and 2 (the slice's digests, a collective a
+    superstep counted and none run, no conflicts; the slice's wall in the
+    same call beside it); one rank under a one-rank NCCL group over a
+    file:// store (the digest; NCCL's all_gather timed alone at the
+    superstep's payload, and its share of a superstep); four spawned
+    ranks sharing the card over gloo (JAX's four-device digest,
+    collectives, bytes and conflicts on every rank, and each rank's row 1
+    launches); partition_resilient with its default method killed at
+    100 (JAX's ladder at devices=1); and collective@2;nan@3 at one rank
+    (the slice's digest). Returns the timed shard rows and the launches
+    of each run for the kernels line, and the worst error."""
+    import datetime
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engines import sharded
+
+    L = runs[2]["tile_l"]
+    rng = np.random.default_rng(24)
+    shard_rows, worst = {}, 0.0
+    for gl, off in ((8, 0), (8, 24), (32, 0)):
+        x = kernel_inputs(rng, 32, 16, L, 1, 64, "random")
+        args = (x[0][off:off + gl].contiguous(), *x[1:])
+
+        def call():
+            return ops.hype_score_select_shard(*args, select_k=16,
+                                               shard_offset=off)
+
+        def plain():
+            return ref.hype_score_select_shard_ref(*args, 16, off)
+
+        out = call()
+        torch.cuda.synchronize()
+        want = plain()
+        err = max_abs_err(out, want)
+        worst = max(worst, err)
+        nbytes = (args[0].nbytes + sum(t[off:off + gl].nbytes for t in x[1:])
+                  + sum(t.nbytes for t in out))
+        row = {"phase": "kernel_shard", "G": 32, "group_l": gl,
+               "shard_offset": off, "R": 16, "L": L, "s": 1, "P": 64,
+               "select_k": 16, "max_abs_err": err,
+               "equal": all(torch.equal(a, b) for a, b in zip(out, want)),
+               "ms": cuda_ms(call), "graph_ms": graph_ms(call),
+               "plain_ms": cuda_ms(plain, iters=20), "bytes": nbytes,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        emit(row)
+        if not row["equal"]:
+            raise SystemExit(f"the shard's call disagrees with its plain "
+                             f"version: {row}")
+        shard_rows.setdefault(gl, row)
+
+    shard_launches = {}
+
+    def one_rank(label, depth, need_digest, retried_faults=0, **kw):
+        p = sharded.ShardedParams(seed=0, t=16, pipeline_depth=depth, **kw)
+        (a, st), wall, counts = launches.drive(
+            lambda: sharded.hype_sharded_partition(hg, 32, p, True,
+                                                   device="cuda"))
+        row = sharded_row(label, hg, a, st, wall)
+        row["slice_wall_s_same_call"] = runs[depth]["wall_s"]
+        cpu = None if same_graph else runs[depth]["digest"]
+        # every launch is a superstep's or a replay's: a retry counts
+        # both, and a retried dispatch or collective fault fires before
+        # its launch
+        need = st.supersteps + st.retries - retried_faults
+        check_path(row, need_digest, SLICE_KM1[depth], cpu, counts,
+                   {"hype_score_select": need})
+        if (st.collectives != st.supersteps or st.admission_conflicts
+                or st.collective_bytes != st.supersteps * 32 * 32 * 4):
+            raise SystemExit(f"one rank's collective counters: {row}")
+        shard_launches[label] = counts["hype_score_select"]
+        return row, st, wall
+
+    for depth in (1, 2):
+        row, st, _ = one_rank(f"d1_depth{depth}", depth, SLICE_DIGESTS[depth])
+        if st.supersteps != runs[depth]["supersteps"]:
+            raise SystemExit(f"one rank ran {st.supersteps} supersteps; the "
+                             f"slice {runs[depth]['supersteps']}")
+        if same_graph and depth == 2 and (st.collectives, st.collective_bytes) \
+                != (380, 1_556_480):
+            raise SystemExit(f"depth 2 counted {row}")
+    nogroup_wall = row["wall_s"]
+
+    # one rank under a one-rank NCCL group: the all_gather runs on NCCL
+    store = snapshot_root("nccl_store")
+    pathlib.Path(store).mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        row, st, wall = one_rank("d1_nccl", 2, SLICE_DIGESTS[2])
+        mesh = sharded.Mesh.of(None, "cuda")
+        payload = torch.zeros((32, 16 + 16), dtype=torch.int32,
+                              device="cuda")
+        gather_ms = cuda_ms(lambda: mesh.all_gather(payload))
+        superstep_ms = wall * 1e3 / st.supersteps
+        emit({"phase": "sharded_nccl_collective",
+              "backend": dist.get_backend(), "world_size": mesh.size,
+              "payload": list(payload.shape), "all_gather_ms": gather_ms,
+              "superstep_wall_ms": superstep_ms,
+              "collective_share_of_superstep": gather_ms / superstep_ms,
+              "wall_s": wall, "wall_s_no_group": nogroup_wall})
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # four ranks sharing the card over gloo (the payload staged through
+    # the host): the protocol at four ranks, not a speed-up
+    t0 = time.perf_counter()
+    with sharded.RankPool(SHARDED_RANKS, backend="gloo",
+                          timeout_s=600) as pool:
+        up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = pool.run(sharded.partition_rank, hg, 32,
+                        sharded.ShardedParams(seed=0, t=16), "cuda")
+        wall = time.perf_counter() - t0
+    a, st, _ = outs[0]
+    rank_launches = [o[2] for o in outs]
+    row = sharded_row("d4_gloo", hg, a, st, wall)
+    row.update(ranks=SHARDED_RANKS, spawn_and_join_s=up,
+               rank_launches=rank_launches,
+               ranks_equal=all(np.array_equal(o[0], a)
+                               and sharded.run_counters(o[1])
+                               == sharded.run_counters(st) for o in outs))
+    got = (row["digest"], st.collectives, st.collective_bytes,
+           st.admission_conflicts, row["k_minus_1"])
+    row["expected"] = list(SHARDED_D4)
+    emit(row)
+    if not row["ranks_equal"]:
+        raise SystemExit(f"the four ranks differ: {row}")
+    if same_graph and got != SHARDED_D4:
+        raise SystemExit(f"four ranks differ from JAX's run: {row}")
+    if any(n != st.supersteps for n in rank_launches):
+        raise SystemExit(f"a rank launched row 1 {rank_launches} times for "
+                         f"{st.supersteps} supersteps")
+    shard_launches["d4_gloo_per_rank"] = rank_launches
+    launches.total["hype_score_select"] += sum(rank_launches)
+
+    # partition_resilient's default method (no group: one rank), killed
+    # at 100 and finishing on hype_superstep from the snapshot at 64
+    d = snapshot_root("sharded_ladder")
+    (a, rep), wall, counts = launches.drive(lambda: partition_resilient(
+        hg, 32, device="cuda", seed=0, t=16, snapshot_dir=d,
+        snapshot_every=64, fault_plan="dispatch@100:fatal"))
+    st = rep["stats"]
+    row = sharded_row("ladder", hg, a, st, wall)
+    row.update(method=rep["method"], requested_method=rep["requested_method"],
+               degraded_from=rep["degraded_from"])
+    # the superstep rung's supersteps, and the sharded rung's 99 before
+    # its fatal fault
+    check_path(row, SHARDED_LADDER[0], SHARDED_LADDER[1],
+               None if same_graph else row["digest"], counts,
+               {"hype_score_select": st.supersteps + 99})
+    if (rep["requested_method"] != "hype_sharded"
+            or rep["method"] != "hype_superstep" or st.resumed_at != 64):
+        raise SystemExit(f"the ladder did not land as expected: {row}")
+    shard_launches["ladder"] = counts["hype_score_select"]
+
+    # an injected collective fault and a NaN tile at one rank
+    row, st, _ = one_rank("d1_faults", 2, SLICE_DIGESTS[2], retried_faults=1,
+                          fault_plan="collective@2;nan@3")
+    if st.faults_injected != 2 or st.retries < 2:
+        raise SystemExit(f"the faults were not retried: {row}")
+    return shard_rows, shard_launches, worst
+
+
 def expect_fault(res, fn):
     """Run ``fn``, which must raise ``UnrecoverableFault``; returns the
     error's text."""
@@ -3396,6 +3576,10 @@ def main() -> int:
     commit_row, worst_commit = phase_stream(hg, same_graph, launches, ops,
                                             ref, scoring, hype_stream, res)
     emit({"phase": "stream_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    shard_rows, shard_launches, worst_shard = phase_sharded(
+        hg, same_graph, runs, launches, ops, ref, partition_resilient)
+    emit({"phase": "sharded_done", "wall_s": time.perf_counter() - t0})
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
     # the coarsest graph, kway_gains_csr screens at the finest level
@@ -3475,10 +3659,16 @@ def main() -> int:
     emit({"kernels": [
         entry("hype_score_select", csrc + "hype_score/csrc/score_select.cu",
               "src/repro/kernels/hype_score/kernel.py:160",
-              per_l[runs[1]["tile_l"]], worst_err,
+              per_l[runs[1]["tile_l"]], max(worst_err, worst_shard),
               graph_ms=per_l[runs[1]["tile_l"]]["graph_ms"],
               launch_floor_ms=select_floor["ms"],
-              launch_floor_graph_ms=select_floor["graph_ms"]),
+              launch_floor_graph_ms=select_floor["graph_ms"],
+              # the sharded engine's phase groups: G = 8 of 32 at four
+              # ranks, all 32 at one
+              shard={f"G{gl}": {key: r[key] for key in (
+                  "ms", "graph_ms", "plain_ms", "bound_ms", "max_abs_err")}
+                  for gl, r in shard_rows.items()},
+              shard_launches=shard_launches),
         entry("hype_scores", csrc + "hype_score/csrc/scores.cu",
               "src/repro/kernels/hype_score/kernel.py:50",
               per_bl[(256, 2048)], worst_scores),

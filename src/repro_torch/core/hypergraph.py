@@ -164,6 +164,13 @@ class Hypergraph:
         cache[max_expanded] = adj               # frozen-dataclass memo
         return adj
 
+    def __getstate__(self) -> dict:
+        """Pickle the host arrays and memos; the device copies stay out
+        (a graph sent to another process uploads its own)."""
+        state = dict(self.__dict__)
+        state.pop("_device_adj_cache", None)
+        return state
+
     def device_adjacency(self, device, max_expanded: int = 80_000_000):
         """``vertex_adjacency`` uploaded to ``device`` once, memoized.
 

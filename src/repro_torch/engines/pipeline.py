@@ -88,7 +88,8 @@ class _Superstep:
     """One in-flight superstep: its result block and what harvest needs.
 
     ``out`` holds ``winners (G*select_k) | n_stale | poison`` as int32
-    (then the (G*R) fresh scores as float32 bits on the spill rung) --
+    (then the (G*R) fresh scores as float32 bits on the spill rung, or
+    the superstep's admission conflicts on the sharded engine) --
     a pinned host tensor on CUDA, filled by an async copy that ``ready``
     (a CUDA event) marks done; the device program's own tensor on CPU.
     ``args`` are the superstep's clean arguments, for a replay;
@@ -150,6 +151,11 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         plan = membudget.plan_memory(spec, self.mem_budget,
                                      self._mem_features,
                                      rung_start=self.mem_rung)
+        agreed = self._agree_rung(plan.rung)
+        if agreed != plan.rung:
+            plan = membudget.plan_memory(spec, self.mem_budget,
+                                         self._mem_features,
+                                         rung_start=agreed)
         self.mem_plan = plan
         self.mem_rung = plan.rung
         self.tile_l = plan.tile_l
@@ -224,6 +230,46 @@ class PipelineState(SnapshotMixin, EngineRuntime):
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """Upload a host array of the image (a snapshot's copy)."""
         return torch.from_numpy(np.array(arr)).to(self.device)
+
+    # ---------------------------------------------- hooks of the engines
+    # The single-device engine's pool mask is engine-wide and it runs
+    # alone; the sharded engine overrides these with its per-group masks
+    # and its process group.
+    snapshot_writer = True      # this state writes the run's snapshots
+
+    def _agree_rung(self, rung: int) -> int:
+        """The memory rung every rank of the run plans (before upload)."""
+        return rung
+
+    def snapshot_published(self) -> None:
+        """Called on every rank after a snapshot's publish."""
+
+    def release_pools(self) -> None:
+        """End-of-run hook: clear every pool-membership mask."""
+        self.in_pool[:] = False
+
+    def _pmask(self, g: int) -> np.ndarray:
+        """The pool-membership mask that governs phase ``g``'s draws."""
+        return self.in_pool
+
+    def _restart_mask(self) -> np.ndarray:
+        """The mask a restart must avoid: every pool of the engine.
+
+        Injections reach the device image by an unconditional scatter, so
+        they must never name a vertex that an in-flight superstep could
+        still admit, i.e. anything in any pool.
+        """
+        return self.in_pool
+
+    def _release_members(self, vs: np.ndarray, ph: np.ndarray) -> None:
+        """Clear pool membership for freshly mirrored winners."""
+        self.in_pool[vs] = False
+
+    def _count_dispatch(self, fresh: np.ndarray, select_k: int) -> None:
+        """Per-dispatch counter hook; replays never come through here."""
+
+    def _count_harvest(self, handle: "_Superstep", res: np.ndarray) -> None:
+        """Per-harvest counter hook; ``res`` is the harvested block."""
 
     def assign_now(self, vs: np.ndarray, phase: int) -> None:
         """Assign ``vs`` to ``phase``; queue the device delta + dirtying."""
@@ -425,7 +471,7 @@ class PipelineState(SnapshotMixin, EngineRuntime):
             if ids.size:
                 keep = self.assignment[ids] < 0
                 if not keep.all():
-                    self.in_pool[ids[~keep]] = False
+                    self._pmask(gi)[ids[~keep]] = False
                     ids = ids[keep]
                     self.pools[gi] = ids
             need[gi] = min(R, P - ids.size)
@@ -462,7 +508,7 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         rq_edge: list = []
         injected = 0
         packed_any = False
-        pmask = self.in_pool
+        rmask = None    # the restart's mask, made at most once a pack
         for g in order:
             gi = int(g)
             e0, e1 = int(edge_lo[gi]), int(edge_lo[gi + 1])
@@ -478,6 +524,7 @@ class PipelineState(SnapshotMixin, EngineRuntime):
                     rq_ph.append(ph_t[e0:e1][live])
                     rq_cls.append(cls_t[e0:e1][live])
                     rq_edge.append(eg[live])
+            pmask = self._pmask(gi)
             cg = cand_all[int(cand_lo[gi]):int(cand_lo[gi + 1])]
             drawn = cg
             if cg.size:
@@ -487,14 +534,18 @@ class PipelineState(SnapshotMixin, EngineRuntime):
             miss = np.empty(0, dtype=np.int64)
             if drawn.size:
                 pmask[drawn] = True
+                if rmask is not None and rmask is not pmask:
+                    rmask[drawn] = True     # keep the union mask live
                 scored = self.cache_scored[drawn]
                 hits, miss = drawn[scored], drawn[~scored]
                 if hits.size:       # cross-phase reuse: already cached
                     ids = np.concatenate([ids, hits])
             if ids.size == 0 and miss.size == 0:
                 # shattered remainder: seed fresh growth points directly
+                if rmask is None:
+                    rmask = self._restart_mask()
                 vs = self.random_unassigned(
-                    min(t, int(targets[gi] - acc[gi])))
+                    min(t, int(targets[gi] - acc[gi])), in_pool=rmask)
                 if vs.size:
                     self.stats.random_restarts += 1
                     self.assign_now(vs, gi)
@@ -593,6 +644,7 @@ class PipelineState(SnapshotMixin, EngineRuntime):
             prev = (self.host_cache[np.where(pool_arr >= 0, pool_arr,
                                              0)].astype(np.float32),)
         self.stats.supersteps += 1
+        self._count_dispatch(fresh, select_k)
         ordinal = int(self.stats.supersteps)
         up = self._upload(*host, *prev)
         args = _CallArgs(*up[:len(host)], select_k=select_k,
@@ -686,15 +738,16 @@ class PipelineState(SnapshotMixin, EngineRuntime):
         if vs.size:
             ph = np.repeat(np.arange(kG, dtype=np.int64), t)[mask]
             self.assignment[vs] = ph.astype(np.int32)
-            self.in_pool[vs] = False
+            self._release_members(vs, ph)
             acc += np.bincount(ph, minlength=kG)
             self.activate_many(vs, ph)
             self._queue_decrements(vs, exclude)
             for g in np.unique(ph):
                 if acc[g] >= targets[g]:    # phase done: release pool
                     gi = int(g)
-                    self.in_pool[self.pools[gi]] = False
+                    self._pmask(gi)[self.pools[gi]] = False
                     self.pools[gi] = np.empty(0, dtype=np.int64)
+        self._count_harvest(handle, res)
         self.stats.host_s += time.perf_counter() - t0
         return progress
 

@@ -47,6 +47,12 @@ class BatchedStats:
     device_image_bytes: int = 0     # one-time CSR + assignment + cache
     host_to_device_bytes: int = 0   # per-call id/bias buffers
     cache_invalidations: int = 0    # cached scores decremented by admission
+    # sharded-engine counters (zero for the single-device engines):
+    collectives: int = 0            # all_gather calls (one per superstep)
+    collective_bytes: int = 0       # bytes the gathers materialise: the
+    #                                 ranks x the global payload a superstep
+    admission_conflicts: int = 0    # proposed admissions lost to the
+    #                                 lowest-phase-wins rule
     host_s: float = 0.0             # wall-clock in host packing + harvest
     #                                 mirroring (overlappable)
     device_s: float = 0.0           # wall-clock blocked on device results
@@ -203,13 +209,18 @@ class EngineRuntime:
             self.stats.retries += 1
             time.sleep(float(self.p.retry_backoff_s) * attempts)
 
-    def random_unassigned(self, count: int = 1) -> np.ndarray:
+    def random_unassigned(self, count: int = 1,
+                          in_pool: Optional[np.ndarray] = None
+                          ) -> np.ndarray:
         """Next ``count`` unassigned non-pool vertices of the random stream.
 
         Vectorized skip-pointer scan over the shuffled order; the pointer
         only advances past consumed positions so no vertex is skipped.
+        ``in_pool`` is the pool-membership mask to respect (the sharded
+        engine keeps one per phase group); by default the engine-wide one.
         """
-        in_pool = self.in_pool
+        if in_pool is None:
+            in_pool = self.in_pool
         n = self.hg.n
         out: list = []
         got = 0
@@ -504,13 +515,17 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
                     progress += _harvest_next(st, inflight, acc, targets)
                 t0 = time.perf_counter()
                 st.stats.snapshots += 1
-                resilience.save_snapshot(
-                    p.snapshot_dir,
-                    resilience.PartitionCheckpoint(
-                        engine, int(st.stats.supersteps),
-                        hg.fingerprint(), dict(config),
-                        st.capture_payload(acc, cur_depth)),
-                    keep_last=int(p.keep_last))
+                payload = st.capture_payload(acc, cur_depth)
+                # under a process group one rank writes, and every rank
+                # waits for the write before it goes on
+                if st.snapshot_writer:
+                    resilience.save_snapshot(
+                        p.snapshot_dir,
+                        resilience.PartitionCheckpoint(
+                            engine, int(st.stats.supersteps),
+                            hg.fingerprint(), dict(config), payload),
+                        keep_last=int(p.keep_last))
+                st.snapshot_published()
                 st.stats.snapshot_s += time.perf_counter() - t0
                 last_snap = int(st.stats.supersteps)
             active = np.flatnonzero(acc < targets)
@@ -562,7 +577,7 @@ def run_pipeline(hg: Hypergraph, k: int, p, make_state, engine: str,
         deficit = np.maximum(targets - acc, 0)
         fill = np.repeat(np.arange(kG), deficit)[:rem_v.size]
         st.assignment[rem_v[:fill.size]] = fill.astype(np.int32)
-    st.in_pool[:] = False
+    st.release_pools()
     # the host assignment is authoritative; the last injections' delta
     # dies with the state
     st.delta_ids, st.delta_vals = [], []
@@ -583,6 +598,11 @@ def run_pipeline_budgeted(hg: Hypergraph, k: int, p, make_state,
     (``partition_resilient``) is consulted. Only an exhausted rung ladder
     escalates, as ``UnrecoverableFault``. The fault plan is resolved once,
     so a one-shot injected ``oom`` stays consumed across retries.
+
+    Under a process group (the sharded engine) every rank walks the rungs
+    together: the state agrees its planned rung across the ranks before
+    the upload (an ``all_reduce`` of the rung index, MAX), and an injected
+    ``oom`` fires on every rank at the same ordinal.
 
     The next rung starts after the ``except`` block has let go of the
     exception, and with it of the failed attempt's frames (its state, its

@@ -16,8 +16,8 @@ from .._build import load_extension, on_cuda
 from .ref import (SELECT_PAD, hype_score_select_ref, hype_scores_ref,
                   stream_commit_ref)
 
-__all__ = ["SELECT_PAD", "hype_score_select", "hype_scores",
-           "stream_commit"]
+__all__ = ["SELECT_PAD", "hype_score_select", "hype_score_select_shard",
+           "hype_scores", "stream_commit"]
 
 
 def hype_scores(nbrs: torch.Tensor, fringe: torch.Tensor) -> torch.Tensor:
@@ -51,6 +51,25 @@ def hype_score_select(nbrs: torch.Tensor, fringe: torch.Tensor,
                                         int(select_k))
     hype_score_select.launches += 1
     return out  # a tuple from the binding
+
+
+def hype_score_select_shard(nbrs_local: torch.Tensor, fringe: torch.Tensor,
+                            bias: torch.Tensor, prev: torch.Tensor, *,
+                            select_k: int, shard_offset: int):
+    """Fused score + select for one phase-group shard of a superstep.
+
+    The sharded engine stacks all G phases' ``fringe`` (G, s), ``bias``
+    (G, R) and ``prev`` (G, P), but each rank gathers and scores only its
+    own contiguous group of ``gL = nbrs_local.shape[0]`` phases, starting
+    at phase ``shard_offset``. The three global arrays are sliced to
+    ``[shard_offset, shard_offset + gL)`` (slices along dim 0 of a
+    contiguous tensor stay contiguous, as the kernel requires) and go to
+    ``hype_score_select``: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU one. Returns its four outputs for the shard's phases.
+    """
+    gl = slice(int(shard_offset), int(shard_offset) + nbrs_local.shape[0])
+    return hype_score_select(nbrs_local, fringe[gl], bias[gl], prev[gl],
+                             select_k=select_k)
 
 
 def stream_commit(edge_tile: torch.Tensor, fcnt: torch.Tensor,

@@ -73,6 +73,18 @@ def hype_score_select_ref(nbrs: torch.Tensor, fringe: torch.Tensor,
             torch.stack(sel_v, dim=1), rem)
 
 
+def hype_score_select_shard_ref(nbrs_local: torch.Tensor,
+                                fringe: torch.Tensor, bias: torch.Tensor,
+                                prev: torch.Tensor, select_k: int,
+                                shard_offset: int):
+    """``hype_score_select_ref`` of one phase-group shard: the global
+    (G, ...) ``fringe``, ``bias`` and ``prev`` sliced to the shard's
+    ``nbrs_local.shape[0]`` phases from ``shard_offset``."""
+    gl = slice(int(shard_offset), int(shard_offset) + nbrs_local.shape[0])
+    return hype_score_select_ref(nbrs_local, fringe[gl], bias[gl], prev[gl],
+                                 select_k)
+
+
 # Fibonacci multiplicative hashing of the streaming engine's sketch: an
 # id's bucket is the top ``bits`` bits of uint32(id) * STREAM_HASH_MULT,
 # in uint32 arithmetic.

@@ -27,6 +27,7 @@ from .core.resilience import UnrecoverableFault
 from .core.shp import shp_partition
 from .engines.batched import BatchedParams, hype_batched_partition
 from .engines.device import DeviceParams, hype_device_partition
+from .engines.sharded import ShardedParams, hype_sharded_partition
 from .engines.superstep import SuperstepParams, hype_superstep_partition
 
 # preset -> the knob defaults it folds in under the explicit knobs, as
@@ -89,12 +90,12 @@ METHOD_INFO: Dict[str, dict] = {
         "presets": _PRESETS_HOST,
     },
     "hype_sharded": {
-        "desc": "not ported yet: mesh-sharded superstep HYPE, phase "
-                "groups sharded over the devices, one all_gather per "
+        "desc": "sharded superstep HYPE: phase groups sharded over the "
+                "ranks of a torch.distributed group, one all_gather per "
                 "pipelined superstep",
         "balance_slack": lambda n, k: 1,
+        "params": ShardedParams,
         "presets": _PRESETS_PIPE,
-        "pending": "hype_sharded",
     },
     "hype_stream": {
         "desc": "single-pass streaming HYPE: micro-batched arrivals "
@@ -158,7 +159,8 @@ METHOD_INFO: Dict[str, dict] = {
 # the card engines: method -> (params dataclass, runner)
 _ENGINES = {"hype_batched": (BatchedParams, hype_batched_partition),
             "hype_superstep": (SuperstepParams, hype_superstep_partition),
-            "hype_device": (DeviceParams, hype_device_partition)}
+            "hype_device": (DeviceParams, hype_device_partition),
+            "hype_sharded": (ShardedParams, hype_sharded_partition)}
 
 PENDING = {name: info["pending"] for name, info in METHOD_INFO.items()
            if "pending" in info}
@@ -263,10 +265,12 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     ``preset``, ``validate`` and ``auto_validate_max_n`` mean what they
     mean in ``repro.core.partition_api.partition``: ``preset`` is
     ``"fast"``, ``"balanced"`` or ``"quality"`` on ``hype_batched``,
-    ``hype_superstep`` and ``hype_device`` (explicit knobs win) and a
-    ``ValueError`` on the other methods. ``knobs`` go to
-    ``BatchedParams``, ``SuperstepParams``, ``DeviceParams`` or
-    ``StreamParams`` (``hype_stream``), are
+    ``hype_superstep``, ``hype_device`` and ``hype_sharded`` (explicit
+    knobs win) and a ``ValueError`` on the other methods. ``knobs`` go
+    to ``BatchedParams``, ``SuperstepParams``, ``DeviceParams``,
+    ``ShardedParams`` (``hype_sharded``, over the default process group
+    when one is initialised: call it on every rank) or ``StreamParams``
+    (``hype_stream``), are
     ``refine_passes`` and ``coarsest`` of ``hype_multilevel``, go to
     ``HypeParams`` for ``hype`` and ``hype_weighted`` (which pins
     ``balance="weighted"``), or are ``slack`` of ``minmax_nb`` and
@@ -334,8 +338,8 @@ def partition_and_report(hg: Hypergraph, k: int, method: str = "hype", *,
 # ----------------------------------------------------- degradation ladder
 
 # Each engine's fallback when it raises UnrecoverableFault: shed one
-# capability a rung (the device loop -> the host-driven pipeline -> host
-# tiles -> pure numpy). The rungs above ``hype`` keep the caller's
+# capability a rung (the mesh or the device loop -> the host-driven
+# pipeline on one device -> host tiles -> pure numpy). The rungs above ``hype`` keep the caller's
 # device; only the last one has none, so the ladder always ends.
 _LADDER = {
     "hype_device": "hype_superstep",
@@ -386,16 +390,16 @@ def partition_resilient(hg: Hypergraph, k: int,
     Runs ``method``; when the engine raises ``UnrecoverableFault`` (a
     fatal injected fault, an exhausted retry budget, a superstep that an
     injected ``nan`` poisoned still poisoned after its replay) it falls
-    back one rung at a time,
-    ``hype_device -> hype_superstep -> hype_batched -> hype``, each
+    back one rung at a time, ``hype_sharded`` (or ``hype_device``) ``->
+    hype_superstep -> hype_batched -> hype``, each
     fallback resuming from the last snapshot in ``snapshot_dir`` (another
     engine's snapshot warm-starts from its assignment; ``hype`` adopts it
     through ``warm_start=``). Injected transient faults are retried
     inside each engine, and a device OOM walks the engine's memory rungs
     first: the ladder takes over only when they are exhausted. Any other
     real exception propagates as itself. The
-    default ``method`` is the JAX package's, ``hype_sharded``, which the
-    port does not have yet (``NotImplementedError``).
+    default ``method`` is the JAX package's, ``hype_sharded``; a knob of
+    a rung above, such as its ``devices``, is dropped on the way down.
 
     ``snapshot_every > 0`` needs ``snapshot_dir``. ``fault_plan`` (a
     ``FaultPlan``, a spec string, or None for ``REPRO_FAULT_PLAN``) is

@@ -902,3 +902,66 @@ def test_cuda_apply_updates_equals_cpu():
     sk, sz = recompute_sketch(card.hg, card.assignment, 4, 16)
     np.testing.assert_array_equal(card.sketch, sk)
     np.testing.assert_array_equal(card.sizes, sz)
+
+
+@pytest.mark.parametrize("off,gl", [(0, 8), (8, 8), (24, 8), (0, 32)])
+def test_cuda_score_select_shard_equals_plain_version(off, gl):
+    """The sharded engine's per-shard call on the card, bit for bit: the
+    phase group's slices of the global fringe, bias and held scores."""
+    _need_card()
+    from repro_torch.kernels.hype_score.ops import hype_score_select_shard
+    from repro_torch.kernels.hype_score.ref import (
+        hype_score_select_shard_ref)
+    rng = np.random.default_rng(off + gl)
+    G, R, L, P, t = 32, 16, 512, 64, 16
+    nbrs = rng.integers(-1, 3 * L, size=(gl, R, L)).astype(np.int32)
+    fringe = np.full((G, 1), -1, np.int32)
+    bias = np.where(rng.random((G, R)) < 0.1, np.inf,
+                    0.0).astype(np.float32)
+    prev = np.where(rng.random((G, P)) < 0.5, rng.integers(0, 40, (G, P)),
+                    np.inf).astype(np.float32)
+    cpu = [torch.from_numpy(x) for x in (nbrs, fringe, bias, prev)]
+    want = hype_score_select_shard_ref(*cpu, t, off)
+    before = hype_score_select.launches
+    got = hype_score_select_shard(*(x.cuda() for x in cpu), select_k=t,
+                                  shard_offset=off)
+    assert hype_score_select.launches - before == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_cuda_sharded_one_rank_equals_cpu(depth):
+    """hype_sharded at one rank on the card: the CPU run's bits and
+    counters, one score + select launch a superstep."""
+    _need_card()
+    from repro_torch.engines.sharded import (ShardedParams,
+                                             hype_sharded_partition,
+                                             run_counters)
+    hg = powerlaw_hypergraph(600, 400, seed=11, max_edge=30, max_degree=20)
+    p = ShardedParams(seed=0, pipeline_depth=depth)
+    a_cpu, s_cpu = hype_sharded_partition(hg, 16, p, True, device="cpu")
+    before = hype_score_select.launches
+    a, st = hype_sharded_partition(hg, 16, p, True, device="cuda")
+    assert hype_score_select.launches - before == st.supersteps
+    np.testing.assert_array_equal(a, a_cpu)
+    assert run_counters(st) == run_counters(s_cpu)
+
+
+def test_cuda_sharded_two_ranks_share_the_card():
+    """Two gloo ranks on the one card (the payload staged through the
+    host): the CPU ranks' bits and counters, each rank launching row 1
+    once a superstep."""
+    _need_card()
+    from repro_torch.engines.sharded import (RankPool, ShardedParams,
+                                             partition_rank, run_counters)
+    hg = powerlaw_hypergraph(600, 400, seed=11, max_edge=30, max_degree=20)
+    p = ShardedParams(seed=0)
+    with RankPool(2, timeout_s=300) as pool:
+        card = pool.run(partition_rank, hg, 16, p, "cuda")
+        cpu = pool.run(partition_rank, hg, 16, p, "cpu")
+    for (a, st, launches), (a_cpu, s_cpu, _) in zip(card, cpu):
+        np.testing.assert_array_equal(a, a_cpu)
+        assert run_counters(st) == run_counters(s_cpu)
+        assert launches == st.supersteps and st.admission_conflicts > 0
+    assert _digest(card[0][0]) == "edef050f7f15fe8d"    # JAX's at d2

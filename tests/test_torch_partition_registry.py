@@ -55,9 +55,8 @@ def test_registry_keys_equal_jax():
             if d.startswith("not ported yet")} == set(api.PENDING)
     assert not any("lax." in d or "Pallas" in d for d in desc.values())
     assert set(api.METHODS) | set(api.PENDING) == set(jax_api.METHODS)
-    assert set(api.PENDING) == {"hype_sharded", "hype_jax",
-                                "hype_parallel"}
-    assert len(api.METHODS) == 13
+    assert set(api.PENDING) == {"hype_jax", "hype_parallel"}
+    assert len(api.METHODS) == 14
 
 
 @pytest.mark.parametrize("method", api.METHODS)
@@ -177,8 +176,11 @@ def test_metrics_of_empty_edges():
 
 # ------------------------------------------------------------ the report
 
+# JAX's mesh defaults to every local device, the port's to the process
+# group's world size: one device on both sides
 _REPORT_KNOBS = {"hype_batched": {"t": 8}, "hype_superstep": {"t": 8},
-                 "hype_device": {"t": 8}}
+                 "hype_device": {"t": 8},
+                 "hype_sharded": {"t": 8, "devices": 1}}
 
 
 @pytest.mark.parametrize("method", api.METHODS)
@@ -196,9 +198,21 @@ def test_partition_and_report_equals_jax(method):
 
 
 def test_partition_and_report_keeps_the_entry_checks():
+    """A pending method still raises and a bad preset still fails; the
+    sharded engine, served now, reports as JAX's does at one device."""
     hg = _graph(synthetic, "pl600")
-    with pytest.raises(NotImplementedError, match="hype_sharded"):
-        api.partition_and_report(hg, 4, "hype_sharded", device="cpu")
+    with pytest.raises(NotImplementedError, match="hype_jax"):
+        api.partition_and_report(hg, 4, "hype_jax", device="cpu")
+    rep, a = api.partition_and_report(hg, 16, "hype_sharded", device="cpu",
+                                      seed=0, devices=1)
+    jrep, ja = jax_api.partition_and_report(_graph(jax_synth, "pl600"), 16,
+                                            "hype_sharded", seed=0,
+                                            devices=1)
+    np.testing.assert_array_equal(a, ja)
+    assert _digest(a) == "6d0521661383d51f"     # the depth-2 run of pl600
+    rep.pop("runtime_s")
+    jrep.pop("runtime_s")
+    assert rep == jrep
     with pytest.raises(ValueError, match="presets"):
         api.partition_and_report(hg, 4, "shp", device="cpu",
                                  preset="quality")

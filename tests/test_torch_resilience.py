@@ -726,9 +726,19 @@ def test_ladder_from_device_snapshot(hg, jhg, tmp_path):
     assert {k: rep[k] for k in want} == want
 
 
-def test_ladder_default_method_is_pending(hg):
-    with pytest.raises(NotImplementedError, match="hype_sharded"):
-        api.partition_resilient(hg, 4, device="cpu")
+def test_ladder_default_method_is_pending(hg, jhg):
+    """Once pending, now served: the default method, ``hype_sharded``,
+    runs at one device and equals JAX's, report and counters."""
+    a, rep = api.partition_resilient(hg, 16, device="cpu", seed=0, t=8,
+                                     devices=1)
+    ja, jrep = jax_api.partition_resilient(
+        jhg, 16, seed=0, t=8, devices=1, fault_plan=jax_res.FaultPlan())
+    assert rep["method"] == rep["requested_method"] == "hype_sharded"
+    assert _digest(a) == _digest(ja)
+    _report_equal(rep, jrep)
+    for key in ("supersteps", "collectives", "collective_bytes",
+                "admission_conflicts", "fallbacks"):
+        assert getattr(rep["stats"], key) == getattr(jrep["stats"], key)
     with pytest.raises(ValueError, match="unknown resilient method"):
         api.partition_resilient(hg, 4, "shp", device="cpu")
 
