@@ -93,9 +93,15 @@ prints one JSON line per phase:
             on every rank, each rank's row 1 launches); partition_resilient
             with its default method killed at 100 (JAX's ladder at one
             device); collective@2;nan@3 at one rank (the digest)
+  hype_jax  the padded-array engines, which launch no kernel (every
+            count must stay 0): hype_jax and hype_parallel on pl300
+            (k=8) and pl3000 (k=16), each on JAX's digest and k-1, and
+            hype_jax on the 6-vertex edge graph at k = 1, 3 and 6 (JAX's
+            digests too); each card run equal to the port's CPU run, with its wall,
+            iterations, restarts and rescues, k-1 and part sizes
   multilevel  github_like(0.25, seed=0), k=32, through hype_multilevel
-  profile   the depth-1 slice, the batched and the quality path,
-            hype_device and hype_stream each run once more under
+  profile   the depth-1 slice (the host-driven pipeline), hype_device
+            (the device loop) and hype_stream each run once more under
             torch.profiler (the card's busy time)
   kernel_embedding_bag  the EmbeddingBag kernel against its plain version
             (fp32 and bf16, mean and sum, edge cases, ids near V-1 of a
@@ -342,6 +348,25 @@ GNN_LOSS_TOL = [dict(rtol=1e-5, atol=1e-5)] + [dict(rtol=1e-4,
 GNN_LAUNCHER_TOL = dict(rtol=1e-6, atol=0.0)
 # The reduced config in float32 (TF32 off), card against CPU.
 GNN_PARITY_TOL = dict(atol=1e-5, rtol=1e-5)
+
+# The padded-array engines (hype_jax, hype_parallel): the graphs of
+# benchmarks/bench_engine_scaling.py ("pl300", k=8) and
+# benchmarks/bench_beyond_paper.py ("pl3000", k=16), and hype_jax on the
+# 6-vertex edge graph of tests/test_hype_batched.py (two singletons, one
+# empty edge), with the JAX package's (digest, k-1) of each at seed 0
+# (tests/jax_hype_jax_digests.py recomputes them).
+HYPE_JAX_GRAPHS = {
+    "pl300": dict(n=300, m=200, seed=3, max_edge=20, max_degree=12),
+    "pl3000": dict(n=3000, m=2000, seed=4, max_edge=60, max_degree=24)}
+HYPE_JAX_EDGES = [[0, 1], [1, 2, 3], []]
+HYPE_JAX_DIGESTS = {("hype_jax", "pl300", 8): ("3e750d64db36cd14", 166),
+                    ("hype_parallel", "pl300", 8): ("ca54abcebd06a7d4", 129),
+                    ("hype_jax", "pl3000", 16): ("71714f5e43d188a2", 1955),
+                    ("hype_parallel", "pl3000", 16): ("5ec6ec7ecc065323",
+                                                      1793),
+                    ("hype_jax", "edges", 1): ("9d908ecfb6b256de", 0),
+                    ("hype_jax", "edges", 3): ("ef0ad0cd848d25d6", 2),
+                    ("hype_jax", "edges", 6): ("a3c9fa7cecd35741", 3)}
 
 # tests/test_pipeline.py:38-43 of the JAX package: depth-1 goldens
 GOLD_PL600 = {(5, 8): "9e8abe668aa53a74", (16, 8): "bbcd2f732e03af91",
@@ -3341,6 +3366,63 @@ def phase_sharded(hg, same_graph, runs, launches, ops, ref,
     return shard_rows, shard_launches, worst
 
 
+def phase_hype_jax(launches, partition, synth, Hypergraph, metrics):
+    """hype_jax and hype_parallel through ``partition(..., device="cuda")``
+    on pl300 (k=8) and pl3000 (k=16), and hype_jax on the edge graph at
+    k = 1, 3 and 6. Each card run is held to JAX's digest and k-1 and to
+    the port's CPU run, and must launch no kernel: neither engine has one
+    on its path. Prints each run's wall,
+    iterations, restarts and rescues, k-1 and part sizes."""
+    from repro_torch import partition_api as api
+    stats = []
+
+    def with_stats(fn):
+        def run(*args, **kw):
+            out, st = fn(*args, return_stats=True, **kw)
+            stats.append(st)
+            return out
+        return run
+
+    graphs = {name: synth.powerlaw_hypergraph(**kw)
+              for name, kw in HYPE_JAX_GRAPHS.items()}
+    graphs["edges"] = Hypergraph.from_edge_lists(6, HYPE_JAX_EDGES)
+    engines = {"hype_jax": api.hype_jax_partition,
+               "hype_parallel": api.hype_parallel_partition}
+    for (method, graph, k), want in HYPE_JAX_DIGESTS.items():
+        hg = graphs[graph]
+        api.hype_jax_partition = with_stats(engines["hype_jax"])
+        api.hype_parallel_partition = with_stats(engines["hype_parallel"])
+        try:
+            a, wall, counts = launches.drive(
+                lambda: partition(hg, k, method, device="cuda"))
+        finally:
+            api.hype_jax_partition = engines["hype_jax"]
+            api.hype_parallel_partition = engines["hype_parallel"]
+        st = stats.pop()
+        t0 = time.perf_counter()
+        cpu = partition(hg, k, method, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        sizes = metrics.partition_sizes(a, k)
+        row = {"phase": "hype_jax", "method": method, "graph": graph,
+               "n": hg.n, "m": hg.m, "k": k, "wall_s": wall,
+               "cpu_wall_s": cpu_s, **dataclasses.asdict(st),
+               "k_minus_1": metrics.k_minus_1(hg, a, k),
+               "sizes": [int(sizes.min()), int(sizes.max())],
+               "digest": digest(a), "cpu_digest": digest(cpu),
+               "expected": list(want), "launches": counts}
+        emit(row)
+        if row["digest"] != row["cpu_digest"]:
+            raise SystemExit(f"{method} on {graph}: the card's run differs "
+                             f"from the CPU's: {row}")
+        if (row["digest"], row["k_minus_1"]) != want:
+            raise SystemExit(f"{method} on {graph} differs from JAX's run: "
+                             f"{row}")
+        if sizes.max() - sizes.min() > 1:
+            raise SystemExit(f"{method} on {graph} is unbalanced: {row}")
+        if any(counts.values()):
+            raise SystemExit(f"{method} launched a kernel: {counts}")
+
+
 def expect_fault(res, fn):
     """Run ``fn``, which must raise ``UnrecoverableFault``; returns the
     error's text."""
@@ -3580,6 +3662,9 @@ def main() -> int:
     shard_rows, shard_launches, worst_shard = phase_sharded(
         hg, same_graph, runs, launches, ops, ref, partition_resilient)
     emit({"phase": "sharded_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_hype_jax(launches, partition, synth, Hypergraph, metrics)
+    emit({"phase": "hype_jax_done", "wall_s": time.perf_counter() - t0})
 
     # hype_multilevel on github_like(0.25): host coarsening, supersteps on
     # the coarsest graph, kway_gains_csr screens at the finest level
@@ -3617,10 +3702,6 @@ def main() -> int:
 
     phase_profile("slice_depth1", lambda: run_slice(
         hg, 1, "cuda", metrics, SuperstepParams, hype_superstep_partition))
-    phase_profile("batched", lambda: hype_batched_partition(
-        hg, 32, bp, device="cuda"))
-    phase_profile("quality", lambda: hype_superstep_partition(
-        hg, 32, qp, device="cuda"))
     phase_profile("device", lambda: hype_device_partition(
         hg, 32, DeviceParams(seed=0, t=16), device="cuda"))
     phase_profile("stream", lambda: hype_stream.hype_stream_partition(

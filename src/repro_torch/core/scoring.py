@@ -6,6 +6,7 @@ kernel consumes (``neighbor_tile_adj``, ``neighbor_tile``) and the
 direct d_ext counts of the host-scored dribbles (``batched_dext_adj``,
 ``batched_dext_numpy``). Device side: torch versions of the four helpers
 the JAX superstep programs trace around the fused score + select kernel,
+the padded-array d_ext of ``core/hype_jax.py`` (``batched_dext_torch``),
 the refinement screen, which the ``kway_gains_csr`` kernel computes
 from the device CSR in one launch, and the streaming engine's
 micro-batch step (``src/repro/core/scoring.py``), with the same
@@ -325,6 +326,32 @@ def _poison_guard(flat, scores_flat, poison, reset):
     """
     bad = ((flat >= 0) & ~torch.isfinite(scores_flat)).any()
     return bad | ((poison[0] > 0) & (reset[0] == 0))
+
+
+def batched_dext_torch(v2e, e2v, vs, ext_mask):
+    """d_ext for a batch of vertices on padded incidence arrays.
+
+    ``v2e``: (n, max_deg) int32, -1 padded; ``e2v``: (m, max_size) int32,
+    -1 padded; ``vs``: (B,) vertex ids (entries < 0 allowed, score
+    undefined for them: mask at the call site); ``ext_mask``: (n,) bool,
+    True where a vertex counts as external. Gathers all pins of all
+    incident edges into a (B, max_deg * max_size) tile, sorts each row
+    and counts the first occurrences that are external, the vertex
+    itself excluded. Returns (B,) float32, as ``batched_dext_jax``.
+    """
+    n = v2e.shape[0]
+    safe_vs = torch.where(vs >= 0, vs, 0).long()
+    es = v2e[safe_vs]                                    # (B, D)
+    ev = es >= 0
+    pins = e2v[torch.where(ev, es, 0).long()]            # (B, D, S)
+    pins = torch.where(ev[:, :, None] & (pins >= 0), pins, n)
+    flat = pins.flatten(1)
+    flat = torch.where(flat == safe_vs[:, None], n, flat)
+    srt = torch.sort(flat, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    ext_pad = torch.cat([ext_mask, ext_mask.new_zeros(1)])
+    return (first & ext_pad[srt.long()]).sum(dim=1).to(torch.float32)
 
 
 # ------------------------------------------------------------ k-way refine

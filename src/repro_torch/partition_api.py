@@ -4,9 +4,10 @@ It runs on the card unless the caller passes ``device="cpu"``; with no
 card and no ``device`` it raises instead of falling back. ``METHOD_INFO``
 is the JAX package's registry (``src/repro/core/partition_api.py``) with
 the port's own params dataclasses; ``METHODS`` holds the methods the port
-serves, and ``PENDING`` maps every other method of the registry to the
-ROADMAP.md item that brings it. ``partition_and_report`` adds the quality
-report and ``partition_resilient`` the degradation ladder.
+serves (all sixteen of JAX's), and ``PENDING`` maps any other method of
+the registry to the ROADMAP.md item that brings it (empty now).
+``partition_and_report`` adds the quality report and
+``partition_resilient`` the degradation ladder.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from .core import metrics, resilience
 from .core.hype import HypeParams, hype_partition
+from .core.hype_jax import hype_jax_partition, hype_parallel_partition
 from .core.hype_stream import StreamParams, hype_stream_partition
 from .core.hypergraph import Hypergraph
 from .core.minmax import hashing_partition, minmax_partition, random_partition
@@ -61,16 +63,16 @@ METHOD_INFO: Dict[str, dict] = {
         "presets": _PRESETS_HOST,
     },
     "hype_jax": {
-        "desc": "not ported yet: sequential HYPE as one device program "
-                "on dense padded arrays (on-device validation, small n)",
+        "desc": "sequential HYPE on dense padded arrays held on the "
+                "device, one vertex a loop iteration, random draws bit "
+                "for bit JAX's threefry (on-device validation, small n)",
         "balance_slack": lambda n, k: 1,
-        "pending": "hype_jax and hype_parallel",
     },
     "hype_parallel": {
-        "desc": "not ported yet: parallel k-way growth (paper §VI "
-                "future work; validation scale)",
+        "desc": "parallel k-way growth on dense padded arrays: all k "
+                "cores take a vertex a step, collisions to the smaller "
+                "core (paper §VI future work; validation scale)",
         "balance_slack": lambda n, k: 1,
-        "pending": "hype_jax and hype_parallel",
     },
     "hype_superstep": {
         "desc": "device-resident HYPE: supersteps of the fused "
@@ -270,7 +272,9 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     to ``BatchedParams``, ``SuperstepParams``, ``DeviceParams``,
     ``ShardedParams`` (``hype_sharded``, over the default process group
     when one is initialised: call it on every rank) or ``StreamParams``
-    (``hype_stream``), are
+    (``hype_stream``), are ``s``/``r`` of ``hype_jax`` and ``candidates``
+    of ``hype_parallel`` (as in JAX, unregistered: ``method_knobs`` is
+    empty for both), are
     ``refine_passes`` and ``coarsest`` of ``hype_multilevel``, go to
     ``HypeParams`` for ``hype`` and ``hype_weighted`` (which pins
     ``balance="weighted"``), or are ``slack`` of ``minmax_nb`` and
@@ -298,6 +302,11 @@ def partition(hg: Hypergraph, k: int, method: str = "hype", *,
     if method == "hype_stream":
         return hype_stream_partition(hg, k, StreamParams(seed=seed, **knobs),
                                      device=dev)
+    if method == "hype_jax":
+        return hype_jax_partition(hg, k, seed=seed, device=dev, **knobs)
+    if method == "hype_parallel":
+        return hype_parallel_partition(hg, k, seed=seed, device=dev,
+                                       **knobs)
     if method == "hype":
         return hype_partition(hg, k, HypeParams(seed=seed, **knobs))
     if method == "hype_weighted":

@@ -965,3 +965,17 @@ def test_cuda_sharded_two_ranks_share_the_card():
         assert run_counters(st) == run_counters(s_cpu)
         assert launches == st.supersteps and st.admission_conflicts > 0
     assert _digest(card[0][0]) == "edef050f7f15fe8d"    # JAX's at d2
+
+
+@pytest.mark.parametrize("method,digest", [
+    ("hype_jax", "3e750d64db36cd14"), ("hype_parallel", "ca54abcebd06a7d4")])
+def test_cuda_padded_engines_equal_cpu(method, digest):
+    """hype_jax and hype_parallel on the card: the CPU run's bits (JAX's
+    pl300 digest at k = 8), with no kernel launched."""
+    _need_card()
+    hg = powerlaw_hypergraph(300, 200, seed=3, max_edge=20, max_degree=12)
+    before = (hype_score_select.launches, hype_scores.launches)
+    a = partition(hg, 8, method, device="cuda")
+    assert (hype_score_select.launches, hype_scores.launches) == before
+    np.testing.assert_array_equal(a, partition(hg, 8, method, device="cpu"))
+    assert _digest(a) == digest

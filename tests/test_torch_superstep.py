@@ -267,9 +267,16 @@ def test_unported_knobs_raise(knobs):
     assert _digest(got) == _digest(want)
 
 
-@pytest.mark.parametrize("method", sorted(PENDING))
-def test_pending_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("method", ["hype_future", "hype_later"])
+def test_pending_methods_raise(monkeypatch, method):
+    """Every JAX method is served, so a stand-in patched into the
+    registry keeps the pending path guarded."""
+    from repro_torch import partition_api as api
+    monkeypatch.setitem(api.METHOD_INFO, method, {
+        "desc": "not ported yet: a stand-in",
+        "balance_slack": lambda n, k: 1, "pending": "item 15k"})
+    monkeypatch.setitem(api.PENDING, method, "item 15k")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*15k"):
         partition(_pl600(synthetic), 4, method, device="cpu")
 
 
