@@ -131,6 +131,23 @@ prints one JSON line per phase:
             card against CPU
   lm_parity_bf16  the same config in bf16 (the tensor-core kernel),
             card against CPU, prefill launching the kernel once a layer
+  kernel_flash_bwd  the flash-attention backward kernels against their
+            plain version (fp32 and bf16: causal, non-causal, windows,
+            Hkv = 1, ragged S, D from 8 to 256; BWD_TOL), one case repeated
+            for equal bits, and the LM training shape (B=2, S=4,096, 32
+            heads of 80) and qwen3-8b's layer (B=8, S=4,096, 32/8 heads of
+            128), compared one sequence at a time and timed eagerly and in
+            a CUDA graph beside SDPA's backward
+  lm_train  stablelm-3b at its published width (bf16, 2.80e9 params drawn
+            on the card), remat on, the launcher's AdamW: 3 steps of 2
+            microbatches of 2 x 4,096 tokens; each step launches the
+            forward kernel 128 times (forward and recompute) and the
+            backward 64; finite losses, no zero-gradient leaf, the peak
+            memory; then one more step under the profiler
+  lm_train_parity  the reduced stablelm-3b in fp32 and bf16 from numpy
+            params, 4 accumulated steps held to the JAX package's pinned
+            losses (tests/jax_lm_losses.py)
+  lm_launcher  the train launcher, --arch stablelm-3b --reduced --steps 4
   gnn_setup the reddit-scale source graph (232,965 nodes, 114.6M edges),
             its features and labels, and the neighbour sampler, on the host
   kernel_neighbor_agg  the neighbour-aggregation forward and backward
@@ -304,6 +321,56 @@ LM_PARITY_STEPS = 8
 # greedy tokens; a token must agree wherever the CPU's top two logits lie
 # further apart than 2 atol.
 LM_BF16_PARITY_TOL = dict(atol=0.1, rtol=0.02)
+
+# flash_attention_bwd against its plain version on the card: both sum in
+# float32, in other orders (tiles against einsum's blocks), and ds = p (dp -
+# delta) cancels, so float32 is held to rtol 1e-4 and atol 1e-4 of the
+# call's largest |gradient| (of dq, dk and dv: one that is zero in exact
+# arithmetic, as dq at S = 1, is float32 noise on both sides). bf16: both
+# read the same bf16 inputs and sum in float32, then round once to bf16, so
+# nearly equal sums may round one bf16 step apart (rtol 2**-7, the same
+# atol), and the mean error must stay under 2**-8 of the mean |gradient|
+# plus that atol, which a systematic fault would break.
+BWD_TOL = {"float32": dict(rtol=1e-4, atol_frac=1e-4),
+           "bfloat16": dict(rtol=2 ** -7, atol_frac=1e-4)}
+BWD_CYCLES = 2.5    # five products against the forward's two
+# The LM training slice: stablelm-3b at its published width (32 layers,
+# d_model 2,560, 32 heads of 80, d_ff 6,912, vocab 50,304; bf16), remat on,
+# AdamW as the JAX launcher trains it (launch/cells.py: the default). train_4k
+# is 256 x 4,096 tokens in 2 microbatches of 128; a microbatch of 128
+# sequences does not fit the card beside 44.7 GB of params, grads, the
+# float32 accumulation and the moments, so a step is 2 microbatches of 2
+# sequences (16,384 tokens), for 3 steps. Batches: the launcher's
+# TokenStream(vocab, 4, 4096, seed=0), step i reshaped to (2, 2, 4096).
+LM_TRAIN_ARCH = "stablelm-3b"
+LM_TRAIN_SEQ, LM_TRAIN_ACCUM, LM_TRAIN_MB, LM_TRAIN_STEPS = 4096, 2, 2, 3
+# The reduced stablelm-3b (2 layers, d 64, vocab 512) trained on the card
+# from lm_numpy_params for 4 steps of 2 microbatches of 2 x 200 tokens
+# (lm_parity_batches), against the JAX package's losses on the
+# CPU from the same params and batches (tests/jax_lm_losses.py; LR 1e-2 so
+# the losses move). float32: the card's kernels sum in other orders than
+# JAX's einsum: rtol 1e-5 on step 0, then 1e-4 (AdamW's first steps move
+# each weight by about lr whatever its gradient's size, so a gradient a
+# rounding apart can flip a near-zero entry; the loss barely feels it).
+# bf16: JAX's einsum attention rounds the scores and probabilities to bf16,
+# the card's kernels keep the scores in float32 and round P for P V only,
+# and each layer rounds its residual: the losses move in their third
+# decimal (the port on the CPU is 2.5e-3 from JAX's at most, see
+# tests/jax_lm_losses.py --port, and the card 2.8e-3 from the port on the
+# CPU in a run on other batches), so atol 2e-2, against 4 steps that move
+# the loss by 0.17 (a frozen state fails from the third step).
+LM_TRAIN_PARITY_STEPS = 4
+LM_TRAIN_PARITY_SEQ = 200
+LM_TRAIN_PARITY_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=20)
+LM_TRAIN_JAX_LOSSES = {
+    "float32": [6.76626443862915, 6.688925743103027, 6.648444175720215,
+                6.592385292053223],
+    "bfloat16": [6.766615867614746, 6.688925266265869, 6.644269943237305,
+                 6.594763278961182]}
+LM_TRAIN_PARITY_TOL = {
+    "float32": [dict(rtol=1e-5, atol=0.0)] + [dict(rtol=1e-4, atol=0.0)] * 3,
+    "bfloat16": [dict(rtol=0.0, atol=2e-2)] * 4}
+LM_LAUNCHER_STEPS = 4
 
 # The GNN training slice: graphsage-reddit at its published width (2
 # layers, d_hidden 128, mean aggregator, d_feat 602, 41 classes) on the
@@ -1576,16 +1643,7 @@ def phase_lm_parity(tf, convert, cfg):
     import torch
     cfg = dc.replace(cfg, dtype=torch.float32)
     rng = np.random.default_rng(6)
-    tree = {"embed": rng.normal(size=(cfg.vocab, cfg.d_model)) * 0.02,
-            "lm_head": rng.normal(size=(cfg.d_model, cfg.vocab))
-            / np.sqrt(cfg.d_model),
-            "ln_f": 1 + 0.1 * rng.normal(size=cfg.d_model),
-            "layers": {name: (1 + 0.1 * rng.normal(size=(cfg.n_layers,)
-                                                    + shape))
-                       if len(shape) == 1 else
-                       rng.normal(size=(cfg.n_layers,) + shape)
-                       / np.sqrt(shape[0])
-                       for name, shape in tf.layer_shapes(cfg).items()}}
+    tree = lm_numpy_params(cfg, rng)
     prompts = rng.integers(0, cfg.vocab, (4, 40)).astype(np.int32)
     out = {}
     with torch.inference_mode():
@@ -1628,16 +1686,7 @@ def phase_lm_parity_bf16(tf, convert, cfg, launches):
     import numpy as np
     import torch
     rng = np.random.default_rng(7)
-    tree = {"embed": rng.normal(size=(cfg.vocab, cfg.d_model)) * 0.02,
-            "lm_head": rng.normal(size=(cfg.d_model, cfg.vocab))
-            / np.sqrt(cfg.d_model),
-            "ln_f": 1 + 0.1 * rng.normal(size=cfg.d_model),
-            "layers": {name: (1 + 0.1 * rng.normal(size=(cfg.n_layers,)
-                                                    + shape))
-                       if len(shape) == 1 else
-                       rng.normal(size=(cfg.n_layers,) + shape)
-                       / np.sqrt(shape[0])
-                       for name, shape in tf.layer_shapes(cfg).items()}}
+    tree = lm_numpy_params(cfg, rng)
     # 200 tokens: two query tiles of the kernel, a ragged last one
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (4, 200)).astype(np.int32))
@@ -1682,11 +1731,424 @@ def phase_lm_parity_bf16(tf, convert, cfg, launches):
         raise SystemExit(f"reduced bf16 LM differs card vs cpu: {row}")
 
 
+def bwd_check(got, want, dtype):
+    """The row fields of one backward comparison under BWD_TOL: the worst
+    and mean error of each of dq, dk, dv, the limits, and whether all
+    hold."""
+    import torch
+    tol = BWD_TOL[dtype]
+    atol = tol["atol_frac"] * max(float(w.float().abs().max()) for w in want)
+    row = {"max_abs_err": 0.0, "mean_abs_err": {}, "mean_abs_ref": {},
+           "tol": {"rtol": tol["rtol"], "atol": atol}, "close": True}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        row["max_abs_err"] = max(row["max_abs_err"], float(d.max()))
+        row["mean_abs_err"][name] = float(d.mean())
+        row["mean_abs_ref"][name] = float(w.abs().mean())
+        ok = bool(torch.allclose(g, w, rtol=tol["rtol"], atol=atol))
+        if dtype == "bfloat16":
+            ok = ok and row["mean_abs_err"][name] <= \
+                FLASH_P_ULP * row["mean_abs_ref"][name] + atol
+        row["close"] = row["close"] and ok
+    return row
+
+
+def phase_kernel_flash_bwd(fops, fref):
+    """flash_attention_bwd on the card against attention_bwd_ref (BWD_TOL)
+    on the same inputs and the card's forward output: fp32 and bf16,
+    causal, non-causal, windows, Hkv = 1, ragged S, D in {16, 64, 80, 128,
+    192, 256}; then the LM training shape (B=2, S=4,096, 32 heads of 80,
+    bf16, causal) and qwen3-8b's layer (B=8, S=4,096, 32/8 heads, D=128,
+    bf16), compared one sequence at a time; one case repeated for equal
+    bits. The two big shapes are timed eagerly and in a CUDA graph,
+    beside the plain version and SDPA's backward (autograd of
+    F.scaled_dot_product_attention on (B, H, S, D) copies, its forward
+    out of the timing). Returns the timed rows and the worst error."""
+    import torch
+    import torch.nn.functional as F
+    cases = [(B, S, Hq, Hkv, D, True, w, dt)
+             for dt in ("float32", "bfloat16")
+             for B, S, Hq, Hkv, D, w in (
+                 (2, 128, 4, 4, 64, None), (1, 256, 8, 2, 64, None),
+                 (2, 256, 4, 4, 16, 64), (1, 128, 2, 1, 128, None),
+                 (2, 200, 8, 8, 80, None), (1, 300, 4, 1, 256, 77))]
+    cases += [(1, 128, 2, 2, 32, False, None, "float32"),
+              (2, 256, 4, 2, 64, False, 48, "float32"),
+              (2, 129, 4, 1, 128, False, None, "bfloat16"),
+              (1, 512, 8, 2, 128, True, 100, "bfloat16"),
+              (1, 1000, 4, 1, 64, True, 256, "float32"),
+              (3, 1, 4, 4, 16, True, None, "bfloat16"),
+              (2, 333, 4, 2, 8, False, None, "bfloat16"),
+              (1, 150, 4, 4, 192, True, None, "float32"),
+              (1, 70, 2, 1, 256, False, 33, "bfloat16")]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+
+    def inputs(B, S, Hq, Hkv, D, dtype):
+        return [torch.randn((B, S, h, D), device="cuda",
+                            generator=gen).to(getattr(torch, dtype))
+                for h in (Hq, Hkv, Hkv, Hq)]
+
+    for B, S, Hq, Hkv, D, causal, window, dtype in cases:
+        q, k, v, g = inputs(B, S, Hq, Hkv, D, dtype)
+        out = fops.flash_attention(q, k, v, causal=causal, window=window)
+        got = fops.flash_attention_bwd(q, k, v, out, g, causal=causal,
+                                       window=window)
+        torch.cuda.synchronize()
+        want = fref.attention_bwd_ref(q, k, v, out, g, causal=causal,
+                                      window=window)
+        row = {"phase": "kernel_flash_bwd", "B": B, "S": S, "Hq": Hq,
+               "Hkv": Hkv, "D": D, "causal": causal, "window": window,
+               "dtype": dtype, **bwd_check(got, want, dtype)}
+        worst = max(worst, row["max_abs_err"])
+        emit(row)
+        if not row["close"]:
+            raise SystemExit(f"flash_attention_bwd disagrees with its "
+                             f"plain version: {row}")
+
+    # the same inputs twice: no atomics, so the same bits
+    q, k, v, g = inputs(2, 333, 8, 2, 80, "bfloat16")
+    out = fops.flash_attention(q, k, v, window=100)
+    first = fops.flash_attention_bwd(q, k, v, out, g, window=100)
+    again = fops.flash_attention_bwd(q, k, v, out, g, window=100)
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+    emit({"phase": "kernel_flash_bwd", "repeat": "B=2, S=333, 8/2 heads, "
+          "D=80, bf16, window 100", "bit_equal": equal})
+    if not equal:
+        raise SystemExit("flash_attention_bwd gave other bits on a repeat")
+
+    timed = {}
+    for name, (B, Hq, Hkv, D) in (("train", (LM_TRAIN_MB, 32, 32, 80)),
+                                  ("layer", (LM_BATCH, 32, 8, 128))):
+        S = LM_TRAIN_SEQ
+        torch.cuda.empty_cache()
+        q, k, v, g = inputs(B, S, Hq, Hkv, D, "bfloat16")
+        out = fops.flash_attention(q, k, v)
+        got = fops.flash_attention_bwd(q, k, v, out, g)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel_flash_bwd", "shape": name, "B": B, "S": S,
+               "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
+               "window": None, "dtype": "bfloat16"}
+        checks = []
+        for b in range(B):
+            sl = [t[b:b + 1] for t in (q, k, v, out, g)]
+            want = fref.attention_bwd_ref(*sl)
+            checks.append(bwd_check([t[b:b + 1] for t in got], want,
+                                    "bfloat16"))
+            del want
+        del got
+        row.update(max_abs_err=max(c["max_abs_err"] for c in checks),
+                   tol=[c["tol"] for c in checks],
+                   close=all(c["close"] for c in checks),
+                   mean_abs_err=checks[0]["mean_abs_err"],
+                   mean_abs_ref=checks[0]["mean_abs_ref"],
+                   compared="one sequence at a time")
+        worst = max(worst, row["max_abs_err"])
+        flops, _, fwd_bound = attention_bound(B, S, Hq, Hkv, D)
+        call = lambda: fops.flash_attention_bwd(q, k, v, out, g)  # noqa
+        row.update(ms=cuda_ms(call, reps=3, iters=2, warmup=1),
+                   graph_ms=graph_ms(call, iters=1),
+                   flops=BWD_CYCLES * flops,
+                   bound_ms=BWD_CYCLES * fwd_bound, bound_by="operations")
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        gt = g.transpose(1, 2).contiguous()
+        row.update(library_ms=cuda_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
+                                        retain_graph=True),
+            reps=3, iters=2, warmup=1),
+            library_call="the backward of F.scaled_dot_product_attention("
+                         "is_causal=True, enable_gqa=True) on (B, H, S, D) "
+                         "copies (torch.autograd.grad, forward not timed)")
+        del qt, kt, vt, ot, gt
+        torch.cuda.empty_cache()
+        if name == "train":
+            row["plain_ms"] = cuda_ms(lambda: fref.attention_bwd_ref(
+                q, k, v, out, g), reps=2, iters=1, warmup=1)
+        else:
+            # the whole batch at once would materialise 8.6 GB of float32
+            # scores per copy: one call walks the B sequences in turn
+            row["plain_ms"] = cuda_ms(lambda: [fref.attention_bwd_ref(
+                *[t[b:b + 1] for t in (q, k, v, out, g)])
+                for b in range(B)], reps=2, iters=1, warmup=1)
+            row["plain_call"] = "attention_bwd_ref on each sequence in turn"
+        emit(row)
+        if not row["close"]:
+            raise SystemExit(f"flash_attention_bwd disagrees with its "
+                             f"plain version at full width: {row}")
+        timed[name] = row
+        del q, k, v, g, out
+        torch.cuda.empty_cache()
+    return timed, worst
+
+
+def phase_lm_train(tf, launches):
+    """stablelm-3b at its published width on the card (bf16, params drawn
+    there), remat on, the launcher's AdamW: LM_TRAIN_STEPS steps of
+    LM_TRAIN_ACCUM microbatches of LM_TRAIN_MB x LM_TRAIN_SEQ tokens. Each
+    step must launch the forward kernel twice a layer and microbatch (the
+    forward and the recompute) and the backward once; every loss finite;
+    after the first step every leaf's first moment, (1 - b1) times its
+    clipped gradient, nonzero (a gradient zeroed by a missing backward
+    would leave it 0). Then one more step under the profiler."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.cells import opt_config
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.train_loop import (make_train_step,
+                                              split_microbatches)
+    from repro_torch.train.tree import tree_flatten
+
+    cfg = get_arch(LM_TRAIN_ARCH).build_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    emit({"phase": "lm_train_memory", "allocated_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "free_gb": torch.cuda.mem_get_info()[0] / 1e9})
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    opt_cfg = opt_config(LM_TRAIN_ARCH)
+    opt = init_adamw(params, opt_cfg)
+    torch.cuda.synchronize()
+    leaves = tree_flatten(params)
+    n_params = sum(t.numel() for t in leaves)
+    emit({"phase": "lm_train_setup", "config": LM_TRAIN_ARCH,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "d_head": cfg.d_head, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "dtype": str(cfg.dtype).removeprefix("torch."),
+          "remat": cfg.remat, "params": n_params,
+          "params_dense": cfg.params_dense,
+          "param_gb": sum(t.nbytes for t in leaves) / 1e9,
+          "moment_gb": sum(t.nbytes for t in tree_flatten(opt.m))
+          * 2 / 1e9, "opt": dataclasses.asdict(opt_cfg) | {
+              "moment_dtype": str(opt_cfg.moment_dtype)},
+          "seq": LM_TRAIN_SEQ, "accum_steps": LM_TRAIN_ACCUM,
+          "micro_batch": LM_TRAIN_MB,
+          "cut": "train_4k's microbatch of 128 sequences cut to 2, 3 steps",
+          "init_s": time.perf_counter() - t0})
+    if n_params != cfg.params_dense:
+        raise SystemExit(f"{LM_TRAIN_ARCH} has {n_params} params, not "
+                         f"params_dense {cfg.params_dense}")
+    stream = TokenStream(cfg.vocab, LM_TRAIN_ACCUM * LM_TRAIN_MB,
+                         LM_TRAIN_SEQ, seed=0)
+    step_fn = make_train_step(lambda p, b: tf.lm_loss(p, b, cfg), opt_cfg,
+                              accum_steps=LM_TRAIN_ACCUM)
+    need = {"flash_attention": 2 * cfg.n_layers * LM_TRAIN_ACCUM,
+            "flash_attention_bwd": cfg.n_layers * LM_TRAIN_ACCUM}
+    losses, walls = [], []
+    for step in range(LM_TRAIN_STEPS):
+        batch = split_microbatches({k: torch.from_numpy(v).cuda() for k, v
+                                    in stream.batch_at(step).items()},
+                                   LM_TRAIN_ACCUM)
+
+        def run():
+            out = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            return out
+
+        (params, opt, metrics), wall, counts = launches.drive(run)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        walls.append(wall)
+        tokens = LM_TRAIN_ACCUM * LM_TRAIN_MB * LM_TRAIN_SEQ
+        row = {"phase": "lm_train", "step": step, "loss": loss,
+               "grad_norm": float(metrics["grad_norm"]), "wall_s": wall,
+               "tokens": tokens, "tokens_per_s": tokens / wall,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts, "expected_launches": need}
+        if step == 0:
+            # (names only: a reference kept to a moment would hold
+            # step 0's 11.2 GB of them through the later steps)
+            firsts = {n: m for n, m in opt.m.items() if n != "layers"}
+            firsts.update((f"layers.{n}", m)
+                          for n, m in opt.m["layers"].items())
+            row["leaves"] = len(firsts)
+            row["zero_grad_leaves"] = [n for n, m in firsts.items()
+                                       if float(m.abs().max()) == 0.0]
+            del firsts
+        emit(row)
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"lm_train step {step} launched {counts}, not "
+                             f"{need}")
+        if not math.isfinite(loss):
+            raise SystemExit(f"lm_train step {step} gave loss {loss}")
+        if step == 0 and (row["zero_grad_leaves"]
+                          or row["leaves"] != len(leaves)):
+            raise SystemExit(f"lm_train: leaves with a zero gradient on the "
+                             f"first step: {row['zero_grad_leaves']}")
+    # one more step under the profiler (its new state is dropped): the
+    # card's busy share and the kernels that lead a step
+    phase_profile("lm_train_step", lambda: step_fn(params, opt, batch))
+    emit({"phase": "lm_train_done", "losses": losses, "step_wall_s": walls,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card_gb": torch.cuda.get_device_properties(0).total_memory
+          / 1e9})
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train_parity(tf, convert, launches):
+    """The reduced stablelm-3b on the card in float32 (TF32 off) and
+    bf16: params from lm_numpy_params, batches from lm_parity_batches,
+    LM_TRAIN_PARITY_STEPS steps of accum 2,
+    held to the JAX package's pinned losses (LM_TRAIN_PARITY_TOL); each
+    microbatch launches the forward and the backward kernel once a
+    layer."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.train_loop import make_train_step
+    base = get_arch(LM_TRAIN_ARCH).build_cfg(reduced=True)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dc.replace(base, dtype=getattr(torch, dtype))
+        params = convert.transformer_params_from_numpy(
+            lm_numpy_params(cfg), cfg, "cuda")
+        opt_cfg = AdamWConfig(**LM_TRAIN_PARITY_OPT)
+        opt = init_adamw(params, opt_cfg)
+        step_fn = make_train_step(lambda p, b: tf.lm_loss(p, b, cfg),
+                                  opt_cfg, accum_steps=2)
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                   for b in lm_parity_batches(cfg.vocab)]
+
+        def run():
+            nonlocal params, opt
+            out = []
+            for b in batches:
+                params, opt, m = step_fn(params, opt, b)
+                out.append(float(m["loss"]))
+            return out
+
+        losses, wall, counts = launches.drive(run)
+        n = 2 * cfg.n_layers * LM_TRAIN_PARITY_STEPS
+        need = {"flash_attention": n, "flash_attention_bwd": n}
+        pinned = LM_TRAIN_JAX_LOSSES[dtype]
+        close = [bool(math.isclose(a, b, rel_tol=t["rtol"],
+                                   abs_tol=t["atol"]))
+                 for a, b, t in zip(losses, pinned,
+                                    LM_TRAIN_PARITY_TOL[dtype])]
+        row = {"phase": "lm_train_parity", "config":
+               f"{LM_TRAIN_ARCH} reduced, {dtype}", "seq":
+               LM_TRAIN_PARITY_SEQ, "accum_steps": 2, "micro_batch": 2,
+               "opt": LM_TRAIN_PARITY_OPT,
+               "tf32": torch.backends.cuda.matmul.allow_tf32,
+               "losses": losses, "jax_losses": pinned,
+               "max_abs_diff": max(abs(a - b)
+                                   for a, b in zip(losses, pinned)),
+               "tol": LM_TRAIN_PARITY_TOL[dtype], "close": close,
+               "wall_s": wall, "launches": counts,
+               "expected_launches": need}
+        emit(row)
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"lm_train_parity launched {counts}")
+        if len(losses) != len(pinned) or not all(close):
+            raise SystemExit(f"lm_train_parity differs from JAX's losses: "
+                             f"{row}")
+
+
+def phase_lm_launcher(launches):
+    """``python -m repro_torch.launch.train --arch stablelm-3b --reduced
+    --steps 4`` on the card, in a fresh checkpoint directory: 4 steps, no
+    failure, finite losses, and the kernels launched once a layer and
+    microbatch (the reduced config's remat is off)."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", LM_TRAIN_ARCH, "--reduced", "--steps",
+            str(LM_LAUNCHER_STEPS)]
+    with tempfile.TemporaryDirectory() as d:
+        res, wall, counts = launches.drive(lambda: launch_train.main(
+            argv + ["--ckpt_dir", d]))
+    arch = get_arch(LM_TRAIN_ARCH)
+    (accum, _, _), _ = arch.input_specs("train_4k", reduced=True)["tokens"]
+    n = arch.build_cfg(reduced=True).n_layers * accum * LM_LAUNCHER_STEPS
+    need = {"flash_attention": n, "flash_attention_bwd": n}
+    losses = [m["loss"] for m in res.metrics_history]
+    row = {"phase": "lm_launcher", "argv": argv, "wall_s": wall,
+           "steps": res.steps_done,
+           "failures_recovered": res.failures_recovered, "losses": losses,
+           "launches": counts, "expected_launches": need}
+    emit(row)
+    if (res.steps_done != LM_LAUNCHER_STEPS or res.failures_recovered
+            or len(losses) != LM_LAUNCHER_STEPS
+            or not all(math.isfinite(x) for x in losses)):
+        raise SystemExit(f"the LM train launcher failed: {row}")
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"the LM train launcher launched {counts}")
+
+
+def lm_numpy_params(cfg, seed=0) -> dict:
+    """An LM's params as numpy float32, in the JAX package's layout (a
+    leading n_layers axis on every layer leaf, the leaves of the port's
+    ``layer_shapes``): embed ``normal * 0.02``, lm_head and every layer
+    weight ``normal / sqrt(fan_in)``, ln_f and the norms ``1 + 0.1
+    normal``, drawn in this order from ``np.random.default_rng(seed)``
+    (a Generator given as ``seed`` is drawn from and advanced). ``cfg``
+    is either package's TransformerConfig."""
+    import numpy as np
+    from repro_torch.models.transformer import layer_shapes
+    d, L = cfg.d_model, cfg.n_layers
+    shapes = layer_shapes(cfg)
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_padded
+    tree = {"embed": rng.normal(size=(V, d)) * 0.02,
+            "lm_head": rng.normal(size=(d, V)) / np.sqrt(d),
+            "ln_f": 1 + 0.1 * rng.normal(size=d),
+            "layers": {name: (1 + 0.1 * rng.normal(size=(L,) + shape))
+                       if len(shape) == 1 else
+                       rng.normal(size=(L,) + shape) / np.sqrt(shape[0])
+                       for name, shape in shapes.items()}}
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        return node.astype(np.float32)
+
+    return f32(tree)
+
+
+def lm_parity_batches(vocab: int) -> list:
+    """The lm_train_parity phase's batches as numpy int32, (2, 2, seq)
+    each: TokenStream's recipe (labels are the tokens shifted by one;
+    half the tokens follow the bigram ``(prev * 31 + 7) % vocab``) with
+    uniform unigrams from ``rng.integers`` in place of its Zipf draw,
+    from ``default_rng([7, step])``. TokenStream's ``Generator.zipf``
+    gives other numbers under other numpy versions (2.0.2 and 2.3.5 make
+    other batches from the same seed), so a loss pinned under one would
+    not hold under another; the ``integers`` and ``random`` streams
+    do."""
+    import numpy as np
+    seq = LM_TRAIN_PARITY_SEQ
+    out = []
+    for step in range(LM_TRAIN_PARITY_STEPS):
+        rng = np.random.default_rng([7, step])
+        toks = rng.integers(0, vocab, size=(4, seq + 1))
+        mask = rng.random((4, seq)) < 0.5
+        toks[:, 1:] = np.where(mask, (toks[:, :-1] * 31 + 7) % vocab,
+                               toks[:, 1:])
+        out.append({"tokens": toks[:, :-1].astype(np.int32).reshape(
+                        2, 2, seq),
+                    "labels": toks[:, 1:].astype(np.int32).reshape(
+                        2, 2, seq)})
+    return out
+
+
 def run_lm(launches, fops, fref):
-    """The LM serving slice: the flash-attention kernel phase, qwen3-8b
-    at full width through prefill and decode, the serve launcher with its
-    defaults, and the reduced config card against CPU. Returns the
-    kernel's timed rows and its worst error."""
+    """The LM slices: the flash-attention kernel phase, qwen3-8b at full
+    width through prefill and decode, the serve launcher with its
+    defaults, and the reduced config card against CPU; then the backward
+    kernel phase, stablelm-3b training at full width, the reduced config's
+    training against JAX's losses and the train launcher. Returns the
+    forward's and the backward's timed rows and worst errors."""
     import torch
 
     from repro_torch import convert
@@ -1717,7 +2179,14 @@ def run_lm(launches, fops, fref):
     reduced = get_arch(LM_ARCH).build_cfg(reduced=True)
     phase_lm_parity(tf, convert, reduced)
     phase_lm_parity_bf16(tf, convert, reduced, launches)
-    return timed, worst
+    t0 = time.perf_counter()
+    bwd_timed, bwd_worst = phase_kernel_flash_bwd(fops, fref)
+    phase_lm_train(tf, launches)
+    phase_lm_train_parity(tf, convert, launches)
+    phase_lm_launcher(launches)
+    emit({"phase": "lm_train_phases_done",
+          "wall_s": time.perf_counter() - t0})
+    return timed, worst, bwd_timed, bwd_worst
 
 # ------------------------------------------------------------------- GNN
 
@@ -3554,6 +4023,7 @@ def main() -> int:
                          "kway_gains_csr": kops.kway_gains_csr,
                          "embedding_bag": bops.embedding_bag,
                          "flash_attention": fops.flash_attention,
+                         "flash_attention_bwd": fops.flash_attention_bwd,
                          "neighbor_agg": nops.neighbor_agg,
                          "neighbor_agg_bwd": nops.neighbor_agg_bwd})
     runs = {}
@@ -3708,7 +4178,8 @@ def main() -> int:
         hg, 32, hype_stream.StreamParams(seed=0), device="cuda"))
 
     bag_rows, worst_bag = run_recsys(launches, bops, bref)
-    flash_rows, worst_flash = run_lm(launches, fops, fref)
+    flash_rows, worst_flash, bwd_rows, worst_bwd = run_lm(launches, fops,
+                                                          fref)
     na_row, (worst_na, worst_na_bwd) = run_gnn(launches, nops, nref)
 
     def entry(name, source, replaces, main, err, **extra):
@@ -3728,6 +4199,9 @@ def main() -> int:
           "flash_attention": {shape: {"library_ms": r["library_ms"],
                                       "call": r["library_call"]}
                               for shape, r in flash_rows.items()},
+          "flash_attention_bwd": {shape: {"library_ms": r["library_ms"],
+                                          "call": r["library_call"]}
+                                  for shape, r in bwd_rows.items()},
           "neighbor_agg": {"layer": {"library_ms": na_row["library_ms"],
                                      "call": na_row["library_call"]}},
           "neighbor_agg_bwd": {"layer": {
@@ -3792,6 +4266,17 @@ def main() -> int:
               csrc + "flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:111",
               flash_rows["layer"], worst_flash),
+        entry("flash_attention_bwd",
+              csrc + "flash_attention/csrc/flash_attention_bwd.cu", None,
+              bwd_rows["train"], worst_bwd,
+              graph_ms=bwd_rows["train"]["graph_ms"],
+              qwen3_8b_layer={key: bwd_rows["layer"][key] for key in (
+                  "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+                  "max_abs_err")},
+              note="the backward (dq, dk, dv) of flash_attention_fwd, "
+                   "src/repro/kernels/flash_attention/kernel.py:111, which "
+                   "has no TPU backward (the JAX model differentiates its "
+                   "einsum attention); timed at the LM training shape"),
         entry("neighbor_agg", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               "src/repro/kernels/neighbor_agg/kernel.py:72", na_row,
               worst_na, launcher_batch=na_row["launcher_batch"]),

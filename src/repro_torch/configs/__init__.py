@@ -5,9 +5,11 @@ It knows every architecture of the JAX package's registry
 serves to their module; ``get_arch`` on any other raises
 ``NotImplementedError`` naming its ROADMAP.md item. ``FAMILIES`` gives
 every architecture's family without loading it. Of the LMs, the dense
-ones are ported; the MoE ones (mixtral-8x22b, granite-moe-3b-a800m) wait
-for MoE serving. Of the GNNs, graphsage-reddit is ported (training);
-gatedgcn, meshgraphnet and schnet wait for their layers.
+ones are ported (serving and training); the MoE ones (mixtral-8x22b,
+granite-moe-3b-a800m) wait for MoE serving. Of the GNNs,
+graphsage-reddit is ported (training); gatedgcn, meshgraphnet and schnet
+wait for their layers. ``get_arch("hype_paper")`` returns the paper's
+run grid (``hype_paper.ARCH``), not an ArchDef, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,12 +33,12 @@ PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
           "stablelm-3b": "repro_torch.configs.stablelm_3b",
           "qwen3-8b": "repro_torch.configs.qwen3_8b",
           "llama3-405b": "repro_torch.configs.llama3_405b",
-          "graphsage-reddit": "repro_torch.configs.graphsage_reddit"}
+          "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+          "hype_paper": "repro_torch.configs.hype_paper"}
 
 _ITEM = "ROADMAP.md, queue 1, item 15"
 PENDING_MOE = f"{_ITEM}e: MoE LM serving (moe_ffn, models/moe.py)"
 PENDING_PAGED = f"{_ITEM}f: paged decode (decode_paged, serve_step_paged)"
-PENDING_TRAIN = f"{_ITEM}d: LM training (lm_loss)"
 PENDING_GNN_ARCHS = (f"{_ITEM}g: the gatedgcn, meshgraphnet and schnet "
                      f"layers")
 PENDING_RECSYS_TRAIN = (f"{_ITEM}h: two-tower training (twotower_loss, an "
@@ -47,7 +49,6 @@ PENDING_FULL_BATCH = (f"{_ITEM}j: full-batch GraphSAGE past 2**31 "
 PENDING_ITEMS = {
     "lm": PENDING_MOE,
     "gnn": PENDING_GNN_ARCHS,
-    "partitioning": "ROADMAP.md, queue 1, item 16: the bench lane",
 }
 
 ARCH_IDS = [a for a in FAMILIES if a != "hype_paper"]

@@ -67,7 +67,7 @@ def make_lm_arch(arch_id: str, *, n_layers: int, d_model: int, n_heads: int,
                 n_layers=2, d_model=64,
                 n_heads=4, n_kv_heads=max(1, 4 * n_kv_heads // n_heads),
                 d_head=16, d_ff=128, vocab=512,
-                window=(16 if window else None), **kw)
+                window=(16 if window else None), remat=False, **kw)
         return TransformerConfig(
             n_layers=n_layers, d_model=d_model, n_heads=n_heads,
             n_kv_heads=n_kv_heads, d_head=d_head, d_ff=d_ff, vocab=vocab,

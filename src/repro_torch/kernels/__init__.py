@@ -7,6 +7,6 @@
 #   kway_refine -- k-way move gains of the refinement post-pass
 #   embedding_bag -- sum/mean of the valid rows of -1-padded bags (recsys)
 #   flash_attention -- causal / sliding-window GQA attention forward (LM
-#                 prefill)
+#                 prefill and training) and its deterministic backward
 #   neighbor_agg -- mean of the -1-padded neighbour rows times w, and
 #                 its deterministic backward for x (GraphSAGE training)

@@ -1,12 +1,15 @@
-"""Plain PyTorch version of the flash-attention kernel.
+"""Plain PyTorch versions of the flash-attention kernels.
 
-A copy of ``src/repro/kernels/flash_attention/ref.py::attention_ref``:
-it materialises the (S, S) scores, masks them with -1e30 and takes a
-float32 softmax. It is the CPU path of ``ops.flash_attention`` and the
-yardstick the card's kernel is compared with; nothing on the card's
-main path calls it. The kernel computes the same function blockwise
-(online softmax over key tiles), so the two agree within float32
-rounding, not bit for bit.
+``attention_ref`` is a copy of
+``src/repro/kernels/flash_attention/ref.py::attention_ref``: it
+materialises the (S, S) scores, masks them with -1e30 and takes a
+float32 softmax. ``attention_bwd_ref`` is its gradient, written out in
+float32 on the materialised probabilities (the JAX package takes it
+with ``jax.vjp``). They are the CPU path of ``ops.flash_attention`` and
+its backward, and the yardsticks the card's kernels are compared with;
+nothing on the card's main path calls them. The kernels compute the
+same functions blockwise (online softmax over key tiles), so the two
+agree within float32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -26,9 +29,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h // (Hq // Hkv). Softmax in fp32.
     """
     B, S, Hq, D = q.shape
+    probs = _probs(q, k, causal, window)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _probs(q, k, causal, window) -> torch.Tensor:
+    """The float32 softmax of the masked scores, (B, Hkv, G, S, S)."""
+    B, S, Hq, D = q.shape
     Hkv = k.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, S, Hkv, G, D)
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
     scores = torch.einsum("bshgd,bthd->bhgst", qg.float(),
                           k.float()) / math.sqrt(D)
     i = torch.arange(S, device=q.device)[:, None]
@@ -39,6 +49,34 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         mask &= j > i - window
     scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
-    return out.reshape(B, S, Hq, D).to(q.dtype)
+    return torch.softmax(scores, dim=-1)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, dout: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None):
+    """The gradient of ``attention_ref`` at ``dout`` (B, S, Hq, D), given
+    its output ``out``: ``(dq, dk, dv)`` in the inputs' dtypes, computed
+    in float32 from the materialised probabilities P:
+    ``dv = P^T dout``, ``ds = P * (dout v^T - delta)`` with
+    ``delta = rowsum(dout * out)``, ``dq = ds k / sqrt(D)``,
+    ``dk = ds^T q / sqrt(D)``; dk and dv sum over each kv-head's query
+    heads. ``delta`` reads ``out`` as given (rounded to its dtype), as
+    the kernel does."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    probs = _probs(q, k, causal, window)
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    dg = dout.reshape(B, S, Hkv, G, D).float()
+    og = out.reshape(B, S, Hkv, G, D).float()
+    kf, vf = k.float(), v.float()
+    dv = torch.einsum("bhgst,bshgd->bthd", probs, dg)
+    dp = torch.einsum("bshgd,bthd->bhgst", dg, vf)
+    delta = (dg * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = probs * (dp - delta)
+    del dp
+    dq = torch.einsum("bhgst,bthd->bshgd", ds, kf) / math.sqrt(D)
+    dk = torch.einsum("bhgst,bshgd->bthd", ds, qg) / math.sqrt(D)
+    return (dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

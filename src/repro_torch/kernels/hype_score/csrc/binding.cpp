@@ -48,6 +48,12 @@ extern "C" cudaError_t flash_attention_launch(
     int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
     const int64_t* ost, float scale, int causal, int window, int bf16,
     cudaStream_t stream);
+extern "C" cudaError_t flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
+    int B, int S, int Hq, int Hkv, int D, const int64_t* qst,
+    const int64_t* kst, float scale, int causal, int window, int bf16,
+    cudaStream_t stream);
 extern "C" cudaError_t stream_commit_launch(
     const int32_t* edge, const float* fcnt, const bool* valid_row,
     int32_t* sketch, int32_t* sizes, int32_t* parts, int mb, int Le, int k,
@@ -416,6 +422,61 @@ torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   return out;
 }
 
+// The gradient of flash_attention: q, out and dout (B, S, Hq, D), k and v
+// (B, S, Hkv, D), one dtype. Returns (dq, dk, dv) in that dtype; the three
+// passes share two (B, Hq, S) float32 scratch tensors (lse and delta).
+std::vector<torch::Tensor> flash_attention_bwd(
+    const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+    const torch::Tensor& out, const torch::Tensor& dout, bool causal,
+    int64_t window, double scale) {
+  TORCH_CHECK(q.is_cuda(), "q must be a CUDA tensor");
+  const torch::Device device = q.device();
+  const auto dtype = q.scalar_type();
+  TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+              "q must be float32 or bfloat16, got ", dtype);
+  check_input(q, "q", dtype, 4, device);
+  check_input(k, "k", dtype, 4, device);
+  check_input(v, "v", dtype, 4, device);
+  check_input(out, "out", dtype, 4, device);
+  check_input(dout, "dout", dtype, 4, device);
+  const int64_t B = q.size(0), S = q.size(1), Hq = q.size(2), D = q.size(3);
+  const int64_t Hkv = k.size(2);
+  TORCH_CHECK(out.sizes() == q.sizes() && dout.sizes() == q.sizes(),
+              "out and dout must have q's shape");
+  TORCH_CHECK(k.sizes() == v.sizes(), "k and v must have one shape");
+  TORCH_CHECK(k.size(0) == B && k.size(1) == S && k.size(3) == D,
+              "k and v must be (B, S, Hkv, D) beside q's (B, S, Hq, D)");
+  TORCH_CHECK(Hkv >= 1 && Hq % Hkv == 0, "Hq must be a multiple of Hkv");
+  TORCH_CHECK(D >= 8 && D <= 256 && D % 8 == 0,
+              "D must be a multiple of 8 in [8, 256], got ", D);
+  TORCH_CHECK(B < 65536 && Hq < 65536 && S < (int64_t{1} << 31),
+              "shape too large for the kernel's grid");
+  TORCH_CHECK(aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(out) && aligned16(dout),
+              "q, k, v, out and dout must be 16-byte aligned");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor dq = torch::empty_like(q);
+  torch::Tensor dk = torch::empty_like(k);
+  torch::Tensor dv = torch::empty_like(v);
+  if (B == 0 || S == 0 || Hq == 0) return {dq, dk, dv};
+  torch::Tensor lse = torch::empty({B, Hq, S}, q.options().dtype(
+                                                   torch::kFloat32));
+  torch::Tensor delta = torch::empty_like(lse);
+  const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
+  const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
+  C10_CUDA_CHECK(flash_attention_bwd_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), static_cast<int>(B),
+      static_cast<int>(S), static_cast<int>(Hq), static_cast<int>(Hkv),
+      static_cast<int>(D), qst, kst, static_cast<float>(scale), causal,
+      static_cast<int>(window), dtype == torch::kBFloat16,
+      at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dq, dk, dv};
+}
+
 bool float_or_bf16(const torch::Tensor& t) {
   return t.scalar_type() == torch::kFloat32 ||
          t.scalar_type() == torch::kBFloat16;
@@ -525,6 +586,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
   m.def("flash_attention", &flash_attention,
         "Causal / sliding-window GQA attention forward (CUDA, sm_90a)");
+  m.def("flash_attention_bwd", &flash_attention_bwd,
+        "Gradient of flash_attention: dq, dk, dv, deterministic (CUDA, "
+        "sm_90a)");
   m.def("neighbor_agg", &neighbor_agg,
         "Mean of the -1-padded neighbour rows times w (CUDA, sm_90a)");
   m.def("neighbor_agg_bwd", &neighbor_agg_bwd,

@@ -1,2 +1,2 @@
 """Launchers of the port: ``serve`` (two-tower and LM serving) and
-``train`` (GNN training)."""
+``train`` (GNN and dense-LM training)."""

@@ -4,19 +4,32 @@
         --arch graphsage-reddit --reduced --steps 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch graphsage-reddit --shape minibatch_lg --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch stablelm-3b --reduced --steps 4 --device cpu
 
-The counterpart of ``src/repro/launch/train.py`` for the GNN family. It
-runs on the card unless ``--device cpu`` is given, and raises when there
-is no card. As the JAX launcher does, it trains on one fixed batch from
-``random_graph`` over the shape's padded size (``build_graph_batch``
-with 5 label classes), draws every param as ``rng.normal(shape)`` in
-float32 times 0.1, cast to the param's dtype, in JAX's flatten order
-over the sorted keys (so the params equal the JAX launcher's bit for
-bit), and drives ``AdamWConfig()`` through ``run_training`` with
-checkpoints in ``<ckpt_dir>/<arch>``. A directory that already holds a
-checkpoint resumes from it. Returns the ``TrainResult``. LM and
-two-tower training raise ``NotImplementedError`` naming their ROADMAP.md
-items.
+The counterpart of ``src/repro/launch/train.py`` for the GNN and dense
+LM families. It runs on the card unless ``--device cpu`` is given, and
+raises when there is no card. As the JAX launcher does:
+
+* GNN: it trains on one fixed batch from ``random_graph`` over the
+  shape's padded size (``build_graph_batch`` with 5 label classes), and
+  draws every param as ``rng.normal(shape)`` in float32 times 0.1, cast
+  to the param's dtype, in JAX's flatten order over the sorted keys (so
+  the params equal the JAX launcher's bit for bit).
+* LM: it reads ``(accum, mb, seq)`` from the shape's token spec, draws
+  step ``i``'s batch as ``TokenStream(vocab, accum * mb, seq,
+  seed=0).batch_at(i)`` split into ``accum`` microbatches of ``(mb,
+  seq)`` (the JAX launcher's batches, bit for bit), and trains
+  ``lm_loss`` with ``accum_steps=accum``.
+  Params come from ``init_params`` with a ``torch.Generator`` of the
+  device seeded with 0, as the serve launcher's (JAX's ``jax.random``
+  init is not carried over).
+
+Both take the arch's AdamW from ``launch.cells`` (the default for every
+GNN, as in JAX) and drive ``run_training`` with checkpoints in
+``<ckpt_dir>/<arch>``. A directory that already holds a checkpoint
+resumes from it. Returns the ``TrainResult``. Two-tower training raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -27,15 +40,17 @@ import time
 import numpy as np
 import torch
 
-from ..configs import (ARCH_IDS, FAMILIES, PENDING_RECSYS_TRAIN,
-                       PENDING_TRAIN, get_arch)
+from ..configs import ARCH_IDS, FAMILIES, PENDING_RECSYS_TRAIN, get_arch
 from ..data.graphs import build_graph_batch, random_graph
+from ..data.pipeline import TokenStream
+from ..models import transformer as tf_mod
 from ..models.gnn import gnn_loss, init_gnn_params
 from ..partition_api import resolve_device
 from ..train.fault_tolerance import FTConfig, run_training
-from ..train.optimizer import AdamWConfig, init_adamw
-from ..train.train_loop import make_train_step
+from ..train.optimizer import init_adamw
+from ..train.train_loop import make_train_step, split_microbatches
 from ..train.tree import tree_map
+from .cells import opt_config
 
 DEFAULT_SHAPE = {"lm": "train_4k", "gnn": "full_graph_sm",
                  "recsys": "train_batch"}
@@ -70,6 +85,21 @@ def launcher_params(cfg, device, seed: int = 0) -> dict:
     return tree_map(draw, like)
 
 
+def lm_batches(arch, shape: str, reduced: bool, vocab: int, device):
+    """The JAX launcher's LM batches: step ``i`` is
+    ``TokenStream(vocab, accum * mb, seq, seed=0).batch_at(i)``, each
+    leaf reshaped to the spec's ``(accum, mb, seq)``, on ``device``."""
+    (accum, mb, seq), _ = arch.input_specs(shape, reduced=reduced)["tokens"]
+    stream = TokenStream(vocab, accum * mb, seq, seed=0)
+
+    def batch_at(step):
+        batch = split_microbatches({k: torch.from_numpy(v) for k, v in
+                                    stream.batch_at(step).items()}, accum)
+        return {k: v.to(device) for k, v in batch.items()}
+
+    return batch_at, accum
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -84,9 +114,6 @@ def main(argv=None):
 
     family = FAMILIES[args.arch]
     arch = get_arch(args.arch)           # unported archs raise here
-    if family == "lm":
-        raise NotImplementedError(
-            f"LM training is not ported to torch yet; see {PENDING_TRAIN}")
     if family == "recsys":
         raise NotImplementedError(
             f"two-tower training is not ported to torch yet; see "
@@ -97,13 +124,21 @@ def main(argv=None):
                          f"{arch.step_kind(shape)!r}")
     device = resolve_device(args.device)
 
-    cfg = arch.build_cfg(reduced=args.reduced, shape=shape)
-    params = launcher_params(cfg, device)
-    batch_at = gnn_batches(arch, shape, args.reduced, device)
-    opt_cfg = AdamWConfig()
+    if family == "lm":
+        cfg = arch.build_cfg(reduced=args.reduced)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = tf_mod.init_params(gen, cfg, device)
+        batch_at, accum = lm_batches(arch, shape, args.reduced, cfg.vocab,
+                                     device)
+        loss_fn = lambda p, b: tf_mod.lm_loss(p, b, cfg)  # noqa: E731
+    else:
+        cfg = arch.build_cfg(reduced=args.reduced, shape=shape)
+        params = launcher_params(cfg, device)
+        batch_at = gnn_batches(arch, shape, args.reduced, device)
+        loss_fn, accum = lambda p, b: gnn_loss(p, b, cfg), 1  # noqa: E731
+    opt_cfg = opt_config(args.arch)
+    step_fn = make_train_step(loss_fn, opt_cfg, accum_steps=accum)
     opt = init_adamw(params, opt_cfg)
-    step_fn = make_train_step(lambda p, b: gnn_loss(p, b, cfg), opt_cfg,
-                              accum_steps=1)
 
     os.makedirs(args.ckpt_dir, exist_ok=True)
     t0 = time.time()

@@ -1,25 +1,34 @@
-"""Decoder-only transformer LM (GQA, RoPE, qk-norm, sliding window): serving.
+"""Decoder-only transformer LM (GQA, RoPE, qk-norm, sliding window).
 
 The counterpart of ``src/repro/models/transformer.py`` for the dense
 architectures (stablelm-3b, qwen3-8b, llama3-405b). Params keep the JAX
 package's stacked layout: every layer leaf has a leading ``n_layers``
 axis, so params converted from JAX (``convert.transformer_params_from_numpy``)
-are a copy. Layers run in a Python loop over that axis.
+are a copy. Layers run in a Python loop over that axis, each taking its
+leaves from one ``unbind`` a stacked leaf a pass (``layer_list``): the
+backward of ``unbind`` stacks the layers' gradients once, where a select
+``leaf[li]`` a layer would write a zero-filled copy of the whole stacked
+leaf for each layer.
 
-Prefill attention goes through the flash-attention kernel
-(``kernels/flash_attention``: the hand-written CUDA kernel on the card,
-its plain version on the CPU), which computes the function of both of
-the JAX model's ``attention_impl`` paths. The kernel keeps scores and
-probabilities in float32 where the JAX model's einsum path rounds them
-to the compute dtype, so in bfloat16 the two differ by rounding (ROADMAP.md, queue 3).
+Prefill and training attention go through the flash-attention kernel
+(``kernels/flash_attention``: the hand-written CUDA kernels on the card,
+forward and backward, their plain versions on the CPU), which computes
+the function of both of the JAX model's ``attention_impl`` paths. The
+kernel keeps scores and probabilities in float32 where the JAX model's
+einsum path rounds them to the compute dtype, so in bfloat16 the two
+differ by rounding (ROADMAP.md, queue 3).
 Decode attention stays plain torch, as the JAX package computes it
 outside any kernel, and rounds where it rounds.
 
-Serving runs under ``torch.inference_mode()``. ``serve_step`` writes the
-new token's K/V into the cache's tensors in place, where JAX returns a
-new cache. The cache position ``pos`` is a Python int. Unported: MoE
-layers, paged decode and the training loss raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Training: ``lm_loss`` is the JAX package's (float32 cross-entropy, the
+padded vocabulary masked to -1e30, plus 0.01 aux); with ``cfg.remat``
+each layer of ``forward`` runs under ``torch.utils.checkpoint`` (JAX's
+``jax.checkpoint`` of the layer), so the backward recomputes the layer,
+its attention kernel included. Serving runs under
+``torch.inference_mode()``. ``serve_step`` writes the new token's K/V
+into the cache's tensors in place, where JAX returns a new cache. The
+cache position ``pos`` is a Python int. Unported: MoE layers and paged
+decode raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -30,19 +39,21 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..configs import PENDING_MOE, PENDING_PAGED, PENDING_TRAIN
+from ..configs import PENDING_MOE, PENDING_PAGED
 from ..kernels.flash_attention.ops import flash_attention
 from .common import (DEFAULT_DTYPE, apply_rope, dense_init, embed_init,
-                     rms_norm, rotary_embedding)
+                     rms_norm, rotary_embedding, softmax_cross_entropy)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The JAX package's fields that serving reads. Its training and
-    sharding knobs (``remat``, ``scan_layers``, ``seq_shard``,
-    ``constrain``, ``attention_impl``, ``attention_block`` and the
-    ``moe_*`` tuning fields) are left out: the port has no such paths."""
+    """The JAX package's fields that serving and training read, with
+    ``remat`` defaulting to True as there. Its sharding and layout knobs
+    (``scan_layers``, ``seq_shard``, ``constrain``, ``attention_impl``,
+    ``attention_block`` and the ``moe_*`` tuning fields) are left out:
+    the port has no such paths."""
     name: str
     n_layers: int
     d_model: int
@@ -58,6 +69,7 @@ class TransformerConfig:
     dtype: torch.dtype = DEFAULT_DTYPE
     decode_paged: bool = False
     pad_vocab: bool = False
+    remat: bool = True
 
     @property
     def vocab_padded(self) -> int:
@@ -136,15 +148,22 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
     return params
 
 
-def layer(params: dict, li: int) -> dict:
-    """Layer ``li``'s params: views into the stacked leaves."""
-    return {name: leaf[li] for name, leaf in params["layers"].items()}
+def layer_list(params: dict) -> list:
+    """Every layer's params, views into the stacked leaves: one
+    ``unbind`` per leaf."""
+    per = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    n = len(next(iter(per.values())))
+    return [{name: views[li] for name, views in per.items()}
+            for li in range(n)]
 
 
 def _embed(params: dict, tokens: torch.Tensor,
            cfg: TransformerConfig) -> torch.Tensor:
-    flat = params["embed"].index_select(0, tokens.reshape(-1))
-    return flat.reshape(*tokens.shape, cfg.d_model).to(cfg.dtype)
+    """The embedding rows of ``tokens``: ``F.embedding``, whose backward
+    is PyTorch's embedding backward (the ids sorted, each row's gradients
+    summed), where ``index_select``'s would add bf16 rows one by one into
+    the table."""
+    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
 
 
 # ----------------------------------------------------------------- attention
@@ -184,6 +203,11 @@ def _layer_fwd(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
     return x + _dense_ffn(cfg, lp, rms_norm(x, lp["ln2"])), kv
 
 
+def _layer_x(cfg: TransformerConfig, lp: dict, x: torch.Tensor,
+             sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    return _layer_fwd(cfg, lp, x, sin, cos)[0]
+
+
 def _rope_tables(S: int, cfg: TransformerConfig, device):
     positions = torch.arange(S, device=device)[None, :]
     return rotary_embedding(positions, cfg.d_head, cfg.rope_theta)
@@ -193,19 +217,38 @@ def _rope_tables(S: int, cfg: TransformerConfig, device):
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens (B, S) int -> final hidden states (B, S, d), aux loss (0:
-    a dense model has none)."""
+    a dense model has none). With ``cfg.remat`` and autograd recording,
+    each layer is checkpointed: only its input is kept, and the backward
+    runs the layer again (the same ops, so the same bits)."""
     _dense_only(cfg)
     x = _embed(params, tokens, cfg)
     sin, cos = _rope_tables(tokens.shape[1], cfg, x.device)
-    for li in range(cfg.n_layers):
-        x, _ = _layer_fwd(cfg, layer(params, li), x, sin, cos)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layer_list(params):
+        if remat:
+            x = checkpoint(_layer_x, cfg, lp, x, sin, cos,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_x(cfg, lp, x, sin, cos)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rms_norm(x, params["ln_f"]), aux
 
 
-def lm_loss(params, batch, cfg: TransformerConfig):
-    raise NotImplementedError(
-        f"lm_loss is not ported to torch yet; see {PENDING_TRAIN}")
+def lm_loss(params: dict, batch: dict, cfg: TransformerConfig):
+    """batch: {tokens (B, S), labels (B, S)} int; returns the scalar
+    float32 loss: the mean token cross-entropy of the logits (their
+    padded vocabulary columns set to -1e30 in the compute dtype), plus
+    0.01 times the aux loss."""
+    x, aux = forward(params, batch["tokens"], cfg)
+    logits = x @ params["lm_head"]
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) \
+            >= cfg.vocab
+        neg = torch.tensor(-1e30, dtype=torch.float32,
+                           device=logits.device).to(logits.dtype)
+        logits = torch.where(pad, neg, logits)
+    ce = softmax_cross_entropy(logits, batch["labels"])
+    return ce + 0.01 * aux
 
 
 # ------------------------------------------------------------------ serving
@@ -237,8 +280,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig):
     cache = {"k": torch.empty(shape, dtype=cfg.dtype, device=x.device),
              "v": torch.empty(shape, dtype=cfg.dtype, device=x.device),
              "pos": S}
-    for li in range(cfg.n_layers):
-        x, (k, v) = _layer_fwd(cfg, layer(params, li), x, sin, cos)
+    for li, lp in enumerate(layer_list(params)):
+        x, (k, v) = _layer_fwd(cfg, lp, x, sin, cos)
         cache["k"][li].copy_(k[:, S - Skv:])
         cache["v"][li].copy_(v[:, S - Skv:])
     x = rms_norm(x, params["ln_f"])
@@ -303,8 +346,7 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
     pos = cache["pos"]
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
     sin, cos = rotary_embedding(positions, cfg.d_head, cfg.rope_theta)
-    for li in range(cfg.n_layers):
-        lp = layer(params, li)
+    for li, lp in enumerate(layer_list(params)):
         x = x + _decode_attention(cfg, lp, rms_norm(x, lp["ln1"]),
                                   cache["k"][li], cache["v"][li], pos, sin,
                                   cos)

@@ -84,14 +84,19 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     mdt = cfg.moment_dtype or torch.float32
 
     def upd(p, g, m, v):
+        # JAX's expressions, operation for operation; the in-place forms
+        # (on temporaries only) give the same bits with fewer float32
+        # copies of a leaf alive at once (one leaf of a 3B model's is
+        # 2.26 GB)
         g = g.float() * scale
-        m32 = b1 * m.float() + (1 - b1) * g
-        v32 = b2 * v.float() + (1 - b2) * g * g
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        newp = p.float() - lr * delta
+        m32 = (b1 * m.float()).add_((1 - b1) * g)
+        v32 = (b2 * v.float()).add_(((1 - b2) * g).mul_(g))
+        den = (v32 / bc2).sqrt_().add_(cfg.eps)
+        delta = (m32 / bc1).div_(den)
+        del den
+        delta.add_(cfg.weight_decay * p.float())
+        newp = torch.sub(p.float(), delta.mul_(lr))
+        del delta
         return newp.to(p.dtype), m32.to(mdt), v32.to(mdt)
 
     out = tree_map(upd, params, grads, state.m, state.v)

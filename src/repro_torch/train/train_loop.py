@@ -5,10 +5,13 @@
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
 
 With ``accum_steps > 1`` every batch leaf has a leading accumulation
-axis; the microbatches run in a loop (the JAX package's ``lax.scan``),
-so activations live for one microbatch, and the gradients accumulate in
-float32. Gradient compression raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+axis (``split_microbatches`` makes it); the microbatches run in a loop
+(the JAX package's ``lax.scan``), so activations live for one
+microbatch, and the gradients accumulate in float32: each microbatch's
+``g / accum_steps`` is added in place into one float32 buffer that the
+step owns (the same sums as JAX's ``a + b / accum_steps``, so the same
+bits, without a second float32 tree a microbatch). Gradient compression
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -53,8 +56,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *,
                     grads = tree_map(lambda p: torch.zeros(
                         p.shape, dtype=torch.float32, device=p.device),
                         params)
-                grads = tree_map(lambda a, b: a + b.float() / accum_steps,
-                                 grads, g_i)
+                for a, b in zip(tree_flatten(grads), tree_flatten(g_i)):
+                    a.add_(b.float() / accum_steps)
+                del g_i
                 loss = loss + l_i / accum_steps
         else:
             loss, grads = value_and_grad(loss_fn, params, batch)
@@ -64,3 +68,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *,
 
     return train_step
 
+
+
+def split_microbatches(batch: dict, accum_steps: int) -> dict:
+    """Reshape each leaf (B, ...) -> (accum, B/accum, ...)."""
+    def f(x):
+        b = x.shape[0]
+        assert b % accum_steps == 0, (b, accum_steps)
+        return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
+    return tree_map(f, batch)

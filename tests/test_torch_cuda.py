@@ -321,6 +321,159 @@ def test_cuda_prefill_launches_the_kernel_once_per_layer():
     assert bool(torch.isfinite(logits.float()).all())
 
 
+# flash_attention_bwd on the card against its plain version: both sum in
+# float32, in other orders (tiles against einsum's blocks), and ds = p (dp -
+# delta) cancels, so float32 agrees within rtol 1e-4 and atol 1e-4 of the
+# call's largest |gradient| (of dq, dk and dv: a gradient that is zero in
+# exact arithmetic, as dq and dk at S = 1, is float32 noise on both sides).
+# In bf16 both sides read the same bf16 inputs and sum in float32, then
+# round once to bf16: nearly equal sums may round one bf16 step apart (rtol
+# 2**-7), and the mean error stays under 2**-8 of the mean |gradient| (plus
+# that atol), which a systematic fault would break.
+def _assert_bwd_close(got, want):
+    f32 = got[0].dtype == torch.float32
+    atol = 1e-4 * max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if f32:
+            torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
+            continue
+        torch.testing.assert_close(g, w, atol=atol, rtol=2 ** -7)
+        assert float((g - w).abs().mean()) <= 2 ** -8 * float(
+            w.abs().mean()) + atol
+
+
+def _bwd_inputs(B, S, Hq, Hkv, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
+        np.float32)).to(dtype).cuda() for h in (Hq, Hkv, Hkv, Hq)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
+    (2, 128, 4, 4, 64, True, None), (1, 256, 8, 2, 64, True, None),
+    (2, 256, 4, 4, 32, True, 64), (1, 128, 2, 1, 128, True, None),
+    (1, 128, 2, 2, 32, False, None), (2, 100, 4, 2, 80, True, None),
+    (1, 300, 8, 2, 128, True, 100), (1, 70, 2, 1, 256, False, 33),
+    (3, 1, 4, 4, 16, True, None), (1, 300, 4, 1, 64, True, 77),
+    (2, 129, 4, 1, 128, False, None), (1, 200, 4, 2, 256, True, None),
+    (1, 150, 4, 4, 192, True, None), (1, 333, 4, 2, 8, False, None)])
+def test_cuda_flash_attention_bwd_close_to_plain_version(
+        B, S, Hq, Hkv, D, causal, window, dtype):
+    """dq, dk and dv of the card's backward within the limits above of
+    ``attention_bwd_ref`` on the same inputs (the forward's own output)."""
+    _need_card()
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v, dout = _bwd_inputs(B, S, Hq, Hkv, D, dtype, B + S + D)
+    out = fops.flash_attention(q, k, v, causal=causal, window=window)
+    before = fops.flash_attention_bwd.launches
+    got = fops.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert fops.flash_attention_bwd.launches == before + 1
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+    assert all(t.dtype == dtype for t in got)
+    want = attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                             window=window)
+    _assert_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_bwd_repeats_bit_for_bit(dtype):
+    """No atomics: the same inputs give the same bits, and autograd
+    through the wrapper calls the backward kernel once."""
+    _need_card()
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v, dout = _bwd_inputs(2, 333, 8, 2, 80, dtype, 3)
+    out = fops.flash_attention(q, k, v, window=100)
+    first = fops.flash_attention_bwd(q, k, v, out, dout, window=100)
+    again = fops.flash_attention_bwd(q, k, v, out, dout, window=100)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fops.flash_attention_bwd.launches
+    o = fops.flash_attention(*leaves, window=100)
+    grads = torch.autograd.grad(o, leaves, dout)
+    assert fops.flash_attention_bwd.launches == before + 1
+    for a, b in zip(grads, first):
+        assert torch.equal(a, b)
+
+
+def test_cuda_lm_grads_go_through_the_backward_kernel():
+    """The reduced stablelm-3b's lm_loss on the card: every leaf's
+    gradient is finite and nonzero (wq, wk, wv and the rest reach the
+    loss only through the attention kernels), the forward kernel runs
+    once a layer (twice under remat: the recompute) and the backward
+    once a layer."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import tree_flatten
+    base = get_arch("stablelm-3b").build_cfg(reduced=True)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, base.vocab, (2, 2, 96)).astype(
+        np.int32)).cuda()
+    batch = {"tokens": toks[0], "labels": toks[1]}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = tf.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+        f0, b0 = fops.flash_attention.launches, \
+            fops.flash_attention_bwd.launches
+        loss, grads = value_and_grad(lambda p, b: tf.lm_loss(p, b, cfg),
+                                     params, batch)
+        torch.cuda.synchronize()
+        assert fops.flash_attention.launches - f0 == \
+            cfg.n_layers * (2 if remat else 1)
+        assert fops.flash_attention_bwd.launches - b0 == cfg.n_layers
+        assert bool(torch.isfinite(loss))
+        for name in ("wq", "wk", "wv"):
+            assert float(grads["layers"][name].float().norm()) > 0, name
+        for g in tree_flatten(grads):
+            assert bool(torch.isfinite(g.float()).all())
+            assert float(g.float().norm()) > 0
+
+
+def test_cuda_full_width_layer_backward_under_remat():
+    """One stablelm-3b layer at its published width (d_model 2,560, 32
+    heads of 80), S = 4,096, bf16, remat on, twice: the loss's gradients
+    through the forward (twice a run) and backward kernels are finite and
+    nonzero."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.train_loop import value_and_grad
+    cfg = dataclasses.replace(get_arch("stablelm-3b").build_cfg(),
+                              n_layers=1)
+    assert cfg.remat and cfg.d_head == 80 and cfg.dtype == torch.bfloat16
+    params = tf.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                            "cuda")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1, 4096)).astype(
+        np.int32)).cuda()
+    batch = {"tokens": toks[0], "labels": toks[1]}
+    for _ in range(2):
+        f0, b0 = fops.flash_attention.launches, \
+            fops.flash_attention_bwd.launches
+        loss, grads = value_and_grad(lambda p, b: tf.lm_loss(p, b, cfg),
+                                     params, batch)
+        torch.cuda.synchronize()
+        assert fops.flash_attention.launches - f0 == 2
+        assert fops.flash_attention_bwd.launches - b0 == 1
+        assert bool(torch.isfinite(loss))
+        for name, g in grads["layers"].items():
+            assert bool(torch.isfinite(g.float()).all()), name
+            assert float(g.float().norm()) > 0, name
+
+
 # neighbor_agg on the card against its plain version: the mean is a
 # float32 sum in slot order in both (equal bit for bit); the product sums
 # over D in another order, so the output agrees within float32 rounding,

@@ -311,8 +311,9 @@ def test_registry_knows_every_jax_arch():
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             configs.get_arch(arch_id)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        configs.get_arch("hype_paper")
+    # hype_paper (item 17a): the paper's run grid, field for field JAX's
+    got, want = configs.get_arch("hype_paper"), jax_get_arch("hype_paper")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_arch("nope")
 

@@ -336,7 +336,7 @@ def test_launcher_params_equal_jax_launcher_draw():
     assert jax_get_arch("graphsage-reddit").family == "gnn"
 
 
-@pytest.mark.parametrize("arch,match", [("qwen3-8b", "item 15d"),
+@pytest.mark.parametrize("arch,match", [("mixtral-8x22b", "item 15e"),
                                         ("two-tower-retrieval", "item 15h"),
                                         ("schnet", "item 15g")])
 def test_launcher_other_families_raise(arch, match, tmp_path):

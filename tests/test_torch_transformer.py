@@ -344,8 +344,13 @@ def test_unported_paths_raise():
                       dataclasses.replace(cfg, decode_paged=True))
     with pytest.raises(NotImplementedError, match="item 15f"):
         tf.serve_step_paged(params, cache, tok, cfg)
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        tf.lm_loss(params, {"tokens": tok, "labels": tok}, cfg)
+    # lm_loss, once pending (item 15d), now trains: a finite float32 scalar
+    loss = tf.lm_loss(params, {"tokens": tok, "labels": tok}, cfg)
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    assert bool(torch.isfinite(loss))
+    with pytest.raises(NotImplementedError, match="item 15e"):
+        tf.lm_loss(params, {"tokens": tok, "labels": tok},
+                   dataclasses.replace(cfg, moe=object()))
     with pytest.raises(NotImplementedError, match="item 15e"):
         tf.init_params(torch.Generator(), dataclasses.replace(
             cfg, moe=object()))
