@@ -304,6 +304,11 @@ LM_LONG_SEQ = 32_768
 FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
              "bfloat16": dict(atol=1e-4, rtol=1e-2)}
 FLASH_P_ULP = 2 ** -8       # bf16's unit roundoff: P's and the mean limit
+# The forward's logsumexp (return_lse) against attention_lse_ref: both take
+# float32 logs of float32 sums of the same exponentials, in other orders
+# (and the bf16 kernel's ex2.approx, 2**-22 of each term), so they agree
+# within the float32 tolerance of the forward.
+LSE_TOL = dict(atol=2e-5, rtol=2e-5)
 # At S=32,768 the plain scores would be 137 GB: the last rows of every
 # head are compared (64 x 32,768 scores a head) with the plain formula.
 LONG_CHECK_ROWS = 64
@@ -326,13 +331,26 @@ LM_BF16_PARITY_TOL = dict(atol=0.1, rtol=0.02)
 # float32, in other orders (tiles against einsum's blocks), and ds = p (dp -
 # delta) cancels, so float32 is held to rtol 1e-4 and atol 1e-4 of the
 # call's largest |gradient| (of dq, dk and dv: one that is zero in exact
-# arithmetic, as dq at S = 1, is float32 noise on both sides). bf16: both
-# read the same bf16 inputs and sum in float32, then round once to bf16, so
-# nearly equal sums may round one bf16 step apart (rtol 2**-7, the same
-# atol), and the mean error must stay under 2**-8 of the mean |gradient|
-# plus that atol, which a systematic fault would break.
+# arithmetic, as dq at S = 1, is float32 noise on both sides).
+# bf16 at D <= 128 runs the tensor-core kernels, which round P and dS to
+# bf16 as the operands of dv = P^T dout, dk = scale dS^T q and dq = scale
+# dS k (the plain version keeps them float32). bf16 keeps 8 significant
+# bits, so each term p_ij dout_i moves by at most 2**-8 |p_ij dout_i|, and
+# dv_j by at most 2**-8 of A_v = sum_i p_ij |dout_i|; likewise dk by 2**-8
+# of A_k = scale |dS|^T |q| and dq by 2**-8 of A_q = scale |dS| |k| (the
+# products on absolute values, computed by the plain side in float32:
+# ref.attention_bwd_abs_ref). The products are otherwise exact and summed
+# in float32, and both sides round the gradient once to bf16, so nearly
+# equal sums may round one bf16 step apart (rtol 2**-7). Each element is
+# held to rtol |want| + 2**-8 A + atol (atol 1e-4 of the call's largest
+# |gradient|, float32 order); D above 128 runs CUDA-core kernels that round
+# nothing before the sums, which the same limit covers. The rounding errors
+# of P and dS have random signs, so the mean error stays under 2**-8 of the
+# mean |gradient| plus that atol, which a systematic fault (a lost head or
+# tile, a scaled gradient) breaks where the loose worst case may not.
 BWD_TOL = {"float32": dict(rtol=1e-4, atol_frac=1e-4),
-           "bfloat16": dict(rtol=2 ** -7, atol_frac=1e-4)}
+           "bfloat16": dict(rtol=2 ** -7, atol_frac=1e-4,
+                            abs_ulp=FLASH_P_ULP)}
 BWD_CYCLES = 2.5    # five products against the forward's two
 # The LM training slice: stablelm-3b at its published width (32 layers,
 # d_model 2,560, 32 heads of 80, d_ff 6,912, vocab 50,304; bf16), remat on,
@@ -463,12 +481,40 @@ def digest(a) -> str:
         np.ascontiguousarray(a, dtype=np.int32).tobytes()).hexdigest()[:16]
 
 
+FLASH_KINDS = ("flash_tc_kernel", "flash_attention_kernel",
+               "attn_bwd_dkdv_tc_kernel", "attn_bwd_dq_tc_kernel",
+               "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
+               "attn_bwd_delta_kernel")
+# the bf16 tensor-core instances: each must hold HGMMA
+FLASH_TC_KINDS = ("flash_tc_kernel", "attn_bwd_dkdv_tc_kernel",
+                  "attn_bwd_dq_tc_kernel")
+
+
+def sass_instance(kind: str, name: str) -> str:
+    """``kind<args>`` from a mangled kernel name: its template arguments
+    (an element type, ints such as the padded D or the tile)."""
+    args = name.split(kind + "I", 1)[1]
+    out = []
+    while not args.startswith("E"):  # E closes the argument list
+        if args.startswith("13__nv_bfloat16"):
+            out.append("bf16")
+            args = args[len("13__nv_bfloat16"):]
+        elif args.startswith("f"):
+            out.append("f32")
+            args = args[1:]
+        else:  # Li<n>E
+            end = args.index("E")
+            out.append(args[2:end])
+            args = args[end + 1:]
+    return f"{kind}<{','.join(out)}>"
+
+
 def flash_sass(so_path: str) -> dict:
     """What the built extension's flash kernels were compiled to: per
-    kernel instance (bf16 tensor-core and float32 CUDA-core), the count of
-    Hopper warpgroup MMA (HGMMA), warp MMA (HMMA) and float32 FMA (FFMA)
-    instructions in ``cuobjdump -sass``. Raises if a bf16 instance has no
-    HGMMA."""
+    kernel instance (the forward's and the backward's, bf16 tensor-core and
+    CUDA-core), the count of Hopper warpgroup MMA (HGMMA), warp MMA (HMMA)
+    and float32 FMA (FFMA) instructions in ``cuobjdump -sass``. Raises if
+    a tensor-core kind is missing or an instance of one has no HGMMA."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
@@ -478,11 +524,9 @@ def flash_sass(so_path: str) -> dict:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             fn = None
-            for kind in ("flash_tc_kernel", "flash_attention_kernel"):
-                if kind in name:
-                    # the template argument: padded D, or float4 chunks
-                    arg = name.split(kind + "ILi")[1].split("E")[0]
-                    fn = f"{kind}<{arg}>"
+            for kind in FLASH_KINDS:
+                if kind + "I" in name:
+                    fn = sass_instance(kind, name)
                     counts[fn] = dict.fromkeys(("HGMMA", "HMMA", "FFMA"), 0)
         elif fn and "*/" in line:
             # "/*addr*/  [@P0] OPCODE.MODIFIERS operands ; /* encoding */"
@@ -491,9 +535,11 @@ def flash_sass(so_path: str) -> dict:
             for key in counts[fn]:
                 if ops and ops[0].split(".")[0] == key:
                     counts[fn][key] += 1
-    tc = {k: v for k, v in counts.items() if k.startswith("flash_tc")}
-    if not tc or any(v["HGMMA"] == 0 for v in tc.values()):
-        raise SystemExit(f"the bf16 flash kernel has no HGMMA: {counts}")
+    tc = {k: v for k, v in counts.items()
+          if k.split("<")[0] in FLASH_TC_KINDS}
+    if ({k.split("<")[0] for k in tc} != set(FLASH_TC_KINDS)
+            or any(v["HGMMA"] == 0 for v in tc.values())):
+        raise SystemExit(f"a bf16 flash kernel has no HGMMA: {counts}")
     return counts
 
 
@@ -992,11 +1038,13 @@ def run_slice(hg, depth, device, metrics, SuperstepParams, run):
                "digest": digest(a)}
 
 
-def phase_profile(label, fn):
+def phase_profile(label, fn, watch=()):
     """Where the time goes in one path, from one more run of it under
     torch.profiler: the card's busy time (kernels and copies, summed over
     device-side events only) and its largest consumers. The run ends in
-    a synchronize, so the wall time covers the card's work.
+    a synchronize, so the wall time covers the card's work. ``watch``
+    names kernels (substrings of their names) whose device time is also
+    reported, each summed, with its share of the busy time.
     """
     import torch
     from torch.autograd import DeviceType
@@ -1014,9 +1062,15 @@ def phase_profile(label, fn):
             dev[e.key[:60]] = dev.get(e.key[:60], 0) + e.self_device_time_total
     busy_s = sum(dev.values()) / 1e6
     top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:6])
+    watched = {w: sum(us for key, us in dev.items() if w in key)
+               for w in watch}
     emit({"phase": "profile", "path": label, "wall_s": wall,
           "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
-          "top_device_us": top})
+          "top_device_us": top} | ({
+              "watched_device_us": watched,
+              "watched_share_of_busy": {
+                  w: us / 1e6 / busy_s for w, us in watched.items()}}
+              if watch else {}))
 
 
 def bag_case(bops, bref, table, ids, combine, row, timed):
@@ -1452,15 +1506,21 @@ def phase_kernel_flash(fops, fref):
 
     for B, S, Hq, Hkv, D, causal, window, dtype in cases:
         x = inputs(B, S, Hq, Hkv, D, dtype)
-        out = fops.flash_attention(*x, causal=causal, window=window)
+        out, lse = fops.flash_attention(*x, causal=causal, window=window,
+                                        return_lse=True)
         torch.cuda.synchronize()
         want = fref.attention_ref(*x, causal=causal, window=window)
+        want_lse = fref.attention_lse_ref(*x[:2], causal=causal,
+                                          window=window)
         row = {"phase": "kernel_flash_attention", "B": B, "S": S, "Hq": Hq,
                "Hkv": Hkv, "D": D, "causal": causal, "window": window,
-               "dtype": dtype, **flash_check(out, want, x[2], dtype)}
+               "dtype": dtype, **flash_check(out, want, x[2], dtype),
+               "lse_max_abs_err": float((lse - want_lse).abs().max()),
+               "lse_tol": LSE_TOL,
+               "lse_close": bool(torch.allclose(lse, want_lse, **LSE_TOL))}
         worst = max(worst, row["max_abs_err"])
         emit(row)
-        if not row["close"]:
+        if not (row["close"] and row["lse_close"]):
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version: {row}")
 
@@ -1731,22 +1791,31 @@ def phase_lm_parity_bf16(tf, convert, cfg, launches):
         raise SystemExit(f"reduced bf16 LM differs card vs cpu: {row}")
 
 
-def bwd_check(got, want, dtype):
+def bwd_check(got, want, dtype, absp=None):
     """The row fields of one backward comparison under BWD_TOL: the worst
-    and mean error of each of dq, dk, dv, the limits, and whether all
-    hold."""
+    and mean error of each of dq, dk, dv, the largest share of its
+    element limit an error takes, the limits, and whether all hold. bf16
+    needs ``absp``, the products on absolute values
+    (ref.attention_bwd_abs_ref) that widen each element's limit."""
     import torch
     tol = BWD_TOL[dtype]
     atol = tol["atol_frac"] * max(float(w.float().abs().max()) for w in want)
     row = {"max_abs_err": 0.0, "mean_abs_err": {}, "mean_abs_ref": {},
-           "tol": {"rtol": tol["rtol"], "atol": atol}, "close": True}
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+           "limit_share": {}, "tol": {key: val for key, val in tol.items()
+                                      if key != "atol_frac"} | {
+               "atol": atol}, "close": True}
+    absp = absp if dtype == "bfloat16" else (None,) * 3
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, absp):
         g, w = g.float(), w.float()
         d = (g - w).abs()
+        limit = tol["rtol"] * w.abs() + atol
+        if a is not None:
+            limit += tol["abs_ulp"] * a
         row["max_abs_err"] = max(row["max_abs_err"], float(d.max()))
         row["mean_abs_err"][name] = float(d.mean())
         row["mean_abs_ref"][name] = float(w.abs().mean())
-        ok = bool(torch.allclose(g, w, rtol=tol["rtol"], atol=atol))
+        row["limit_share"][name] = float((d / limit).max())
+        ok = bool((d <= limit).all())
         if dtype == "bfloat16":
             ok = ok and row["mean_abs_err"][name] <= \
                 FLASH_P_ULP * row["mean_abs_ref"][name] + atol
@@ -1792,15 +1861,18 @@ def phase_kernel_flash_bwd(fops, fref):
 
     for B, S, Hq, Hkv, D, causal, window, dtype in cases:
         q, k, v, g = inputs(B, S, Hq, Hkv, D, dtype)
-        out = fops.flash_attention(q, k, v, causal=causal, window=window)
-        got = fops.flash_attention_bwd(q, k, v, out, g, causal=causal,
+        out, lse = fops.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        got = fops.flash_attention_bwd(q, k, v, out, g, lse, causal=causal,
                                        window=window)
         torch.cuda.synchronize()
         want = fref.attention_bwd_ref(q, k, v, out, g, causal=causal,
                                       window=window)
+        absp = fref.attention_bwd_abs_ref(q, k, v, out, g, causal=causal,
+                                          window=window)
         row = {"phase": "kernel_flash_bwd", "B": B, "S": S, "Hq": Hq,
                "Hkv": Hkv, "D": D, "causal": causal, "window": window,
-               "dtype": dtype, **bwd_check(got, want, dtype)}
+               "dtype": dtype, **bwd_check(got, want, dtype, absp)}
         worst = max(worst, row["max_abs_err"])
         emit(row)
         if not row["close"]:
@@ -1809,9 +1881,9 @@ def phase_kernel_flash_bwd(fops, fref):
 
     # the same inputs twice: no atomics, so the same bits
     q, k, v, g = inputs(2, 333, 8, 2, 80, "bfloat16")
-    out = fops.flash_attention(q, k, v, window=100)
-    first = fops.flash_attention_bwd(q, k, v, out, g, window=100)
-    again = fops.flash_attention_bwd(q, k, v, out, g, window=100)
+    out, lse = fops.flash_attention(q, k, v, window=100, return_lse=True)
+    first = fops.flash_attention_bwd(q, k, v, out, g, lse, window=100)
+    again = fops.flash_attention_bwd(q, k, v, out, g, lse, window=100)
     equal = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
     emit({"phase": "kernel_flash_bwd", "repeat": "B=2, S=333, 8/2 heads, "
           "D=80, bf16, window 100", "bit_equal": equal})
@@ -1824,8 +1896,8 @@ def phase_kernel_flash_bwd(fops, fref):
         S = LM_TRAIN_SEQ
         torch.cuda.empty_cache()
         q, k, v, g = inputs(B, S, Hq, Hkv, D, "bfloat16")
-        out = fops.flash_attention(q, k, v)
-        got = fops.flash_attention_bwd(q, k, v, out, g)
+        out, lse = fops.flash_attention(q, k, v, return_lse=True)
+        got = fops.flash_attention_bwd(q, k, v, out, g, lse)
         torch.cuda.synchronize()
         row = {"phase": "kernel_flash_bwd", "shape": name, "B": B, "S": S,
                "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
@@ -1834,11 +1906,14 @@ def phase_kernel_flash_bwd(fops, fref):
         for b in range(B):
             sl = [t[b:b + 1] for t in (q, k, v, out, g)]
             want = fref.attention_bwd_ref(*sl)
+            absp = fref.attention_bwd_abs_ref(*sl)
             checks.append(bwd_check([t[b:b + 1] for t in got], want,
-                                    "bfloat16"))
-            del want
+                                    "bfloat16", absp))
+            del want, absp
         del got
         row.update(max_abs_err=max(c["max_abs_err"] for c in checks),
+                   limit_share={n: max(c["limit_share"][n] for c in checks)
+                                for n in ("dq", "dk", "dv")},
                    tol=[c["tol"] for c in checks],
                    close=all(c["close"] for c in checks),
                    mean_abs_err=checks[0]["mean_abs_err"],
@@ -1846,7 +1921,7 @@ def phase_kernel_flash_bwd(fops, fref):
                    compared="one sequence at a time")
         worst = max(worst, row["max_abs_err"])
         flops, _, fwd_bound = attention_bound(B, S, Hq, Hkv, D)
-        call = lambda: fops.flash_attention_bwd(q, k, v, out, g)  # noqa
+        call = lambda: fops.flash_attention_bwd(q, k, v, out, g, lse)  # noqa
         row.update(ms=cuda_ms(call, reps=3, iters=2, warmup=1),
                    graph_ms=graph_ms(call, iters=1),
                    flops=BWD_CYCLES * flops,
@@ -1881,7 +1956,7 @@ def phase_kernel_flash_bwd(fops, fref):
             raise SystemExit(f"flash_attention_bwd disagrees with its "
                              f"plain version at full width: {row}")
         timed[name] = row
-        del q, k, v, g, out
+        del q, k, v, g, out, lse
         torch.cuda.empty_cache()
     return timed, worst
 
@@ -1985,7 +2060,9 @@ def phase_lm_train(tf, launches):
                              f"first step: {row['zero_grad_leaves']}")
     # one more step under the profiler (its new state is dropped): the
     # card's busy share and the kernels that lead a step
-    phase_profile("lm_train_step", lambda: step_fn(params, opt, batch))
+    phase_profile("lm_train_step", lambda: step_fn(params, opt, batch),
+                  watch=("flash_tc_kernel", "attn_bwd_delta_kernel",
+                         "attn_bwd_dkdv_tc_kernel", "attn_bwd_dq_tc_kernel"))
     emit({"phase": "lm_train_done", "losses": losses, "step_wall_s": walls,
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card_gb": torch.cuda.get_device_properties(0).total_memory
@@ -4276,7 +4353,8 @@ def main() -> int:
               note="the backward (dq, dk, dv) of flash_attention_fwd, "
                    "src/repro/kernels/flash_attention/kernel.py:111, which "
                    "has no TPU backward (the JAX model differentiates its "
-                   "einsum attention); timed at the LM training shape"),
+                   "einsum attention); bf16 at D <= 128 on wgmma, D = 80 "
+                   "padded to 96; timed at the LM training shape"),
         entry("neighbor_agg", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               "src/repro/kernels/neighbor_agg/kernel.py:72", na_row,
               worst_na, launcher_batch=na_row["launcher_batch"]),

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the scoring, refinement-screen and neighbour-aggregation kernels of
-one source tree on one CUDA card, so that two commits can be compared on
-one card.
+"""Time the scoring, refinement-screen, neighbour-aggregation and
+flash-attention kernels of one source tree on one CUDA card, so that two
+commits can be compared on one card.
 
-    python3 kernel_ab.py [--tree DIR] [--label NAME]
+    python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
 
 ``--tree`` is the root of a checkout of this repository (default: the
 one holding this script); its ``src/repro_torch`` is imported, and its
@@ -39,13 +39,21 @@ Measures, each on inputs made from fixed seeds:
   * ``neighbor_agg_bwd`` (the kernel alone, its index built once, D =
     128, float32) at the same two batches (a hub of 1,056 slots at the
     layer, 1,386 on the launcher's batch) and on a synthetic hub of
-    100,000 slots.
-Prints one JSON line per measurement, then the card's name and power
-limit. Exits 1 without a CUDA device.
+    100,000 slots;
+  * ``flash_attention`` at qwen3-8b's layer (B = 8, S = 4,096, 32/8
+    heads of 128, bf16, causal), without and, where the tree's wrapper
+    has ``return_lse``, with the logsumexp; and ``flash_attention_bwd``
+    at the LM training shape (B = 2, S = 4,096, 32 heads of 80) and at
+    qwen3-8b's layer, fed the forward's logsumexp where the tree's
+    backward takes one, eagerly and in a CUDA graph (one call).
+``--flash-only`` measures the flash kernels alone. Prints one JSON line
+per measurement, then the card's name and power limit. Exits 1 without a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import pathlib
 import sys
@@ -58,6 +66,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--flash-only", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -73,6 +82,7 @@ def main(argv=None) -> int:
     from repro_torch.core import scoring
     from repro_torch.data import graphs, synthetic
     from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.hype_score import ops
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.models.gnn import in_neighbors
@@ -83,6 +93,11 @@ def main(argv=None) -> int:
 
     def emit(row):
         print(json.dumps({"tree": label, **row}), flush=True)
+
+    flash(emit, fops, cuda_ms, graph_ms)
+    if args.flash_only:
+        print(card_line(), flush=True)
+        return 0
 
     one = torch.zeros(1, device="cuda")
     emit({"kernel": "launch_floor", "ms": cuda_ms(lambda: one.add_(1.0)),
@@ -185,6 +200,47 @@ def main(argv=None) -> int:
                             reps=5, iters=20, warmup=3)})
     print(card_line(), flush=True)
     return 0
+
+
+def flash(emit, fops, cuda_ms, graph_ms) -> None:
+    """The flash rows of the module docstring; inputs from a fixed seed."""
+    import torch
+    with_lse = "lse" in inspect.signature(fops.flash_attention_bwd).parameters
+    gen = torch.Generator("cuda").manual_seed(6)
+
+    def inputs(B, Hq, Hkv, D):
+        return [torch.randn((B, 4096, h, D), device="cuda",
+                            generator=gen).bfloat16()
+                for h in (Hq, Hkv, Hkv, Hq)]
+
+    q, k, v, _ = inputs(8, 32, 8, 128)
+    shape = {"B": 8, "S": 4096, "Hq": 32, "Hkv": 8, "D": 128}
+    emit({"kernel": "flash_attention", **shape, "lse": False,
+          "ms": cuda_ms(lambda: fops.flash_attention(q, k, v), reps=5,
+                        iters=10, warmup=3)})
+    if with_lse:
+        emit({"kernel": "flash_attention", **shape, "lse": True,
+              "ms": cuda_ms(lambda: fops.flash_attention(
+                  q, k, v, return_lse=True), reps=5, iters=10, warmup=3)})
+    del q, k, v
+    for name, (B, Hq, Hkv, D) in (("train", (2, 32, 32, 80)),
+                                  ("layer", (8, 32, 8, 128))):
+        q, k, v, g = inputs(B, Hq, Hkv, D)
+        if with_lse:
+            out, lse = fops.flash_attention(q, k, v, return_lse=True)
+            args = (q, k, v, out, g, lse)
+        else:
+            args = (q, k, v, fops.flash_attention(q, k, v), g)
+
+        def call():
+            return fops.flash_attention_bwd(*args)
+
+        emit({"kernel": "flash_attention_bwd", "shape": name, "B": B,
+              "S": 4096, "Hq": Hq, "Hkv": Hkv, "D": D,
+              "ms": cuda_ms(call, reps=3, iters=3, warmup=1),
+              "graph_ms": graph_ms(call, iters=1)})
+        del q, k, v, g, args
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

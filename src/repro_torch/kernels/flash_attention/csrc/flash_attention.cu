@@ -89,12 +89,18 @@
 //
 // Both: rows and keys past S (S need not be a multiple of the tile) are
 // loaded as zeros and masked, their outputs not written; offsets are
-// 64-bit.
+// 64-bit. Given an ``lse`` pointer (training), each kernel also writes
+// every query row's natural logsumexp m scale + ln(l) in its epilogue, so
+// the backward (flash_attention_bwd.cu) never recomputes Q K^T for it;
+// serving passes null and writes nothing. The tensor-core helpers (TMA,
+// mbarriers, wgmma) live in flash_tc.cuh, shared with the backward.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -149,7 +155,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int S, int group, int D, int64_t qsb, int64_t qss,
+                       float* __restrict__ lse, int S, int group, int D,
+                       int64_t qsb, int64_t qss,
                        int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t osb, int64_t oss, int64_t osh, float scale,
                        int causal, int window) {
@@ -297,6 +304,8 @@ flash_attention_kernel(const float* __restrict__ q,
     const int qi = q0 + rg + 16 * i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[((int64_t)b * gridDim.y + h) * S + qi] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int col = cg + kColGroups * c;
@@ -310,7 +319,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
 template <int kChunks>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       float* out, int B, int S, int Hq, int Hkv, int D,
+                       float* out, float* lse, int B, int S, int Hq,
+                       int Hkv, int D,
                        const int64_t* qst, const int64_t* kst,
                        const int64_t* ost, float scale, int causal,
                        int window, cudaStream_t stream) {
@@ -324,29 +334,30 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, S, Hq / Hkv, D, qst[0], qst[1], qst[2], kst[0], kst[1],
+      q, k, v, out, lse, S, Hq / Hkv, D, qst[0], qst[1], qst[2], kst[0], kst[1],
       kst[2], ost[0], ost[1], ost[2], scale, causal, window);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const float* q, const float* k, const float* v,
-                         float* out, int B, int S, int Hq, int Hkv, int D,
+                         float* out, float* lse, int B, int S, int Hq,
+                         int Hkv, int D,
                          const int64_t* qst, const int64_t* kst,
                          const int64_t* ost, float scale, int causal,
                          int window, cudaStream_t stream) {
   switch ((D + 63) / 64) {
     case 1:
-      return launch_f32<1>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                           scale, causal, window, stream);
+      return launch_f32<1>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                           kst, ost, scale, causal, window, stream);
     case 2:
-      return launch_f32<2>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                           scale, causal, window, stream);
+      return launch_f32<2>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                           kst, ost, scale, causal, window, stream);
     case 3:
-      return launch_f32<3>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                           scale, causal, window, stream);
+      return launch_f32<3>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                           kst, ost, scale, causal, window, stream);
     case 4:
-      return launch_f32<4>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                           scale, causal, window, stream);
+      return launch_f32<4>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                           kst, ost, scale, causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -378,59 +389,6 @@ struct TcShape {
   static constexpr int kSmem = kQBytes + 4 * kTileBytes + 128 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers: the producer's TMA loads complete the "full" barriers;
-// the consumer warps' arrivals complete the "empty" ones
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Wait until the barrier's phase with this parity has completed. A wait
-// that never ends (a fault of the pipeline) traps instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 26)) __trap();
-  }
-}
-
-// One TMA box {64 columns, 1 head, rows, 1 batch} of a (B, S, H, D) tensor
-// into a 128-byte-swizzled column block at dst; out-of-range rows and
-// columns (past S, past D) arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
 // ---- the two consumer warpgroups take turns issuing their products
 // (named barriers 1 and 2 over their 256 threads), so one's softmax runs
 // while the other's products run
@@ -440,271 +398,6 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kTcConsumers)
                : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), 128-byte swizzle.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of wgmma's registers across the
-// asynchronous region.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (m64 x n128, f32) += A (smem, K-major) . B (smem, K-major)
-// scale_d = 0: d = A . B (the first k16 step)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (m64 x n64, f32) += A (smem, K-major) . B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (m64 x n48, f32) += A (smem, K-major) . B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23"
-      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (m64 x n96, f32) += A (smem, K-major) . B (smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (m64 x n64, f32) += A (registers, bf16) . B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], uint32_t a0,
-                                            uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (m64 x n128, f32) += A (registers, bf16) . B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0,
-                                            uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (m64 x n192, f32) += A (registers, bf16) . B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[96], uint32_t a0,
-                                            uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (m64 x n256, f32) += A (registers, bf16) . B (smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], uint32_t a0,
-                                            uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit (relative error about 2^-22; -inf -> 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The running softmax of one key tile for the thread's rows a and b (its
@@ -767,18 +460,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kNB * 4], int k0,
   l_b = l_b * alpha_b + sum_b;
 }
 
-// P as bf16 pairs in wgmma's register A fragment: the k16 slice kk of P
-// is p[4 kk .. 4 kk + 3] (n8 blocks 2 kk and 2 kk + 1, rows a and b).
-template <int kNB>
-__device__ __forceinline__ void pack_p(const float (&s)[kNB * 4],
-                                       uint32_t (&p)[kNB * 2]) {
-#pragma unroll
-  for (int i = 0; i < kNB; ++i) {
-    p[2 * i] = pack_bf16(s[4 * i], s[4 * i + 1]);
-    p[2 * i + 1] = pack_bf16(s[4 * i + 2], s[4 * i + 3]);
-  }
-}
-
 // The accumulator fragment of a 64-row wgmma: element e of n8 block i of
 // thread (warp w, lane l) is row 16 w + l/4 + 8 (e/2), column
 // 8 i + 2 (l%4) + e%2.
@@ -787,8 +468,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ out, int S, int group, int D,
-                int64_t osb, int64_t oss, int64_t osh, float scale_log2,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int S, int group, int D, int64_t osb, int64_t oss,
+                int64_t osh, float scale_log2,
                 int causal, int window) {
   using Shape = TcShape<kDp>;
   constexpr int BN = Shape::kBlockN;
@@ -973,6 +655,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   l_b += __shfl_xor_sync(kFull, l_b, 2);
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // natural log: m scale + ln(l), l the float32 sum of 2^((s - m) scale
+    // log2(e)) = e^((s - m) scale)
+    float* lse_bh = lse + ((int64_t)b * gridDim.y + h) * S;
+    const float scale_ln = scale_log2 * 0.6931471805599453f;
+    if (row_a < S) lse_bh[row_a] = fmaf(m_a, scale_ln, logf(l_a));
+    if (row_b < S) lse_bh[row_b] = fmaf(m_b, scale_ln, logf(l_b));
+  }
   __nv_bfloat16* ob = out + b * osb + h * osh;
 #pragma unroll
   for (int e = 0; e < kDp / 8; ++e) {
@@ -987,60 +677,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The TMA map of a (B, S, H, D) bf16 tensor with strides st (batch, seq,
-// head; elements) and unit stride in D: boxes of 64 columns x rows rows of
-// one head, 128-byte swizzled.
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
-              const int64_t* st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  // bytes; a size-1 dimension's stride is never followed (a contiguous
-  // tensor may carry any there), so it gets the packed one
-  cuuint64_t strides[3];
-  strides[0] = H == 1 ? (cuuint64_t)D * 2 : (cuuint64_t)st[2] * 2;
-  strides[1] = S == 1 ? strides[0] * H : (cuuint64_t)st[1] * 2;
-  strides[2] = B == 1 ? strides[1] * S : (cuuint64_t)st[0] * 2;
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kDp>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int Hq, int Hkv, int D,
+                      float* lse, int B, int S, int Hq, int Hkv, int D,
                       const int64_t* qst, const int64_t* kst,
                       const int64_t* ost, float scale, int causal,
                       int window, cudaStream_t stream) {
@@ -1056,29 +695,30 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTcBlockM - 1) / kTcBlockM, Hq, B);
   kernel<<<grid, kTcThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, Hq / Hkv, D, ost[0],
-      ost[1], ost[2], scale * 1.4426950408889634f, causal, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, Hq / Hkv, D,
+      ost[0], ost[1], ost[2], scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int Hq, int Hkv, int D,
+                        void* out, float* lse, int B, int S, int Hq,
+                        int Hkv, int D,
                         const int64_t* qst, const int64_t* kst,
                         const int64_t* ost, float scale, int causal,
                         int window, cudaStream_t stream) {
   switch ((D + 63) / 64) {
     case 1:
-      return launch_tc<64>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                           scale, causal, window, stream);
+      return launch_tc<64>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                           kst, ost, scale, causal, window, stream);
     case 2:
-      return launch_tc<128>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                            scale, causal, window, stream);
+      return launch_tc<128>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                            kst, ost, scale, causal, window, stream);
     case 3:
-      return launch_tc<192>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                            scale, causal, window, stream);
+      return launch_tc<192>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                            kst, ost, scale, causal, window, stream);
     case 4:
-      return launch_tc<256>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                            scale, causal, window, stream);
+      return launch_tc<256>(q, k, v, out, lse, B, S, Hq, Hkv, D, qst,
+                            kst, ost, scale, causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1089,23 +729,25 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
 // Plain C entry point; the PyTorch binding (hype_score/csrc/binding.cpp)
 // checks the arguments (dtype, rank, Hq % Hkv, D a multiple of 8 in
 // [8, 256], 16-byte aligned pointers and strides in the last dim's unit),
-// allocates the output and passes the current stream. ``qst``, ``kst`` and
+// allocates the outputs and passes the current stream. ``qst``, ``kst`` and
 // ``ost`` are the (batch, seq, head) strides in elements of q, of k and v
 // (which share them) and of out; the head dim has stride 1. ``bf16`` picks
 // the element type (0: float32, 1: bfloat16); ``window`` <= 0 means none.
+// ``lse``, when not null, is a (B, Hq, S) float32 output: each query row's
+// natural logsumexp of its masked, scaled scores, which the backward reads
+// in place of recomputing Q K^T; serving passes null.
 extern "C" cudaError_t flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
-    const int64_t* ost, float scale, int causal, int window, int bf16,
-    cudaStream_t stream) {
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int S, int Hq, int Hkv, int D, const int64_t* qst,
+    const int64_t* kst, const int64_t* ost, float scale, int causal,
+    int window, int bf16, cudaStream_t stream) {
   if (bf16)
-    return dispatch_tc(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, ost,
-                              scale, causal, window, stream);
+    return dispatch_tc(q, k, v, out, lse, B, S, Hq, Hkv, D, qst, kst, ost,
+                       scale, causal, window, stream);
   return dispatch_f32(static_cast<const float*>(q),
                       static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(out),
-                      B, S, Hq, Hkv, D, qst, kst, ost, scale, causal, window,
-                      stream);
+                      lse, B, S, Hq, Hkv, D, qst, kst, ost, scale, causal,
+                      window, stream);
 }
-
 

@@ -6,11 +6,13 @@ A CUDA tensor goes to the hand-written Hopper kernels
 tensor goes to the plain versions in ``ref.py`` (``attention_ref`` and
 ``attention_bwd_ref``). There is no other switch and no fallback: a
 failed build or launch raises. ``flash_attention`` is differentiable in
-q, k and v (a ``torch.autograd.Function`` that saves q, k, v and the
-output, and runs ``flash_attention_bwd``). ``flash_attention.launches``
-and ``flash_attention_bwd.launches`` count the CUDA launches (one a
-backward call, which runs three kernels), so a run can show that its
-path went through the kernels.
+q, k and v (a ``torch.autograd.Function`` that saves q, k, v, the output
+and the forward's logsumexp, and runs ``flash_attention_bwd``); the
+kernel writes the logsumexp only when a gradient is recorded or the
+caller asks for it (``return_lse``), so serving pays nothing for it.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+the CUDA launches (one a backward call, which runs three kernels), so a
+run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Optional
 import torch
 
 from .._build import load_extension, on_cuda
-from .ref import attention_bwd_ref, attention_ref
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd"]
 
@@ -59,55 +61,68 @@ class _FlashAttention(torch.autograd.Function):
     """Attention with its gradient for q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, want_lse):
         if on_cuda(q, "flash_attention"):
-            out = load_extension().flash_attention(
-                q, k, v, causal, window or 0, 1.0 / math.sqrt(q.shape[3]))
+            out, lse = load_extension().flash_attention(
+                q, k, v, causal, window or 0, 1.0 / math.sqrt(q.shape[3]),
+                want_lse)
             flash_attention.launches += 1
         else:
             out = attention_ref(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+            lse = (attention_lse_ref(q, k, causal=causal, window=window)
+                   if want_lse else q.new_empty(0, dtype=torch.float32))
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return out
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out.contiguous(),
-                                         dout.contiguous(),
+                                         dout.contiguous(), lse,
                                          causal=ctx.causal,
                                          window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False):
     """q (B, S, Hq, D), k and v (B, S, Hkv, D), one dtype (float32 or
     bfloat16), contiguous, Hq a multiple of Hkv, D a multiple of 8 up to
     256. Returns (B, S, Hq, D) in ``q.dtype``: attention with a causal
     mask (``causal``) and a sliding window of ``window`` keys (key j
     sees query i when ``i - window < j``), scale ``1/sqrt(D)``, as
     ``ref.attention_ref`` defines it. Differentiable in q, k and v.
-    Raises on anything else.
+    With ``return_lse``, returns ``(out, lse)``: lse (B, Hq, S) float32,
+    each query row's logsumexp (``ref.attention_lse_ref``), not
+    differentiable. Raises on anything else.
     """
     _check(q, k, v, window)
-    return _FlashAttention.apply(q, k, v, causal, window)
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    out, lse = _FlashAttention.apply(q, k, v, causal, window,
+                                     return_lse or grad)
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None):
     """The gradient of ``flash_attention(q, k, v)`` at ``dout``, given its
-    output ``out``: ``(dq, dk, dv)`` in the inputs' dtype, as
+    output ``out`` and logsumexp ``lse`` (``flash_attention(...,
+    return_lse=True)``): ``(dq, dk, dv)`` in the inputs' dtype, as
     ``ref.attention_bwd_ref`` defines it (float32 sums; dk and dv summed
     over each kv-head's query heads). out and dout are (B, S, Hq, D) in
-    q's dtype, contiguous; the rest as ``flash_attention``. The card's
-    kernels use no atomics: a repeated call gives the same bits."""
+    q's dtype, lse (B, Hq, S) float32, all contiguous; the rest as
+    ``flash_attention``. On the CPU lse is checked and the plain version,
+    which computes P from the scores, runs. The card's kernels use no
+    atomics: a repeated call gives the same bits."""
     _check(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out and dout must be {tuple(q.shape)}, got "
@@ -117,11 +132,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"and {dout.dtype}")
     if not (out.is_contiguous() and dout.is_contiguous()):
         raise ValueError("out and dout must be contiguous")
+    B, S, Hq, _ = q.shape
+    if lse.shape != (B, Hq, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {Hq}, {S}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
     if not on_cuda(q, "flash_attention_bwd"):
         return attention_bwd_ref(q, k, v, out, dout, causal=causal,
                                  window=window)
     grads = load_extension().flash_attention_bwd(
-        q, k, v, out, dout, causal, window or 0, 1.0 / math.sqrt(q.shape[3]))
+        q, k, v, out, dout, lse, causal, window or 0,
+        1.0 / math.sqrt(q.shape[3]))
     flash_attention_bwd.launches += 1
     return tuple(grads)
 

@@ -44,14 +44,15 @@ extern "C" cudaError_t embedding_bag_launch(const void* table,
                                             int bf16, int vec, int mean,
                                             cudaStream_t stream);
 extern "C" cudaError_t flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int Hq, int Hkv, int D, const int64_t* qst, const int64_t* kst,
-    const int64_t* ost, float scale, int causal, int window, int bf16,
-    cudaStream_t stream);
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int S, int Hq, int Hkv, int D, const int64_t* qst,
+    const int64_t* kst, const int64_t* ost, float scale, int causal,
+    int window, int bf16, cudaStream_t stream);
+extern "C" int64_t flash_attention_bwd_aux_len(int B, int Hq, int S);
 extern "C" cudaError_t flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-    int B, int S, int Hq, int Hkv, int D, const int64_t* qst,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* aux, int B, int S, int Hq, int Hkv, int D, const int64_t* qst,
     const int64_t* kst, float scale, int causal, int window, int bf16,
     cudaStream_t stream);
 extern "C" cudaError_t stream_commit_launch(
@@ -382,9 +383,13 @@ torch::Tensor embedding_bag(const torch::Tensor& table,
   return out;
 }
 
-torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
-                              const torch::Tensor& v, bool causal,
-                              int64_t window, double scale) {
+// Returns {out, lse}: lse is the (B, Hq, S) float32 logsumexp of each query
+// row when ``want_lse``, else an empty tensor (serving asks for none).
+std::vector<torch::Tensor> flash_attention(const torch::Tensor& q,
+                                           const torch::Tensor& k,
+                                           const torch::Tensor& v,
+                                           bool causal, int64_t window,
+                                           double scale, bool want_lse) {
   TORCH_CHECK(q.is_cuda(), "q must be a CUDA tensor");
   const torch::Device device = q.device();
   const auto dtype = q.scalar_type();
@@ -408,27 +413,32 @@ torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
 
   const c10::cuda::CUDAGuard guard(device);
   torch::Tensor out = torch::empty_like(q);
-  if (B == 0 || S == 0 || Hq == 0) return out;
+  const auto f32 = q.options().dtype(torch::kFloat32);
+  torch::Tensor lse = want_lse ? torch::empty({B, Hq, S}, f32)
+                               : torch::empty({0}, f32);
+  if (B == 0 || S == 0 || Hq == 0) return {out, lse};
   const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
   const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
   const int64_t ost[3] = {out.stride(0), out.stride(1), out.stride(2)};
   C10_CUDA_CHECK(flash_attention_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-      static_cast<int>(B), static_cast<int>(S), static_cast<int>(Hq),
-      static_cast<int>(Hkv), static_cast<int>(D), qst, kst, ost,
+      want_lse ? lse.data_ptr<float>() : nullptr, static_cast<int>(B),
+      static_cast<int>(S), static_cast<int>(Hq), static_cast<int>(Hkv),
+      static_cast<int>(D), qst, kst, ost,
       static_cast<float>(scale), causal, static_cast<int>(window),
       dtype == torch::kBFloat16, at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return out;
+  return {out, lse};
 }
 
 // The gradient of flash_attention: q, out and dout (B, S, Hq, D), k and v
-// (B, S, Hkv, D), one dtype. Returns (dq, dk, dv) in that dtype; the three
-// passes share two (B, Hq, S) float32 scratch tensors (lse and delta).
+// (B, S, Hkv, D), one dtype; lse the forward's (B, Hq, S) float32
+// logsumexp. Returns (dq, dk, dv) in that dtype; the three passes share one
+// float32 scratch (the rows' lse * log2(e) and delta, padded).
 std::vector<torch::Tensor> flash_attention_bwd(
     const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
-    const torch::Tensor& out, const torch::Tensor& dout, bool causal,
-    int64_t window, double scale) {
+    const torch::Tensor& out, const torch::Tensor& dout,
+    const torch::Tensor& lse, bool causal, int64_t window, double scale) {
   TORCH_CHECK(q.is_cuda(), "q must be a CUDA tensor");
   const torch::Device device = q.device();
   const auto dtype = q.scalar_type();
@@ -439,10 +449,13 @@ std::vector<torch::Tensor> flash_attention_bwd(
   check_input(v, "v", dtype, 4, device);
   check_input(out, "out", dtype, 4, device);
   check_input(dout, "dout", dtype, 4, device);
+  check_input(lse, "lse", torch::kFloat32, 3, device);
   const int64_t B = q.size(0), S = q.size(1), Hq = q.size(2), D = q.size(3);
   const int64_t Hkv = k.size(2);
   TORCH_CHECK(out.sizes() == q.sizes() && dout.sizes() == q.sizes(),
               "out and dout must have q's shape");
+  TORCH_CHECK(lse.size(0) == B && lse.size(1) == Hq && lse.size(2) == S,
+              "lse must be (B, Hq, S)");
   TORCH_CHECK(k.sizes() == v.sizes(), "k and v must have one shape");
   TORCH_CHECK(k.size(0) == B && k.size(1) == S && k.size(3) == D,
               "k and v must be (B, S, Hkv, D) beside q's (B, S, Hq, D)");
@@ -460,15 +473,16 @@ std::vector<torch::Tensor> flash_attention_bwd(
   torch::Tensor dk = torch::empty_like(k);
   torch::Tensor dv = torch::empty_like(v);
   if (B == 0 || S == 0 || Hq == 0) return {dq, dk, dv};
-  torch::Tensor lse = torch::empty({B, Hq, S}, q.options().dtype(
-                                                   torch::kFloat32));
-  torch::Tensor delta = torch::empty_like(lse);
+  torch::Tensor aux = torch::empty(
+      {flash_attention_bwd_aux_len(static_cast<int>(B), static_cast<int>(Hq),
+                                   static_cast<int>(S))},
+      q.options().dtype(torch::kFloat32));
   const int64_t qst[3] = {q.stride(0), q.stride(1), q.stride(2)};
   const int64_t kst[3] = {k.stride(0), k.stride(1), k.stride(2)};
   C10_CUDA_CHECK(flash_attention_bwd_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-      dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-      lse.data_ptr<float>(), delta.data_ptr<float>(), static_cast<int>(B),
+      dout.data_ptr(), lse.data_ptr<float>(), dq.data_ptr(), dk.data_ptr(),
+      dv.data_ptr(), aux.data_ptr<float>(), static_cast<int>(B),
       static_cast<int>(S), static_cast<int>(Hq), static_cast<int>(Hkv),
       static_cast<int>(D), qst, kst, static_cast<float>(scale), causal,
       static_cast<int>(window), dtype == torch::kBFloat16,
@@ -585,7 +599,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("embedding_bag", &embedding_bag,
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
   m.def("flash_attention", &flash_attention,
-        "Causal / sliding-window GQA attention forward (CUDA, sm_90a)");
+        "Causal / sliding-window GQA attention forward and, on request, "
+        "its logsumexp (CUDA, sm_90a)");
   m.def("flash_attention_bwd", &flash_attention_bwd,
         "Gradient of flash_attention: dq, dk, dv, deterministic (CUDA, "
         "sm_90a)");

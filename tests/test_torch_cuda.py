@@ -321,24 +321,29 @@ def test_cuda_prefill_launches_the_kernel_once_per_layer():
     assert bool(torch.isfinite(logits.float()).all())
 
 
-# flash_attention_bwd on the card against its plain version: both sum in
-# float32, in other orders (tiles against einsum's blocks), and ds = p (dp -
-# delta) cancels, so float32 agrees within rtol 1e-4 and atol 1e-4 of the
-# call's largest |gradient| (of dq, dk and dv: a gradient that is zero in
-# exact arithmetic, as dq and dk at S = 1, is float32 noise on both sides).
-# In bf16 both sides read the same bf16 inputs and sum in float32, then
-# round once to bf16: nearly equal sums may round one bf16 step apart (rtol
-# 2**-7), and the mean error stays under 2**-8 of the mean |gradient| (plus
-# that atol), which a systematic fault would break.
-def _assert_bwd_close(got, want):
+# flash_attention_bwd on the card against its plain version (chip_smoke.py's
+# BWD_TOL): both sum in float32, in other orders (tiles against einsum's
+# blocks), and ds = p (dp - delta) cancels, so float32 agrees within rtol
+# 1e-4 and atol 1e-4 of the call's largest |gradient| (of dq, dk and dv: a
+# gradient that is zero in exact arithmetic, as dq and dk at S = 1, is
+# float32 noise on both sides). In bf16 the tensor-core kernels (D <= 128)
+# round P and dS to bf16 as the operands of dv = P^T dout, dk = scale dS^T q
+# and dq = scale dS k: 2**-8 of each term at most, so each element may move
+# by 2**-8 of A, the same product on absolute values
+# (``attention_bwd_abs_ref``), beside one bf16 step of the result (rtol
+# 2**-7) and that atol; the mean error stays under 2**-8 of the mean
+# |gradient| (plus that atol), which a systematic fault would break.
+def _assert_bwd_close(got, want, absp):
     f32 = got[0].dtype == torch.float32
     atol = 1e-4 * max(float(w.float().abs().max()) for w in want)
-    for g, w in zip(got, want):
+    for g, w, a in zip(got, want, absp):
         g, w = g.float(), w.float()
         if f32:
             torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
             continue
-        torch.testing.assert_close(g, w, atol=atol, rtol=2 ** -7)
+        limit = 2 ** -7 * w.abs() + 2 ** -8 * a + atol
+        excess = float(((g - w).abs() - limit).max())
+        assert excess <= 0.0, excess
         assert float((g - w).abs().mean()) <= 2 ** -8 * float(
             w.abs().mean()) + atol
 
@@ -361,22 +366,67 @@ def _bwd_inputs(B, S, Hq, Hkv, D, dtype, seed):
 def test_cuda_flash_attention_bwd_close_to_plain_version(
         B, S, Hq, Hkv, D, causal, window, dtype):
     """dq, dk and dv of the card's backward within the limits above of
-    ``attention_bwd_ref`` on the same inputs (the forward's own output)."""
+    ``attention_bwd_ref`` on the same inputs (the forward's own output and
+    logsumexp)."""
     _need_card()
-    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    _check_bwd_case(B, S, Hq, Hkv, D, causal, window, dtype)
+
+
+def _check_bwd_case(B, S, Hq, Hkv, D, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import (attention_bwd_abs_ref,
+                                                     attention_bwd_ref)
     from repro_torch.kernels.flash_attention import ops as fops
     q, k, v, dout = _bwd_inputs(B, S, Hq, Hkv, D, dtype, B + S + D)
-    out = fops.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = fops.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
     before = fops.flash_attention_bwd.launches
-    got = fops.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+    got = fops.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                    window=window)
     torch.cuda.synchronize()
     assert fops.flash_attention_bwd.launches == before + 1
     assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
     assert all(t.dtype == dtype for t in got)
-    want = attention_bwd_ref(q, k, v, out, dout, causal=causal,
-                             window=window)
-    _assert_bwd_close(got, want)
+    kw = dict(causal=causal, window=window)
+    want = attention_bwd_ref(q, k, v, out, dout, **kw)
+    absp = attention_bwd_abs_ref(q, k, v, out, dout, **kw)
+    _assert_bwd_close(got, want, absp)
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 96, 128])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", [
+    (2, 300, 8, 2, True, None), (1, 333, 4, 1, True, 100),
+    (2, 257, 6, 3, False, 50), (3, 1, 4, 2, True, None),
+    (1, 191, 4, 4, False, None)])
+def test_cuda_flash_attention_bwd_tensor_cores(B, S, Hq, Hkv, causal,
+                                               window, D):
+    """The bf16 tensor-core backward (D <= 128, padded to 64, 96 or 128)
+    with GQA, windows, ragged S and S = 1, within the limits above."""
+    _need_card()
+    _check_bwd_case(B, S, Hq, Hkv, D, causal, window, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
+    (2, 300, 8, 2, 80, True, None), (1, 333, 4, 1, 128, True, 100),
+    (2, 129, 4, 4, 64, False, None), (3, 1, 4, 2, 16, True, None),
+    (1, 200, 4, 2, 256, False, 33)])
+def test_cuda_forward_lse_equals_plain_version(B, S, Hq, Hkv, D, causal,
+                                               window, dtype):
+    """The forward's logsumexp against ``attention_lse_ref`` (chip_smoke.py's
+    LSE_TOL), and the same output as without it."""
+    _need_card()
+    from repro_torch.kernels.flash_attention import attention_lse_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v, _ = _bwd_inputs(B, S, Hq, Hkv, D, dtype, S + D)
+    out, lse = fops.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    plain = fops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, S)
+    torch.testing.assert_close(
+        lse, attention_lse_ref(q, k, causal=causal, window=window),
+        atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -386,9 +436,9 @@ def test_cuda_flash_attention_bwd_repeats_bit_for_bit(dtype):
     _need_card()
     from repro_torch.kernels.flash_attention import ops as fops
     q, k, v, dout = _bwd_inputs(2, 333, 8, 2, 80, dtype, 3)
-    out = fops.flash_attention(q, k, v, window=100)
-    first = fops.flash_attention_bwd(q, k, v, out, dout, window=100)
-    again = fops.flash_attention_bwd(q, k, v, out, dout, window=100)
+    out, lse = fops.flash_attention(q, k, v, window=100, return_lse=True)
+    first = fops.flash_attention_bwd(q, k, v, out, dout, lse, window=100)
+    again = fops.flash_attention_bwd(q, k, v, out, dout, lse, window=100)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
