@@ -74,8 +74,13 @@ prints one JSON line per phase:
             R=64) and one stream_commit launch, on JAX's digest, k-1,
             plan and planned bytes, the sketch equal to its recount;
             stream_commit against its plain version (random cases over k,
-            L and mb, ties, cap hits, pad rows, duplicate buckets, three
-            of the path's micro-batches), timed at k=32, mb=64, Le=2048;
+            L and mb, ties, cap hits, pad rows, duplicate buckets, the
+            stream's kinds of rows, the row chain's hand-overs, 24 bits,
+            six of the path's micro-batches), one launch a case and the
+            branch the launcher reports; timed (each launch on its own
+            copy of the state) on the path's micro-batches at Le=32, 128
+            and 512, one widened to Le=2048, its first 1, 16 and 64 rows,
+            the all-pad and no-pin chains and a dense tile;
             row 1 timed at the stream's shape; then mem_budget=20e6 (plan
             (32, 2048), JAX's digest), a run snapshotting every 512
             micro-batches killed at 1,500 and resumed at 1,024, a retried
@@ -3387,26 +3392,51 @@ def commit_inputs(seed, k, mb, le, bits=16, kind="random"):
     in a row, a pad row at the end, sketch entries in about 30% of the
     buckets; ``kind`` forces ties (no fringe or balance term, an empty
     sketch), partitions at their cap (all but the last, or all), all-pad
-    rows, or duplicate buckets (16 buckets). Returns the five tensors and
-    the scalar knobs."""
+    rows, duplicate buckets (16 buckets), the stream's own rows (1-3
+    leading pins, about 30% of the valid rows with none: ``path``), rows
+    that repeat the ids of the rows before them over an empty sketch
+    (``chain``), valid rows with no pin (``nopins``), every slot a pin
+    (``wide``) or sketch entries below 0 (``negative``). Past 16 bits the
+    sketch holds entries only in the tile's buckets. Returns the five
+    tensors and the scalar knobs."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     if kind == "dup":
         bits = 4
     edge = rng.integers(0, 200_000, size=(mb, le)).astype(np.int32)
-    edge[rng.random((mb, le)) < 0.3] = -1
+    if kind != "wide":
+        edge[rng.random((mb, le)) < 0.3] = -1
+    if kind in ("path", "chain", "nopins"):
+        edge[:] = -1
+        pool = rng.integers(0, 200_000, size=6)
+        for i in range(mb if kind != "nopins" else 0):
+            n = int(rng.integers(1, min(3, le) + 1))
+            if kind == "chain":
+                edge[i, :n] = rng.choice(pool, size=n)
+            elif rng.random() >= 0.3:
+                edge[i, :n] = rng.integers(0, 200_000, size=n)
     fcnt = rng.integers(0, 5, size=(mb, k)).astype(np.float32)
-    sketch = (rng.integers(1, 3, size=(k, 1 << bits))
-              * (rng.random((k, 1 << bits)) < 0.3)).astype(np.int32)
+    if bits <= 16:
+        sketch = (rng.integers(1, 3, size=(k, 1 << bits))
+                  * (rng.random((k, 1 << bits)) < 0.3)).astype(np.int32)
+    else:
+        sketch = np.zeros((k, 1 << bits), np.int32)
+        ids = edge[edge >= 0].astype(np.uint32)
+        b = (ids * np.uint32(2654435761)) >> np.uint32(32 - bits)
+        hit = rng.random((k, b.size)) < 0.3
+        sketch[np.nonzero(hit)[0], b[np.nonzero(hit)[1]]] = 1
+    if kind == "negative":
+        sketch[rng.random(sketch.shape) < 0.2] = -1
     cap = 5 * mb + 3
     sizes = rng.integers(0, cap, size=k).astype(np.int32)
     valid = np.ones(mb, bool)
-    valid[-1] = mb == 1
+    valid[-1] = mb == 1 or kind == "nopins"
     alpha, fw = 1.0, 0.5
+    if kind in ("ties", "chain"):
+        sketch[:] = 0
     if kind == "ties":
         alpha, fw = 0.0, 0.0
-        sketch[:] = 0
     elif kind == "cap":
         sizes[:-1] = cap
     elif kind == "full":
@@ -3418,6 +3448,22 @@ def commit_inputs(seed, k, mb, le, bits=16, kind="random"):
                                                sizes)]
     return x, dict(alpha=alpha, fringe_w=fw, inv_target=float(
         np.float32(k / 177_386)), cap=cap, sketch_bits=bits)
+
+
+# stream_commit.cu's branches, by the code its launcher reports
+COMMIT_BRANCHES = ("row chain", "staged", "staged, handed to the row chain")
+
+
+def commit_branch(ext, x):
+    """The branch of stream_commit.cu a launch on ``x`` takes, by the
+    launcher's own rule (the shape and the valid rows' pins); None where
+    the tree's extension predates the branches."""
+    if not hasattr(ext, "stream_commit_branch"):
+        return None
+    edge, _, valid, sketch, _ = x
+    pins = int(((edge >= 0) & valid[:, None]).sum())
+    return COMMIT_BRANCHES[ext.stream_commit_branch(
+        *edge.shape, sketch.shape[0], pins)]
 
 
 def commit_bytes(x, kw) -> int:
@@ -3433,42 +3479,148 @@ def commit_bytes(x, kw) -> int:
             + 2 * sizes.nbytes + 4 * entries)
 
 
-def check_commit(ops, ref, x, kw, row):
+def check_commit(ops, ref, ext, x, kw, row, branch=None):
     """stream_commit on clones of ``x`` against its plain version on
-    other clones: parts, sketch and sizes bit for bit. Emits ``row`` with
-    the verdict; raises when they differ."""
+    other clones: parts, sketch and sizes bit for bit, one launch
+    counted, and the branch taken (``branch``, where given, must be it).
+    Emits ``row`` with the verdict; raises when they differ."""
     import torch
     got = [t.clone() for t in x]
+    before = ops.stream_commit.launches
     parts = ops.stream_commit(*got, **kw)
     torch.cuda.synchronize()
+    counted = ops.stream_commit.launches - before
     want = [t.clone() for t in x]
     want_parts = ref.stream_commit_ref(*want, **kw)
     equal = (torch.equal(parts, want_parts) and torch.equal(got[3], want[3])
              and torch.equal(got[4], want[4]))
     err = max_abs_err([parts, got[3], got[4]],
                       [want_parts, want[3], want[4]])
-    row.update(equal=equal, max_abs_err=err)
+    row.update(equal=equal, max_abs_err=err, launches=counted,
+               branch=commit_branch(ext, x))
     emit(row)
-    if not equal:
-        raise SystemExit(f"stream_commit disagrees with its plain version: "
-                         f"{row}")
+    if not equal or counted != 1 or (branch is not None
+                                     and row["branch"] != branch):
+        raise SystemExit(f"stream_commit disagrees with its plain version, "
+                         f"or its launch count or branch: {row}")
     return err
+
+
+def commit_ms(ops, x, kw, n=50, reps=5):
+    """stream_commit's device time a launch on ``x``, in a CUDA graph and
+    eagerly: ``n`` launches back to back, each on its own copy of the
+    sketch and sizes, restored before every timed run, so that each
+    launch commits into the state the inputs hold (a launch repeated on
+    one copy would drift its sizes to the cap). Returns (graph_ms, ms),
+    medians of ``reps`` runs."""
+    import torch
+    edge, fcnt, valid, sketch, sizes = x
+    sk = [sketch.clone() for _ in range(n)]
+    sz = [sizes.clone() for _ in range(n)]
+
+    def run():
+        for j in range(n):
+            ops.stream_commit(edge, fcnt, valid, sk[j], sz[j], **kw)
+
+    def timed(launch):
+        out = []
+        for _ in range(reps):
+            for a, b in zip(sk + sz, [sketch] * n + [sizes] * n):
+                a.copy_(b)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / n)
+        return statistics.median(out)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return timed(graph.replay), timed(run)
+
+
+def commit_timings(ops, ref, ext, mid, by_width):
+    """stream_commit timed on the stream's micro-batches (k=32, mb=64, 16
+    bits) by ``commit_ms`` (each launch on the state its inputs hold):
+    ``mid`` (a micro-batch's arguments) widened to Le=2,048 in a CUDA
+    graph and eagerly, beside its plain version and its bytes bound; the
+    all-pad chain and 64 valid rows with no pin at Le=2,048; a dense tile
+    (90,221 pins); each of ``by_width`` (Le -> (ordinal, arguments), the
+    pass's first micro-batch of that width); and the first 1, 16 and 64
+    rows of ``mid`` at its own width, whose difference is the per-row
+    slope. Each with the branch it takes."""
+    import torch
+
+    def timed(x, kw):
+        graph, eager = commit_ms(ops, x, kw)
+        return {"pins": int(((x[0] >= 0) & x[2][:, None]).sum()),
+                "bound_ms": commit_bytes(x, kw) / HBM_BYTES_PER_S * 1e3,
+                "branch": commit_branch(ext, x), "graph_ms": graph,
+                "ms": eager}
+
+    args, kw = mid
+    edge = torch.full((64, 2048), -1, dtype=torch.int32, device="cuda")
+    edge[:, :args[0].shape[1]] = args[0]
+    x = [edge] + list(args[1:])
+    nbytes = commit_bytes(x, kw)
+    row = {"k": 32, "mb": 64, "Le": 2048, "bytes": nbytes,
+           "bound_by": "bytes", **timed(x, kw),
+           "plain_ms": cuda_ms(lambda: ref.stream_commit_ref(
+               *[t.clone() for t in x], **kw), reps=3, iters=5, warmup=1),
+           "library_ms": None}
+    pad, pkw = commit_inputs(0, 32, 64, 2048, kind="pad")
+    chain = timed(pad, pkw)
+    row.update(row_chain_ms=chain["graph_ms"], row_chain_branch=chain["branch"])
+    nopin, nkw = commit_inputs(0, 32, 64, 2048, kind="nopins")
+    chain = timed(nopin, nkw)
+    row.update(nopin_chain_ms=chain["graph_ms"],
+               nopin_chain_branch=chain["branch"])
+    dense, dkw = commit_inputs(1, 32, 64, 2048)
+    row["dense"] = timed(dense, dkw)
+    row["pass_widths"] = {
+        str(le): {"ordinal": ordinal, "Le": le, **timed(a, akw)}
+        for le, (ordinal, (a, akw)) in sorted(by_width.items())}
+    slope = {str(mb): timed([t[:mb].contiguous() for t in args[:3]]
+                            + list(args[3:]), kw)["graph_ms"]
+             for mb in (1, 16, 64)}
+    row["rows_graph_ms"] = slope
+    row["per_row_us"] = (slope["64"] - slope["1"]) / 63 * 1e3
+    row["rows_Le"] = int(args[0].shape[1])
+    return row
 
 
 class CaptureCommits:
     """Within the block, keep clones of the stream_commit arguments that
     ``scoring`` passes at the given call ordinals (the sketch and sizes
-    as they are before the call)."""
+    as they are before the call), in ``args``, and those of the first
+    call at each edge-tile width of ``widths``, in ``by_width`` (width ->
+    (ordinal, arguments))."""
 
-    def __init__(self, scoring, at):
+    def __init__(self, scoring, at, widths=()):
         self.scoring, self.at, self.calls, self.args = scoring, at, 0, []
+        self.widths, self.by_width = widths, {}
 
     def __enter__(self):
         real = self.real = self.scoring.stream_commit
 
         def spy(*args, **kw):
-            if self.calls in self.at:
-                self.args.append(([t.clone() for t in args], dict(kw)))
+            le = args[0].shape[1]
+            keep = self.calls in self.at
+            first = le in self.widths and le not in self.by_width
+            if keep or first:
+                kept = ([t.clone() for t in args], dict(kw))
+                if keep:
+                    self.args.append(kept)
+                if first:
+                    self.by_width[le] = (self.calls, kept)
             self.calls += 1
             return real(*args, **kw)
 
@@ -3514,14 +3666,16 @@ def phase_stream(hg, same_graph, launches, ops, ref, scoring, hs, res):
     The path first: one micro-batch step a row 1 and a stream_commit
     launch, JAX's digest and k-1, sizes within k, the sketch equal to its
     recount, JAX's plan and planned bytes, the observed peak beside them
-    (three micro-batches' commit arguments kept on the way). Then the
-    kernel: stream_commit against its plain version over k in {1, 2, 32,
-    67, 300}, every L bucket and mb in {1, 7, 64}, forced ties, partitions
-    at their cap, all-pad rows, duplicate buckets and the kept real
-    micro-batches, bit for bit; timed at (k=32, mb=64, Le=2048, 16 bits)
-    on a real micro-batch (its tile widened to 2,048) eagerly and in a
-    CUDA graph, beside its plain version, its bytes bound, its all-pad
-    row chain and a dense tile; row 1 timed at the stream's shape (G=32,
+    (the commit arguments of three micro-batches and of the first of each
+    tile width kept on the way). Then the kernel: stream_commit against
+    its plain version over k in {1, 2, 32, 67, 300}, every L bucket and mb
+    in {1, 7, 64}, forced ties, partitions at their cap, all-pad rows,
+    duplicate buckets, the stream's kinds of rows (path, chain, nopins) at
+    k in {32, 33, 64, 65} and Le in {32, 2048}, the row chain's
+    hand-overs (wide, negative, k past 256), 24 bits at k <= 8 and the
+    kept real micro-batches, bit for bit, one launch counted a call and
+    the branch the launcher reports; timed by ``commit_timings``; row 1
+    timed at the stream's shape (G=32,
     R=64, L=2048, s=16, P=1). Then the budget (mem_budget=20e6: plan (32,
     2048), JAX's digest), a run snapshotting every 512 micro-batches killed
     by a fatal dispatch fault at 1,500 and resumed at 1,024, a retried
@@ -3546,7 +3700,7 @@ def phase_stream(hg, same_graph, launches, ops, ref, scoring, hs, res):
     torch.cuda.reset_peak_memory_stats()
     total = -(-hg.n // p.micro_batch)
     at = (1, total // 2, total - 1)
-    with CaptureCommits(scoring, at) as kept:
+    with CaptureCommits(scoring, at, widths=(32, 128, 512)) as kept:
         (a, state), wall, counts = launches.drive(
             lambda: hs.hype_stream_partition(hg, 32, p, return_state=True,
                                              device="cuda"))
@@ -3572,50 +3726,62 @@ def phase_stream(hg, same_graph, launches, ops, ref, scoring, hs, res):
         raise SystemExit(f"the stream differs from JAX's: {row}")
 
     # 2. the kernel
+    from repro_torch.kernels._build import load_extension
+    ext = load_extension()
     worst = 0.0
     for k in (1, 2, 32, 67, 300):
         for le in (32, 128, 512, 2048):
             for mb in (1, 7, 64):
                 x, kw = commit_inputs(k * 1000 + le + mb, k, mb, le)
-                worst = max(worst, check_commit(ops, ref, x, kw, {
+                worst = max(worst, check_commit(ops, ref, ext, x, kw, {
                     "phase": "kernel_stream_commit", "k": k, "Le": le,
                     "mb": mb, "inputs": "random"}))
     for kind in ("ties", "cap", "full", "pad", "dup"):
         for k in (3, 32):
             x, kw = commit_inputs(k, k, 64, 128, kind=kind)
-            worst = max(worst, check_commit(ops, ref, x, kw, {
+            worst = max(worst, check_commit(ops, ref, ext, x, kw, {
                 "phase": "kernel_stream_commit", "k": k, "Le": 128,
                 "mb": 64, "inputs": kind}))
-    for ordinal, (args, kw) in zip(at, kept.args):
-        worst = max(worst, check_commit(ops, ref, args, kw, {
+    # the stream's kinds of rows on the staged branch, past one word of
+    # partitions; then the row chain: more pins than the staged table's
+    # room (handed over inside the staged kernel), k past 256 (chosen by
+    # the launcher), a sketch entry below 0 (handed over too, which the
+    # launcher's rule does not see); 24 bits
+    cases = [(kind, k, le, 1) for kind in ("path", "chain", "nopins")
+             for k in (32, 33, 64, 65) for le in (32, 2048)]
+    cases += [("wide", 3, 256, 2), ("wide", 32, 256, 2),
+              ("wide", 256, 2048, 2), ("wide", 300, 256, 0),
+              ("negative", 3, 32, 1), ("negative", 32, 32, 1),
+              ("negative", 300, 32, 0), ("path", 257, 32, 0)]
+    for kind, k, le, branch in cases:
+        x, kw = commit_inputs(k * 7 + le, k, 64, le, kind=kind)
+        worst = max(worst, check_commit(ops, ref, ext, x, kw, {
+            "phase": "kernel_stream_commit", "k": k, "Le": le, "mb": 64,
+            "inputs": kind}, branch=COMMIT_BRANCHES[branch]))
+    for kind in ("random", "path", "chain"):
+        for k in (1, 5, 8):
+            x, kw = commit_inputs(k, k, 64, 32, bits=24, kind=kind)
+            worst = max(worst, check_commit(ops, ref, ext, x, kw, {
+                "phase": "kernel_stream_commit", "k": k, "Le": 32,
+                "mb": 64, "bits": 24, "inputs": kind}))
+            del x
+    kept_batches = [(ordinal, args) for ordinal, args in zip(at, kept.args)]
+    kept_batches += [(ordinal, args) for _, (ordinal, args)
+                     in sorted(kept.by_width.items())]
+    for ordinal, (args, kw) in kept_batches:
+        worst = max(worst, check_commit(ops, ref, ext, args, kw, {
             "phase": "kernel_stream_commit", "inputs": "path micro-batch",
             "ordinal": ordinal, "Le": args[0].shape[1],
             "pins": int((args[0] >= 0).sum())}))
-    # timed on the mid-stream micro-batch, its tile widened to 2,048 (the
-    # timed launches keep committing into its sketch and sizes)
-    args, kw = kept.args[1]
-    edge = torch.full((64, 2048), -1, dtype=torch.int32, device="cuda")
-    edge[:, :args[0].shape[1]] = args[0]
-    x = [edge] + [t.clone() for t in args[1:]]
-    nbytes = commit_bytes(x, kw)
-    timed = {"phase": "kernel_stream_commit", "inputs": f"path micro-batch "
-             f"{at[1]} at Le=2048", "k": 32, "mb": 64, "Le": 2048,
-             "pins": int((edge >= 0).sum()), "bytes": nbytes,
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             "bound_by": "bytes",
-             "ms": cuda_ms(lambda: ops.stream_commit(*x, **kw)),
-             "graph_ms": graph_ms(lambda: ops.stream_commit(*x, **kw)),
-             "plain_ms": cuda_ms(lambda: ref.stream_commit_ref(*x, **kw),
-                                 reps=3, iters=5, warmup=1),
-             "library_ms": None, "max_abs_err": worst}
-    pad, pkw = commit_inputs(0, 32, 64, 2048, kind="pad")
-    timed["row_chain_ms"] = graph_ms(lambda: ops.stream_commit(*pad, **pkw))
-    dense, dkw = commit_inputs(1, 32, 64, 2048)
-    timed["dense"] = {"pins": int((dense[0] >= 0).sum()),
-                      "bound_ms": commit_bytes(dense, dkw)
-                      / HBM_BYTES_PER_S * 1e3,
-                      "graph_ms": graph_ms(
-                          lambda: ops.stream_commit(*dense, **dkw))}
+    if same_graph and sorted(kept.by_width) != [32, 128, 512]:
+        raise SystemExit(f"the pass's tile widths were "
+                         f"{sorted(kept.by_width)}, not 32, 128 and 512")
+    # timed on the mid-stream micro-batch (its tile widened to 2,048, and
+    # its first 1, 16 and 64 rows) and on the pass's first of each width
+    timed = {"phase": "kernel_stream_commit",
+             "inputs": f"path micro-batch {at[1]} at Le=2048",
+             **commit_timings(ops, ref, ext, kept.args[1], kept.by_width),
+             "max_abs_err": worst}
     emit(timed)
 
     # row 1 at the stream's shape: the path's neighbour tile of the same
@@ -4332,7 +4498,11 @@ def main() -> int:
         entry("stream_commit", csrc + "hype_score/csrc/stream_commit.cu",
               None, commit_row, worst_commit,
               **{key: commit_row[key] for key in (
-                  "graph_ms", "row_chain_ms", "dense")},
+                  "graph_ms", "branch", "row_chain_ms", "nopin_chain_ms",
+                  "dense", "per_row_us")},
+              pass_widths={le: {key: r[key] for key in (
+                  "ms", "graph_ms", "bound_ms", "branch")}
+                  for le, r in commit_row["pass_widths"].items()},
               note="the sequential sketch commit of the streaming engine: "
                    "the fori_loop body of src/repro/core/scoring.py:545-566, "
                    "which JAX leaves to XLA (no pallas_call)"),

@@ -4,6 +4,7 @@ flash-attention kernels of one source tree on one CUDA card, so that two
 commits can be compared on one card.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
+                         [--stream-only]
 
 ``--tree`` is the root of a checkout of this repository (default: the
 one holding this script); its ``src/repro_torch`` is imported, and its
@@ -46,8 +47,24 @@ Measures, each on inputs made from fixed seeds:
     at the LM training shape (B = 2, S = 4,096, 32 heads of 80) and at
     qwen3-8b's layer, fed the forward's logsumexp where the tree's
     backward takes one, eagerly and in a CUDA graph (one call).
-``--flash-only`` measures the flash kernels alone. Prints one JSON line
-per measurement, then the card's name and power limit. Exits 1 without a
+  * ``stream_commit`` (k = 32, mb = 64, 16 bits) and the stream pass:
+    ``hype_stream`` on github_like(1.0, seed=0) at k = 32 with
+    ``StreamParams(seed=0)``, once to keep the commit arguments of its
+    first micro-batch of each tile width (Le = 32, 128, 512) and of its
+    middle one, and to count on the host every micro-batch's tile width,
+    pins and dependent rows (a bucket that another pin of the
+    micro-batch holds too), then twice more for the pass's wall (host
+    clock, ending in a synchronise); then ``chip_smoke.commit_timings``
+    (each launch on its own copy of the state) on those: each
+    kept micro-batch at its own width eagerly and in a CUDA graph, the
+    middle one widened to Le = 2,048 (eagerly, in a graph, and its plain
+    version), its first 1, 16 and 64 rows in a graph (the per-row slope),
+    the all-pad chain, 64 valid rows with no pin and a dense tile, each
+    with the branch of ``stream_commit.cu`` it takes (where the tree's
+    extension reports one).
+``--flash-only`` measures the flash kernels alone, ``--stream-only``
+``stream_commit`` and the stream pass alone. Prints one JSON line per
+measurement, then the card's name and power limit. Exits 1 without a
 CUDA device.
 """
 from __future__ import annotations
@@ -67,6 +84,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--label", default=None)
     ap.add_argument("--flash-only", action="store_true")
+    ap.add_argument("--stream-only", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -74,16 +92,17 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (FirstScreen, card_line, cuda_ms, gnn_sample,
-                            graph_ms, kernel_inputs, kway_tile, layer_x_w)
+    from chip_smoke import (CaptureCommits, FirstScreen, card_line,
+                            commit_timings, cuda_ms, gnn_sample, graph_ms,
+                            kernel_inputs, kway_tile, layer_x_w)
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.configs import get_arch
-    from repro_torch.core import scoring
+    from repro_torch.core import hype_stream, scoring
     from repro_torch.data import graphs, synthetic
     from repro_torch.kernels._build import load_extension
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.hype_score import ops
+    from repro_torch.kernels.hype_score import ops, ref
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.models.gnn import in_neighbors
     from repro_torch.partition_api import partition
@@ -94,6 +113,11 @@ def main(argv=None) -> int:
     def emit(row):
         print(json.dumps({"tree": label, **row}), flush=True)
 
+    if args.stream_only:
+        stream(emit, synthetic.github_like(1.0, seed=0), hype_stream,
+               scoring, ops, ref, ext, CaptureCommits, commit_timings)
+        print(card_line(), flush=True)
+        return 0
     flash(emit, fops, cuda_ms, graph_ms)
     if args.flash_only:
         print(card_line(), flush=True)
@@ -129,6 +153,8 @@ def main(argv=None) -> int:
               "inputs": kind, "ms": cuda_ms(lambda: ext.kway_gains(*x, k)),
               "graph_ms": graph_ms(lambda: ext.kway_gains(*x, k))})
     hg = synthetic.github_like(1.0, seed=0)
+    stream(emit, hg, hype_stream, scoring, ops, ref, ext, CaptureCommits,
+           commit_timings)
 
     def quality():
         partition(hg, 32, "hype_superstep", device="cuda", t=16,
@@ -200,6 +226,56 @@ def main(argv=None) -> int:
                             reps=5, iters=20, warmup=3)})
     print(card_line(), flush=True)
     return 0
+
+
+def stream(emit, hg, hs, scoring, ops, ref, ext, CaptureCommits,
+           commit_timings) -> None:
+    """The stream rows of the module docstring."""
+    import collections
+
+    import numpy as np
+    import torch
+    params = hs.StreamParams(seed=0)
+
+    def run():
+        hs.hype_stream_partition(hg, 32, params, device="cuda")
+        torch.cuda.synchronize()
+
+    mid = -(-hg.n // params.micro_batch) // 2
+    census = collections.Counter()
+    with CaptureCommits(scoring, (mid,), widths=(32, 128, 512)) as kept:
+        spied = scoring.stream_commit
+
+        def count(edge, fcnt, valid, sketch, sizes, **kw):
+            # on the host: the tile's width, its valid rows' pins, and its
+            # dependent rows (a bucket that another pin of the micro-batch
+            # holds too)
+            e, v = edge.cpu().numpy(), valid.cpu().numpy()
+            ids = np.where((e >= 0) & v[:, None], e, -1)
+            b = (ids.astype(np.uint32) * np.uint32(2654435761)) >> np.uint32(
+                32 - kw["sketch_bits"])
+            b = np.where(ids >= 0, b.astype(np.int64), -1)
+            vals, counts = np.unique(b[b >= 0], return_counts=True)
+            shared = np.isin(b, vals[counts >= 2])
+            pins = int((ids >= 0).sum())
+            census.update({f"Le{e.shape[1]}": 1, "micro_batches": 1,
+                           "pins": pins, "valid_rows": int(v.sum()),
+                           "dependent_rows": int(shared.any(1).sum())})
+            census["max_pins"] = max(census["max_pins"], pins)
+            return spied(edge, fcnt, valid, sketch, sizes, **kw)
+
+        scoring.stream_commit = count
+        run()
+        scoring.stream_commit = spied
+    emit({"stream_census": dict(census)})
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    emit({"path": "stream", "wall_s": walls})
+    emit({"kernel": "stream_commit", "inputs": f"path micro-batch {mid}",
+          **commit_timings(ops, ref, ext, kept.args[0], kept.by_width)})
 
 
 def flash(emit, fops, cuda_ms, graph_ms) -> None:

@@ -60,6 +60,7 @@ extern "C" cudaError_t stream_commit_launch(
     int32_t* sketch, int32_t* sizes, int32_t* parts, int mb, int Le, int k,
     int bits, float alpha, float fw, float inv_target, int cap,
     cudaStream_t stream);
+extern "C" int stream_commit_branch(int mb, int Le, int k, int64_t pins);
 extern "C" size_t neighbor_agg_smem_bytes(int D, int F);
 extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            const void* w, void* out,
@@ -355,6 +356,18 @@ torch::Tensor stream_commit(const torch::Tensor& edge_tile,
   return parts;
 }
 
+// The branch of stream_commit.cu a launch of this shape takes, given the
+// valid pins of its valid rows: 0 the row chain, 1 staged, 2 the staged
+// kernel handing over to the row chain. Reads the card's shared memory.
+int64_t stream_commit_branch_of(int64_t mb, int64_t Le, int64_t k,
+                                int64_t pins) {
+  TORCH_CHECK(mb >= 1 && mb < kInt31 && Le >= 0 && Le < kInt31 && k >= 1 &&
+                  k < kInt31 && pins >= 0,
+              "stream_commit_branch: shape out of range");
+  return stream_commit_branch(static_cast<int>(mb), static_cast<int>(Le),
+                              static_cast<int>(k), pins);
+}
+
 torch::Tensor embedding_bag(const torch::Tensor& table,
                             const torch::Tensor& ids, bool mean) {
   TORCH_CHECK(table.is_cuda(), "table must be a CUDA tensor");
@@ -596,6 +609,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K-way move gains of candidates read through a CSR (CUDA, sm_90a)");
   m.def("stream_commit", &stream_commit,
         "The streaming engine's sequential sketch commit (CUDA, sm_90a)");
+  m.def("stream_commit_branch", &stream_commit_branch_of,
+        "The branch of the stream_commit kernel a shape and pin count take");
   m.def("embedding_bag", &embedding_bag,
         "EmbeddingBag sum/mean over -1-padded bags (CUDA, sm_90a)");
   m.def("flash_attention", &flash_attention,

@@ -990,24 +990,50 @@ def _commit_inputs(seed, k, mb, le, bits=16, kind="random"):
     """Seeded stream_commit inputs on the card: pads anywhere in a row, a
     pad row at the end, sketch entries in about 30% of the buckets;
     ``kind`` forces ties (no fringe or balance term, an empty sketch),
-    partitions at their cap (all but the last, or all), all-pad rows, or
-    duplicate buckets (16 buckets)."""
+    partitions at their cap (all but the last, or all), all-pad rows,
+    duplicate buckets (16 buckets), the stream's own rows (1-3 leading
+    pins, about 30% of the valid rows with none: ``path``), rows that
+    repeat the ids of the rows before them over an empty sketch
+    (``chain``), valid rows with no pin (``nopins``), every slot a pin
+    (``wide``: past the staged table's room at mb * Le > 4,096) or
+    sketch entries below 0 (``negative``). Past 16 bits the sketch holds
+    entries only in the tile's buckets (it would not fit otherwise)."""
     rng = np.random.default_rng(seed)
     if kind == "dup":
         bits = 4
     edge = rng.integers(0, 200_000, size=(mb, le)).astype(np.int32)
-    edge[rng.random((mb, le)) < 0.3] = -1
+    if kind != "wide":
+        edge[rng.random((mb, le)) < 0.3] = -1
+    if kind in ("path", "chain", "nopins"):
+        edge[:] = -1
+        pool = rng.integers(0, 200_000, size=6)
+        for i in range(mb if kind != "nopins" else 0):
+            n = int(rng.integers(1, min(3, le) + 1))
+            if kind == "chain":
+                edge[i, :n] = rng.choice(pool, size=n)
+            elif rng.random() >= 0.3:
+                edge[i, :n] = rng.integers(0, 200_000, size=n)
     fcnt = rng.integers(0, 5, size=(mb, k)).astype(np.float32)
-    sketch = (rng.integers(1, 3, size=(k, 1 << bits))
-              * (rng.random((k, 1 << bits)) < 0.3)).astype(np.int32)
+    if bits <= 16:
+        sketch = (rng.integers(1, 3, size=(k, 1 << bits))
+                  * (rng.random((k, 1 << bits)) < 0.3)).astype(np.int32)
+    else:
+        sketch = np.zeros((k, 1 << bits), np.int32)
+        ids = edge[edge >= 0].astype(np.uint32)
+        b = (ids * np.uint32(2654435761)) >> np.uint32(32 - bits)
+        hit = rng.random((k, b.size)) < 0.3
+        sketch[np.nonzero(hit)[0], b[np.nonzero(hit)[1]]] = 1
+    if kind == "negative":
+        sketch[rng.random(sketch.shape) < 0.2] = -1
     cap = 5 * mb + 3
     sizes = rng.integers(0, cap, size=k).astype(np.int32)
     valid = np.ones(mb, bool)
-    valid[-1] = mb == 1
+    valid[-1] = mb == 1 or kind == "nopins"
     alpha, fw = 1.0, 0.5
+    if kind in ("ties", "chain"):
+        sketch[:] = 0
     if kind == "ties":
         alpha, fw = 0.0, 0.0
-        sketch[:] = 0
     elif kind == "cap":
         sizes[:-1] = cap
     elif kind == "full":
@@ -1037,9 +1063,47 @@ def test_cuda_stream_commit_edge_cases_equal_plain_version(k, kind):
     _check_commit(*_commit_inputs(k, k, 64, 128, kind=kind))
 
 
-def _check_commit(x, kw):
+@pytest.mark.parametrize("le", [32, 2048])
+@pytest.mark.parametrize("kind", ["path", "chain", "nopins"])
+@pytest.mark.parametrize("k", [32, 33, 64, 65])
+def test_cuda_stream_commit_path_kinds_equal_plain_version(k, kind, le):
+    """The staged branch on the stream's kinds of rows, at the pass's
+    narrowest tile and the widened one, and past one word of partitions
+    (k > 32, > 64)."""
+    _need_card()
+    _check_commit(*_commit_inputs(k + le, k, 64, le, kind=kind),
+                  branch=1)
+
+
+@pytest.mark.parametrize("kind,k,le,branch", [
+    ("wide", 3, 256, 2), ("wide", 32, 256, 2), ("wide", 256, 2048, 2),
+    ("wide", 300, 256, 0),
+    ("negative", 3, 32, 1), ("negative", 32, 32, 1),
+    ("negative", 300, 32, 0), ("path", 257, 32, 0)])
+def test_cuda_stream_commit_second_branch_equals_plain_version(kind, k, le,
+                                                               branch):
+    """The row chain: more pins than the staged table's room (handed over
+    inside the staged kernel), k past 256 (chosen by the launcher), and a
+    sketch entry below 0, which the staged kernel hands over too."""
+    _need_card()
+    _check_commit(*_commit_inputs(k * 7 + le, k, 64, le, kind=kind),
+                  branch=branch)
+
+
+@pytest.mark.parametrize("kind", ["random", "path", "chain"])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_cuda_stream_commit_24_bits_equals_plain_version(k, kind):
+    _need_card()
+    _check_commit(*_commit_inputs(k, k, 64, 32, bits=24, kind=kind))
+
+
+def _check_commit(x, kw, branch=None):
     """The kernel on clones of the inputs against the plain version:
-    parts, sketch and sizes bit for bit, one launch counted."""
+    parts, sketch and sizes bit for bit, one launch counted; where given,
+    the branch the launcher reports for the shape and the valid rows'
+    pins (0 the row chain, 1 staged, 2 the staged kernel handing the
+    launch to the row chain)."""
+    from repro_torch.kernels._build import load_extension
     got = [t.clone() for t in x]
     before = stream_commit.launches
     parts = stream_commit(*got, **kw)
@@ -1049,6 +1113,11 @@ def _check_commit(x, kw):
     want_parts = stream_commit_ref(*want, **kw)
     assert torch.equal(parts, want_parts)
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    if branch is not None:
+        edge, _, valid, sketch, _ = x
+        pins = int(((edge >= 0) & valid[:, None]).sum())
+        assert load_extension().stream_commit_branch(
+            *edge.shape, sketch.shape[0], pins) == branch
 
 
 def test_cuda_stream_equals_cpu_and_counts_launches():
