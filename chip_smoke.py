@@ -120,6 +120,26 @@ prints one JSON line per phase:
   recsys_parity  the reduced config from numpy params, card against CPU
   placement  HYPE row placement of the co-access log of
             benchmarks/bench_beyond_paper.py, held against JAX's digest
+  kernel_embedding_bag_bwd  the table's gradient (row 5b's backward
+            kernel with the bags as rows, mean and sum) bit for bit
+            against its plain version on the CPU: small tables (odd D,
+            bag 1, a wide bag, duplicates, all-pad rows, a hub) in fp32
+            and bf16, a second launch equal, ids near V-1 of a
+            16,777,216 x 256 gradient; the training shape (both towers'
+            262,144 bags of 8 from RecsysStream at V = 2,097,152) timed
+            eagerly and in a CUDA graph beside the plain version and
+            autograd's backward of F.embedding_bag(mode='mean')
+  recsys_train  two-tower-retrieval at its published width and B =
+            65,536, its vocabularies cut to 2,097,152: 3 AdamW steps, each
+            launching the EmbeddingBag kernel and its backward twice;
+            wall, examples/s, peak memory, finite losses, no all-zero
+            gradient leaf, the loss alone; then one step under the
+            profiler
+  recsys_train_parity  the reduced config from numpy params, 4 steps with
+            and without compress_grads, held to the JAX package's pinned
+            losses (tests/jax_twotower_losses.py)
+  recsys_launcher  the train launcher, --arch two-tower-retrieval
+            --reduced --steps 4
   kernel_flash_attention  the flash-attention kernels against their
             plain version (fp32 on the CUDA-core kernel, bf16 on the
             tensor-core kernel: causal, non-causal, windows, D from 8 to
@@ -284,6 +304,38 @@ RETRIEVE_N_CAND, RETRIEVE_TOP_K = 1_048_576, 128
 PLACEMENT_DIGEST = "23febef3972fa7ee"
 PLACEMENT_JAX = {"hype": (2.03425, 0.23954658362470863),
                  "hash": (7.0305, 0.7520709009740261)}
+
+# The two-tower training slice: two-tower-retrieval at its published width
+# (embed 256, towers 1024-512-256, 4 fields, bag 8; fp32, TF32 off) at the
+# published train_batch B = 65,536, default AdamW through make_train_step.
+# Cut: each vocabulary from 16,777,216 to 2,097,152 rows. At full vocab
+# the tables, their dense gradients and the two AdamW moments take 137 GB
+# (JAX's AdamW decays every row every step, so the state cannot be sparse);
+# at 2,097,152 rows they take 17.2 GB beside the (B, B) float32 logits
+# (17.2 GB, two alive at the forward's peak). Batches: the launcher's
+# RecsysStream(V, V, B, n_fields=4, bag=8), steps 0-3, made on the host
+# and uploaded before the steps are timed.
+RECSYS_TRAIN_VOCAB = 2_097_152
+RECSYS_TRAIN_STEPS = 3
+# The reduced config trained on the card from twotower_numpy_params for 4
+# steps of recsys_parity_batches, with and without compress_grads, against
+# the JAX package's losses on the CPU from the same params and batches
+# (tests/jax_twotower_losses.py; LR 1e-2 so the losses move). The card's
+# matmuls and the two packages' table-gradient scatters sum in other
+# orders: rtol 1e-5 on step 0, then 1e-4, as LM_TRAIN_PARITY_TOL (a
+# gradient a rounding apart can flip one int8 level of the compressed
+# gradient, or move a near-zero weight by about lr under AdamW; the loss
+# barely feels either).
+RECSYS_PARITY_STEPS = 4
+RECSYS_PARITY_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=20)
+RECSYS_TRAIN_JAX_LOSSES = {
+    "plain": [5.785348892211914, 6.073033809661865, 5.267496109008789,
+              5.496495246887207],
+    "compressed": [5.785348892211914, 6.076738357543945, 5.270156383514404,
+                   5.5261430740356445]}
+RECSYS_PARITY_TOL = [dict(rtol=1e-5, atol=0.0)] + [
+    dict(rtol=1e-4, atol=0.0)] * 3
+RECSYS_LAUNCHER_STEPS = 4
 
 # The LM serving slice: qwen3-8b at full width, bf16. The published
 # prefill_32k (B=32) and decode_32k (B=128) caches need 154.6 and 618 GB
@@ -1043,36 +1095,70 @@ def run_slice(hg, depth, device, metrics, SuperstepParams, run):
                "digest": digest(a)}
 
 
+# tiny kernels run ahead of the profiled call in its window, and the
+# name that marks the call (phase_profile)
+PROFILE_WARMUP_LAUNCHES = 1000
+PROFILE_MARK = "phase_profile.call"
+
+
 def phase_profile(label, fn, watch=()):
     """Where the time goes in one path, from one more run of it under
     torch.profiler: the card's busy time (kernels and copies, summed over
     device-side events only) and its largest consumers. The run ends in
     a synchronize, so the wall time covers the card's work. ``watch``
-    names kernels (substrings of their names) whose device time is also
-    reported, each summed, with its share of the busy time.
+    names kernels (substrings of their names) whose device time and
+    launch count are also reported, each summed, with its share of the
+    busy time.
+
+    Once a process has run for a while, the profiler drops kernel
+    records at the start of a window, with no error: they are missing
+    from its trace, more of them the longer the process has run. So the
+    window opens with PROFILE_WARMUP_LAUNCHES one-element adds,
+    synchronised, and only device events that start inside the call's
+    PROFILE_MARK range are counted; ``warmup_kept`` says how many of the
+    adds' records survived (fewer than were launched: some were lost,
+    ahead of the call).
     """
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    one = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        for _ in range(PROFILE_WARMUP_LAUNCHES):
+            one.add_(1.0)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function(PROFILE_MARK):
+            fn()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            dev[e.key[:60]] = dev.get(e.key[:60], 0) + e.self_device_time_total
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == PROFILE_MARK)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != PROFILE_MARK]
+    dev, calls = collections.Counter(), collections.Counter()
+    for e in device:
+        if e.time_range.start >= start:
+            dev[e.name] += e.time_range.elapsed_us()
+            calls[e.name] += 1
     busy_s = sum(dev.values()) / 1e6
-    top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:6])
+    top = collections.Counter()
+    for key, us in dev.items():
+        top[key[:60]] += us
     watched = {w: sum(us for key, us in dev.items() if w in key)
                for w in watch}
     emit({"phase": "profile", "path": label, "wall_s": wall,
           "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
-          "top_device_us": top} | ({
+          "top_device_us": dict(top.most_common(6)),
+          "warmup_launches": PROFILE_WARMUP_LAUNCHES,
+          "warmup_kept": len(device) - sum(calls.values())} | ({
               "watched_device_us": watched,
+              "watched_launches": {w: sum(n for key, n in calls.items()
+                                          if w in key) for w in watch},
               "watched_share_of_busy": {
                   w: us / 1e6 / busy_s for w, us in watched.items()}}
               if watch else {}))
@@ -1286,13 +1372,13 @@ def phase_recsys_serve(recsys, bref, params, cfg, launches):
             params, batch, cfg, top_k=RETRIEVE_TOP_K))
 
 
-def phase_recsys_parity(recsys, convert, cfg):
-    """The reduced config from numpy params: the card (the kernel)
-    against the CPU (the plain version), within PARITY_TOL; top-k
-    indices equal except between scores that tie within it."""
+def twotower_numpy_params(cfg, rng) -> dict:
+    """Two-tower params as numpy float64, in the JAX package's layout:
+    each table ``normal * 0.02``, each tower weight ``normal /
+    sqrt(fan_in)`` and bias ``normal * 0.1``, drawn in this order from
+    ``rng`` (a numpy Generator, advanced). ``cfg`` is either package's
+    TwoTowerConfig."""
     import numpy as np
-    import torch
-    rng = np.random.default_rng(5)
     dims = (cfg.n_fields * cfg.embed_dim,) + tuple(cfg.tower_dims[1:])
 
     def tower():
@@ -1302,11 +1388,48 @@ def phase_recsys_parity(recsys, convert, cfg):
                   for i in range(len(dims) - 1)})
         return p
 
-    tree = {"user_table": rng.normal(size=(cfg.user_vocab,
+    return {"user_table": rng.normal(size=(cfg.user_vocab,
                                            cfg.embed_dim)) * 0.02,
             "item_table": rng.normal(size=(cfg.item_vocab,
                                            cfg.embed_dim)) * 0.02,
             "user_tower": tower(), "item_tower": tower()}
+
+
+def recsys_parity_batches(cfg, B: int = 32) -> list:
+    """The recsys_train_parity phase's batches as numpy: RecsysStream's
+    recipe (B rows of n_fields bags, 30% of the slots dropped to -1, the
+    item bags drawn first) with uniform ids from ``rng.integers``, a fifth
+    of them set to row 0 (a popular row, many slots on one table row),
+    and ``item_logq`` uniform in (-8, 0], from ``default_rng([13,
+    step])``. RecsysStream's ``Generator.zipf`` gives other numbers under
+    other numpy versions (see lm_parity_batches); these streams do not."""
+    import numpy as np
+    out = []
+    for step in range(RECSYS_PARITY_STEPS):
+        rng = np.random.default_rng([13, step])
+
+        def bags(vocab):
+            ids = rng.integers(0, vocab, size=(B, cfg.n_fields,
+                                               cfg.bag_size))
+            ids[rng.random(ids.shape) < 0.2] = 0
+            return np.where(rng.random(ids.shape) < 0.3, -1,
+                            ids).astype(np.int32)
+
+        item_ids = bags(cfg.item_vocab)
+        logq = (-8.0 * rng.random(B)).astype(np.float32)
+        out.append({"user_ids": bags(cfg.user_vocab), "item_ids": item_ids,
+                    "item_logq": logq})
+    return out
+
+
+def phase_recsys_parity(recsys, convert, cfg):
+    """The reduced config from numpy params: the card (the kernel)
+    against the CPU (the plain version), within PARITY_TOL; top-k
+    indices equal except between scores that tie within it."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    tree = twotower_numpy_params(cfg, rng)
     shape = (512, cfg.n_fields, cfg.bag_size)
     ids = {name: rng.integers(-1, vocab, shape).astype(np.int32)
            for name, vocab in (("user_ids", cfg.user_vocab),
@@ -1376,11 +1499,408 @@ def phase_placement(pe):
         raise SystemExit(f"placement differs from the JAX package: {row}")
 
 
+def bag_bwd_bound(g, ids, V, out_itemsize):
+    """(bytes, bound ms) of the table's gradient: the rows of g whose bag
+    has a valid slot and the ids read once, the (V, D) gradient written
+    once (zeros where no slot names a row); an add (and for ``mean`` a
+    division) per valid slot and element is far below the bytes."""
+    B, D = g.shape
+    live = int(((ids >= 0).sum(1) > 0).sum())
+    nbytes = live * D * 4 + ids.numel() * 4 + V * D * out_itemsize
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bag_bwd_case(bops, bref, g, ids, V, combine, dtype, row):
+    """One embedding_bag_bwd case: the kernel on the card against the
+    plain version on the CPU, bit for bit (``index_add_`` adds in index
+    order there, the kernel's chunk order; on the card it adds with
+    atomics), and a second launch equal to the first. Returns the row
+    and the kernel's output."""
+    import torch
+    out = bops.embedding_bag_bwd(g, ids, V, combine, dtype)
+    again = bops.embedding_bag_bwd(g, ids, V, combine, dtype)
+    torch.cuda.synchronize()
+    want = bref.embedding_bag_bwd_ref(g.cpu(), ids.cpu(), V,
+                                      combine).to(dtype)
+    got = out.cpu()
+    row = {"phase": "kernel_embedding_bag_bwd", **row,
+           "dtype": str(dtype).removeprefix("torch."), "combine": combine,
+           "V": V, "bags": ids.shape[0], "bag": ids.shape[1],
+           "D": g.shape[1], "equal": torch.equal(got, want),
+           "run_to_run_equal": torch.equal(out, again),
+           "max_abs_err": max_abs_err([got], [want])}
+    emit(row)
+    if not (row["equal"] and row["run_to_run_equal"]):
+        raise SystemExit(f"embedding_bag_bwd disagrees with its plain "
+                         f"version: {row}")
+    return row, out
+
+
+def phase_kernel_bag_bwd(bops, bref):
+    """The table's gradient (row 4b: the neighbour aggregation's backward
+    kernel with the bags as rows, in its mean and sum modes) on the card
+    against its plain version on the CPU, bit for bit: edge cases on small
+    tables in fp32 and bf16, mean and sum; one case run twice for equal
+    bits; ids near V - 1 of a 16,777,216 x 256 output (row offsets past
+    2**32 elements), checked on the named rows with every other element
+    zero; then the training shape: both towers' 262,144 bags of 8 from
+    RecsysStream at V = 2,097,152, timed eagerly (the kernel alone on a
+    built index, and the wrapper with its index build) and in a CUDA
+    graph, beside the plain version on the card and autograd's backward
+    of F.embedding_bag(mode='mean') (its forward not timed), and for the
+    user tower again with the heaviest id's, then every heavy id's,
+    slots moved to random rows (the split of the heavy ids' cost).
+    Returns the user tower's timed row and the worst error."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.kernels.neighbor_agg import ref as nref
+    ext = load_extension()
+    rng = np.random.default_rng(29)
+    gen = torch.Generator("cuda").manual_seed(29)
+    worst = 0.0
+    small = [(1000, 256, 512, 8, "random"), (100, 33, 64, 5, "odd_d"),
+             (50, 64, 40, 1, "bag1"), (300, 128, 17, 40, "wide_bag"),
+             (200, 256, 64, 8, "duplicates"), (200, 256, 64, 8, "all_pad"),
+             (500, 128, 4000, 8, "hub")]
+    for V, D, B, bag, kind in small:
+        ids = rng.integers(-1, V, size=(B, bag)).astype(np.int32)
+        if kind == "duplicates":
+            ids[:, 1:] = ids[:, :1]
+        elif kind == "all_pad":
+            ids[::2] = -1
+        elif kind == "hub":                # row 3 named by ~16,000 slots
+            ids[rng.random(ids.shape) < 0.5] = 3
+        ids = torch.from_numpy(ids).cuda()
+        g = torch.randn((B, D), device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            for combine in ("mean", "sum"):
+                row, _ = bag_bwd_case(bops, bref, g, ids, V, combine, dtype,
+                                      {"inputs": kind})
+                worst = max(worst, row["max_abs_err"])
+
+    # ids near V - 1 of the full-width table: the kernel writes the whole
+    # (V, D) gradient; the plain version runs on the named rows only
+    # (compacted in id order, which keeps each row's slots in order)
+    V, D = 16_777_216, 256
+    ids = (V - 1 - rng.integers(0, 4096, size=(4096, 8))).astype(np.int32)
+    ids[0] = V - 1
+    ids[rng.random(ids.shape) < 0.1] = -1
+    named, compact = np.unique(ids[ids >= 0], return_inverse=True)
+    cids = np.full(ids.shape, -1, np.int32)
+    cids[ids >= 0] = compact
+    ids, cids = torch.from_numpy(ids).cuda(), torch.from_numpy(cids)
+    rows = torch.from_numpy(named).cuda().long()
+    g = torch.randn((ids.shape[0], D), device="cuda", generator=gen)
+    for dtype, combine in ((torch.float32, "mean"), (torch.float32, "sum"),
+                           (torch.bfloat16, "mean"),
+                           (torch.bfloat16, "sum")):
+        out = bops.embedding_bag_bwd(g, ids, V, combine, dtype)
+        torch.cuda.synchronize()
+        want = bref.embedding_bag_bwd_ref(g.cpu(), cids, len(named),
+                                          combine).to(dtype)
+        got = out[rows].cpu()
+        row = {"phase": "kernel_embedding_bag_bwd", "inputs": "ids_near_V-1",
+               "dtype": str(dtype).removeprefix("torch."),
+               "combine": combine, "V": V, "D": D,
+               "named_rows": len(named),
+               "equal": torch.equal(got, want),
+               "zero_elsewhere": int(torch.count_nonzero(out))
+               == int(torch.count_nonzero(out[rows])),
+               "max_abs_err": max_abs_err([got], [want])}
+        emit(row)
+        worst = max(worst, row["max_abs_err"])
+        del out
+        if not (row["equal"] and row["zero_elsewhere"]):
+            raise SystemExit(f"embedding_bag_bwd disagrees near V - 1: "
+                             f"{row}")
+    torch.cuda.empty_cache()
+
+    # the training shape: both towers' bags of step 0 of the launcher's
+    # stream at the cut vocabulary
+    V, D = RECSYS_TRAIN_VOCAB, 256
+    batch = RecsysStream(V, V, 65_536, n_fields=4, bag=8).batch_at(0)
+    timed = {}
+    for side in ("user", "item"):
+        ids = torch.from_numpy(batch[f"{side}_ids"].reshape(-1, 8)).cuda()
+        g = torch.randn((ids.shape[0], D), device="cuda", generator=gen)
+        row, out = bag_bwd_case(bops, bref, g, ids, V, "mean",
+                                torch.float32,
+                                {"inputs": f"training shape, {side} tower"})
+        worst = max(worst, row["max_abs_err"])
+        index = nops.transpose_index(ids, V)
+        counts = index.rowptr[1:] - index.rowptr[:-1]
+        nbytes, bound = bag_bwd_bound(g, ids, V, 4)
+        # F.embedding_bag over a table with a zero row at V for the pads
+        table = torch.zeros((V + 1, D), device="cuda", requires_grad=True)
+        flat = torch.where(ids >= 0, ids, V).long()
+        lib_out = F.embedding_bag(flat, table, mode="mean", padding_idx=V)
+        lib_grad = torch.autograd.grad(lib_out, table, g,
+                                       retain_graph=True)[0]
+        row.update(
+            valid_slots=int((ids >= 0).sum()),
+            heaviest_id_slots=int(counts.max()),
+            heaviest_id=int(counts.argmax()),
+            chunk_units=int(index.hptr[-1]),
+            rows_named=int((counts > 0).sum()),
+            ms=cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False, True),
+                       reps=5, iters=10, warmup=3),
+            graph_ms=graph_ms(lambda: ext.neighbor_agg_bwd(
+                g, *index, False, True), iters=10),
+            wrapper_ms=cuda_ms(lambda: bops.embedding_bag_bwd(g, ids, V),
+                               reps=3, iters=5, warmup=2),
+            plain_ms=cuda_ms(lambda: bref.embedding_bag_bwd_ref(g, ids, V),
+                             reps=3, iters=3, warmup=1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, table, g, retain_graph=True), reps=5, iters=10,
+                warmup=3),
+            library_call="autograd of F.embedding_bag(mode='mean', "
+                         "padding_idx=V) on a zero-padded table, forward "
+                         "not timed",
+            library_max_abs_err=float((lib_grad[:V] - out).abs().max()),
+            bytes=nbytes, bound_ms=bound, bound_by="bytes")
+        if side == "user":
+            # where the time goes: the same launch with the heaviest id's
+            # slots, then every heavy id's (more than CHUNK slots), moved
+            # to random rows, so that their chunk sums and the serial
+            # tail of adding a hub's partials drop out
+            heavy = counts > nref.CHUNK
+            for key, moved in (("no_hub", ids == int(counts.argmax())),
+                               ("light_only", (ids >= 0) & heavy[
+                                   ids.clamp_min(0).long()])):
+                spread = torch.where(moved, torch.randint(
+                    0, V, ids.shape, device="cuda", generator=gen,
+                    dtype=torch.int32), ids)
+                idx = nops.transpose_index(spread, V)
+                row[f"{key}_ms"] = cuda_ms(lambda: ext.neighbor_agg_bwd(
+                    g, *idx, False, True), reps=5, iters=10, warmup=3)
+                row[f"{key}_chunk_units"] = int(idx.hptr[-1])
+                del idx, spread
+        emit({"phase": "kernel_embedding_bag_bwd", "shape":
+              f"training shape timing, {side} tower",
+              **{k: v for k, v in row.items() if k != "phase"}})
+        timed[side] = row
+        del out, index, table, lib_out, lib_grad, g
+        torch.cuda.empty_cache()
+    return timed["user"] | {"item_tower": {k: timed["item"][k] for k in (
+        "ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
+        "heaviest_id_slots", "chunk_units")}}, worst
+
+
+def recsys_train_step_fn(cfg):
+    """make_train_step of twotower_loss with the launcher's AdamW."""
+    from repro_torch.launch.cells import opt_config
+    from repro_torch.models import recsys
+    from repro_torch.train.train_loop import make_train_step
+    return make_train_step(lambda p, b: recsys.twotower_loss(p, b, cfg),
+                           opt_config("two-tower-retrieval"))
+
+
+def phase_recsys_train(launches):
+    """two-tower-retrieval at its published width, its vocabularies cut to
+    RECSYS_TRAIN_VOCAB: the launcher's params and RecsysStream batches
+    at B = 65,536, RECSYS_TRAIN_STEPS AdamW steps through
+    make_train_step (fp32, TF32 off), each launching the EmbeddingBag
+    kernel and its backward once a tower; wall per step, examples/s, the
+    peak memory after the first step and over the run, finite losses, no
+    all-zero gradient leaf (one more value_and_grad), the loss's forward
+    and backward alone in CUDA events; then one more step under the
+    profiler (the two kernels' and the GEMMs' device time)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.launch.cells import opt_config
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import tree_flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = get_arch("two-tower-retrieval")
+    cfg = dc.replace(arch.build_cfg(), user_vocab=RECSYS_TRAIN_VOCAB,
+                     item_vocab=RECSYS_TRAIN_VOCAB)
+    (B, _, _), _ = arch.input_specs("train_batch")["user_ids"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = launch_train.recsys_params(cfg, "cuda")
+    opt = init_adamw(params, opt_config("two-tower-retrieval"))
+    batch_at = launch_train.recsys_batches(arch, "train_batch", False, cfg,
+                                           "cuda")
+    batches = [batch_at(i) for i in range(RECSYS_TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step_fn = recsys_train_step_fn(cfg)
+    walls, losses, peaks = [], [], []
+
+    def steps():
+        nonlocal params, opt
+        for b in batches[:RECSYS_TRAIN_STEPS]:
+            t1 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+
+    _, wall, counts = launches.drive(steps)
+    need = {"embedding_bag": 2 * RECSYS_TRAIN_STEPS,
+            "embedding_bag_bwd": 2 * RECSYS_TRAIN_STEPS}
+    _, grads = value_and_grad(lambda p, b: recsys.twotower_loss(p, b, cfg),
+                              params, batches[0])
+    names = [f"{k}/{n}" if isinstance(v, dict) else k
+             for k, v in sorted(params.items())
+             for n in (sorted(v) if isinstance(v, dict) else [None])]
+    zero = [n for n, g in zip(names, tree_flatten(grads)) if not g.any()]
+    del grads
+    # the loss alone at the step's shape: forward and hand-written
+    # backward from the towers' outputs
+    gen = torch.Generator("cuda").manual_seed(3)
+    u = torch.nn.functional.normalize(torch.randn(
+        (B, cfg.tower_dims[-1]), device="cuda", generator=gen), dim=-1)
+    i = torch.nn.functional.normalize(torch.randn(
+        (B, cfg.tower_dims[-1]), device="cuda", generator=gen), dim=-1)
+    u.requires_grad_(True)
+    i.requires_grad_(True)
+    logq = batches[0]["item_logq"]
+
+    def loss_fwd_bwd():
+        loss = recsys._InBatchSoftmax.apply(u, i, logq, cfg.temperature)
+        torch.autograd.grad(loss, (u, i))
+
+    loss_ms = cuda_ms(loss_fwd_bwd, reps=3, iters=3, warmup=1)
+    del u, i
+    row = {"phase": "recsys_train", "config": "two-tower-retrieval",
+           "embed_dim": cfg.embed_dim, "tower_dims": cfg.tower_dims,
+           "n_fields": cfg.n_fields, "bag_size": cfg.bag_size, "batch": B,
+           "vocab": RECSYS_TRAIN_VOCAB, "published_vocab": 16_777_216,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "param_gb": sum(t.nbytes for t in tree_flatten(params)) / 1e9,
+           "setup_s": setup_s, "step_wall_s": walls,
+           "examples_per_s": [B / w for w in walls], "wall_s": wall,
+           "losses": losses, "peak_gb_first_step": peaks[0],
+           "peak_gb": max(peaks), "zero_grad_leaves": zero,
+           "loss_fwd_bwd_ms": loss_ms, "launches": counts,
+           "expected_launches": need}
+    emit(row)
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"recsys_train launched {counts}, not {need}")
+    if zero or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"recsys_train failed: {row}")
+    b = batches[RECSYS_TRAIN_STEPS]
+    phase_profile("recsys_train_step", lambda: step_fn(params, opt, b),
+                  watch=("embedding_bag_kernel", "neighbor_agg_bwd_kernel",
+                         "gemm"))
+    del params, opt, batches, b
+    torch.cuda.empty_cache()
+
+
+def phase_recsys_train_parity(launches):
+    """The reduced two-tower config on the card in float32 (TF32 off):
+    params from twotower_numpy_params, batches from
+    recsys_parity_batches, RECSYS_PARITY_STEPS steps of make_train_step
+    with and without compress_grads, held to the JAX package's pinned
+    losses (RECSYS_PARITY_TOL); each step launches the EmbeddingBag
+    kernel and its backward once a tower."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+    from repro_torch.train.grad_compression import init_error_feedback
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.train_loop import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("two-tower-retrieval").build_cfg(reduced=True)
+    tree = twotower_numpy_params(cfg, np.random.default_rng(5))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in recsys_parity_batches(cfg)]
+    opt_cfg = AdamWConfig(**RECSYS_PARITY_OPT)
+    for variant in ("plain", "compressed"):
+        compress = variant == "compressed"
+        params = convert.twotower_params_from_numpy(tree, cfg, "cuda")
+        state = [params, init_adamw(params, opt_cfg)]
+        if compress:
+            state.append(init_error_feedback(params))
+        step_fn = make_train_step(
+            lambda p, b: recsys.twotower_loss(p, b, cfg), opt_cfg,
+            compress_grads=compress)
+
+        def run():
+            nonlocal state
+            out = []
+            for b in batches:
+                p, o, m, *err = step_fn(*state[:2], b, *state[2:])
+                state = [p, o, *err]
+                out.append(float(m["loss"]))
+            return out
+
+        losses, wall, counts = launches.drive(run)
+        need = {"embedding_bag": 2 * RECSYS_PARITY_STEPS,
+                "embedding_bag_bwd": 2 * RECSYS_PARITY_STEPS}
+        pinned = RECSYS_TRAIN_JAX_LOSSES[variant]
+        close = [bool(math.isclose(a, b, rel_tol=t["rtol"],
+                                   abs_tol=t["atol"]))
+                 for a, b, t in zip(losses, pinned, RECSYS_PARITY_TOL)]
+        row = {"phase": "recsys_train_parity",
+               "config": "two-tower-retrieval reduced, float32",
+               "compress_grads": compress, "opt": RECSYS_PARITY_OPT,
+               "tf32": torch.backends.cuda.matmul.allow_tf32,
+               "losses": losses, "jax_losses": pinned,
+               "max_abs_diff": max(abs(a - b)
+                                   for a, b in zip(losses, pinned)),
+               "tol": RECSYS_PARITY_TOL, "close": close, "wall_s": wall,
+               "launches": counts, "expected_launches": need}
+        emit(row)
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"recsys_train_parity launched {counts}")
+        if len(losses) != len(pinned) or not all(close):
+            raise SystemExit(f"recsys_train_parity differs from JAX's "
+                             f"losses: {row}")
+
+
+def phase_recsys_launcher(launches):
+    """``python -m repro_torch.launch.train --arch two-tower-retrieval
+    --reduced --steps 4`` on the card, in a fresh checkpoint directory:
+    4 steps, no failure, finite losses, and the EmbeddingBag kernel and
+    its backward launched once a tower and step."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "two-tower-retrieval", "--reduced", "--steps",
+            str(RECSYS_LAUNCHER_STEPS)]
+    with tempfile.TemporaryDirectory() as d:
+        res, wall, counts = launches.drive(lambda: launch_train.main(
+            argv + ["--ckpt_dir", d]))
+    need = {"embedding_bag": 2 * RECSYS_LAUNCHER_STEPS,
+            "embedding_bag_bwd": 2 * RECSYS_LAUNCHER_STEPS}
+    losses = [m["loss"] for m in res.metrics_history]
+    row = {"phase": "recsys_launcher", "argv": argv, "wall_s": wall,
+           "steps": res.steps_done,
+           "failures_recovered": res.failures_recovered, "losses": losses,
+           "launches": counts, "expected_launches": need}
+    emit(row)
+    if (res.steps_done != RECSYS_LAUNCHER_STEPS or res.failures_recovered
+            or len(losses) != RECSYS_LAUNCHER_STEPS
+            or not all(math.isfinite(x) for x in losses)):
+        raise SystemExit(f"the two-tower train launcher failed: {row}")
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"the two-tower train launcher launched {counts}")
+
+
 def run_recsys(launches, bops, bref):
-    """The two-tower serving slice: full-width tables drawn on the card,
-    the EmbeddingBag kernel phase on them, the serving paths, the serve
+    """The two-tower slice: full-width tables drawn on the card, the
+    EmbeddingBag kernel phase on them, the serving paths, the serve
     launcher (after the tables are freed), the reduced parity run and
-    the placement. Returns the kernel's timed rows and its worst error."""
+    the placement; then training: the table-gradient kernel phase, the
+    full-width step at the cut vocabulary, the reduced config on JAX's
+    losses and the train launcher. Returns the forward kernel's timed
+    rows and its worst error, and the backward's."""
     import torch
 
     from repro_torch import convert
@@ -1418,7 +1938,13 @@ def run_recsys(launches, bops, bref):
     torch.cuda.empty_cache()
     phase_recsys_parity(recsys, convert, arch.build_cfg(reduced=True))
     phase_placement(pe)
-    return timed, worst
+    t0 = time.perf_counter()
+    bwd_row, worst_bwd = phase_kernel_bag_bwd(bops, bref)
+    phase_recsys_train(launches)
+    phase_recsys_train_parity(launches)
+    phase_recsys_launcher(launches)
+    emit({"phase": "recsys_train_done", "wall_s": time.perf_counter() - t0})
+    return timed, worst, bwd_row, worst_bwd
 
 
 def attention_bound(B, S, Hq, Hkv, D):
@@ -2496,7 +3022,8 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
     index = nops.transpose_index(nbrs, N)
     emit({"phase": "kernel_neighbor_agg", "shape": "hub timing",
           "hub_slots": hub, "chunk_units": int(index.hptr[-1]),
-          "bwd_ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False),
+          "bwd_ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False,
+                                                         True),
                             reps=3, iters=10, warmup=2)})
     del x, w, g, nbrs, index
 
@@ -2540,7 +3067,8 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
     index = nops.transpose_index(layer_nbrs, N)
     cnt = index.cnt
     bflops, bbytes, bbound, bby = neighbor_agg_bwd_bound(g, layer_nbrs, N, 4)
-    bwd = {"ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False),
+    bwd = {"ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False,
+                                                      True),
                          reps=5, iters=20, warmup=3),
            "chunk_units": int(index.hptr[-1]),
            "heaviest_id_slots": int((index.rowptr[1:]
@@ -2561,7 +3089,8 @@ def phase_kernel_neighbor_agg(nops, nref, layer_nbrs, launcher_nbrs):
             (N, N), check_invariants=False).coalesce().to_sparse_csr()
     lib = a @ g
     bwd["library_max_abs_err"] = float(
-        (lib - ext.neighbor_agg_bwd(g, *index, False)).abs().max())
+        (lib - ext.neighbor_agg_bwd(g, *index, False, True)).abs()
+        .max())
     bwd.update(library_ms=cuda_ms(lambda: a @ g, reps=5, iters=20, warmup=3),
                library_call="torch.sparse CSR (N x B, weights 1/count) @ g")
     row["backward"] = bwd
@@ -4265,6 +4794,7 @@ def main() -> int:
                          "kway_gains": kops.kway_gains,
                          "kway_gains_csr": kops.kway_gains_csr,
                          "embedding_bag": bops.embedding_bag,
+                         "embedding_bag_bwd": bops.embedding_bag_bwd,
                          "flash_attention": fops.flash_attention,
                          "flash_attention_bwd": fops.flash_attention_bwd,
                          "neighbor_agg": nops.neighbor_agg,
@@ -4420,7 +4950,8 @@ def main() -> int:
     phase_profile("stream", lambda: hype_stream.hype_stream_partition(
         hg, 32, hype_stream.StreamParams(seed=0), device="cuda"))
 
-    bag_rows, worst_bag = run_recsys(launches, bops, bref)
+    bag_rows, worst_bag, bag_bwd_row, worst_bag_bwd = run_recsys(
+        launches, bops, bref)
     flash_rows, worst_flash, bwd_rows, worst_bwd = run_lm(launches, fops,
                                                           fref)
     na_row, (worst_na, worst_na_bwd) = run_gnn(launches, nops, nref)
@@ -4439,6 +4970,9 @@ def main() -> int:
           "embedding_bag": {shape: {"library_ms": r["library_ms"],
                                     "call": r["library_call"]}
                             for shape, r in bag_rows.items()},
+          "embedding_bag_bwd": {"training shape": {
+              "library_ms": bag_bwd_row["library_ms"],
+              "call": bag_bwd_row["library_call"]}},
           "flash_attention": {shape: {"library_ms": r["library_ms"],
                                       "call": r["library_call"]}
                               for shape, r in flash_rows.items()},
@@ -4509,6 +5043,17 @@ def main() -> int:
         entry("embedding_bag", csrc + "embedding_bag/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag/kernel.py:73", bulk,
               worst_bag),
+        entry("embedding_bag_bwd", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
+              None, bag_bwd_row, worst_bag_bwd,
+              graph_ms=bag_bwd_row["graph_ms"],
+              wrapper_ms=bag_bwd_row["wrapper_ms"],
+              item_tower=bag_bwd_row["item_tower"],
+              note="the table's gradient through embedding_bag_kernel, "
+                   "src/repro/kernels/embedding_bag/kernel.py:73, which "
+                   "has no TPU backward (the JAX model differentiates "
+                   "jnp.take): row 5b's kernel (neighbor_agg_bwd) with "
+                   "the bags as rows, in its mean mode; timed at the "
+                   "training shape's user tower"),
         entry("flash_attention",
               csrc + "flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:111",

@@ -4,7 +4,7 @@ flash-attention kernels of one source tree on one CUDA card, so that two
 commits can be compared on one card.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
-                         [--stream-only]
+                         [--stream-only] [--recsys-vocab ROWS]
 
 ``--tree`` is the root of a checkout of this repository (default: the
 one holding this script); its ``src/repro_torch`` is imported, and its
@@ -63,7 +63,11 @@ Measures, each on inputs made from fixed seeds:
     with the branch of ``stream_commit.cu`` it takes (where the tree's
     extension reports one).
 ``--flash-only`` measures the flash kernels alone, ``--stream-only``
-``stream_commit`` and the stream pass alone. Prints one JSON line per
+``stream_commit`` and the stream pass alone. ``--recsys-vocab ROWS``
+measures no kernel: it runs ``chip_smoke.py``'s recsys_train phase with
+each vocabulary at ROWS and prints its row (the peak memory), or, where
+the allocator refuses, the peak and the reserved memory before it, to
+size that phase's vocabulary cut. Prints one JSON line per
 measurement, then the card's name and power limit. Exits 1 without a
 CUDA device.
 """
@@ -85,6 +89,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--flash-only", action="store_true")
     ap.add_argument("--stream-only", action="store_true")
+    ap.add_argument("--recsys-vocab", type=int, default=None)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -113,6 +118,10 @@ def main(argv=None) -> int:
     def emit(row):
         print(json.dumps({"tree": label, **row}), flush=True)
 
+    if args.recsys_vocab:
+        recsys_vocab(emit, args.recsys_vocab)
+        print(card_line(), flush=True)
+        return 0
     if args.stream_only:
         stream(emit, synthetic.github_like(1.0, seed=0), hype_stream,
                scoring, ops, ref, ext, CaptureCommits, commit_timings)
@@ -222,10 +231,34 @@ def main(argv=None) -> int:
               "valid_slots": int((nb >= 0).sum()),
               "heaviest_id_slots": int((index.rowptr[1:]
                                         - index.rowptr[:-1]).max()),
-              "ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False),
+              "ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False,
+                                                         True),
                             reps=5, iters=20, warmup=3)})
     print(card_line(), flush=True)
     return 0
+
+
+def recsys_vocab(emit, vocab):
+    """chip_smoke.py's recsys_train phase (it prints its own row) with
+    each vocabulary at ``vocab`` rows; where the allocator refuses, the
+    peak and the reserved memory when it did."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.embedding_bag import ops as bops
+    chip_smoke.RECSYS_TRAIN_VOCAB = vocab
+    launches = chip_smoke.Launches({"embedding_bag": bops.embedding_bag,
+                                    "embedding_bag_bwd":
+                                        bops.embedding_bag_bwd})
+    try:
+        chip_smoke.phase_recsys_train(launches)
+    except torch.OutOfMemoryError as e:
+        emit({"phase": "recsys_train", "vocab": vocab,
+              "out_of_memory": True,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+              "total_gb": torch.cuda.get_device_properties(0).total_memory
+              / 1e9, "error": str(e).split(". If ")[0]})
 
 
 def stream(emit, hg, hs, scoring, ops, ref, ext, CaptureCommits,

@@ -4,8 +4,9 @@ It knows every architecture of the JAX package's registry
 (``src/repro/configs/__init__.py``). ``PORTED`` maps the ones the port
 serves to their module; ``get_arch`` on any other raises
 ``NotImplementedError`` naming its ROADMAP.md item. ``FAMILIES`` gives
-every architecture's family without loading it. Of the LMs, the dense
-ones are ported (serving and training); the MoE ones (mixtral-8x22b,
+every architecture's family without loading it. two-tower-retrieval is
+ported (serving and training). Of the LMs, the dense ones are ported
+(serving and training); the MoE ones (mixtral-8x22b,
 granite-moe-3b-a800m) wait for MoE serving. Of the GNNs,
 graphsage-reddit is ported (training); gatedgcn, meshgraphnet and schnet
 wait for their layers. ``get_arch("hype_paper")`` returns the paper's
@@ -41,9 +42,6 @@ PENDING_MOE = f"{_ITEM}e: MoE LM serving (moe_ffn, models/moe.py)"
 PENDING_PAGED = f"{_ITEM}f: paged decode (decode_paged, serve_step_paged)"
 PENDING_GNN_ARCHS = (f"{_ITEM}g: the gatedgcn, meshgraphnet and schnet "
                      f"layers")
-PENDING_RECSYS_TRAIN = (f"{_ITEM}h: two-tower training (twotower_loss, an "
-                        f"embedding_bag backward)")
-PENDING_COMPRESSION = f"{_ITEM}i: gradient compression (grad_compression)"
 PENDING_FULL_BATCH = (f"{_ITEM}j: full-batch GraphSAGE past 2**31 "
                       f"neighbour slots")
 PENDING_ITEMS = {

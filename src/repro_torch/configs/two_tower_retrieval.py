@@ -4,7 +4,7 @@ unverified]. The numbers are those of
 ``src/repro/configs/two_tower_retrieval.py``.
 
 Shapes:
-  train_batch     batch=65,536               (training; not served yet)
+  train_batch     batch=65,536               (training)
   serve_p99       batch=512                  (online inference)
   serve_bulk      batch=262,144              (offline scoring)
   retrieval_cand  batch=1 n_cand=1,048,576   (retrieval scoring)

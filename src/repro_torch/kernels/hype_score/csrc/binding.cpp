@@ -558,13 +558,15 @@ std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
 // the per-row valid counts (B,), and the transposed index: rowptr (N + 1)
 // int64, rows (rowptr[N]) int32, and the chunk units of the ids with
 // more than 32 slots: hptr (N + 1) int64 and hunit (at least hptr[N])
-// int32, whose length sizes the units' scratch.
+// int32, whose length sizes the units' scratch. ``mean`` false is the
+// sum mode (no division by the counts, which are then not read).
 torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
                                const torch::Tensor& cnt,
                                const torch::Tensor& rowptr,
                                const torch::Tensor& rows,
                                const torch::Tensor& hptr,
-                               const torch::Tensor& hunit, bool bf16) {
+                               const torch::Tensor& hunit, bool bf16,
+                               bool mean) {
   TORCH_CHECK(g.is_cuda(), "g must be a CUDA tensor");
   const torch::Device device = g.device();
   check_input(g, "g", torch::kFloat32, 2, device);
@@ -588,7 +590,7 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
   torch::Tensor tickets = torch::empty({cap}, hunit.options());
   const int vec = D % 4 == 0 && aligned16(g);
   C10_CUDA_CHECK(neighbor_agg_bwd_launch(
-      g.data_ptr<float>(), cnt.data_ptr<int32_t>(),
+      g.data_ptr<float>(), mean ? cnt.data_ptr<int32_t>() : nullptr,
       rowptr.data_ptr<int64_t>(), rows.data_ptr<int32_t>(),
       hptr.data_ptr<int64_t>(), hunit.data_ptr<int32_t>(),
       partials.data_ptr<float>(), tickets.data_ptr<int32_t>(), cap,
@@ -622,5 +624,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("neighbor_agg", &neighbor_agg,
         "Mean of the -1-padded neighbour rows times w (CUDA, sm_90a)");
   m.def("neighbor_agg_bwd", &neighbor_agg_bwd,
-        "Gradient of x of neighbor_agg, deterministic (CUDA, sm_90a)");
+        "Gradient of x of neighbor_agg, or of an EmbeddingBag's table "
+        "(mean or sum), deterministic (CUDA, sm_90a)");
 }

@@ -28,6 +28,10 @@
 // partials are added in chunk order from 0. No float atomics, so the
 // result is the same bits on every run whichever warp does what, and
 // equal to the plain version's on the CPU (index_add_ in index order).
+// The same kernel is the EmbeddingBag's table gradient (no TPU backward
+// either: the JAX model differentiates jnp.take), with the bags as rows
+// and the table rows as ids: the mean mode for a bag's mean, and for a
+// bag's sum the sum mode, a null cnt, which leaves out the division.
 // The caller's transposed index gives ``rows``, the b of every valid
 // slot sorted stably by id, ``rowptr`` over the N + 1 ids, and the chunk
 // units of the ids with more than kChunk slots (``hptr``, ``hunit``).
@@ -50,7 +54,11 @@
 //     ticket adds the id's partials in chunk order and writes its row.
 // Every id's row is written once. Offsets are 64-bit. What bounds the
 // backward: bytes, mostly the N x D output (87 MB at the GraphSAGE
-// layer, most rows zeros: 0.029 ms at 3.35 TB/s).
+// layer, most rows zeros: 0.029 ms at 3.35 TB/s; 2.15 GB at the
+// two-tower training shape, 262,144 bags of 8 over 2,097,152 rows of
+// 256, 0.72 ms with g). There a Zipf(1.2) hub names 262k slots: its
+// 8,199 partials are added by the one warp that draws its last ticket,
+// a serial tail (PERF.md, row 4b).
 //
 // What bounds the forward on the H100: bytes. At the GraphSAGE layer
 // (B = N = 169,984, K = 25, D = F = 128, float32 x, bfloat16 w) the
@@ -702,8 +710,10 @@ __device__ void light_ids(const float* __restrict__ g,
       float my_den = 1.0f;
       if (q < total) {
         my_b = rows[lo_t + (q - off_t)];
-        const int c = cnt[my_b];
-        my_den = (float)(c > 1 ? c : 1);
+        if (cnt) {
+          const int c = cnt[my_b];
+          my_den = (float)(c > 1 ? c : 1);
+        }
       }
       add_slots<V>(g, D, col, mine, total - qb < 32 ? total - qb : 32, my_b,
                    my_den, t, q == off_t + nl_t - 1, out, acc);
@@ -733,8 +743,10 @@ __device__ void heavy_unit(const float* __restrict__ g,
   float my_den = 1.0f;
   if (lane < n) {
     my_b = rows[s0 + lane];
-    const int c = cnt[my_b];
-    my_den = (float)(c > 1 ? c : 1);
+    if (cnt) {
+      const int c = cnt[my_b];
+      my_den = (float)(c > 1 ? c : 1);
+    }
   }
   const int ncol = V == 4 ? D / 4 : D;
   for (int c0 = 0; c0 < ncol; c0 += 32) {
@@ -898,7 +910,8 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                   id_vec, out_vec, stream);
 }
 
-// ``vec`` says that D is a multiple of 4 and g is 16-byte aligned.
+// ``vec`` says that D is a multiple of 4 and g is 16-byte aligned. A
+// null ``cnt`` is the sum mode: every slot's divisor is 1 (x / 1.0f is x).
 // ``partials`` (cap x D float32) and ``tickets`` (cap int32) are scratch
 // for the chunk units, ``cap`` the length of ``hunit``; the tickets are
 // zeroed here, on the stream, before the launch.

@@ -24,8 +24,8 @@ import torch
 from .._build import load_extension, on_cuda
 from .ref import CHUNK, acc_dtype, neighbor_agg_bwd_ref, neighbor_mean_ref
 
-__all__ = ["SlotIndex", "chunk_units", "neighbor_agg", "neighbor_agg_bwd",
-           "transpose_index"]
+__all__ = ["SlotIndex", "bwd_args_ok", "chunk_units", "launch_bwd",
+           "neighbor_agg", "neighbor_agg_bwd", "transpose_index"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the plain version also takes float64 (torch.autograd.gradcheck)
@@ -78,6 +78,34 @@ def transpose_index(nbrs: torch.Tensor, n_rows: int) -> SlotIndex:
                      *chunk_units(rowptr, pos.numel()))
 
 
+def bwd_args_ok(name: str, g: torch.Tensor, nbrs: torch.Tensor,
+                dtype: torch.dtype) -> bool:
+    """Check the backward's arguments; True for the card's route."""
+    if g.dim() != 2 or nbrs.dim() != 2 or g.shape[0] != nbrs.shape[0]:
+        raise ValueError(f"{name} takes g (B, D) and ids (B, K), got "
+                         f"{tuple(g.shape)} and {tuple(nbrs.shape)}")
+    if not on_cuda(g, name):
+        if g.dtype != acc_dtype(dtype) or dtype not in CPU_DTYPES:
+            raise ValueError(f"g must be {acc_dtype(dtype)} for a {dtype} "
+                             f"result, got {g.dtype}")
+        return False
+    if g.dtype != torch.float32 or dtype not in DTYPES:
+        raise ValueError(f"on the card g must be float32 and dtype one of "
+                         f"{DTYPES}, got {g.dtype} and {dtype}")
+    return True
+
+
+def launch_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
+               dtype: torch.dtype, index: SlotIndex | None,
+               mean: bool) -> torch.Tensor:
+    """One launch of the backward kernel on the card, dividing each slot
+    by its row's count (``mean``) or not (the EmbeddingBag's ``sum``);
+    the wrapper that calls it counts it."""
+    return load_extension().neighbor_agg_bwd(
+        g.contiguous(), *(index or transpose_index(nbrs, n_rows)),
+        dtype == torch.bfloat16, mean)
+
+
 def neighbor_agg_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
                      dtype: torch.dtype = torch.float32,
                      index: SlotIndex | None = None) -> torch.Tensor:
@@ -89,20 +117,9 @@ def neighbor_agg_bwd(g: torch.Tensor, nbrs: torch.Tensor, n_rows: int,
     is ``transpose_index(nbrs, n_rows)`` when given (the card's route
     reads it; the plain version does not need it). The result is the
     same bits on every run and on either device."""
-    if g.dim() != 2 or nbrs.dim() != 2 or g.shape[0] != nbrs.shape[0]:
-        raise ValueError(f"neighbor_agg_bwd takes g (B, D) and nbrs (B, K), "
-                         f"got {tuple(g.shape)} and {tuple(nbrs.shape)}")
-    if not on_cuda(g, "neighbor_agg_bwd"):
-        if g.dtype != acc_dtype(dtype) or dtype not in CPU_DTYPES:
-            raise ValueError(f"g must be {acc_dtype(dtype)} for a {dtype} "
-                             f"x, got {g.dtype}")
+    if not bwd_args_ok("neighbor_agg_bwd", g, nbrs, dtype):
         return neighbor_agg_bwd_ref(g, nbrs, n_rows).to(dtype)
-    if g.dtype != torch.float32 or dtype not in DTYPES:
-        raise ValueError(f"on the card g must be float32 and dtype one of "
-                         f"{DTYPES}, got {g.dtype} and {dtype}")
-    out = load_extension().neighbor_agg_bwd(
-        g.contiguous(), *(index or transpose_index(nbrs, n_rows)),
-        dtype == torch.bfloat16)
+    out = launch_bwd(g, nbrs, n_rows, dtype, index, True)
     neighbor_agg_bwd.launches += 1
     return out
 

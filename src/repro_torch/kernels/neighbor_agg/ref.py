@@ -15,11 +15,13 @@ rounding, then rounds once to ``x.dtype``.
 
 Backward, for ``x``: ``grad_x[u] = sum of g[b] / max(count_b, 1)`` over
 every valid slot (b, j) with ``nbrs[b, j] = u``, where ``g = grad_out @
-w^T``, in a fixed order that the CUDA kernel shares: id u's slots, in
-(b, j) order, are cut into chunks of ``CHUNK`` consecutive slots; each
-chunk is summed in order from 0.0, and the chunk partials are added in
-chunk order from 0.0. An id with at most ``CHUNK`` slots is one chunk,
-summed in (b, j) order. ``index_add_`` on the CPU adds in index order,
+w^T`` (``sum`` mode, the EmbeddingBag's gradient through a bag's
+sum, leaves out the division), in a fixed order that the CUDA kernel
+shares: id u's slots, in (b, j) order, are cut into chunks of
+``CHUNK`` consecutive slots; each chunk is summed in order from 0.0,
+and the chunk partials are added in chunk order from 0.0. An id with
+at most ``CHUNK`` slots is one chunk, summed in (b, j) order.
+``index_add_`` on the CPU adds in index order,
 so the two ``index_add_`` calls below (slots into one partial row per
 (id, chunk), then partials into the output) compute exactly that order,
 and the kernel's result equals this one bit for bit. On the card
@@ -71,19 +73,23 @@ def neighbor_agg_ref(x: torch.Tensor, nbrs: torch.Tensor,
 
 
 def neighbor_agg_bwd_ref(g: torch.Tensor, nbrs: torch.Tensor,
-                         n_rows: int) -> torch.Tensor:
+                         n_rows: int, mean: bool = True) -> torch.Tensor:
     """The gradient of ``x`` through the mean: g (B, D) float32 (the
     output's gradient times ``w^T``), nbrs (B, K). Returns (n_rows, D)
     float32, ``sum of g[b] / max(count_b, 1)`` over the valid slots of
-    each row id, in the chunk order of the module's docstring."""
+    each row id, in the chunk order of the module's docstring. With
+    ``mean=False`` (the gradient through a bag's sum) there is no
+    division: ``sum of g[b]``, in the same order."""
     B, K = nbrs.shape
     flat = nbrs.reshape(-1)
     pos = (flat >= 0).nonzero().squeeze(1)
     # the valid slots grouped by id, each id's in (b, j) order
     ids, perm = torch.sort(flat[pos].long(), stable=True)
     b = torch.div(pos[perm], K, rounding_mode="floor")
-    denom = (nbrs >= 0).sum(1).clamp_min(1).to(g.dtype)
-    contrib = g.index_select(0, b) / denom.index_select(0, b)[:, None]
+    contrib = g.index_select(0, b)
+    if mean:
+        denom = (nbrs >= 0).sum(1).clamp_min(1).to(g.dtype)
+        contrib = contrib / denom.index_select(0, b)[:, None]
     count = torch.bincount(ids, minlength=n_rows)
     nchunk = (count + CHUNK - 1) // CHUNK
     rank = (torch.arange(ids.numel(), device=g.device)

@@ -6,10 +6,12 @@
         --arch graphsage-reddit --shape minibatch_lg --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch stablelm-3b --reduced --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch two-tower-retrieval --reduced --steps 4 --device cpu
 
-The counterpart of ``src/repro/launch/train.py`` for the GNN and dense
-LM families. It runs on the card unless ``--device cpu`` is given, and
-raises when there is no card. As the JAX launcher does:
+The counterpart of ``src/repro/launch/train.py`` for the GNN, dense LM
+and two-tower families. It runs on the card unless ``--device cpu`` is
+given, and raises when there is no card. As the JAX launcher does:
 
 * GNN: it trains on one fixed batch from ``random_graph`` over the
   shape's padded size (``build_graph_batch`` with 5 label classes), and
@@ -24,12 +26,19 @@ raises when there is no card. As the JAX launcher does:
   Params come from ``init_params`` with a ``torch.Generator`` of the
   device seeded with 0, as the serve launcher's (JAX's ``jax.random``
   init is not carried over).
+* two-tower: it reads ``(B, n_fields, bag)`` from the shape's
+  ``user_ids`` spec (``train_batch``), draws step ``i``'s batch as
+  ``RecsysStream(user_vocab, item_vocab, B, n_fields=, bag=)
+  .batch_at(i)`` (the JAX launcher's batches, bit for bit) and trains
+  ``twotower_loss``. Params come from ``init_twotower_params`` with a
+  ``torch.Generator`` of the device seeded with 0, as the LM's. At full
+  width the tables, their dense gradients and AdamW moments take about
+  137 GB, more than one card holds; ``--reduced`` fits the CPU.
 
-Both take the arch's AdamW from ``launch.cells`` (the default for every
-GNN, as in JAX) and drive ``run_training`` with checkpoints in
-``<ckpt_dir>/<arch>``. A directory that already holds a checkpoint
-resumes from it. Returns the ``TrainResult``. Two-tower training raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Each takes the arch's AdamW from ``launch.cells`` (the default for every
+GNN and for two-tower, as in JAX) and drives ``run_training`` with
+checkpoints in ``<ckpt_dir>/<arch>``. A directory that already holds a
+checkpoint resumes from it. Returns the ``TrainResult``.
 """
 from __future__ import annotations
 
@@ -40,11 +49,12 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCH_IDS, FAMILIES, PENDING_RECSYS_TRAIN, get_arch
+from ..configs import ARCH_IDS, FAMILIES, get_arch
 from ..data.graphs import build_graph_batch, random_graph
-from ..data.pipeline import TokenStream
+from ..data.pipeline import RecsysStream, TokenStream
 from ..models import transformer as tf_mod
 from ..models.gnn import gnn_loss, init_gnn_params
+from ..models.recsys import init_twotower_params, twotower_loss
 from ..partition_api import resolve_device
 from ..train.fault_tolerance import FTConfig, run_training
 from ..train.optimizer import init_adamw
@@ -100,6 +110,26 @@ def lm_batches(arch, shape: str, reduced: bool, vocab: int, device):
     return batch_at, accum
 
 
+def recsys_params(cfg, device) -> dict:
+    """The launcher's two-tower params: ``init_twotower_params`` from a
+    generator of ``device`` seeded with 0."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return init_twotower_params(gen, cfg, device)
+
+
+def recsys_batches(arch, shape: str, reduced: bool, cfg, device):
+    """The JAX launcher's two-tower batches: step ``i`` is
+    ``RecsysStream(user_vocab, item_vocab, B, n_fields=, bag=)
+    .batch_at(i)`` with ``(B, n_fields, bag)`` from the shape's
+    ``user_ids`` spec, on ``device``."""
+    (B, n_fields, bag), _ = arch.input_specs(shape, reduced=reduced)[
+        "user_ids"]
+    stream = RecsysStream(cfg.user_vocab, cfg.item_vocab, B,
+                          n_fields=n_fields, bag=bag)
+    return lambda step: {k: torch.from_numpy(v).to(device)
+                         for k, v in stream.batch_at(step).items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -114,10 +144,6 @@ def main(argv=None):
 
     family = FAMILIES[args.arch]
     arch = get_arch(args.arch)           # unported archs raise here
-    if family == "recsys":
-        raise NotImplementedError(
-            f"two-tower training is not ported to torch yet; see "
-            f"{PENDING_RECSYS_TRAIN}")
     shape = args.shape or DEFAULT_SHAPE[family]
     if arch.step_kind(shape) != "train":
         raise ValueError(f"train.py drives train cells; {shape!r} is "
@@ -131,6 +157,12 @@ def main(argv=None):
         batch_at, accum = lm_batches(arch, shape, args.reduced, cfg.vocab,
                                      device)
         loss_fn = lambda p, b: tf_mod.lm_loss(p, b, cfg)  # noqa: E731
+    elif family == "recsys":
+        cfg = arch.build_cfg(reduced=args.reduced)
+        params = recsys_params(cfg, device)
+        batch_at = recsys_batches(arch, shape, args.reduced, cfg, device)
+        loss_fn = lambda p, b: twotower_loss(p, b, cfg)  # noqa: E731
+        accum = 1
     else:
         cfg = arch.build_cfg(reduced=args.reduced, shape=shape)
         params = launcher_params(cfg, device)

@@ -1,8 +1,10 @@
 """Train-step factory, as ``src/repro/train/train_loop.py``.
 
-``make_train_step(loss_fn, opt_cfg, accum_steps=...)`` returns
+``make_train_step(loss_fn, opt_cfg, accum_steps=..., compress_grads=...)``
+returns
 
-    train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+    train_step(params, opt_state, batch[, err]) -> (params, opt_state,
+                                                    metrics[, err])
 
 With ``accum_steps > 1`` every batch leaf has a leading accumulation
 axis (``split_microbatches`` makes it); the microbatches run in a loop
@@ -10,8 +12,11 @@ axis (``split_microbatches`` makes it); the microbatches run in a loop
 microbatch, and the gradients accumulate in float32: each microbatch's
 ``g / accum_steps`` is added in place into one float32 buffer that the
 step owns (the same sums as JAX's ``a + b / accum_steps``, so the same
-bits, without a second float32 tree a microbatch). Gradient compression
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+bits, without a second float32 tree a microbatch). With
+``compress_grads`` the step takes and returns the error-feedback tree
+``err`` (``grad_compression.init_error_feedback(params)`` to start),
+and the gradients go through ``compress_tree`` after accumulation and
+before AdamW, as in JAX.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from ..configs import PENDING_COMPRESSION
+from .grad_compression import compress_tree
 from .optimizer import AdamWConfig, adamw_update
 from .tree import tree_flatten, tree_map, tree_unflatten
 
@@ -39,12 +44,11 @@ def value_and_grad(loss_fn: Callable, params, batch):
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *,
                     accum_steps: int = 1, compress_grads: bool = False):
     """loss_fn(params, batch) -> scalar loss."""
-    if compress_grads:
-        raise NotImplementedError(
-            f"compress_grads is not ported to torch yet; see "
-            f"{PENDING_COMPRESSION}")
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, err=None):
+        if compress_grads != (err is not None):
+            raise ValueError("train_step takes the error-feedback tree err "
+                             "exactly when compress_grads is on")
         if accum_steps > 1:
             loss = torch.zeros((), dtype=torch.float32)
             grads = None
@@ -62,9 +66,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *,
                 loss = loss + l_i / accum_steps
         else:
             loss, grads = value_and_grad(loss_fn, params, batch)
+        if compress_grads:
+            grads, err = compress_tree(grads, err)
         params, opt_state, stats = adamw_update(grads, opt_state, params,
                                                 opt_cfg)
-        return params, opt_state, {"loss": loss.float(), **stats}
+        metrics = {"loss": loss.float(), **stats}
+        if compress_grads:
+            return params, opt_state, metrics, err
+        return params, opt_state, metrics
 
     return train_step
 

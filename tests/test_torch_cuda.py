@@ -251,6 +251,93 @@ def test_cuda_embedding_bag_equals_plain_version(V, D, B, bag, combine,
     assert torch.equal(got, embedding_bag_ref(*x, combine))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+@pytest.mark.parametrize("V,D,B,bag,kind", [
+    (4096, 256, 2048, 8, "random"), (100, 33, 64, 5, "odd_d"),
+    (50, 64, 40, 1, "bag1"), (300, 128, 17, 40, "wide_bag"),
+    (200, 256, 64, 8, "all_pad"), (500, 256, 4000, 8, "hub")])
+def test_cuda_embedding_bag_bwd_equals_plain_version(V, D, B, bag, kind,
+                                                     combine, dtype):
+    """The table's gradient (row 5b's kernel in its mean or sum mode) bit
+    for bit against the plain version on the CPU, equal on a second
+    launch, each launch counted once."""
+    _need_card()
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_bwd
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_bwd_ref
+    rng = np.random.default_rng(V + D + bag)
+    ids = rng.integers(-1, V, size=(B, bag)).astype(np.int32)
+    if kind == "all_pad":
+        ids[::2] = -1
+    elif kind == "hub":
+        ids[rng.random(ids.shape) < 0.5] = 3
+    ids = torch.from_numpy(ids).cuda()
+    g = torch.randn((B, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(B))
+    before = embedding_bag_bwd.launches
+    first = embedding_bag_bwd(g, ids, V, combine, dtype)
+    again = embedding_bag_bwd(g, ids, V, combine, dtype)
+    torch.cuda.synchronize()
+    assert embedding_bag_bwd.launches == before + 2
+    assert first.dtype == dtype and first.shape == (V, D)
+    assert torch.equal(first, again)
+    assert torch.equal(first.cpu(), embedding_bag_bwd_ref(
+        g.cpu(), ids.cpu(), V, combine).to(dtype))
+
+
+def test_cuda_twotower_grads_go_through_both_kernels():
+    """value_and_grad of the reduced two-tower loss on the card: the
+    EmbeddingBag kernel and its backward each launched once a tower, the
+    loss and every gradient leaf close to the CPU run."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_bwd
+    from repro_torch.models import recsys
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import tree_flatten, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("two-tower-retrieval").build_cfg(reduced=True)
+    params = recsys.init_twotower_params(torch.Generator().manual_seed(0),
+                                         cfg)
+    b = RecsysStream(cfg.user_vocab, cfg.item_vocab, 64, n_fields=4,
+                     bag=cfg.bag_size).batch_at(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        p = tree_map(lambda t: t.to(dev), params)
+        before = (embedding_bag.launches, embedding_bag_bwd.launches)
+        loss, grads = value_and_grad(
+            lambda q, x: recsys.twotower_loss(q, x, cfg), p, batch)
+        after = (embedding_bag.launches, embedding_bag_bwd.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            (0, 0) if dev == "cpu" else (2, 2))
+        out[dev] = (float(loss), [g.cpu() for g in tree_flatten(grads)])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, w in zip(out["cuda"][1], out["cpu"][1]):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_cuda_serving_launches_no_backward():
+    """score_batch under inference_mode: two forward launches, none of the
+    backward."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_bwd
+    from repro_torch.models import recsys
+    cfg = get_arch("two-tower-retrieval").build_cfg(reduced=True)
+    params = recsys.init_twotower_params(
+        torch.Generator("cuda").manual_seed(0), cfg, "cuda")
+    ids = torch.zeros((4, cfg.n_fields, cfg.bag_size), dtype=torch.int32,
+                      device="cuda")
+    before = (embedding_bag.launches, embedding_bag_bwd.launches)
+    with torch.inference_mode():
+        recsys.score_batch(params, {"user_ids": ids, "item_ids": ids}, cfg)
+    assert (embedding_bag.launches - before[0],
+            embedding_bag_bwd.launches - before[1]) == (2, 0)
+
+
 # flash_attention on the card against its plain version (chip_smoke.py's
 # FLASH_TOL). float32: the CUDA-core kernel sums key tiles online where the
 # plain version takes one softmax, so the two agree within float32

@@ -4,7 +4,8 @@ Checked at run time (a fresh interpreter imports ``repro_torch`` and
 runs every ported method, the two-tower serving path, the serve
 launcher for two-tower and LM serving, the flash-attention wrapper,
 the HYPE row placement, the train launcher for GraphSAGE (neighbour
-aggregation forward and backward, AdamW, checkpoints), the sampler and
+aggregation forward and backward, AdamW, checkpoints) and for two-tower
+(the EmbeddingBag backward, the loss), gradient compression, the sampler and
 the partitioned-GNN placement on the CPU, then no ``jax`` and no
 ``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch``,
 ``chip_smoke.py`` or ``kernel_ab.py`` names them, lazy imports inside
@@ -67,6 +68,11 @@ with tempfile.TemporaryDirectory() as d:
     res = train.main(["--arch", "graphsage-reddit", "--reduced", "--steps",
                       "2", "--device", "cpu", "--ckpt_dir", d])
     assert res.steps_done == 2 and res.failures_recovered == 0
+    res = train.main(["--arch", "two-tower-retrieval", "--reduced",
+                      "--steps", "2", "--device", "cpu", "--ckpt_dir", d])
+    assert res.steps_done == 2 and res.failures_recovered == 0
+from repro_torch.train.grad_compression import compress_tree
+deq, err = compress_tree({"w": torch.ones(3)}, {"w": torch.zeros(3)})
 src, dst = random_graph(50, 3.0, seed=0)
 b = NeighborSampler(50, src, dst).sample_padded(
     np.arange(4), (3, 2), np.random.default_rng(0), 64, 64,
