@@ -147,7 +147,10 @@ prints one JSON line per phase:
             B=8, S=4096), timed there and at B=1, S=32,768 beside
             ``F.scaled_dot_product_attention``; at S=32,768 the last 64
             query rows of every head are compared; bf16 is held to a worst
-            case and a mean error limit (FLASH_TOL)
+            case and a mean error limit (FLASH_TOL); also timed, and
+            compared, at granite-moe-3b-a800m's layer (B=4, S=4,096, 24/8
+            heads of 64) and mixtral-8x22b's (B=1, S=16,384, 48/8 heads of
+            128, window 4,096; SDPA given an explicit band mask)
   lm_serve  qwen3-8b at full width (bf16, 8.19e9 params drawn on the
             card): prefill of 8 prompts of 4,096 tokens, 16 greedy
             decode steps on that cache, then the serve launcher with its
@@ -173,6 +176,23 @@ prints one JSON line per phase:
             params, 4 accumulated steps held to the JAX package's pinned
             losses (tests/jax_lm_losses.py)
   lm_launcher  the train launcher, --arch stablelm-3b --reduced --steps 4
+  moe_serve granite-moe-3b-a800m at its published width (bf16, 3.37e9
+            params drawn on the card): prefill of 4 prompts of 32,768
+            tokens (a warm-up, then timed; the attention kernel once a
+            layer; the share of slots each expert's capacity drops, layer
+            by layer), 16 greedy serve_steps on the cache padded by 16
+            slots, 16 serve_step_paged steps from the same prefill, fed
+            the same tokens (each held to a serve_step over the same keys
+            on its experts; layer 0's first K/V bit-equal to serve_step's);
+            then a prefill and a step of each decode under the profiler
+  moe_window_serve  mixtral-8x22b at its published width cut to 4 layers
+            (10.4e9 params): one prompt of 16,384 tokens, then the same
+            decode checks on the rolling 4,096-slot cache, past the window
+  moe_parity  the reduced granite-moe-3b-a800m and mixtral-8x22b in fp32
+            and bf16 from numpy params: prefill, serve_step and
+            serve_step_paged logits held to the JAX package's pinned
+            values on JAX's experts (MOE_JAX_VALUES), then 4 training
+            steps held to JAX's losses (tests/jax_moe_values.py)
   gnn_setup the reddit-scale source graph (232,965 nodes, 114.6M edges),
             its features and labels, and the neighbour sampler, on the host
   kernel_neighbor_agg  the neighbour-aggregation forward and backward
@@ -369,6 +389,18 @@ LSE_TOL = dict(atol=2e-5, rtol=2e-5)
 # At S=32,768 the plain scores would be 137 GB: the last rows of every
 # head are compared (64 x 32,768 scores a head) with the plain formula.
 LONG_CHECK_ROWS = 64
+# The bf16 shapes timed beside SDPA: name -> (B, S, Hq, Hkv, D, window).
+# qwen3-8b's layer at the lm_serve prefill and its kernel alone at the
+# published S = 32,768; granite-moe-3b-a800m's layer (G = 3, D = 64) at
+# B = 4, S = 4,096; mixtral-8x22b's (G = 6, D = 128) at moe_window_serve's
+# prefill, its 4,096-token window over 16,384 tokens. Up to S = 4,096
+# every sequence is compared whole with the plain version (its scores at
+# most 2.1 GB a sequence); past it, the last LONG_CHECK_ROWS query rows
+# (mixtral's plain scores would be 51.5 GB).
+FLASH_TIMED = {"layer": (LM_BATCH, LM_PROMPT, 32, 8, 128, None),
+               "long": (1, LM_LONG_SEQ, 32, 8, 128, None),
+               "granite_layer": (4, 4096, 24, 8, 64, None),
+               "mixtral_window": (1, 16_384, 48, 8, 128, 4096)}
 # The reduced LM, float32 without TF32, card against CPU: the tolerance
 # tests/test_serving.py holds two float32 decode paths to.
 LM_PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -446,6 +478,191 @@ LM_TRAIN_PARITY_TOL = {
     "float32": [dict(rtol=1e-5, atol=0.0)] + [dict(rtol=1e-4, atol=0.0)] * 3,
     "bfloat16": [dict(rtol=0.0, atol=2e-2)] * 4}
 LM_LAUNCHER_STEPS = 4
+
+# The MoE LM serving slice (PERF.md section 4), bf16, params drawn on the
+# card. granite-moe-3b-a800m at its published width (32 layers, d 1,536,
+# 24/8 heads of 64, 40 experts of d_ff 512, top-8): prefill_32k's
+# sequence of 32,768 tokens, its batch cut from 32 to 4 (at B = 32 the
+# cache alone is 68.7 GB), then MOE_STEPS greedy serve_steps on the
+# cache padded by MOE_STEPS slots and MOE_STEPS serve_step_paged steps
+# from the same prefill, fed the same tokens, appending each step's K/V
+# at its slot. mixtral-8x22b at its published width (d 6,144, 48/8 heads
+# of 128, 8 experts of d_ff 16,384, top-2, window 4,096) with its depth
+# cut from 56 layers to 4 (281 GB of bf16 weights in all): one prompt of
+# 16,384 tokens (four windows), then decode on the rolling 4,096-slot
+# cache, past the window.
+MOE_ARCH, MOE_BATCH, MOE_PROMPT = "granite-moe-3b-a800m", 4, 32_768
+MOE_WINDOW_ARCH, MOE_WINDOW_LAYERS = "mixtral-8x22b", 4
+MOE_WINDOW_BATCH, MOE_WINDOW_PROMPT = 1, 16_384
+MOE_STEPS = 16
+# Paged against in-place decode on the card. Each paged step is held to a
+# serve_step on a copy of the paged cache with the same keys: on a full
+# rolling buffer the paged step attends to all Skv slots and the new token
+# (Skv + 1 keys, as JAX's does) where serve_step overwrites the oldest
+# slot first, a difference of function that the in-place decode run shows
+# (printed, not held). The two attend differently: in place, scores and
+# probabilities are rounded to bf16, as JAX's _decode_attention does (a
+# score of 4 moves by up to 2**-8 of itself, its probability by up to
+# 1.6%); paged, float32 throughout. So each layer's attention output
+# differs by a percent or so, and the logits by a few percent of their
+# scale, in random directions. A token whose top-K experts nearly tie
+# may also take another expert in one path, which moves it by far more
+# than a rounding: the reference step takes the paged step's experts
+# (RouteLog), and the (token, layer) pairs where its own experts would
+# differ are counted (routes_differ). Held: every logit within
+# MOE_PAGED_TOL["worst"] of the largest |reference logit| of the run,
+# and the mean error within MOE_PAGED_TOL["mean"] of the mean |reference
+# logit| (a systematic fault, a lost key or a wrong slot, moves the
+# mean; rounding in random directions does not). A first card run held
+# atol 0.1, rtol 0.02 (the reduced models' tolerance): granite's
+# 32 layers came to 0.055 on a scale of 4.66, mixtral's 4 to 0.113 on
+# 5.31, outside it (PERF.md section 6, PR 30).
+MOE_PAGED_TOL = {"worst": 2 ** -4, "mean": 2 ** -5}
+# The reduced granite-moe-3b-a800m and mixtral-8x22b (2 layers, d 64, 4
+# experts, top-2; mixtral's window 16) from lm_numpy_params, in float32
+# and bf16, against the JAX package's values on the CPU by the same
+# recipe (tests/jax_moe_values.py pins MOE_JAX_VALUES): B = 2 prompts of
+# 14 tokens; prefill; the cache padded to 16 slots; 4 serve_steps fed
+# JAX's greedy tokens (positions 14-17: the last two past the 16 slots,
+# where the rolling buffer overwrites its oldest slot); 4 serve_step_paged
+# steps from the same padded prefill, fed the same tokens, appending their
+# K/V at slot pos % 16 (the last two attend to 17 keys). The first
+# MOE_PARITY_COLS logits of every row of the 9 calls are pinned, and the
+# experts JAX chose at each MoE call (a digit an expert, in call order).
+# The port is fed JAX's experts (RouteLog): routing is discrete, and a
+# near tie may go the other way under another rounding; the port's own
+# choices are counted where they differ (float32: none may). Then 4
+# training steps of make_train_step(lm_loss) with accum_steps 2 on
+# lm_parity_batches, against JAX's losses (aux included).
+MOE_PARITY_ARCHS = ("granite-moe-3b-a800m", "mixtral-8x22b")
+MOE_PARITY_BATCH, MOE_PARITY_PROMPT, MOE_PARITY_SLOTS = 2, 14, 16
+MOE_PARITY_STEPS, MOE_PARITY_COLS = 4, 8
+# float32: the LM's card-against-CPU tolerance (the port on the CPU is
+# within 5e-6 of JAX); bf16, on JAX's experts: the port's bf16 LM
+# tolerance against JAX (JAX's einsum attention rounds the prefill scores
+# and probabilities to bf16 where the flash kernel keeps them in float32,
+# and XLA rounds silu's sigmoid step by step where torch rounds once).
+MOE_PARITY_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+                  "bfloat16": dict(atol=0.1, rtol=0.02)}
+# The training losses. float32: LM_TRAIN_PARITY_TOL's (the port on the
+# CPU is within 5.8e-6 of JAX's). bf16: atol 5e-2. The port on the CPU is
+# already 3.6e-3 from JAX's first loss (bf16 rounding, and a route that
+# flips moves its token's loss by far more than a rounding) and 1.5e-2
+# from its fourth (lr 1e-2 carries the first steps' gradient differences
+# on; tests/jax_moe_values.py --port); the card rounds P to bf16 besides.
+# The 4 steps move the loss by 0.10 (granite) and 0.17 (mixtral), so a
+# frozen state fails by the third step.
+MOE_TRAIN_PARITY_TOL = {
+    "float32": LM_TRAIN_PARITY_TOL["float32"],
+    "bfloat16": [dict(rtol=0.0, atol=5e-2)] * 4}
+# tests/jax_moe_values.py's output (JAX 0.9.0 on the CPU)
+MOE_JAX_VALUES = json.loads("""
+{"granite-moe-3b-a800m":{"float32":{"tokens":[[449,446],[140,69],[261,90],[484,
+359]],"routes":["13133131023003323230012332323201300310020301011002010110",
+"13121212313113131330301013322021212121212121322021212302","2310","1320",
+"1001","3220","3201","1321","1001","3120","2310","1320","1001","3220","3201",
+"1321","1001","3120"],"logits":[[[2.430576,0.23480543,2.0059996,0.82955295,
+1.080083,-1.1358247,-0.081772,-0.21884777],[-1.131355,0.27714747,-1.585067,
+0.21072015,-0.62298906,0.3818266,0.56727,-0.12985267]],[[0.13149771,0.66235745,
+1.3567346,-1.566853,1.2461786,-0.30481756,0.7241871,-0.33427158],[-0.5822207,
+0.08754636,0.06435692,1.5106347,0.37153128,0.46864322,1.0312098,0.88294494]],
+[[1.5895028,-0.70402586,0.8452866,-0.66737694,2.155934,-1.5464321,0.7447327,
+-0.11199763],[-0.3845128,-1.1133327,-0.80093056,0.7865434,0.13789718,
+0.29547027,0.26939452,0.53407407]],[[-0.5320851,0.76583433,1.3801697,1.8609269,
+1.7387166,-0.8627856,-0.9214222,-0.50303847],[-0.84937775,0.5571114,-0.6780174,
+0.97547716,0.58710164,0.62094814,0.2587386,2.1741717]],[[-1.701718,-1.2211685,
+1.4300697,0.5846653,0.9664103,-1.6427463,0.4541347,1.5284258],[-0.232449,
+-0.5408522,-0.4154471,-0.23298442,0.34131092,0.98249364,-0.11286604,
+0.45918626]],[[0.13149719,0.66235685,1.3567351,-1.566853,1.2461787,-0.30481747,
+0.724187,-0.3342719],[-0.5822207,0.08754645,0.06435669,1.5106342,0.37153167,
+0.4686436,1.03121,0.8829455]],[[1.5895026,-0.7040265,0.8452871,-0.66737753,
+2.1559346,-1.5464321,0.7447322,-0.1119972],[-0.3845127,-1.1133331,-0.80093086,
+0.786544,0.13789716,0.2954703,0.26939425,0.5340741]],[[-0.7717655,0.6410156,
+0.71159184,1.9362453,1.8019563,-0.6920806,-0.8197022,-0.37682015],[-0.6125722,
+0.15116014,-0.70420784,1.0974629,0.6413895,0.7487288,0.23038991,2.208678]],
+[[-1.4702098,-1.4290156,1.3746933,0.7573464,1.1082029,-1.6628387,0.3969607,
+1.6474315],[-0.19006047,-0.58136964,-0.46432665,-0.22864258,0.5219213,
+0.49152622,-0.2932507,0.53811395]]],"losses":[6.7185674,6.709625,6.6091013,
+6.609315]},"bfloat16":{"tokens":[[449,446],[140,69],[261,90],[484,359]],
+"routes":["13133131023003323230012332323201300310020301011002010110",
+"13121212313113131330301013322021212121212121322021212302","2310","1320",
+"1001","3220","3201","1321","1001","3120","2310","1320","1001","3220","3201",
+"1321","1001","3120"],"logits":[[[2.4375,0.22070312,2.0,0.83203125,1.0625,
+-1.125,-0.08251953,-0.22070312],[-1.1328125,0.30078125,-1.6015625,0.20703125,
+-0.65625,0.39648438,0.56640625,-0.1328125]],[[0.123535156,0.6484375,1.375,
+-1.59375,1.234375,-0.28710938,0.73828125,-0.3359375],[-0.58984375,0.075683594,
+0.06982422,1.5390625,0.37109375,0.43554688,1.03125,0.85546875]],[[1.6171875,
+-0.69921875,0.83203125,-0.671875,2.171875,-1.5234375,0.74609375,-0.12597656],
+[-0.3828125,-1.1171875,-0.796875,0.7890625,0.12988281,0.296875,0.25976562,
+0.51171875]],[[-0.54296875,0.73828125,1.3828125,1.875,1.71875,-0.85546875,
+-0.9296875,-0.49023438],[-0.83984375,0.5703125,-0.67578125,0.9921875,
+0.58203125,0.5859375,0.26171875,2.15625]],[[-1.71875,-1.234375,1.4296875,
+0.58203125,0.98046875,-1.6328125,0.45703125,1.515625],[-0.24609375,-0.53125,
+-0.38867188,-0.24414062,0.3203125,0.953125,-0.12451172,0.46289062]],[[0.109375,
+0.63671875,1.390625,-1.5859375,1.234375,-0.2890625,0.7265625,-0.34375],
+[-0.578125,0.06591797,0.056640625,1.5390625,0.37109375,0.45117188,1.03125,
+0.84375]],[[1.6171875,-0.72265625,0.8359375,-0.66015625,2.1875,-1.515625,
+0.734375,-0.10888672],[-0.3828125,-1.1015625,-0.8046875,0.80078125,0.12695312,
+0.29296875,0.26171875,0.515625]],[[-0.796875,0.6171875,0.6953125,1.953125,
+1.8046875,-0.6796875,-0.8359375,-0.35351562],[-0.6015625,0.16503906,
+-0.71484375,1.1171875,0.61328125,0.7265625,0.22949219,2.171875]],[[-1.484375,
+-1.4609375,1.3828125,0.75,1.125,-1.65625,0.38476562,1.640625],[-0.21191406,
+-0.57421875,-0.44921875,-0.22460938,0.5078125,0.47460938,-0.28320312,
+0.54296875]]],"losses":[6.720944,6.7111425,6.620227,6.6245356]}},
+"mixtral-8x22b":{"float32":{"tokens":[[449,129],[20,295],[299,67],[266,109]],
+"routes":["13133131023003303230102332323201300313020301010123010110",
+"13121212203113131030301231322021212112202121322320232320","1201","1020",
+"1201","0212","1301","1321","2312","3121","1201","1020","1201","0212","1301",
+"1320","2312","1321"],"logits":[[[1.2365541,-0.04640413,1.3906883,0.7157861,
+1.6695931,-0.056624155,-0.38385332,-0.60565686],[-0.99031657,0.28709272,
+-1.1595328,0.12645131,-0.6527175,0.2855547,0.37416285,-0.58900666]],
+[[-0.24909574,0.4114197,1.7870461,-1.8976159,0.7635457,-0.30069453,0.15230434,
+-1.5884284],[-0.5309783,-1.0443536,0.56428653,0.9098282,1.3669211,-0.25058046,
+1.0093791,-0.33850142]],[[0.7951692,1.9328396,0.76467997,0.17307311,
+-0.93873614,0.41687083,0.23452193,0.02192792],[-0.7544516,0.8668093,-1.8552448,
+0.9739394,1.7042155,1.6304878,0.8141658,0.6386222]],[[0.45614415,1.0190098,
+0.7041649,-0.602714,1.4816927,-1.5468633,-0.34164965,-1.0407717],[-1.1610612,
+-0.04663966,-0.72509086,0.6074435,0.36812,0.73064303,0.964416,1.2078893]],
+[[0.09264458,0.8770525,-0.9435608,-0.5177948,1.5660577,0.0093858065,0.8185502,
+-1.265329],[-1.1424646,0.45940664,0.059957925,-0.45911318,0.43861747,
+0.54557484,0.22302856,-0.23340121]],[[-0.24909548,0.41142014,1.7870457,
+-1.8976166,0.76354456,-0.3006944,0.15230481,-1.5884284],[-0.5309788,-1.0443534,
+0.5642864,0.9098279,1.3669201,-0.25057995,1.0093787,-0.33850092]],[[0.7951696,
+1.9328393,0.76467884,0.17307286,-0.93873626,0.41687152,0.23452172,0.021927306],
+[-0.75445145,0.8668094,-1.8552449,0.9739394,1.7042155,1.6304876,0.81416607,
+0.6386221]],[[0.6466469,0.88116723,0.91839504,-0.38303366,1.458817,-1.6792859,
+-0.43388447,-0.87522817],[-1.0555552,-0.52492416,-0.8254028,0.91152036,
+-0.18996416,0.8050582,1.311905,0.56209046]],[[0.8911869,0.44967413,-1.039378,
+-0.29109612,1.3527021,-0.17689145,0.20395944,-0.46235752],[-0.6505379,
+0.38039735,0.49012554,-1.3968489,0.036434766,0.38563126,0.5274161,
+-0.4767884]]],"losses":[6.7708397,6.688597,6.662448,6.6040773]},
+"bfloat16":{"tokens":[[449,129],[20,295],[299,67],[266,109]],
+"routes":["13133131023003303230102332323201300313020301010123010110",
+"13121212203113131030301231322021212112202121322320232320","1201","1020",
+"1201","0212","1301","1321","2312","3121","1201","1020","1201","0212","1301",
+"1320","2312","1321"],"logits":[[[1.25,-0.07910156,1.390625,0.70703125,1.65625,
+-0.053222656,-0.39648438,-0.5859375],[-0.98046875,0.28515625,-1.15625,
+0.119140625,-0.66796875,0.27929688,0.36328125,-0.5859375]],[[-0.23632812,
+0.40625,1.765625,-1.8828125,0.7890625,-0.29101562,0.17578125,-1.5625],
+[-0.5234375,-1.0546875,0.5546875,0.91015625,1.359375,-0.25976562,1.03125,
+-0.33789062]],[[0.7890625,1.9140625,0.796875,0.18359375,-0.953125,0.40820312,
+0.234375,0.03149414],[-0.75390625,0.875,-1.8046875,0.95703125,1.6875,1.6015625,
+0.80078125,0.6328125]],[[0.47265625,1.0234375,0.7109375,-0.5859375,1.4765625,
+-1.5390625,-0.36914062,-1.0390625],[-1.171875,-0.048095703,-0.70703125,
+0.58984375,0.34179688,0.71875,0.95703125,1.1953125]],[[0.08642578,0.8515625,
+-0.9140625,-0.5078125,1.546875,0.012268066,0.8046875,-1.2265625],[-1.1328125,
+0.44726562,0.0703125,-0.4765625,0.43554688,0.51953125,0.22753906,-0.27148438]],
+[[-0.24316406,0.421875,1.7578125,-1.875,0.81640625,-0.31445312,0.17578125,
+-1.546875],[-0.51171875,-1.046875,0.5625,0.8984375,1.3359375,-0.25195312,
+1.015625,-0.32226562]],[[0.77734375,1.9140625,0.7890625,0.19921875,-0.9609375,
+0.40820312,0.2421875,0.028808594],[-0.7578125,0.87109375,-1.8203125,0.9609375,
+1.6875,1.6171875,0.80859375,0.640625]],[[0.66015625,0.89453125,0.9140625,
+-0.38671875,1.4609375,-1.6796875,-0.45117188,-0.88671875],[-1.0625,-0.53515625,
+-0.82421875,0.89453125,-0.19238281,0.7890625,1.3046875,0.55859375]],[[0.875,
+0.421875,-1.0,-0.3046875,1.3125,-0.18164062,0.19824219,-0.4375],[-0.65234375,
+0.37695312,0.48632812,-1.390625,0.038085938,0.37109375,0.515625,-0.51171875]]],
+"losses":[6.7713804,6.6913247,6.6671596,6.606168]}}}
+""")
 
 # The GNN training slice: graphsage-reddit at its published width (2
 # layers, d_hidden 128, mean aggregator, d_feat 602, 41 classes) on the
@@ -1947,21 +2164,24 @@ def run_recsys(launches, bops, bref):
     return timed, worst, bwd_row, worst_bwd
 
 
-def attention_bound(B, S, Hq, Hkv, D):
+def attention_bound(B, S, Hq, Hkv, D, window=None):
     """(FLOPs, bytes, bound ms) of one causal bf16 attention call: 4 D
     FLOP (QK^T and PV) per unmasked (query, key) pair, S (S + 1) / 2 of
-    them per batch row and q-head, at the bf16 tensor-core peak; q, k
-    and v read once and the output written once. The bound is the
-    larger of the two times."""
-    flops = 4 * B * Hq * D * (S * (S + 1) // 2)
+    them per batch row and q-head (with a window W < S: W (W + 1) / 2 +
+    (S - W) W), at the bf16 tensor-core peak; q, k and v read once and
+    the output written once. The bound is the larger of the two times."""
+    W = S if window is None else min(window, S)
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    flops = 4 * B * Hq * D * pairs
     nbytes = (2 * Hq + 2 * Hkv) * B * S * D * 2
     bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     return flops, nbytes, bound_ms
 
 
-def attention_rows_plain(q, k, v, start):
+def attention_rows_plain(q, k, v, start, window=None):
     """The plain version's formula (kernels/flash_attention/ref.py),
-    causal, for query rows start..S-1 only: (B, S - start, Hq, D)."""
+    causal (and windowed: key j seen by query i when i - window < j), for
+    query rows start..S-1 only: (B, S - start, Hq, D)."""
     import torch
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -1970,7 +2190,10 @@ def attention_rows_plain(q, k, v, start):
                           k.float()) / math.sqrt(D)
     i = torch.arange(start, S, device=q.device)[:, None]
     j = torch.arange(S, device=q.device)[None, :]
-    probs = torch.softmax(torch.where(j <= i, scores, -1e30), dim=-1)
+    seen = j <= i
+    if window is not None:
+        seen &= j > i - window
+    probs = torch.softmax(torch.where(seen, scores, -1e30), dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
     return out.reshape(B, S - start, Hq, D).to(q.dtype)
 
@@ -1998,16 +2221,16 @@ def phase_kernel_flash(fops, fref):
     """flash_attention on the card against its plain version (FLASH_TOL):
     the shapes of tests/test_kernels.py in fp32 and bf16, non-causal, a
     window, D in {16, 32, 64, 80, 128, 192, 256}, Hkv = 1, ragged S, and
-    the full-width layer shape
-    of qwen3-8b (B=8, S=4096, 32 q-heads, 8 kv-heads, D=128, bf16),
-    compared one sequence at a time so the plain scores stay at 2.1 GB.
-    Timed there and at B=1, S=32,768, beside
-    F.scaled_dot_product_attention; at S=32,768 the plain version is
-    neither run whole nor timed (its scores would be 137 GB), and the last
-    LONG_CHECK_ROWS query rows of every head are compared with its
-    formula."""
+    the FLASH_TIMED shapes: the full-width layers of qwen3-8b (B=8,
+    S=4096, 32 q-heads, 8 kv-heads, D=128) and granite-moe-3b-a800m (B=4,
+    S=4096, 24/8 heads, D=64), compared one sequence at a time so the
+    plain scores stay at 2.1 GB; qwen3-8b's at B=1, S=32,768 and
+    mixtral-8x22b's (B=1, S=16,384, 48/8 heads, D=128, window 4,096),
+    where the plain version is neither run whole nor timed (its scores
+    would be 137 and 51.5 GB) and the last LONG_CHECK_ROWS query rows of
+    every head are compared with its formula. Each is timed beside
+    F.scaled_dot_product_attention (sdpa_ms)."""
     import torch
-    import torch.nn.functional as F
     cases = [(B, S, Hq, Hkv, D, True, w, dt)
              for dt in ("float32", "bfloat16")
              for B, S, Hq, Hkv, D, w in (
@@ -2056,20 +2279,19 @@ def phase_kernel_flash(fops, fref):
                              f"version: {row}")
 
     timed = {}
-    for name, (B, S) in (("layer", (LM_BATCH, LM_PROMPT)),
-                         ("long", (1, LM_LONG_SEQ))):
-        Hq, Hkv, D = 32, 8, 128
+    for name, (B, S, Hq, Hkv, D, window) in FLASH_TIMED.items():
         x = inputs(B, S, Hq, Hkv, D, "bfloat16")
         row = {"phase": "kernel_flash_attention", "shape": name, "B": B,
                "S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
-               "window": None, "dtype": "bfloat16"}
-        out = fops.flash_attention(*x)
+               "window": window, "dtype": "bfloat16"}
+        out = fops.flash_attention(*x, window=window)
         torch.cuda.synchronize()
-        if name == "layer":
+        whole = S <= LM_PROMPT
+        if whole:
             checks = []
             for b in range(B):
                 xb = [t[b:b + 1] for t in x]
-                want = fref.attention_ref(*xb)
+                want = fref.attention_ref(*xb, window=window)
                 checks.append(flash_check(out[b:b + 1], want, x[2],
                                           "bfloat16"))
                 del want
@@ -2082,46 +2304,69 @@ def phase_kernel_flash(fops, fref):
                        tol=checks[0]["tol"],
                        close=all(c["close"] for c in checks),
                        compared="one sequence at a time")
-            worst = max(worst, row["max_abs_err"])
         else:
             if not bool(torch.isfinite(out.float()).all()):
                 raise SystemExit(f"flash_attention at S={S} gave non-finite "
                                  f"values")
             start = S - LONG_CHECK_ROWS
-            want = attention_rows_plain(*x, start)
+            want = attention_rows_plain(*x, start, window=window)
             got = out[:, start:]
             row.update(**flash_check(got, want, x[2], "bfloat16"),
                        compared=f"query rows {start}..{S - 1} of every head")
-            worst = max(worst, row["max_abs_err"])
             del want, got
+        worst = max(worst, row["max_abs_err"])
         del out
-        flops, nbytes, bound_ms = attention_bound(B, S, Hq, Hkv, D)
-        iters = 5 if name == "layer" else 2
-        row.update(ms=cuda_ms(lambda: fops.flash_attention(*x), reps=3,
-                              iters=iters, warmup=2),
-                   flops=flops, bytes=nbytes, bound_ms=bound_ms,
-                   bound_by="operations")
+        flops, nbytes, bound_ms = attention_bound(B, S, Hq, Hkv, D, window)
+        iters = 5 if whole else 2
+        row.update(ms=cuda_ms(lambda: fops.flash_attention(
+            *x, window=window), reps=3, iters=iters, warmup=2),
+            flops=flops, bytes=nbytes, bound_ms=bound_ms,
+            bound_by="operations")
         row["tflops"] = flops / row["ms"] / 1e9
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in x)
-        row.update(library_ms=cuda_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=3,
-            iters=iters, warmup=2),
-            library_call="F.scaled_dot_product_attention(is_causal=True, "
-                         "enable_gqa=True) on (B, H, S, D) copies")
-        del qt, kt, vt
-        if name == "layer":
+        row.update(sdpa_ms(x, window, iters))
+        if whole:
             torch.cuda.empty_cache()
-            row["plain_ms"] = cuda_ms(lambda: fref.attention_ref(*x),
-                                      reps=3, iters=1, warmup=1)
+            row["plain_ms"] = cuda_ms(lambda: fref.attention_ref(
+                *x, window=window), reps=3, iters=1, warmup=1)
         emit(row)
         if not row["close"]:
             raise SystemExit(f"flash_attention disagrees with its plain "
-                             f"version at full width: {row}")
+                             f"version at {name}: {row}")
         timed[name] = row
         del x
         torch.cuda.empty_cache()
     return timed, worst
+
+
+def sdpa_ms(x, window, iters):
+    """The library call's time on the same inputs: causal
+    ``F.scaled_dot_product_attention`` with ``enable_gqa`` on (B, H, S, D)
+    copies; with a window, an explicit (S, S) band mask on the
+    memory-efficient backend, with k and v repeated to the q-heads (that
+    backend takes no GQA, and the math backend would hold the whole
+    score matrix)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in x)
+    if window is None:
+        ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=3,
+            iters=iters, warmup=2)
+        return {"library_ms": ms, "library_call":
+                "F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True) on (B, H, S, D) copies"}
+    S, G = qt.shape[2], qt.shape[1] // kt.shape[1]
+    kt, vt = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+    i = torch.arange(S, device="cuda")[:, None]
+    j = torch.arange(S, device="cuda")[None, :]
+    band = (j <= i) & (j > i - window)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band), reps=3, iters=iters, warmup=2)
+    return {"library_ms": ms, "library_call":
+            "F.scaled_dot_product_attention(attn_mask=band) on the "
+            "memory-efficient backend, k and v repeated to the q-heads"}
 
 
 def phase_lm_serve(tf, launches):
@@ -2163,9 +2408,6 @@ def phase_lm_serve(tf, launches):
         out = tf.prefill(params, prompts, cfg)
         torch.cuda.synchronize()
         return out
-
-    def greedy(logits):
-        return torch.argmax(logits, -1)[:, None].to(torch.int32)
 
     need = {"flash_attention": cfg.n_layers}
     with torch.inference_mode():
@@ -2698,8 +2940,9 @@ def lm_numpy_params(cfg, seed=0) -> dict:
     """An LM's params as numpy float32, in the JAX package's layout (a
     leading n_layers axis on every layer leaf, the leaves of the port's
     ``layer_shapes``): embed ``normal * 0.02``, lm_head and every layer
-    weight ``normal / sqrt(fan_in)``, ln_f and the norms ``1 + 0.1
-    normal``, drawn in this order from ``np.random.default_rng(seed)``
+    weight ``normal / sqrt(fan_in)`` (an MoE expert stack's fan-in is its
+    second last axis), ln_f and the norms ``1 + 0.1 normal``, drawn in
+    this order from ``np.random.default_rng(seed)``
     (a Generator given as ``seed`` is drawn from and advanced). ``cfg``
     is either package's TransformerConfig."""
     import numpy as np
@@ -2713,7 +2956,7 @@ def lm_numpy_params(cfg, seed=0) -> dict:
             "ln_f": 1 + 0.1 * rng.normal(size=d),
             "layers": {name: (1 + 0.1 * rng.normal(size=(L,) + shape))
                        if len(shape) == 1 else
-                       rng.normal(size=(L,) + shape) / np.sqrt(shape[0])
+                       rng.normal(size=(L,) + shape) / np.sqrt(shape[-2])
                        for name, shape in shapes.items()}}
 
     def f32(node):
@@ -2795,6 +3038,474 @@ def run_lm(launches, fops, fref):
     emit({"phase": "lm_train_phases_done",
           "wall_s": time.perf_counter() - t0})
     return timed, worst, bwd_timed, bwd_worst
+
+# ------------------------------------------------------------------- MoE
+
+class RouteLog:
+    """For the length of a ``with``, a spy on ``models.moe.top_experts``
+    (the experts each token takes): it keeps every call's indices in
+    call order (with ``keep``) and counts the slots that each expert's
+    capacity drops (``moe.capacity(cfg, S)`` a row), call by call. Given
+    ``pinned``, a digit string (one digit an expert, in call order) or a
+    list of index tensors (one a call), each call takes the next pinned
+    experts in place of its own, so the rest of moe_ffn runs on them;
+    ``own`` keeps its own choices, ``used`` the pinned ones."""
+
+    def __init__(self, moe_mod, cfg, pinned=None, keep=True):
+        self.mod, self.cfg, self.pinned, self.keep = moe_mod, cfg, pinned, keep
+        self.own, self.used, self.slots, self.drops = [], [], [], []
+
+    def __enter__(self):
+        import torch
+        orig = self.orig = self.mod.top_experts
+        at = 0
+
+        def spy(probs, K):
+            nonlocal at
+            idx = orig(probs, K)
+            if self.keep:
+                self.own.append(idx)
+            if isinstance(self.pinned, str):
+                digits = self.pinned[at:at + idx.numel()]
+                if len(digits) != idx.numel():
+                    raise SystemExit("the pinned routes ran out")
+                at += idx.numel()
+                idx = torch.tensor([int(c) for c in digits],
+                                   dtype=idx.dtype).to(idx.device).view(
+                                       idx.shape)
+                self.used.append(idx)
+            elif self.pinned is not None:
+                idx = self.pinned[len(self.used)].view(idx.shape)
+                self.used.append(idx)
+            B, S, _ = idx.shape
+            per = torch.zeros((B, probs.shape[-1]), dtype=torch.int64,
+                              device=idx.device).scatter_add_(
+                1, idx.reshape(B, -1), torch.ones_like(idx.reshape(B, -1)))
+            C = self.mod.capacity(self.cfg, S)
+            self.drops.append(torch.clamp_min(per - C, 0).sum())
+            self.slots.append(idx.numel())
+            return idx
+
+        self.mod.top_experts = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top_experts = self.orig
+
+    def drop_share(self) -> float:
+        return sum(int(d) for d in self.drops) / max(sum(self.slots), 1)
+
+    def drop_shares(self) -> list:
+        """Each call's share of dropped slots."""
+        return [int(d) / n for d, n in zip(self.drops, self.slots)]
+
+    def digits(self) -> str:
+        return "".join(str(int(i)) for r in self.own
+                       for i in r.reshape(-1).tolist())
+
+    def differing(self) -> int:
+        """The (token, call) pairs whose own set of experts is not the
+        pinned one."""
+        return sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                   for a, b in zip(self.own, self.used))
+
+
+def moe_parity_prompts(vocab: int):
+    """moe_parity's prompts: (MOE_PARITY_BATCH, MOE_PARITY_PROMPT) int32
+    from ``default_rng(8)``."""
+    import numpy as np
+    return np.random.default_rng(8).integers(
+        0, vocab, (MOE_PARITY_BATCH, MOE_PARITY_PROMPT)).astype(np.int32)
+
+
+def moe_parity_serve(tf, cfg, params, prompts, tokens):
+    """moe_parity's serving recipe through the port on ``params``'
+    device: prefill of ``prompts``, the cache padded to MOE_PARITY_SLOTS;
+    serve_step fed each of ``tokens`` ((B,) int32 each) in turn; then
+    serve_step_paged from the same padded prefill fed the same tokens,
+    each step's K/V appended at slot pos % MOE_PARITY_SLOTS. Returns the
+    1 + 2 len(tokens) logits and a dict of the prefill's cache ``k`` and
+    ``v`` and the first paged step's ``k_new`` and ``v_new``, each float32
+    on the CPU."""
+    import torch
+    import torch.nn.functional as F
+    dev = params["embed"].device
+    with torch.inference_mode():
+        cache, logits = tf.prefill(params, torch.as_tensor(prompts).to(dev),
+                                   cfg)
+        extra = {key: cache[key].float().cpu() for key in ("k", "v")}
+        pad = MOE_PARITY_SLOTS - cache["k"].shape[2]
+        for key in ("k", "v"):
+            cache[key] = F.pad(cache[key], (0, 0, 0, 0, 0, pad))
+        paged = {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                 "pos": cache["pos"]}
+        out = [logits]
+        for t in tokens:
+            logits, cache = tf.serve_step(
+                params, cache, torch.as_tensor(t)[:, None].to(dev), cfg)
+            out.append(logits)
+        for t in tokens:
+            logits, k_new, v_new, pos = tf.serve_step_paged(
+                params, paged, torch.as_tensor(t)[:, None].to(dev), cfg)
+            slot = paged["pos"] % MOE_PARITY_SLOTS
+            paged["k"][:, :, slot] = k_new[:, :, 0]
+            paged["v"][:, :, slot] = v_new[:, :, 0]
+            paged["pos"] = pos
+            if "k_new" not in extra:
+                extra.update(k_new=k_new.float().cpu(),
+                             v_new=v_new.float().cpu())
+            out.append(logits)
+    return [o.float().cpu() for o in out], extra
+
+
+def moe_train_losses(tf, convert, cfg, device, launches=None):
+    """moe_parity's training recipe through the port: params from
+    lm_numpy_params, make_train_step(lm_loss) with
+    AdamWConfig(**LM_TRAIN_PARITY_OPT) and accum_steps 2 on
+    lm_parity_batches; the losses (and, with ``launches``, the counts of
+    the run)."""
+    import torch
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.train_loop import make_train_step
+    params = convert.transformer_params_from_numpy(lm_numpy_params(cfg),
+                                                   cfg, device)
+    opt_cfg = AdamWConfig(**LM_TRAIN_PARITY_OPT)
+    opt = init_adamw(params, opt_cfg)
+    step_fn = make_train_step(lambda p, b: tf.lm_loss(p, b, cfg), opt_cfg,
+                              accum_steps=2)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in lm_parity_batches(cfg.vocab)]
+
+    def run():
+        nonlocal params, opt
+        out = []
+        for b in batches:
+            params, opt, m = step_fn(params, opt, b)
+            out.append(float(m["loss"]))
+        return out
+
+    if launches is None:
+        return run(), None
+    losses, _, counts = launches.drive(run)
+    return losses, counts
+
+
+def moe_parity_check(logs, pins, dtype) -> dict:
+    """The row fields of one serving comparison with the pinned JAX
+    logits (their first MOE_PARITY_COLS columns) under MOE_PARITY_TOL."""
+    import numpy as np
+    got = np.stack([lg[:, :MOE_PARITY_COLS].numpy() for lg in logs])
+    want = np.asarray(pins["logits"], np.float32)
+    tol = MOE_PARITY_TOL[dtype]
+    return {"max_abs_diff": float(np.abs(got - want).max()),
+            "logit_scale": float(np.abs(want).max()), "tol": tol,
+            "close": bool(got.shape == want.shape
+                          and np.allclose(got, want, **tol))}
+
+
+def phase_moe_parity(tf, convert, moe_mod, launches):
+    """The reduced MoE configs on the card against the JAX package's
+    pinned values (MOE_JAX_VALUES; the recipe beside MOE_PARITY_ARCHS):
+    prefill, serve_step and serve_step_paged logits on JAX's experts,
+    the port's own experts counted where they differ (none in float32),
+    then the 4 training steps' losses. The prefill launches the
+    attention kernel once a layer; each training microbatch the forward
+    and the backward once a layer."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_arch
+    for arch in MOE_PARITY_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dc.replace(get_arch(arch).build_cfg(reduced=True),
+                             dtype=getattr(torch, dtype))
+            pins = MOE_JAX_VALUES[arch][dtype]
+            params = convert.transformer_params_from_numpy(
+                lm_numpy_params(cfg), cfg, "cuda")
+            with RouteLog(moe_mod, cfg, pinned="".join(pins["routes"])) as log:
+                (logs, _), wall, counts = launches.drive(
+                    lambda: moe_parity_serve(
+                        tf, cfg, params, moe_parity_prompts(cfg.vocab),
+                        pins["tokens"]))
+            need = {"flash_attention": cfg.n_layers}
+            row = {"phase": "moe_parity", "config": f"{arch} reduced, "
+                   f"{dtype}", "part": "serve", "window": cfg.window,
+                   "tf32": torch.backends.cuda.matmul.allow_tf32,
+                   **moe_parity_check(logs, pins, dtype),
+                   "routes_differ": log.differing(),
+                   "routes_compared": sum(r.shape[0] * r.shape[1]
+                                          for r in log.used),
+                   "wall_s": wall, "launches": counts,
+                   "expected_launches": need}
+            emit(row)
+            if {k: v for k, v in counts.items() if v} != need:
+                raise SystemExit(f"moe_parity launched {counts}")
+            if not row["close"] or (dtype == "float32"
+                                    and row["routes_differ"]):
+                raise SystemExit(f"moe_parity differs from JAX's: {row}")
+            del params
+            losses, counts = moe_train_losses(tf, convert, cfg, "cuda",
+                                              launches)
+            n = 2 * cfg.n_layers * LM_TRAIN_PARITY_STEPS
+            need = {"flash_attention": n, "flash_attention_bwd": n}
+            want = pins["losses"]
+            close = [bool(math.isclose(a, b, rel_tol=t["rtol"],
+                                       abs_tol=t["atol"]))
+                     for a, b, t in zip(losses, want,
+                                        MOE_TRAIN_PARITY_TOL[dtype])]
+            row = {"phase": "moe_parity", "config": f"{arch} reduced, "
+                   f"{dtype}", "part": "train", "accum_steps": 2,
+                   "losses": losses, "jax_losses": want,
+                   "max_abs_diff": max(abs(a - b)
+                                       for a, b in zip(losses, want)),
+                   "tol": MOE_TRAIN_PARITY_TOL[dtype], "close": close,
+                   "launches": counts, "expected_launches": need}
+            emit(row)
+            if {k: v for k, v in counts.items() if v} != need:
+                raise SystemExit(f"moe_parity training launched {counts}")
+            if len(losses) != len(want) or not all(close):
+                raise SystemExit(f"moe_parity training differs from JAX's "
+                                 f"losses: {row}")
+
+
+def phase_moe_serve(tf, moe_mod, launches, phase, arch, B, S,
+                    n_layers=None):
+    """An MoE LM at its published width (bf16, params drawn on the card;
+    ``n_layers`` cuts the depth): prefill of B prompts of S tokens (a
+    warm-up, then timed; the share of slots the capacity drops), then
+    MOE_STEPS greedy serve_steps (a full cache padded by MOE_STEPS slots;
+    a windowed one rolls) and MOE_STEPS serve_step_paged steps from the
+    same prefill, fed the same tokens, each appending its K/V at slot
+    pos % Skv. Checks: the param count against params_dense; finite
+    prefill logits; the attention kernel once a layer in a prefill,
+    never in decode; the first paged step's layer-0 K/V bit-equal to
+    what serve_step wrote at that slot (the layers above read residuals
+    the two attentions made in other roundings); each step's paged logits
+    within MOE_PAGED_TOL of serve_step's on a copy of the paged cache
+    that gives it the same keys (``same_keys``) and on the paged step's
+    experts; the difference from the in-place decode is printed."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).build_cfg()
+    published = cfg.n_layers
+    if n_layers is not None:
+        cfg = dc.replace(cfg, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["lm_head"], params["ln_f"],
+              *params["layers"].values()]
+    n_params = sum(t.numel() for t in leaves)
+    emit({"phase": f"{phase}_setup", "config": arch,
+          "n_layers": cfg.n_layers, "published_layers": published,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "d_head": cfg.d_head,
+          "d_ff": cfg.d_ff, "n_experts": cfg.moe.n_experts,
+          "top_k": cfg.moe.top_k, "vocab": cfg.vocab, "window": cfg.window,
+          "dtype": str(cfg.dtype).removeprefix("torch."),
+          "params": n_params, "params_dense": cfg.params_dense,
+          "params_active": cfg.params_active,
+          "param_gb": sum(t.nbytes for t in leaves) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    if n_params != cfg.params_dense:
+        raise SystemExit(f"{arch} params differ from params_dense")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).cuda()
+
+    def run_prefill():
+        out = tf.prefill(params, prompts, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    need = {"flash_attention": cfg.n_layers}
+    with torch.inference_mode():
+        for label in ("prefill_warmup", "prefill"):
+            cache = logits = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with RouteLog(moe_mod, cfg, keep=False) as log:
+                (cache, logits), wall, counts = launches.drive(run_prefill)
+            row = {"phase": phase, "path": label, "batch": B,
+                   "prompt_len": S, "wall_s": wall,
+                   "tokens_per_s": B * S / wall,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "cache_gb": (cache["k"].nbytes + cache["v"].nbytes) / 1e9,
+                   "capacity": moe_mod.capacity(cfg, S),
+                   "dropped_share": log.drop_share(),
+                   "dropped_share_by_layer": [round(x, 4) for x in
+                                              log.drop_shares()],
+                   "launches": counts, "expected_launches": need}
+            emit(row)
+            if {k: v for k, v in counts.items() if v} != need:
+                raise SystemExit(f"{phase} {label} launched {counts}, not "
+                                 f"{need}")
+        if logits.shape != (B, cfg.vocab) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise SystemExit(f"{phase} prefill logits are not finite "
+                             f"({B}, {cfg.vocab})")
+        if cfg.window is None:
+            for key in ("k", "v"):
+                cache[key] = torch.cat([cache[key], cache[key].new_zeros(
+                    cache[key].shape[:2] + (MOE_STEPS,)
+                    + cache[key].shape[3:])], dim=2)
+        Skv = cache["k"].shape[2]
+        paged = {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                 "pos": cache["pos"]}
+        first = {}
+
+        def decode():
+            nonlocal cache, logits
+            toks, logs, step_s = [greedy(logits)], [], []
+            for i in range(MOE_STEPS):
+                t0 = time.perf_counter()
+                slot = cache["pos"] % Skv
+                logits, cache = tf.serve_step(params, cache, toks[-1], cfg)
+                toks.append(greedy(logits))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                logs.append(logits.float())
+                if i == 0:
+                    first.update(k=cache["k"][:, :, slot].clone(),
+                                 v=cache["v"][:, :, slot].clone())
+            return torch.cat(toks, 1), logs, step_s
+
+        flips = []
+
+        def decode_paged():
+            logs, refs, step_s = [], [], []
+            for i in range(MOE_STEPS):
+                tok, pos = toks[:, i:i + 1], paged["pos"]
+                ref_cache = same_keys(paged)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with RouteLog(moe_mod, cfg) as paged_log:
+                    lg, k_new, v_new, nxt = tf.serve_step_paged(
+                        params, paged, tok, cfg)
+                paged["k"][:, :, pos % Skv] = k_new[:, :, 0]
+                paged["v"][:, :, pos % Skv] = v_new[:, :, 0]
+                paged["pos"] = nxt
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                logs.append(lg.float())
+                # the reference takes the paged step's experts; where its
+                # own would differ, a near tie went the other way
+                with RouteLog(moe_mod, cfg, pinned=paged_log.own) as ref_log:
+                    refs.append(tf.serve_step(params, ref_cache, tok,
+                                              cfg)[0].float())
+                flips.append(ref_log.differing())
+                del ref_cache
+                if i == 0:
+                    first.update(k_new=k_new[:, :, 0], v_new=v_new[:, :, 0])
+            return logs, refs, step_s
+
+        rows, logs = {}, {}
+        for path, fn in (("decode", decode), ("decode_paged", decode_paged)):
+            torch.cuda.reset_peak_memory_stats()
+            with RouteLog(moe_mod, cfg, keep=False) as log:
+                out, wall, counts = launches.drive(fn)
+            if path == "decode":
+                toks, logs[path], step_s = out
+            else:
+                logs[path], refs, step_s = out
+            step_ms = statistics.median(step_s) * 1e3
+            rows[path] = {"phase": phase, "path": path, "batch": B,
+                          "cache_slots": Skv, "steps": MOE_STEPS,
+                          "first_pos": S, "wall_s": wall,
+                          "step_ms_median": step_ms,
+                          "step_ms_first": step_s[0] * 1e3,
+                          "tokens_per_s": B / (step_ms / 1e3),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "dropped_share": log.drop_share(),
+                          "launches": counts, "expected_launches": {}}
+            if any(counts.values()):
+                raise SystemExit(f"{phase} {path} launched {counts}; it runs "
+                                 f"no kernel")
+        a = torch.stack(logs["decode_paged"]).cpu()
+        b = torch.stack(refs).cpu()
+        d0 = {key: bool(torch.equal(first[key + "_new"][0], first[key][0]))
+              for key in ("k", "v")}
+        kv_diff = max(float((first[key + "_new"].float()
+                             - first[key].float()).abs().max())
+                      for key in ("k", "v"))
+        rolling = torch.stack(logs["decode"]).cpu()
+        worst, mean = float((a - b).abs().max()), float((a - b).abs().mean())
+        scale, mean_ref = float(b.abs().max()), float(b.abs().mean())
+        row = {"phase": phase, "path": "paged_vs_same_keys",
+               "tol": MOE_PAGED_TOL, "max_abs_diff": worst,
+               "mean_abs_diff": mean, "logit_scale": scale,
+               "mean_abs_ref": mean_ref,
+               "routes_compared": MOE_STEPS * B * cfg.n_layers,
+               "routes_differ": sum(flips),
+               "close": worst <= MOE_PAGED_TOL["worst"] * scale
+               and mean <= MOE_PAGED_TOL["mean"] * mean_ref,
+               "max_abs_diff_from_decode": float((a - rolling).abs().max()),
+               "layer0_kv_bit_equal": d0, "kv_max_abs_diff": kv_diff,
+               "tokens_in_range": bool(int(toks.min()) >= 0
+                                       and int(toks.max()) < cfg.vocab)}
+        for path in ("decode", "decode_paged"):
+            emit(rows[path])
+        emit(row)
+        if (not row["close"] or not all(d0.values())
+                or not row["tokens_in_range"]
+                or not bool(torch.isfinite(a).all())):
+            raise SystemExit(f"{phase}: paged decode disagrees with "
+                             f"serve_step: {row}")
+        if phase == "moe_serve":
+            phase_profile(f"{phase}_prefill", run_prefill)
+            step = {"k": paged["k"], "v": paged["v"], "pos": paged["pos"]}
+            phase_profile(f"{phase}_decode_paged_step",
+                          lambda: tf.serve_step_paged(params, step,
+                                                      toks[:, -1:], cfg))
+            phase_profile(f"{phase}_decode_step", lambda: tf.serve_step(
+                params, dict(step), toks[:, -1:], cfg))
+    del params, cache, paged
+    torch.cuda.empty_cache()
+
+
+def same_keys(cache):
+    """A copy of a KV cache on which serve_step at its ``pos`` attends to
+    the keys serve_step_paged does: the slots before ``pos`` and the new
+    token, or on a full rolling buffer (pos >= Skv) all Skv slots and the
+    new token (one slot more, rolled so that the step writes it)."""
+    import torch
+    pos, Skv = cache["pos"], cache["k"].shape[2]
+    if pos < Skv:
+        return {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                "pos": pos}
+    return dict({key: torch.roll(torch.cat([cache[key], torch.zeros_like(
+        cache[key][:, :, :1])], dim=2), (pos + 1) % (Skv + 1), dims=2)
+        for key in ("k", "v")}, pos=pos)
+
+
+def greedy(logits):
+    """The greedy next tokens of (B, V) logits, (B, 1) int32."""
+    import torch
+    return torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+
+def run_moe(launches):
+    """The MoE LM slices: granite-moe-3b-a800m at full width
+    (moe_serve), mixtral-8x22b at full width and 4 layers
+    (moe_window_serve), and the reduced configs against JAX's pinned
+    values (moe_parity)."""
+    from repro_torch import convert
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    phase_moe_serve(tf, moe_mod, launches, "moe_serve", MOE_ARCH, MOE_BATCH,
+                    MOE_PROMPT)
+    phase_moe_serve(tf, moe_mod, launches, "moe_window_serve",
+                    MOE_WINDOW_ARCH, MOE_WINDOW_BATCH, MOE_WINDOW_PROMPT,
+                    MOE_WINDOW_LAYERS)
+    phase_moe_parity(tf, convert, moe_mod, launches)
+    emit({"phase": "moe_phases_done", "wall_s": time.perf_counter() - t0})
 
 # ------------------------------------------------------------------- GNN
 
@@ -4954,6 +5665,7 @@ def main() -> int:
         launches, bops, bref)
     flash_rows, worst_flash, bwd_rows, worst_bwd = run_lm(launches, fops,
                                                           fref)
+    run_moe(launches)
     na_row, (worst_na, worst_na_bwd) = run_gnn(launches, nops, nref)
 
     def entry(name, source, replaces, main, err, **extra):

@@ -5,9 +5,9 @@ It knows every architecture of the JAX package's registry
 serves to their module; ``get_arch`` on any other raises
 ``NotImplementedError`` naming its ROADMAP.md item. ``FAMILIES`` gives
 every architecture's family without loading it. two-tower-retrieval is
-ported (serving and training). Of the LMs, the dense ones are ported
-(serving and training); the MoE ones (mixtral-8x22b,
-granite-moe-3b-a800m) wait for MoE serving. Of the GNNs,
+ported (serving and training), and so are the five LMs (serving, paged
+decode and training): the dense stablelm-3b, qwen3-8b and llama3-405b
+and the MoE mixtral-8x22b and granite-moe-3b-a800m. Of the GNNs,
 graphsage-reddit is ported (training); gatedgcn, meshgraphnet and schnet
 wait for their layers. ``get_arch("hype_paper")`` returns the paper's
 run grid (``hype_paper.ARCH``), not an ArchDef, as in the JAX package.
@@ -34,18 +34,17 @@ PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
           "stablelm-3b": "repro_torch.configs.stablelm_3b",
           "qwen3-8b": "repro_torch.configs.qwen3_8b",
           "llama3-405b": "repro_torch.configs.llama3_405b",
+          "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+          "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
           "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
           "hype_paper": "repro_torch.configs.hype_paper"}
 
 _ITEM = "ROADMAP.md, queue 1, item 15"
-PENDING_MOE = f"{_ITEM}e: MoE LM serving (moe_ffn, models/moe.py)"
-PENDING_PAGED = f"{_ITEM}f: paged decode (decode_paged, serve_step_paged)"
 PENDING_GNN_ARCHS = (f"{_ITEM}g: the gatedgcn, meshgraphnet and schnet "
                      f"layers")
 PENDING_FULL_BATCH = (f"{_ITEM}j: full-batch GraphSAGE past 2**31 "
                       f"neighbour slots")
 PENDING_ITEMS = {
-    "lm": PENDING_MOE,
     "gnn": PENDING_GNN_ARCHS,
 }
 

@@ -1,6 +1,7 @@
-"""Shared config code of the dense LM architectures, as
+"""Shared config code of the five LM architectures, as
 ``src/repro/configs/lm_common.py`` has them (same numbers, reduced
-configs and input specs).
+configs and input specs). The reduced config of an MoE arch keeps at
+most 4 experts and top-2.
 
 LM shape set:
   train_4k      seq 4,096   global_batch 256    (training)
@@ -11,10 +12,12 @@ LM shape set:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
+from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
 from .base import ArchDef, ShapeSpec, spec
 
@@ -53,7 +56,7 @@ def lm_input_specs(cfg: TransformerConfig, shape_name: str, accum: int):
 
 def make_lm_arch(arch_id: str, *, n_layers: int, d_model: int, n_heads: int,
                  n_kv_heads: int, d_ff: int, vocab: int, qk_norm: bool = False,
-                 window: Optional[int] = None,
+                 window: Optional[int] = None, moe: Optional[MoEConfig] = None,
                  rope_theta: float = 500_000.0,
                  accum_steps: Optional[dict] = None,
                  notes: str = "") -> ArchDef:
@@ -63,15 +66,19 @@ def make_lm_arch(arch_id: str, *, n_layers: int, d_model: int, n_heads: int,
     def build_cfg(reduced: bool = False) -> TransformerConfig:
         kw = dict(name=arch_id, qk_norm=qk_norm, rope_theta=rope_theta)
         if reduced:
+            r_moe = None if moe is None else dataclasses.replace(
+                moe, n_experts=min(moe.n_experts, 4),
+                top_k=min(moe.top_k, 2))
             return TransformerConfig(
                 n_layers=2, d_model=64,
                 n_heads=4, n_kv_heads=max(1, 4 * n_kv_heads // n_heads),
                 d_head=16, d_ff=128, vocab=512,
-                window=(16 if window else None), remat=False, **kw)
+                window=(16 if window else None), moe=r_moe, remat=False,
+                **kw)
         return TransformerConfig(
             n_layers=n_layers, d_model=d_model, n_heads=n_heads,
             n_kv_heads=n_kv_heads, d_head=d_head, d_ff=d_ff, vocab=vocab,
-            window=window, **kw)
+            window=window, moe=moe, **kw)
 
     def input_specs(shape_name: str, reduced: bool = False):
         cfg = build_cfg(reduced)

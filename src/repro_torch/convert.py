@@ -27,7 +27,7 @@ from .engines.device import DeviceParams
 from .engines.superstep import SuperstepParams
 from .models.gnn import GNNConfig, gnn_param_shapes
 from .models.recsys import PARAM_NAMES, TwoTowerConfig
-from .models.transformer import TransformerConfig, layer_shapes
+from .models.transformer import TransformerConfig, layer_shapes, leaf_dtype
 
 
 def hypergraph_from_arrays(n, m, v2e_indptr, v2e_indices, e2v_indptr,
@@ -109,8 +109,11 @@ def transformer_params_from_numpy(tree: dict, cfg: TransformerConfig,
     stacked layers), as nested dicts of numpy arrays. Both keep a dense
     weight as (in, out) and every layer leaf with a leading ``n_layers``
     axis, so the arrays are copied as they are, cast to ``cfg.dtype``
-    (bfloat16 arrays widen exactly to float32 on the way); every name and
-    shape is checked against ``cfg``."""
+    (bfloat16 arrays widen exactly to float32 on the way), except an MoE
+    layer's ``router``, which stays float32 as JAX keeps it; every name
+    and shape is checked against ``cfg`` (the MoE leaves ``router``,
+    ``moe_gate``, ``moe_up`` and ``moe_down`` in place of the dense FFN's
+    when ``cfg.moe`` is set)."""
     top = {"embed": (cfg.vocab_padded, cfg.d_model),
            "lm_head": (cfg.d_model, cfg.vocab_padded),
            "ln_f": (cfg.d_model,)}
@@ -123,17 +126,17 @@ def transformer_params_from_numpy(tree: dict, cfg: TransformerConfig,
         raise ValueError(f"layers hold {sorted(tree['layers'])}, want "
                          f"{sorted(shapes)}")
 
-    def leaf(a, shape, where):
+    def leaf(a, shape, where, dtype=cfg.dtype):
         a = np.asarray(a)
         if a.shape != shape:
             raise ValueError(f"{where} has shape {a.shape}, want {shape}")
         if a.dtype != np.float32:
             a = a.astype(np.float32)
-        return torch.tensor(a, device=device).to(cfg.dtype)
+        return torch.tensor(a, device=device).to(dtype)
 
     out = {name: leaf(tree[name], shape, name) for name, shape in top.items()}
     out["layers"] = {name: leaf(tree["layers"][name], shape,
-                                f"layers.{name}")
+                                f"layers.{name}", leaf_dtype(cfg, name))
                      for name, shape in shapes.items()}
     return out
 

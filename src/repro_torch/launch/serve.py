@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         --reduced --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch two-tower-retrieval --reduced --batch 512
 
 The counterpart of ``src/repro/launch/serve.py``. It runs on the card
@@ -17,9 +19,10 @@ that prefill returns, unpadded, as the JAX launcher does: from the first
 step on, each new token overwrites the oldest slot of the rolling cache.
 It prints tokens per second, prefill included. The recsys branch draws
 ids ``rng.integers(-1, vocab, (B, n_fields, bag))``, scores them once
-and prints the time. MoE LM archs raise ``NotImplementedError`` naming
-their ROADMAP.md item; GNN archs exit, as in the JAX package, since they
-are trained, not served.
+and prints the time. The MoE LM archs (mixtral-8x22b,
+granite-moe-3b-a800m) serve through the same branch, their FFN
+``models/moe.py``'s ``moe_ffn``; GNN archs exit, as in the JAX package,
+since they are trained, not served.
 """
 from __future__ import annotations
 

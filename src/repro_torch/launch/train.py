@@ -7,10 +7,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch stablelm-3b --reduced --steps 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch mixtral-8x22b --reduced --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch two-tower-retrieval --reduced --steps 4 --device cpu
 
-The counterpart of ``src/repro/launch/train.py`` for the GNN, dense LM
-and two-tower families. It runs on the card unless ``--device cpu`` is
+The counterpart of ``src/repro/launch/train.py`` for the GNN, LM (dense
+and MoE) and two-tower families. It runs on the card unless ``--device cpu`` is
 given, and raises when there is no card. As the JAX launcher does:
 
 * GNN: it trains on one fixed batch from ``random_graph`` over the
@@ -22,7 +24,8 @@ given, and raises when there is no card. As the JAX launcher does:
   step ``i``'s batch as ``TokenStream(vocab, accum * mb, seq,
   seed=0).batch_at(i)`` split into ``accum`` microbatches of ``(mb,
   seq)`` (the JAX launcher's batches, bit for bit), and trains
-  ``lm_loss`` with ``accum_steps=accum``.
+  ``lm_loss`` with ``accum_steps=accum`` (an MoE arch's aux loss
+  included, as in JAX).
   Params come from ``init_params`` with a ``torch.Generator`` of the
   device seeded with 0, as the serve launcher's (JAX's ``jax.random``
   init is not carried over).

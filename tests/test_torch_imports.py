@@ -2,10 +2,12 @@
 
 Checked at run time (a fresh interpreter imports ``repro_torch`` and
 runs every ported method, the two-tower serving path, the serve
-launcher for two-tower and LM serving, the flash-attention wrapper,
+launcher for two-tower, dense and MoE LM serving, paged decode, the
+flash-attention wrapper,
 the HYPE row placement, the train launcher for GraphSAGE (neighbour
-aggregation forward and backward, AdamW, checkpoints) and for two-tower
-(the EmbeddingBag backward, the loss), gradient compression, the sampler and
+aggregation forward and backward, AdamW, checkpoints), for two-tower
+(the EmbeddingBag backward, the loss) and for an MoE LM, gradient
+compression, the sampler and
 the partitioned-GNN placement on the CPU, then no ``jax`` and no
 ``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch``,
 ``chip_smoke.py`` or ``kernel_ab.py`` names them, lazy imports inside
@@ -52,6 +54,18 @@ serve.main(["--arch", "two-tower-retrieval", "--reduced", "--device", "cpu"])
 toks = serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
                    "--batch", "2", "--prompt_len", "8", "--tokens", "2"])
 assert toks.shape == (2, 3)
+toks = serve.main(["--arch", "granite-moe-3b-a800m", "--reduced", "--device",
+                   "cpu", "--batch", "2", "--prompt_len", "8", "--tokens",
+                   "2"])
+assert toks.shape == (2, 3)
+from repro_torch.models import transformer as tf
+mcfg = get_arch("mixtral-8x22b").build_cfg(reduced=True)
+mp = tf.init_params(torch.Generator().manual_seed(0), mcfg)
+with torch.inference_mode():
+    mc, ml = tf.prefill(mp, torch.zeros((1, 20), dtype=torch.int32), mcfg)
+    out = tf.serve_step_paged(mp, mc, torch.zeros((1, 1), dtype=torch.int32),
+                              mcfg)
+assert out[1].shape == (2, 1, 1, mcfg.n_kv_heads, mcfg.d_head)
 from repro_torch.kernels.flash_attention import flash_attention
 q = torch.ones((1, 8, 2, 16))
 assert flash_attention(q, q[:, :, :1].contiguous(),
@@ -71,6 +85,9 @@ with tempfile.TemporaryDirectory() as d:
     res = train.main(["--arch", "two-tower-retrieval", "--reduced",
                       "--steps", "2", "--device", "cpu", "--ckpt_dir", d])
     assert res.steps_done == 2 and res.failures_recovered == 0
+    res = train.main(["--arch", "mixtral-8x22b", "--reduced", "--steps",
+                      "1", "--device", "cpu", "--ckpt_dir", d])
+    assert res.steps_done == 1 and res.failures_recovered == 0
 from repro_torch.train.grad_compression import compress_tree
 deq, err = compress_tree({"w": torch.ones(3)}, {"w": torch.zeros(3)})
 src, dst = random_graph(50, 3.0, seed=0)

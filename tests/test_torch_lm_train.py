@@ -43,6 +43,7 @@ from repro_torch.data.pipeline import TokenStream
 from repro_torch.launch import cells
 from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as tf
+from repro_torch.models.common import softmax_cross_entropy
 from repro_torch.train.checkpoint import latest_step
 from repro_torch.train.optimizer import AdamWConfig, init_adamw
 from repro_torch.train.train_loop import (make_train_step,
@@ -232,7 +233,8 @@ def test_opt_table_equals_jax():
                 assert a == b, field.name
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen3-8b", "llama3-405b"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen3-8b", "llama3-405b",
+                                  "granite-moe-3b-a800m", "mixtral-8x22b"])
 def test_launcher_batches_equal_jax_launcher_recipe(arch):
     """The JAX launcher's LM batches: the cell's token spec (accum, mb,
     seq), TokenStream(vocab, accum * mb, seq, seed=0), each leaf reshaped;
@@ -288,11 +290,70 @@ def test_train_cli_runs_the_lm_on_the_cpu(tmp_path):
 
 
 def test_moe_lm_loss_still_raises():
-    _, cfg = _pair("qwen3-8b")
+    """An MoE lm_loss, which raised until MoE layers were ported (item
+    15e), now trains: the loss is the cross-entropy plus 0.01 times the
+    aux loss summed over the layers, each near 1 (Switch's balanced
+    value), and the router's gradient is float32."""
+    _, cfg = _pair("granite-moe-3b-a800m")
     p = tf.init_params(torch.Generator().manual_seed(0), cfg)
     _, b = _batch(cfg.vocab, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        tf.lm_loss(p, b, dataclasses.replace(cfg, moe=object()))
+    x, aux = tf.forward(p, b["tokens"], cfg)
+    assert 0.99 * cfg.n_layers <= float(aux) <= 2.0 * cfg.n_layers
+    ce = softmax_cross_entropy(x @ p["lm_head"], b["labels"])
+    loss, grads = value_and_grad(lambda q, y: tf.lm_loss(q, y, cfg), p, b)
+    assert float(loss) == pytest.approx(float(ce + 0.01 * aux), rel=1e-6)
+    assert grads["layers"]["router"].dtype == torch.float32
+    assert grads["layers"]["router"].abs().max() > 0
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b"])
+def test_moe_lm_loss_and_grads_equal_jax(arch):
+    """float32: the loss (aux included) and every gradient leaf, the
+    router's and the experts' among them, against jax.grad, within the
+    float32 tolerances above; the aux of the forward within 1e-6."""
+    jcfg, cfg = _pair(arch)
+    jp, p = _params(jcfg, cfg)
+    jb, b = _batch(cfg.vocab, 2, 40)
+    _, jaux = jax_tf.forward(jp, jb["tokens"], jcfg)
+    _, aux = tf.forward(p, b["tokens"], cfg)
+    assert float(aux) == pytest.approx(float(jaux), abs=1e-6)
+    jl, jg = jax.value_and_grad(
+        lambda q, x: jax_tf.lm_loss(q, x, jcfg))(jp, jb)
+    loss, grads = value_and_grad(lambda q, x: tf.lm_loss(q, x, cfg), p, b)
+    assert float(loss) == pytest.approx(float(jl), rel=2e-6)
+    leaves, jleaves = tree_flatten(grads), jax.tree.leaves(jg)
+    assert len(leaves) == len(jleaves)
+    for i, (g, w) in enumerate(zip(leaves, jleaves)):
+        _close_leaf(g, w, "float32", f"leaf {i}")
+    for name in ("router", "moe_gate", "moe_up", "moe_down"):
+        _close_leaf(grads["layers"][name], jg["layers"][name], "float32",
+                    name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b"])
+def test_chip_smoke_pins_jax_moe_values(arch, dtype):
+    """chip_smoke.py's MOE_JAX_VALUES are the JAX package's values on its
+    moe_parity recipe (tests/jax_moe_values.py): the tokens and experts
+    exactly, the logits and the 4 training losses within 1e-6; and the
+    port on the CPU, fed those tokens and experts, lies within the
+    phase's tolerances of them (float32: its own experts equal)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import chip_smoke as cs
+    import jax_moe_values
+    pins = cs.MOE_JAX_VALUES[arch][dtype]
+    want = jax_moe_values.jax_values(arch, dtype)
+    assert want["tokens"] == pins["tokens"]
+    assert want["routes"] == pins["routes"]
+    np.testing.assert_allclose(want["logits"], pins["logits"], rtol=1e-6)
+    np.testing.assert_allclose(want["losses"], pins["losses"], rtol=1e-6)
+    got = jax_moe_values.port_values(arch, dtype, pins)
+    assert got["close"], got
+    if dtype == "float32":
+        assert got["routes_differ"] == 0
+    for a, b, t in zip(got["losses"], pins["losses"],
+                       cs.MOE_TRAIN_PARITY_TOL[dtype]):
+        assert abs(a - b) <= max(t["rtol"] * abs(b), t["atol"])
 
 
 def test_layer_list_views_the_stacked_leaves():

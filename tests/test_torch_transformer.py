@@ -5,7 +5,9 @@ across with ``convert.transformer_params_from_numpy``; prompts come from
 a numpy seed. ``prefill``, eight ``serve_step``s and the greedy tokens
 are compared on the cache as prefill returns it (unpadded: decode
 overwrites the oldest slots, as the JAX launcher does) and on a cache
-padded by 8 slots (as ``tests/test_serving.py`` pads it).
+padded by 8 slots (as ``tests/test_serving.py`` pads it);
+``serve_step_paged`` against JAX's before and past a full buffer, and
+against ``serve_step`` over the same keys.
 
 Tolerances. float32: atol 2e-5, rtol 2e-5 on logits of order 1-4 (the
 port's prefill attention is an online softmax over key tiles, the JAX
@@ -40,6 +42,10 @@ from repro_torch.convert import transformer_params_from_numpy
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch import serve
 from repro_torch.models import common, transformer as tf
+from repro_torch.models.moe import MoEConfig
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DENSE = ["stablelm-3b", "qwen3-8b", "llama3-405b"]
@@ -285,12 +291,11 @@ _CFG_FIELDS = [f.name for f in dataclasses.fields(tf.TransformerConfig)
                if f.name not in ("dtype", "moe")]
 # The JAX config's training and sharding knobs, which the port leaves out.
 _JAX_ONLY_FIELDS = {"remat", "scan_layers", "seq_shard", "constrain",
-                    "attention_impl", "attention_block", "moe_accum_bf16",
-                    "moe_cf_override", "moe_shard_c"}
+                    "attention_impl", "attention_block", "moe_shard_c"}
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_config_numbers_equal_jax(arch, reduced):
     jcfg = jax_get_arch(arch).build_cfg(reduced=reduced)
     cfg = configs.get_arch(arch).build_cfg(reduced=reduced)
@@ -298,9 +303,12 @@ def test_config_numbers_equal_jax(arch, reduced):
         _CFG_FIELDS) | {"dtype", "moe"} | _JAX_ONLY_FIELDS
     for name in _CFG_FIELDS:
         assert getattr(cfg, name) == getattr(jcfg, name), name
-    assert cfg.moe is None and jcfg.moe is None
+    assert (cfg.moe is None) == (jcfg.moe is None) == (arch in DENSE)
+    if cfg.moe is not None:
+        assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(jcfg.moe)
     assert cfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
     assert cfg.params_dense == jcfg.params_dense
+    assert cfg.params_active == jcfg.params_active
     assert cfg.vocab_padded == jcfg.vocab_padded
     arch_def, jarch = configs.get_arch(arch), jax_get_arch(arch)
     assert (arch_def.family, dict(arch_def.accum_steps), arch_def.notes) == (
@@ -328,32 +336,151 @@ def test_qwen3_8b_full_width_numbers():
 
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        configs.get_arch(arch)
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    """The MoE archs, which raised until MoE serving was ported (item
+    15e), now serve: get_arch returns the port's config (its numbers are
+    JAX's: test_config_numbers_equal_jax), and the serve launcher's
+    tokens on the reduced config are prefill and greedy serve_steps of
+    its params and prompts."""
+    cfg = configs.get_arch(arch).build_cfg(reduced=True)
+    assert cfg.moe == MoEConfig(4, 2, 1.25)
+    got = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt_len", "20", "--tokens", "4"])
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    assert params["layers"]["router"].dtype == torch.float32
+    assert params["layers"]["moe_gate"].shape == (2, 4, 64, 128)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 20)).astype(np.int32))
+    with torch.inference_mode():
+        cache, logits = tf.prefill(params, prompts, cfg)
+        want = [logits.argmax(-1)[:, None].to(torch.int32)]
+        for _ in range(4):
+            logits, cache = tf.serve_step(params, cache, want[-1], cfg)
+            want.append(logits.argmax(-1)[:, None].to(torch.int32))
+    assert torch.equal(got, torch.cat(want, 1))
 
 
 def test_unported_paths_raise():
+    """The paths that raised until paged decode and MoE layers were
+    ported (items 15f, 15e) now run: serve_step ignores decode_paged, as
+    JAX's does; serve_step_paged leaves the cache as it was; lm_loss and
+    init_params take an MoE config."""
     _, cfg = _pair("qwen3-8b")
     params = tf.init_params(torch.Generator().manual_seed(0), cfg)
-    cache = tf.init_cache(cfg, 1, 8)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 6)).astype(np.int32))
     tok = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 15f"):
-        tf.serve_step(params, cache, tok,
-                      dataclasses.replace(cfg, decode_paged=True))
-    with pytest.raises(NotImplementedError, match="item 15f"):
-        tf.serve_step_paged(params, cache, tok, cfg)
+    with torch.inference_mode():
+        filled, _ = tf.prefill(params, prompts, cfg)
+        out = []
+        for paged in (False, True):
+            cache = dict(filled, k=filled["k"].clone(),
+                         v=filled["v"].clone())
+            out.append(tf.serve_step(params, cache, tok, dataclasses.replace(
+                cfg, decode_paged=paged)))
+        assert torch.equal(out[0][0], out[1][0])
+        assert torch.equal(out[0][1]["k"], out[1][1]["k"])
+        before = filled["k"].clone()
+        logits, k_new, v_new, pos = tf.serve_step_paged(params, filled, tok,
+                                                        cfg)
+    assert torch.equal(filled["k"], before) and pos == filled["pos"] + 1
+    assert k_new.shape == v_new.shape == (cfg.n_layers, 1, 1,
+                                          cfg.n_kv_heads, cfg.d_head)
     # lm_loss, once pending (item 15d), now trains: a finite float32 scalar
     loss = tf.lm_loss(params, {"tokens": tok, "labels": tok}, cfg)
     assert loss.dtype == torch.float32 and loss.dim() == 0
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        tf.lm_loss(params, {"tokens": tok, "labels": tok},
-                   dataclasses.replace(cfg, moe=object()))
-    with pytest.raises(NotImplementedError, match="item 15e"):
-        tf.init_params(torch.Generator(), dataclasses.replace(
-            cfg, moe=object()))
+    moe_cfg = dataclasses.replace(cfg, moe=MoEConfig(4, 2))
+    moe_params = tf.init_params(torch.Generator(), moe_cfg)
+    assert "w_gate" not in moe_params["layers"]
+    loss = tf.lm_loss(moe_params, {"tokens": tok, "labels": tok}, moe_cfg)
+    assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_serve_step_paged_matches_jax(variant, dtype):
+    """serve_step_paged against JAX's on the cache padded by 4 slots:
+    4 steps at pos < Skv, each step's K/V appended at its slot, then 3
+    on the full buffer (pos >= Skv: every slot valid, plus the new
+    token); logits, k_new and v_new within the LM tolerances, and the
+    cache left as it was."""
+    arch, changes = VARIANTS[variant]
+    jcfg, cfg = _pair(arch, dtype, **changes)
+    jp, params = _params(jcfg, cfg)
+    prompts = np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32)
+    jcache, _ = jax_tf.prefill(jp, jnp.asarray(prompts), jcfg)
+    with torch.inference_mode():
+        cache, _ = tf.prefill(params, torch.from_numpy(prompts), cfg)
+    jcache, cache = _pad(jcache, cache, 4)
+    Skv = cache["k"].shape[2]
+    jstep = jax.jit(lambda p, c, t: jax_tf.serve_step_paged(p, c, t, jcfg))
+    tol = TOL[dtype]
+    for step in range(7):
+        tok = np.random.default_rng(step).integers(
+            0, cfg.vocab, (2, 1)).astype(np.int32)
+        jl, jk, jv, jpos = jstep(jp, jcache, jnp.asarray(tok))
+        before = cache["k"].clone()
+        with torch.inference_mode():
+            logits, k, v, pos = tf.serve_step_paged(
+                params, cache, torch.from_numpy(tok), cfg)
+        assert torch.equal(cache["k"], before)
+        assert k.shape == tuple(jk.shape) and pos == int(jpos)
+        np.testing.assert_allclose(_np(logits), _np(jl), **tol,
+                                   err_msg=f"step {step}")
+        np.testing.assert_allclose(_np(k), _np(jk), **tol)
+        np.testing.assert_allclose(_np(v), _np(jv), **tol)
+        slot = cache["pos"] % Skv
+        jcache = {"k": jcache["k"].at[:, :, slot].set(jk[:, :, 0]),
+                  "v": jcache["v"].at[:, :, slot].set(jv[:, :, 0]),
+                  "pos": jpos}
+        cache["k"][:, :, slot] = k[:, :, 0]
+        cache["v"][:, :, slot] = v[:, :, 0]
+        cache["pos"] = pos
+
+
+@pytest.mark.parametrize("pos_past", [False, True])
+def test_paged_step_equals_serve_step_on_the_same_keys(pos_past):
+    """Reference behaviour, kept: serve_step_paged attends to the slots
+    before pos and the new token; on a full rolling buffer to all Skv
+    slots and the new token (Skv + 1 keys). serve_step on a copy of the
+    cache holding those keys (one slot more, rolled so that the step
+    writes it; chip_smoke's ``same_keys``) gives the same logits and K/V,
+    in float32; on the rolling buffer itself (the oldest slot
+    overwritten) it does not."""
+    _, cfg = _pair("llama3-405b", window=16, n_kv_heads=2)
+    params = tf.init_params(torch.Generator().manual_seed(5), cfg)
+    S = 24 if pos_past else 12
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, S)).astype(np.int32))
+    tok = torch.tensor([[3], [9]], dtype=torch.int32)
+    with torch.inference_mode():
+        cache, _ = tf.prefill(params, prompts, cfg)
+        if not pos_past:
+            cache = _pad_to(cache, 16)
+        Skv = cache["k"].shape[2]
+        assert (cache["pos"] >= Skv) == pos_past
+        logits, k, v, _ = tf.serve_step_paged(params, cache, tok, cfg)
+        ref = cs.same_keys(cache)
+        want, ref = tf.serve_step(params, ref, tok, cfg)
+        slot = cache["pos"] % ref["k"].shape[2]
+        rolled, _ = tf.serve_step(params, dict(
+            cache, k=cache["k"].clone(), v=cache["v"].clone()), tok, cfg)
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(k[:, :, 0].numpy(),
+                               ref["k"][:, :, slot].numpy(), **TOL["float32"])
+    np.testing.assert_allclose(v[:, :, 0].numpy(),
+                               ref["v"][:, :, slot].numpy(), **TOL["float32"])
+    gap = float((logits - rolled).abs().max())
+    assert (gap > 1e-3) == pos_past
+
+
+def _pad_to(cache, slots):
+    """``cache`` padded with zero slots to ``slots``."""
+    pad = slots - cache["k"].shape[2]
+    return dict(cache, **{key: torch.cat([cache[key], torch.zeros_like(
+        cache[key][:, :, :pad])], dim=2) for key in ("k", "v")})
 
 
 def test_init_cache_matches_jax():
