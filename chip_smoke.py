@@ -203,15 +203,34 @@ prints one JSON line per phase:
             B = N = 169,984, D = F = 128; the backward bit for bit
             against its plain version on the CPU), timed there beside
             F.embedding_bag + matmul and a sparse CSR product
-  gnn_train graphsage-reddit at its published width: 10 AdamW steps on
+  gnn_train graphsage-reddit at its published width: 4 AdamW steps on
             sampled minibatch_lg batches (1,024 seeds, fanout 15-10)
             through run_training, each step launching the forward and the
             backward kernel twice; the first losses held to the JAX
-            package's; then 3 more steps under the profiler
+            package's; then one more step under the profiler
   gnn_launcher  the train launcher at minibatch_lg for 5 steps, its
             losses held to the JAX launcher's
   gnn_parity  the reduced config in float32, card against CPU: loss and
             every gradient
+  kernel_segment_sum  segment_sum (the backward kernel in its sum mode,
+            each edge a bag of one slot) bit for bit against its plain
+            version on the CPU and on a repeat: D = 1, 64, 70 and 128 on
+            the pooling's, schnet's and the sampled batch's ids, an
+            all-skipped input, a 1,000-edge id, node 0's padding hub;
+            meshgraphnet's and gatedgcn's layers timed eagerly and in a
+            CUDA graph beside index_add_ and the bound
+  gnn_archs gatedgcn (16 x 70) and meshgraphnet (15 x 128) at their
+            published widths on the first sampled minibatch_lg batch,
+            schnet (3 x 64, 300 RBFs) on 128 molecules: step 0's loss
+            and gradients twice, bit-equal; 3 AdamW steps through
+            run_training held to the JAX package's losses, each step
+            launching segment_sum 64, 45 and 7 times; one more step under
+            the profiler
+  gnn_archs_parity  the three reduced configs in float32 (schnet also
+            on molecules under graph_reg), card against CPU: loss and
+            every gradient
+  gnn_arch_launcher  each arch's train launcher at full_graph_sm for 3
+            steps, its losses held to the JAX launcher's
 
 Every path starts with all launch counts at 0 and reads them right after;
 a path that did not launch each of its kernels fails. Then come the
@@ -672,7 +691,7 @@ MOE_JAX_VALUES = json.loads("""
 # seeds by the functions below, which tests/jax_gnn_losses.py runs with
 # the JAX package's own generators and model to pin GNN_JAX_LOSSES.
 GNN_ARCH, GNN_SHAPE = "graphsage-reddit", "minibatch_lg"
-GNN_STEPS, GNN_PROFILE_STEPS = 10, 3
+GNN_STEPS, GNN_PROFILE_STEPS = 4, 1
 GNN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0)
 GNN_KEYS = ("nodes", "edge_src", "edge_dst", "edge_mask", "node_mask",
             "labels")
@@ -707,6 +726,48 @@ GNN_LOSS_TOL = [dict(rtol=1e-5, atol=1e-5)] + [dict(rtol=1e-4,
 GNN_LAUNCHER_TOL = dict(rtol=1e-6, atol=0.0)
 # The reduced config in float32 (TF32 off), card against CPU.
 GNN_PARITY_TOL = dict(atol=1e-5, rtol=1e-5)
+# The float32 norm vectors of the gatedgcn and meshgraphnet layers and
+# their init values (``jnp.ones``/``jnp.zeros`` in the JAX package).
+GNN_NORM_INIT = {"ln_h": 1.0, "lb_h": 0.0, "ln_e": 1.0, "lb_e": 0.0}
+
+# The other GNN archs at their published widths (src/repro/configs/
+# gatedgcn.py: 16 layers of d 70, gated; meshgraphnet.py: 15 of d 128,
+# sum, MLPs of 2 layers; schnet.py: 3 interactions of d 64, 300 RBFs,
+# cutoff 10). gatedgcn and meshgraphnet train on gnn_setup's first
+# sampled minibatch_lg batch (169,984 nodes, 168,960 edges, d_feat 602,
+# 41 classes) with an edge_x (E, 4) drawn from GNN_EDGE_X_SEED; schnet on
+# molecule_batch() (128 molecules: 3,840 atoms, 8,192 bonds, graph_reg).
+# GNN_ARCH_STEPS AdamW steps (GNN_OPT) on that one batch, from
+# gnn_numpy_params. tests/jax_gnn_losses.py runs the JAX package on the
+# same inputs (gnn_arch_cfg, gnn_arch_batch, gnn_numpy_params) to pin
+# GNN_ARCH_JAX_LOSSES, and the JAX train launcher at its defaults
+# (full_graph_sm) for GNN_ARCH_LAUNCHER_STEPS steps to pin
+# GNN_ARCH_LAUNCHER_JAX_LOSSES.
+GNN_OTHER_ARCHS = ("gatedgcn", "meshgraphnet", "schnet")
+GNN_ARCH_SHAPE = {"gatedgcn": "minibatch_lg", "meshgraphnet": "minibatch_lg",
+                  "schnet": "molecule"}
+GNN_ARCH_STEPS = 3
+GNN_EDGE_X_SEED = 11
+GNN_ARCH_JAX_LOSSES = {
+    "gatedgcn": [14.906671524047852, 10.823894500732422, 7.5351080894470215],
+    "meshgraphnet": [8.345769882202148, 6.114067554473877, 6.059131145477295],
+    "schnet": [3872.765380859375, 805.4736328125, 250.62623596191406]}
+GNN_ARCH_LAUNCHER_STEPS = 3
+GNN_ARCH_LAUNCHER_JAX_LOSSES = {
+    "gatedgcn": [2.5693013668060303, 2.569228172302246, 2.569021463394165],
+    "meshgraphnet": [3.1254396438598633, 3.125066041946411,
+                     3.124109983444214],
+    "schnet": [4.053142547607422, 4.052979469299316, 4.0522966384887695]}
+# Step 0 is one float32 forward (other summation orders: the card's
+# products and the kernel's chunk order against XLA's), within float32
+# rounding through 16 layers; later steps follow bf16 params updated by
+# AdamW, as GNN_LOSS_TOL says.
+GNN_ARCH_LOSS_TOL = GNN_LOSS_TOL[:GNN_ARCH_STEPS]
+# The launcher's losses move by at least 7.3e-5 (2.8e-5 of the loss,
+# gatedgcn's first step; schnet 4.0e-5, meshgraphnet 1.2e-4) a step at
+# AdamWConfig()'s warm-up, so rtol 5e-6 still fails a frozen state while
+# it leaves room for float32 rounding through 16 layers.
+GNN_ARCH_LAUNCHER_TOL = dict(rtol=5e-6, atol=0.0)
 
 # The padded-array engines (hype_jax, hype_parallel): the graphs of
 # benchmarks/bench_engine_scaling.py ("pl300", k=8) and
@@ -1403,12 +1464,14 @@ def bag_case(bops, bref, table, ids, combine, row, timed):
         flat, weights = ids.clamp_min(0).long(), valid.to(table.dtype)
         row.update(
             ms=cuda_ms(lambda: bops.embedding_bag(table, ids,
-                                                  combine=combine)),
+                                                  combine=combine),
+                       iters=20),
             plain_ms=cuda_ms(lambda: bref.embedding_bag_ref(table, ids,
                                                             combine),
-                             iters=20),
+                             reps=3, iters=20),
             library_ms=cuda_ms(lambda: F.embedding_bag(
-                flat, table, mode="sum", per_sample_weights=weights)),
+                flat, table, mode="sum", per_sample_weights=weights),
+                iters=20),
             library_call="F.embedding_bag(mode='sum', per_sample_weights)",
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     emit(row)
@@ -3545,16 +3608,20 @@ def gnn_sample(sampler, meta, feats, labels, step):
 def gnn_numpy_params(shapes, seed: int = 0):
     """Params as numpy float32: every weight ``normal / sqrt(fan_in)``,
     drawn in JAX's flatten order (sorted keys, lists in order), every bias
-    zero, as ``mlp_init`` scales them; ``shapes`` is the param tree with a
-    shape tuple at each leaf. The model casts them to bfloat16."""
+    zero, as ``mlp_init`` scales them, every norm vector filled with its
+    GNN_NORM_INIT value, as ``init_gnn_params`` fills it; ``shapes`` is
+    the param tree with a shape tuple at each leaf. The model casts the
+    MLPs to bfloat16 and keeps the norm vectors float32."""
     import numpy as np
     rng = np.random.default_rng(seed)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
+            return {k: walk(node[k], k) for k in sorted(node)}
         if isinstance(node, list):
             return [walk(v) for v in node]
+        if key in GNN_NORM_INIT:
+            return np.full(node, GNN_NORM_INIT[key], np.float32)
         if len(node) == 1:
             return np.zeros(node, np.float32)
         return (rng.normal(size=node) / np.sqrt(node[0])).astype(np.float32)
@@ -3862,7 +3929,7 @@ def phase_gnn_train(launches, cfg, meta, sampler, feats, labels):
         state = (params, init_adamw(params, opt_cfg))
         res, wall, counts = launches.drive(lambda: run_training(
             timed_step, state, None, GNN_STEPS,
-            FTConfig(ckpt_dir=d, ckpt_every=10), batch_at=batch_at))
+            FTConfig(ckpt_dir=d, ckpt_every=GNN_STEPS), batch_at=batch_at))
     losses = [m["loss"] for m in res.metrics_history]
     skipped = [i for i, m in enumerate(res.metrics_history)
                if m.get("skipped")]
@@ -3985,13 +4052,366 @@ def phase_gnn_parity(cfg, graphs):
         raise SystemExit(f"reduced GNN differs card vs cpu: {row}")
 
 
+# ------------------------------------------------ the other GNN archs
+
+def gnn_arch_cfg(get_arch, arch, reduced=False):
+    """The arch's config at its gnn_archs shape; ``get_arch`` is the
+    port's registry or the JAX package's."""
+    return get_arch(arch).build_cfg(reduced=reduced,
+                                    shape=GNN_ARCH_SHAPE[arch])
+
+
+def gnn_arch_batch(arch, first, graphs):
+    """The numpy batch of ``arch``'s gnn_archs run: ``first`` (the first
+    sampled minibatch_lg batch) with an edge_x drawn from GNN_EDGE_X_SEED,
+    or, for schnet, ``graphs.molecule_batch()``. ``graphs`` is the port's
+    data.graphs module or the JAX package's (the same arrays)."""
+    import numpy as np
+    if arch == "schnet":
+        b = graphs.molecule_batch()
+        return {k: b[k] for k in ("nodes", "pos", "edge_src", "edge_dst",
+                                  "edge_mask", "node_mask", "graph_id",
+                                  "graph_targets")}
+    b = {k: first[k] for k in GNN_KEYS}
+    b["edge_x"] = np.random.default_rng(GNN_EDGE_X_SEED).normal(
+        size=(first["edge_src"].size, 4)).astype(np.float32)
+    return b
+
+
+def segment_sum_launches(cfg) -> int:
+    """segment_sum launches of one training step, from models/gnn.py: a
+    gatedgcn layer sums eta and the message by dst (2), and its backward
+    the gradients of h[src] and h[dst] (2); a meshgraphnet layer sums e by
+    dst (1), its backward h[src]'s and h[dst]'s (2); a schnet layer sums
+    the message by dst (1), its backward xin[src]'s (1); a graph_reg loss
+    pools by graph_id (1). A sum's gradient is a gather: no launch."""
+    per_layer = {"gatedgcn": 4, "meshgraphnet": 3, "schnet": 2}[cfg.arch]
+    return per_layer * cfg.n_layers + int(cfg.task == "graph_reg")
+
+
+def segment_sum_bound(msgs, ids, n_rows):
+    """(FLOPs, bytes, bound ms, bound_by) of one segment_sum: the rows of
+    msgs whose id is valid and the index (N + 1 offsets, one int32 per
+    valid edge) read once, the (N, D) sum written once; one add per valid
+    edge and element."""
+    D = msgs.shape[1]
+    nv = int((ids >= 0).sum())
+    nbytes = nv * D * 4 + (n_rows + 1) * 8 + nv * 4 + n_rows * D * 4
+    flops = nv * D
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops > t_bytes else "bytes")
+
+
+def ss_case(nops, msgs, ids, n_rows, row):
+    """One segment_sum case: the kernel on the card (twice) against its
+    plain version on the CPU (``index_add_`` in the chunk order there),
+    bit for bit. Returns the max abs error."""
+    import torch
+    out = nops.segment_sum(msgs, ids, n_rows)
+    again = nops.segment_sum(msgs, ids, n_rows)
+    torch.cuda.synchronize()
+    want = nops.segment_sum(msgs.cpu(), ids.cpu(), n_rows)
+    got = out.cpu()
+    idc = ids.cpu()
+    per_id = torch.bincount(idc[idc >= 0].long(), minlength=max(n_rows, 1))
+    row = {"phase": "kernel_segment_sum", **row, "E": ids.shape[0],
+           "D": msgs.shape[1], "n_rows": n_rows,
+           "valid_edges": int((idc >= 0).sum()),
+           "max_edges_one_id": int(per_id.max()) if n_rows else 0,
+           "equal": torch.equal(got, want),
+           "run_to_run_equal": torch.equal(out, again),
+           "max_abs_err": max_abs_err([got], [want])}
+    emit(row)
+    if not (row["equal"] and row["run_to_run_equal"]):
+        raise SystemExit(f"segment_sum disagrees with its plain version: "
+                         f"{row}")
+    return row["max_abs_err"]
+
+
+def phase_kernel_segment_sum(nops, nref, first, graphs):
+    """segment_sum (row 5b's kernel in its sum mode over an edge list) on
+    the card against its plain version, bit for bit: the graph_reg pooling
+    (D = 1), gatedgcn's D = 70 and meshgraphnet's D = 128 on the first
+    sampled batch's edges (masked ones skipped), schnet's D = 64 on the
+    molecules, an all-skipped input, an id of 1,000 edges (chunks of 32),
+    and node 0's padding hub (the masked edges kept); then meshgraphnet's
+    and gatedgcn's layer timed eagerly and in a CUDA graph beside the
+    plain version, ``index_add_`` (the library call; atomics) and the
+    bound. Returns the timed row (meshgraphnet's layer) and the worst
+    error."""
+    import numpy as np
+    import torch
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def msgs_of(E, D):
+        return torch.randn((E, D), device="cuda", generator=gen)
+
+    N = first["nodes"].shape[0]
+    dst = torch.from_numpy(first["edge_dst"]).cuda()
+    emask = torch.from_numpy(first["edge_mask"]).cuda()
+    dst_ids = torch.where(emask, dst, -1)
+    mol = graphs.molecule_batch()
+    mol_ids = torch.from_numpy(mol["edge_dst"]).cuda()
+    gid = torch.from_numpy(mol["graph_id"]).cuda()
+    rng = np.random.default_rng(3)
+    hub = rng.integers(-1, 500, size=5000).astype(np.int32)
+    hub[rng.permutation(5000)[:1000]] = 7
+    cases = [("pooling", msgs_of(gid.shape[0], 1), gid, 128),
+             ("gatedgcn layer", msgs_of(dst.shape[0], 70), dst_ids, N),
+             ("schnet layer", msgs_of(mol_ids.shape[0], 64), mol_ids,
+              mol["nodes"].shape[0]),
+             ("meshgraphnet layer", msgs_of(dst.shape[0], 128), dst_ids, N),
+             ("all skipped", msgs_of(1000, 64),
+              torch.full((1000,), -1, dtype=torch.int32, device="cuda"), 300),
+             ("an id of 1,000 edges", msgs_of(5000, 128),
+              torch.from_numpy(hub).cuda(), 500),
+             ("node 0's padding hub", msgs_of(dst.shape[0], 128), dst, N)]
+    worst = 0.0
+    for name, msgs, ids, n in cases:
+        worst = max(worst, ss_case(nops, msgs, ids, n, {"case": name}))
+
+    timed = {}
+    for name, D in (("gatedgcn layer", 70), ("meshgraphnet layer", 128)):
+        msgs = msgs_of(dst.shape[0], D) * emask[:, None]
+        index = nops.segment_index(dst_ids, N)
+        dst_l = dst.long()
+        flops, nbytes, bound, by = segment_sum_bound(msgs, dst_ids, N)
+        row = {"phase": "kernel_segment_sum_timed", "case": name,
+               "E": dst.shape[0], "D": D, "n_rows": N,
+               "valid_edges": int(emask.sum()),
+               "ms": cuda_ms(lambda: nops.segment_sum(msgs, dst_ids, N,
+                                                      index)),
+               "graph_ms": graph_ms(lambda: nops.segment_sum(
+                   msgs, dst_ids, N, index)),
+               "with_index_build_ms": cuda_ms(lambda: nops.segment_sum(
+                   msgs, dst_ids, N)),
+               "plain_ms": cuda_ms(lambda: nref.neighbor_agg_bwd_ref(
+                   msgs, dst_ids[:, None], N, mean=False), reps=3,
+                   iters=10),
+               "library_ms": cuda_ms(lambda: torch.zeros(
+                   (N, D), device="cuda").index_add_(0, dst_l, msgs)),
+               "library_graph_ms": graph_ms(lambda: torch.zeros(
+                   (N, D), device="cuda").index_add_(0, dst_l, msgs)),
+               "library_call": "torch.zeros((N, D)).index_add_(0, dst, "
+                               "msgs), the masked rows of msgs zero "
+                               "(float atomics)",
+               "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+               "bound_flops": flops}
+        emit(row)
+        timed[name] = row
+    del cases, msgs
+    torch.cuda.empty_cache()
+    out = dict(timed["meshgraphnet layer"])
+    out["gatedgcn_layer"] = {k: timed["gatedgcn layer"][k] for k in (
+        "ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")}
+    return out, worst
+
+
+def phase_gnn_archs(launches, first, graphs):
+    """gatedgcn, meshgraphnet and schnet at their published widths
+    through the port's train step and fault-tolerant driver (float32
+    activations, bf16 MLPs and float32 norms as JAX's init has them):
+    step 0's loss and gradients twice, bit-equal; GNN_ARCH_STEPS AdamW
+    steps on one batch, each timed, the peak memory; one more step under
+    the profiler. Fails on a recovered failure, a skipped step, a
+    non-finite loss, a launch count other than segment_sum_launches a
+    step, unequal repeats, or a loss outside GNN_ARCH_LOSS_TOL of JAX's
+    pins."""
+    import tempfile
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.train.fault_tolerance import FTConfig, run_training
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+    from repro_torch.train.tree import tree_flatten
+
+    opt_cfg = AdamWConfig(**GNN_OPT)
+    for arch in GNN_OTHER_ARCHS:
+        cfg = gnn_arch_cfg(get_arch, arch)
+        b = gnn_arch_batch(arch, first, graphs)
+        tb = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        params = convert.gnn_params_from_numpy(
+            gnn_numpy_params(gnn.gnn_param_shapes(cfg)), cfg, "cuda",
+            dtype=torch.bfloat16)
+
+        def loss_fn(p, bb, cfg=cfg):
+            return gnn.gnn_loss(p, bb, cfg)
+
+        runs = [tree_flatten(value_and_grad(loss_fn, params, tb))
+                for _ in range(2)]
+        repeat_equal = all(torch.equal(x, y) for x, y in zip(*runs))
+        del runs
+        step_fn = make_train_step(loss_fn, opt_cfg)
+        step_ms = []
+
+        def timed_step(p, o, bb, step_fn=step_fn, step_ms=step_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(p, o, bb)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as d:
+            state = (params, init_adamw(params, opt_cfg))
+            res, wall, counts = launches.drive(lambda: run_training(
+                timed_step, state, None, GNN_ARCH_STEPS,
+                FTConfig(ckpt_dir=d, ckpt_every=GNN_ARCH_STEPS),
+                batch_at=lambda step: tb))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [m["loss"] for m in res.metrics_history]
+        skipped = [i for i, m in enumerate(res.metrics_history)
+                   if m.get("skipped")]
+        need = {"segment_sum": GNN_ARCH_STEPS * segment_sum_launches(cfg)}
+        pinned = GNN_ARCH_JAX_LOSSES[arch]
+        close = [bool(math.isclose(x, y, rel_tol=t["rtol"],
+                                   abs_tol=t["atol"]))
+                 for x, y, t in zip(losses, pinned, GNN_ARCH_LOSS_TOL)]
+        row = {"phase": "gnn_archs", "config": arch,
+               "shape": GNN_ARCH_SHAPE[arch], "n_layers": cfg.n_layers,
+               "d_hidden": cfg.d_hidden, "d_in": cfg.d_in,
+               "mlp_layers": cfg.mlp_layers, "rbf": cfg.rbf,
+               "task": cfg.task, "nodes": int(b["nodes"].shape[0]),
+               "edges": int(b["edge_src"].size),
+               "valid_edges": int(b["edge_mask"].sum()),
+               "params": sum(t.numel() for t in tree_flatten(params)),
+               "steps": res.steps_done, "wall_s": wall, "step_ms": step_ms,
+               "peak_gb": peak, "failures_recovered": res.failures_recovered,
+               "skipped_steps": skipped, "losses": losses,
+               "jax_losses": pinned, "loss_tol": GNN_ARCH_LOSS_TOL,
+               "losses_close_to_jax": close,
+               "step0_repeat_bit_equal": repeat_equal, "launches": counts,
+               "expected_launches": need}
+        emit(row)
+        if res.failures_recovered or skipped or res.steps_done != \
+                GNN_ARCH_STEPS:
+            raise SystemExit(f"gnn_archs recovered from failures or "
+                             f"skipped steps: {row}")
+        if not all(math.isfinite(v) for v in losses):
+            raise SystemExit(f"gnn_archs gave non-finite losses: {row}")
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"gnn_archs launched {counts}, not {need}")
+        if not repeat_equal:
+            raise SystemExit(f"{arch}'s step 0 changed its bits on a "
+                             f"repeat")
+        if len(pinned) != len(losses) or not all(close):
+            raise SystemExit(f"{arch}'s losses differ from JAX's: "
+                             f"{losses} vs {pinned}")
+        p, o = state
+        phase_profile(f"gnn_{arch}_step", lambda: step_fn(p, o, tb),
+                      watch=("neighbor_agg_bwd_kernel",))
+        del state, params, p, o, tb
+        torch.cuda.empty_cache()
+
+
+def gnn_arch_parity_cases(cfg, graphs, arch):
+    """The reduced config's batches of gnn_archs_parity (numpy): a
+    padded graph batch, and for schnet also 8 small molecules under
+    graph_reg. Yields (label, cfg, batch)."""
+    import dataclasses
+    src, dst = graphs.random_graph(200, 2.0, seed=3)
+    yield "graph", cfg, graphs.build_graph_batch(
+        200, src, dst, cfg.d_in, cfg.n_classes, seed=3, pad_nodes=256,
+        pad_edges=512)
+    if arch == "schnet":
+        yield "molecules", dataclasses.replace(cfg, task="graph_reg"), \
+            graphs.molecule_batch(8, 10, 20, d_feat=cfg.d_in, seed=2)
+
+
+def phase_gnn_archs_parity(graphs):
+    """The three reduced configs in float32 (TF32 off), card against
+    CPU: the loss and every gradient within GNN_PARITY_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import tree_flatten
+    for arch in GNN_OTHER_ARCHS:
+        base = get_arch(arch).build_cfg(reduced=True)
+        for label, cfg, b in gnn_arch_parity_cases(base, graphs, arch):
+            tree = gnn_numpy_params(gnn.gnn_param_shapes(cfg), seed=3)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                p = convert.gnn_params_from_numpy(tree, cfg, dev,
+                                                  dtype=torch.float32)
+                tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                loss, grads = value_and_grad(
+                    lambda q, bb: gnn.gnn_loss(q, bb, cfg), p, tb)
+                out[dev] = [loss.cpu().numpy()] + [
+                    g.cpu().numpy() for g in tree_flatten(grads)]
+            diffs = [float(np.abs(x - y).max())
+                     for x, y in zip(out["cuda"], out["cpu"])]
+            ok = all(np.allclose(x, y, **GNN_PARITY_TOL)
+                     for x, y in zip(out["cuda"], out["cpu"]))
+            row = {"phase": "gnn_archs_parity",
+                   "config": f"{arch} reduced, float32", "batch": label,
+                   "task": cfg.task,
+                   "tf32": torch.backends.cuda.matmul.allow_tf32,
+                   "tol": GNN_PARITY_TOL, "loss_cuda": float(out["cuda"][0]),
+                   "loss_cpu": float(out["cpu"][0]),
+                   "loss_abs_diff": diffs[0],
+                   "grad_max_abs_diff": max(diffs[1:]), "ok": ok}
+            emit(row)
+            if not ok:
+                raise SystemExit(f"reduced {arch} differs card vs cpu: "
+                                 f"{row}")
+
+
+def phase_gnn_arch_launcher(launches):
+    """The train launcher for each arch at its defaults (full_graph_sm,
+    full width) for GNN_ARCH_LAUNCHER_STEPS steps in a fresh checkpoint
+    directory, held to the JAX launcher's losses."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    for arch in GNN_OTHER_ARCHS:
+        argv = ["--arch", arch, "--steps", str(GNN_ARCH_LAUNCHER_STEPS)]
+        with tempfile.TemporaryDirectory() as d:
+            res, wall, counts = launches.drive(lambda: launch_train.main(
+                argv + ["--ckpt_dir", d]))
+        cfg = get_arch(arch).build_cfg()
+        losses = [m["loss"] for m in res.metrics_history]
+        need = {"segment_sum": GNN_ARCH_LAUNCHER_STEPS
+                * segment_sum_launches(cfg)}
+        pinned = GNN_ARCH_LAUNCHER_JAX_LOSSES[arch]
+        t = GNN_ARCH_LAUNCHER_TOL
+        close = [bool(math.isclose(x, y, rel_tol=t["rtol"],
+                                   abs_tol=t["atol"]))
+                 for x, y in zip(losses, pinned)]
+        row = {"phase": "gnn_arch_launcher", "argv": argv, "wall_s": wall,
+               "steps": res.steps_done,
+               "failures_recovered": res.failures_recovered,
+               "losses": losses, "jax_losses": pinned, "loss_tol": t,
+               "losses_close_to_jax": close, "launches": counts,
+               "expected_launches": need}
+        emit(row)
+        if res.failures_recovered or any(m.get("skipped")
+                                         for m in res.metrics_history):
+            raise SystemExit(f"the train launcher hid a failure: {row}")
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"the train launcher launched {counts}")
+        if len(pinned) != len(losses) or not all(close):
+            raise SystemExit(f"the train launcher's losses differ from "
+                             f"JAX's: {row}")
+
+
 def run_gnn(launches, nops, nref):
     """The GNN training slice: the reddit-scale source graph and sampler
     on the host, the neighbor_agg kernel phase at the layer shape of its
     first batch, graphsage-reddit trained at full width, the train
-    launcher at minibatch_lg, and the reduced config card against CPU.
-    Returns the kernel's timed row and its worst forward and backward
-    errors."""
+    launcher at minibatch_lg, and the reduced config card against CPU;
+    then the segment_sum kernel phase and the other three archs (trained
+    at their published widths, card against CPU, the launcher). Returns
+    the two kernels' timed rows and worst errors."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import graphs
@@ -4025,7 +4445,7 @@ def run_gnn(launches, nops, nref):
     tb = launch_train.gnn_batches(arch, GNN_SHAPE, False, "cuda")(0)
     launcher_nbrs = gnn.in_neighbors(tb["edge_src"], tb["edge_dst"],
                                      tb["edge_mask"], meta["nodes"])[0]
-    del tb, first
+    del tb
     timed, worst = phase_kernel_neighbor_agg(nops, nref, layer_nbrs,
                                              launcher_nbrs)
     del layer_nbrs, launcher_nbrs
@@ -4035,7 +4455,14 @@ def run_gnn(launches, nops, nref):
     phase_gnn_launcher(launches)
     torch.cuda.empty_cache()
     phase_gnn_parity(arch.build_cfg(reduced=True), graphs)
-    return timed, worst
+    t0 = time.perf_counter()
+    ss_timed, ss_worst = phase_kernel_segment_sum(nops, nref, first, graphs)
+    phase_gnn_archs(launches, first, graphs)
+    del first
+    phase_gnn_archs_parity(graphs)
+    phase_gnn_arch_launcher(launches)
+    emit({"phase": "gnn_archs_done", "wall_s": time.perf_counter() - t0})
+    return timed, worst, ss_timed, ss_worst
 
 class Launches:
     """The launch counts of every kernel wrapper of the port."""
@@ -5509,7 +5936,8 @@ def main() -> int:
                          "flash_attention": fops.flash_attention,
                          "flash_attention_bwd": fops.flash_attention_bwd,
                          "neighbor_agg": nops.neighbor_agg,
-                         "neighbor_agg_bwd": nops.neighbor_agg_bwd})
+                         "neighbor_agg_bwd": nops.neighbor_agg_bwd,
+                         "segment_sum": nops.segment_sum})
     runs = {}
     for depth in (1, 2):
         (a, row), _, counts = launches.drive(lambda: run_slice(
@@ -5666,7 +6094,8 @@ def main() -> int:
     flash_rows, worst_flash, bwd_rows, worst_bwd = run_lm(launches, fops,
                                                           fref)
     run_moe(launches)
-    na_row, (worst_na, worst_na_bwd) = run_gnn(launches, nops, nref)
+    na_row, (worst_na, worst_na_bwd), ss_row, worst_ss = run_gnn(
+        launches, nops, nref)
 
     def entry(name, source, replaces, main, err, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5696,6 +6125,9 @@ def main() -> int:
           "neighbor_agg_bwd": {"layer": {
               "library_ms": na_row["backward"]["library_ms"],
               "call": na_row["backward"]["library_call"]}},
+          "segment_sum": {"meshgraphnet layer": {
+              "library_ms": ss_row["library_ms"],
+              "call": ss_row["library_call"]}},
           "hype_score_select": None, "hype_scores": None, "kway_gains": None,
           "kway_gains_csr": None, "stream_commit": None,
           "why_none": "no single PyTorch call computes the functions of "
@@ -5789,7 +6221,18 @@ def main() -> int:
               None, na_row["backward"], worst_na_bwd,
               note="the backward (grad of x) of neighbor_agg_kernel, "
                    "src/repro/kernels/neighbor_agg/kernel.py:72, which has "
-                   "no TPU backward")]})
+                   "no TPU backward"),
+        entry("segment_sum", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
+              None, ss_row, worst_ss, graph_ms=ss_row["graph_ms"],
+              with_index_build_ms=ss_row["with_index_build_ms"],
+              library_graph_ms=ss_row["library_graph_ms"],
+              gatedgcn_layer=ss_row["gatedgcn_layer"],
+              note="the segment sums of gatedgcn, meshgraphnet, schnet "
+                   "and the graph_reg pooling (jax.ops.segment_sum in "
+                   "src/repro/models/gnn.py:56-66, 137-139, 152, 168, 196, "
+                   "left to XLA; no pallas_call): row 5b's kernel in its "
+                   "sum mode, each edge a bag of one slot; timed at "
+                   "meshgraphnet's layer")]})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

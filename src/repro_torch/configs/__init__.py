@@ -7,10 +7,11 @@ serves to their module; ``get_arch`` on any other raises
 every architecture's family without loading it. two-tower-retrieval is
 ported (serving and training), and so are the five LMs (serving, paged
 decode and training): the dense stablelm-3b, qwen3-8b and llama3-405b
-and the MoE mixtral-8x22b and granite-moe-3b-a800m. Of the GNNs,
-graphsage-reddit is ported (training); gatedgcn, meshgraphnet and schnet
-wait for their layers. ``get_arch("hype_paper")`` returns the paper's
-run grid (``hype_paper.ARCH``), not an ArchDef, as in the JAX package.
+and the MoE mixtral-8x22b and granite-moe-3b-a800m, and the four GNNs
+(training): gatedgcn, meshgraphnet, schnet and graphsage-reddit. So all
+ten architectures are ported and ``PENDING_ITEMS`` is empty.
+``get_arch("hype_paper")`` returns the paper's run grid
+(``hype_paper.ARCH``), not an ArchDef, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,17 +37,17 @@ PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
           "llama3-405b": "repro_torch.configs.llama3_405b",
           "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
           "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+          "gatedgcn": "repro_torch.configs.gatedgcn",
+          "meshgraphnet": "repro_torch.configs.meshgraphnet",
+          "schnet": "repro_torch.configs.schnet",
           "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
           "hype_paper": "repro_torch.configs.hype_paper"}
 
 _ITEM = "ROADMAP.md, queue 1, item 15"
-PENDING_GNN_ARCHS = (f"{_ITEM}g: the gatedgcn, meshgraphnet and schnet "
-                     f"layers")
 PENDING_FULL_BATCH = (f"{_ITEM}j: full-batch GraphSAGE past 2**31 "
                       f"neighbour slots")
-PENDING_ITEMS = {
-    "gnn": PENDING_GNN_ARCHS,
-}
+# family -> the ROADMAP.md item an unported arch of it raises with
+PENDING_ITEMS: dict = {}
 
 ARCH_IDS = [a for a in FAMILIES if a != "hype_paper"]
 

@@ -25,7 +25,7 @@ from .core import device_loop
 from .engines.batched import BatchedParams
 from .engines.device import DeviceParams
 from .engines.superstep import SuperstepParams
-from .models.gnn import GNNConfig, gnn_param_shapes
+from .models.gnn import NORM_INIT, GNNConfig, gnn_param_shapes
 from .models.recsys import PARAM_NAMES, TwoTowerConfig
 from .models.transformer import TransformerConfig, layer_shapes, leaf_dtype
 
@@ -158,9 +158,11 @@ def gnn_params_from_numpy(tree: dict, cfg: GNNConfig, device="cpu",
     """The port's GNN params from the JAX package's, as nested dicts (and
     the ``layers`` list) of numpy arrays. Both keep a dense weight as
     (in, out), so the arrays are copied as they are: bfloat16 (the JAX
-    package's ``mlp_init``) stays bfloat16 bit for bit, float32 stays
-    float32, unless ``dtype`` casts every leaf. Every name and shape is
-    checked against ``cfg``; any other element type raises."""
+    package's ``mlp_init``) stays bfloat16 bit for bit, float32 (its norm
+    vectors, and any float32 copy) stays float32, unless ``dtype`` casts
+    every MLP leaf; a norm vector (``NORM_INIT``'s names) keeps its own
+    dtype, as JAX keeps it float32. Every name and shape is checked
+    against ``cfg``; any other element type raises."""
     shapes = gnn_param_shapes(cfg)
 
     def walk(node, want, where):
@@ -168,7 +170,8 @@ def gnn_params_from_numpy(tree: dict, cfg: GNNConfig, device="cpu",
             a = np.asarray(node)
             if a.shape != want:
                 raise ValueError(f"{where} has shape {a.shape}, want {want}")
-            return _float_tensor(a, dtype, device, where)
+            norm = where.rsplit(".", 1)[-1] in NORM_INIT
+            return _float_tensor(a, None if norm else dtype, device, where)
         if isinstance(want, list):
             if not isinstance(node, (list, tuple)) or len(node) != len(want):
                 raise ValueError(f"{where} must be a list of {len(want)}")

@@ -1,5 +1,5 @@
-from .ops import neighbor_agg, neighbor_agg_bwd
+from .ops import gather_rows, neighbor_agg, neighbor_agg_bwd, segment_sum
 from .ref import neighbor_agg_bwd_ref, neighbor_agg_ref, neighbor_mean_ref
 
-__all__ = ["neighbor_agg", "neighbor_agg_bwd", "neighbor_agg_ref",
-           "neighbor_agg_bwd_ref", "neighbor_mean_ref"]
+__all__ = ["gather_rows", "neighbor_agg", "neighbor_agg_bwd", "segment_sum",
+           "neighbor_agg_ref", "neighbor_agg_bwd_ref", "neighbor_mean_ref"]

@@ -14,6 +14,13 @@ id: the caller may pass one it built with the neighbour matrix
 ``transpose_index``. ``neighbor_agg.launches`` and
 ``neighbor_agg_bwd.launches`` count the CUDA launches, so a run can show
 that its path went through the kernels.
+
+``segment_sum`` is the backward kernel in its sum mode over an edge list
+(each edge a bag of one slot): the GNN archs' sums of messages by an
+edge index, deterministic where ``index_add_`` adds with float atomics
+on the card. With ``gather_rows`` (``h[src]``, whose gradient is such a
+sum) it keeps a GNN training step free of float atomics;
+``segment_sum.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -24,8 +31,9 @@ import torch
 from .._build import load_extension, on_cuda
 from .ref import CHUNK, acc_dtype, neighbor_agg_bwd_ref, neighbor_mean_ref
 
-__all__ = ["SlotIndex", "bwd_args_ok", "chunk_units", "launch_bwd",
-           "neighbor_agg", "neighbor_agg_bwd", "transpose_index"]
+__all__ = ["SlotIndex", "bwd_args_ok", "chunk_units", "gather_rows",
+           "launch_bwd", "neighbor_agg", "neighbor_agg_bwd", "segment_index",
+           "segment_sum", "transpose_index"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the plain version also takes float64 (torch.autograd.gradcheck)
@@ -155,6 +163,114 @@ class _NeighborAgg(torch.autograd.Function):
             grad_x = neighbor_agg_bwd(g @ w.to(dt).t(), nbrs, ctx.n_rows,
                                       ctx.x_dtype, ctx.index)
         return grad_x, None, grad_w, None
+
+
+def segment_index(ids: torch.Tensor, n_rows: int) -> SlotIndex:
+    """The ``SlotIndex`` of ``ids`` (E,) int32 taken as E bags of one slot
+    (-1 a skipped edge): a stable sort of the edges by id, so each id's
+    edges stay in edge order, in torch ops on the ids' device and with no
+    sync (the offsets by ``searchsorted``, the chunk units sized by E)."""
+    E = ids.shape[0]
+    valid = ids >= 0
+    key = torch.where(valid, ids.long(), n_rows)    # skipped edges last
+    skey, order = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(skey, torch.arange(
+        n_rows + 1, dtype=skey.dtype, device=skey.device))
+    return SlotIndex(valid.to(torch.int32), rowptr, order.to(torch.int32),
+                     *chunk_units(rowptr, E))
+
+
+def _segment_sum(msgs: torch.Tensor, ids: torch.Tensor, n_rows: int,
+                 index: SlotIndex | None) -> torch.Tensor:
+    """``segment_sum`` without its gradient: one launch of the backward
+    kernel in its sum mode on the card, counted; ``ref.py`` on the CPU."""
+    slots = ids[:, None]
+    if not bwd_args_ok("segment_sum", msgs, slots, msgs.dtype):
+        return neighbor_agg_bwd_ref(msgs, slots, n_rows, mean=False)
+    out = launch_bwd(msgs, slots, n_rows, torch.float32,
+                     index or segment_index(ids, n_rows), False)
+    segment_sum.launches += 1
+    return out
+
+
+def _gather(g: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``g[ids]``, 0 where an id is -1: the gradient of a segment sum."""
+    rows = g.index_select(0, ids.clamp_min(0).long())
+    return torch.where((ids >= 0)[:, None], rows, torch.zeros_like(rows))
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``segment_sum`` with its gradient, the gather ``g[ids]``."""
+
+    @staticmethod
+    def forward(ctx, msgs, ids, n_rows, index):
+        ctx.save_for_backward(ids)
+        return _segment_sum(msgs, ids, n_rows, index)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, = ctx.saved_tensors
+        return _gather(grad_out.contiguous(), ids), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``h[rows]`` with its gradient, ``segment_sum`` by ``ids``."""
+
+    @staticmethod
+    def forward(ctx, h, rows, ids, index):
+        ctx.save_for_backward(ids)
+        ctx.n_rows, ctx.index = h.shape[0], index
+        return h.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, = ctx.saved_tensors
+        return (_segment_sum(grad_out.contiguous(), ids, ctx.n_rows,
+                             ctx.index), None, None, None)
+
+
+def _check_ids(name: str, x: torch.Tensor, ids: torch.Tensor) -> None:
+    if x.dim() != 2 or ids.dim() != 1:
+        raise ValueError(f"{name} takes a (rows, D) tensor and ids (E,), "
+                         f"got {tuple(x.shape)} and {tuple(ids.shape)}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32, got {ids.dtype}")
+    if x.device != ids.device:
+        raise ValueError(f"{name}'s tensors must share one device, got "
+                         f"{x.device} and {ids.device}")
+
+
+def segment_sum(msgs: torch.Tensor, ids: torch.Tensor, n_rows: int,
+                index: SlotIndex | None = None) -> torch.Tensor:
+    """``jax.ops.segment_sum(msgs, ids, n_rows)`` over the edges whose id
+    is not -1: msgs (E, D) float32 (float64 too on the CPU), ids (E,)
+    int32 in [-1, n_rows). Returns (n_rows, D) in msgs' dtype. Each edge
+    is a bag of one slot, so this is the backward kernel's sum mode
+    (``neighbor_agg_bwd`` without the division): each id's edges added in
+    the chunk order of ``ref.py``, with no atomics, the same bits on
+    every run and on either device. ``index``, when given, is
+    ``segment_index(ids, n_rows)``. Differentiable in msgs: the gradient
+    is ``g[ids]``, 0 for a skipped edge. ``segment_sum.launches`` counts
+    the card's launches, those of ``gather_rows``' backward too."""
+    _check_ids("segment_sum", msgs, ids)
+    if msgs.shape[0] != ids.shape[0]:
+        raise ValueError(f"msgs has {msgs.shape[0]} rows for "
+                         f"{ids.shape[0]} ids")
+    return _SegmentSum.apply(msgs.contiguous(), ids, n_rows, index)
+
+
+segment_sum.launches = 0
+
+
+def gather_rows(h: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
+                index: SlotIndex | None = None) -> torch.Tensor:
+    """``h[rows]`` (E, D) for rows (E,) int64 ids in [0, N), whose
+    gradient is ``segment_sum(g, ids, N, index)``: ids (E,) int32 equal
+    to ``rows`` but -1 on the edges whose gradient the caller knows to be
+    zero (masked edges, whose every use ends in a product with their
+    mask), which the sum then skips. No float atomics either way."""
+    _check_ids("gather_rows", h, ids)
+    return _GatherRows.apply(h, rows, ids, index)
 
 
 def neighbor_agg(x: torch.Tensor, nbrs: torch.Tensor, w: torch.Tensor,

@@ -80,6 +80,19 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (x * torch.rsqrt(var + eps)).to(dtype) * gamma
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with the mean and the biased variance in float32, cast
+    back to ``x.dtype``, then ``* gamma + beta`` (where the JAX package
+    rounds)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y.to(dtype) * gamma + beta
+
+
 # -------------------------------------------------------------------- rope
 
 def rotary_embedding(positions: torch.Tensor, d_head: int,

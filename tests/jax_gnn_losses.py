@@ -1,28 +1,40 @@
 """Compute the JAX package's losses that chip_smoke.py pins.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/jax_gnn_losses.py \
-        [--port] [--stats]
+        [--what {all,graphsage,archs}] [--port] [--stats]
 
 Runs, on the CPU, the JAX package on the inputs chip_smoke.py makes for
 its GNN phases, from the same numpy seeds and by the same recipe
-(chip_smoke's ``gnn_source``, ``gnn_sample`` and ``gnn_numpy_params``,
-given the JAX package's ``repro.data.graphs``):
+(chip_smoke's ``gnn_source``, ``gnn_sample``, ``gnn_numpy_params``,
+``gnn_arch_cfg`` and ``gnn_arch_batch``, given the JAX package's
+``repro.data.graphs`` and ``repro.configs.get_arch``):
 
   * ``GNN_JAX_LOSSES``: the first 3 losses of graphsage-reddit at full
     width on minibatch_lg (the reddit-scale source graph, one sampled
     batch a step, ``GNN_OPT``), through ``repro.models.gnn.gnn_loss`` and
     ``repro.train.optimizer.adamw_update``;
   * ``GNN_LAUNCHER_JAX_LOSSES``: the JAX train launcher's losses at
-    ``--shape minibatch_lg --steps 5``.
+    ``--shape minibatch_lg --steps 5``;
+  * ``GNN_ARCH_JAX_LOSSES``: the first 3 losses of gatedgcn and
+    meshgraphnet at full width on the first sampled minibatch_lg batch
+    (with chip_smoke's edge_x), and of schnet at full width on
+    ``molecule_batch()``, each on its one batch (``GNN_OPT``; the MLPs
+    cast to bfloat16 and the norm vectors kept float32, as JAX's
+    ``init_gnn_params`` has them);
+  * ``GNN_ARCH_LAUNCHER_JAX_LOSSES``: the JAX train launcher's losses of
+    each of those three archs at its defaults for 3 steps.
 
-With ``--stats`` it prints the shape of the first sampled batch: its
-valid edges, K (the largest valid in-degree) and how many slots of the
-in-neighbour matrix the busiest source id fills (the backward kernel's
-longest row). With ``--port`` it also runs the port (``repro_torch``)
-on the CPU on the same training inputs and prints its losses beside JAX's (not the
-launcher's: there node 0's in-degree makes K about 1,400, and the plain
-aggregation loops over K). It needs about 4 GB of host memory and a few
-minutes (the 114.6M-edge graph and its sampler).
+``--what`` picks graphsage's pins, the three archs' or both (the
+default). With ``--stats`` it prints the shape of the first sampled
+batch: its valid edges, K (the largest valid in-degree) and how many
+slots of the in-neighbour matrix the busiest source id fills (the
+backward kernel's longest row). With ``--port`` it also runs the port
+(``repro_torch``) on the CPU on the same training inputs and prints its
+losses beside JAX's (not the launcher's: there node 0's in-degree makes
+K about 1,400, and the plain aggregation loops over K). Graphsage's
+part needs about 4 GB of host memory and a few minutes (the 114.6M-edge
+graph and its sampler); the archs' part about 17 GB at its peak
+(meshgraphnet's saved activations) and a few minutes more.
 It is a helper, not a test: pytest does not collect it.
 """
 import argparse
@@ -58,17 +70,24 @@ def batch_stats(b) -> dict:
             "ids_over_64_slots": int((per_id > 64).sum())}
 
 
-def train_losses(port: bool, stats: bool):
+def sampled_batches(stats: bool):
+    """The first N_PINNED sampled minibatch_lg batches (GNN_KEYS only);
+    the source graph and sampler are freed on return."""
     arch = get_arch(cs.GNN_ARCH)
-    cfg = arch.build_cfg(shape=cs.GNN_SHAPE)
     meta = arch.shapes[cs.GNN_SHAPE].meta
     src, dst, feats, labels = cs.gnn_source(meta, graphs)
     sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
     del src, dst
-    shapes = jax.tree.map(lambda a: tuple(a.shape), jax.eval_shape(
-        lambda: gnn.init_gnn_params(jax.random.PRNGKey(0), cfg)))
-    tree = cs.gnn_numpy_params(shapes)
-    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    batches = [{k: v for k, v in cs.gnn_sample(
+        sampler, meta, feats, labels, i).items() if k in cs.GNN_KEYS}
+        for i in range(N_PINNED)]
+    if stats:
+        print("first batch:", batch_stats(batches[0]))
+    return batches
+
+
+def jax_train(cfg, params, batches):
+    """JAX's losses of one AdamW step (GNN_OPT) on each batch in turn."""
     opt_cfg = AdamWConfig(**cs.GNN_OPT)
     opt = init_adamw(params, opt_cfg)
 
@@ -78,41 +97,75 @@ def train_losses(port: bool, stats: bool):
         p, o, _ = adamw_update(g, o, p, opt_cfg)
         return p, o, loss
 
-    batches = [{k: v for k, v in cs.gnn_sample(
-        sampler, meta, feats, labels, i).items() if k in cs.GNN_KEYS}
-        for i in range(N_PINNED)]
-    if stats:
-        print("first batch:", batch_stats(batches[0]))
     losses = []
     for b in batches:
         params, opt, loss = step(params, opt, {k: jnp.asarray(v)
                                                for k, v in b.items()})
         losses.append(float(loss))
-    port_losses = None
-    if port:
-        import torch
-        from repro_torch import convert
-        from repro_torch.configs import get_arch as port_arch
-        from repro_torch.models import gnn as port_gnn
-        from repro_torch.train import optimizer as popt
-        from repro_torch.train.train_loop import make_train_step
-        pcfg = port_arch(cs.GNN_ARCH).build_cfg(shape=cs.GNN_SHAPE)
-        p = convert.gnn_params_from_numpy(tree, pcfg, "cpu",
-                                          dtype=torch.bfloat16)
-        ocfg = popt.AdamWConfig(**cs.GNN_OPT)
-        o = popt.init_adamw(p, ocfg)
-        fn = make_train_step(lambda q, bb: port_gnn.gnn_loss(q, bb, pcfg),
-                             ocfg)
-        port_losses = []
-        for b in batches:
-            p, o, m = fn(p, o, {k: torch.from_numpy(v) for k, v in b.items()})
-            port_losses.append(float(m["loss"]))
+    return losses
+
+
+def port_train(name, shape, tree, batches):
+    """The port's losses on the CPU on the same inputs."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch as port_arch
+    from repro_torch.models import gnn as port_gnn
+    from repro_torch.train import optimizer as popt
+    from repro_torch.train.train_loop import make_train_step
+    pcfg = port_arch(name).build_cfg(shape=shape)
+    p = convert.gnn_params_from_numpy(tree, pcfg, "cpu",
+                                      dtype=torch.bfloat16)
+    ocfg = popt.AdamWConfig(**cs.GNN_OPT)
+    o = popt.init_adamw(p, ocfg)
+    fn = make_train_step(lambda q, bb: port_gnn.gnn_loss(q, bb, pcfg), ocfg)
+    losses = []
+    for b in batches:
+        p, o, m = fn(p, o, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def init_like(cfg):
+    """JAX's init params of ``cfg``, abstract (shapes and dtypes)."""
+    return jax.eval_shape(
+        lambda: gnn.init_gnn_params(jax.random.PRNGKey(0), cfg))
+
+
+def train_losses(batches, port: bool):
+    cfg = get_arch(cs.GNN_ARCH).build_cfg(shape=cs.GNN_SHAPE)
+    tree = cs.gnn_numpy_params(jax.tree.map(lambda a: tuple(a.shape),
+                                            init_like(cfg)))
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    losses = jax_train(cfg, params, batches)
+    port_losses = port_train(cs.GNN_ARCH, cs.GNN_SHAPE, tree,
+                             batches) if port else None
     return losses, port_losses
 
 
-def launcher_losses():
-    argv = ["--arch", cs.GNN_ARCH, "--shape", cs.GNN_SHAPE, "--steps",
-            str(cs.GNN_LAUNCHER_STEPS)]
+def arch_losses(first, port: bool):
+    """GNN_ARCH_JAX_LOSSES (and the port's on the CPU, with ``port``)."""
+    out, port_out = {}, {}
+    for name in cs.GNN_OTHER_ARCHS:
+        cfg = cs.gnn_arch_cfg(get_arch, name)
+        like = init_like(cfg)
+        tree = cs.gnn_numpy_params(jax.tree.map(lambda a: tuple(a.shape),
+                                                like))
+        params = jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), tree,
+                              like)
+        batches = [cs.gnn_arch_batch(name, first, graphs)] * cs.GNN_ARCH_STEPS
+        out[name] = jax_train(cfg, params, batches)
+        print(name, out[name], flush=True)
+        if port:
+            port_out[name] = port_train(name, cs.GNN_ARCH_SHAPE[name], tree,
+                                        batches)
+            print(" port on the CPU:", port_out[name], flush=True)
+    return out, port_out
+
+
+def launcher_losses(argv):
+    """The JAX train launcher's losses for ``argv`` in a fresh
+    checkpoint directory."""
     seen = {}
     orig = jax_launch.run_training
 
@@ -131,16 +184,35 @@ def launcher_losses():
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--what", choices=("all", "graphsage", "archs"),
+                    default="all", help="which pins to compute")
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU and print its losses")
     ap.add_argument("--stats", action="store_true",
                     help="print the first sampled batch's shape")
     args = ap.parse_args()
-    print("GNN_LAUNCHER_JAX_LOSSES =", launcher_losses())
-    tj, tp = train_losses(args.port, args.stats)
-    print("GNN_JAX_LOSSES =", tj)
-    if tp is not None:
-        print("port on the CPU:", tp)
+    if args.what in ("all", "archs"):
+        print("GNN_ARCH_LAUNCHER_JAX_LOSSES =", {
+            name: launcher_losses(["--arch", name, "--steps",
+                                   str(cs.GNN_ARCH_LAUNCHER_STEPS)])
+            for name in cs.GNN_OTHER_ARCHS}, flush=True)
+    if args.what in ("all", "graphsage"):
+        print("GNN_LAUNCHER_JAX_LOSSES =", launcher_losses(
+            ["--arch", cs.GNN_ARCH, "--shape", cs.GNN_SHAPE, "--steps",
+             str(cs.GNN_LAUNCHER_STEPS)]), flush=True)
+    batches = sampled_batches(args.stats)
+    if args.what in ("all", "graphsage"):
+        tj, tp = train_losses(batches, args.port)
+        print("GNN_JAX_LOSSES =", tj, flush=True)
+        if tp is not None:
+            print("port on the CPU:", tp, flush=True)
+    if args.what in ("all", "archs"):
+        first = batches[0]
+        del batches
+        aj, ap_ = arch_losses(first, args.port)
+        print("GNN_ARCH_JAX_LOSSES =", aj)
+        if args.port:
+            print("port on the CPU:", ap_)
 
 
 if __name__ == "__main__":

@@ -85,9 +85,10 @@ with tempfile.TemporaryDirectory() as d:
     res = train.main(["--arch", "two-tower-retrieval", "--reduced",
                       "--steps", "2", "--device", "cpu", "--ckpt_dir", d])
     assert res.steps_done == 2 and res.failures_recovered == 0
-    res = train.main(["--arch", "mixtral-8x22b", "--reduced", "--steps",
-                      "1", "--device", "cpu", "--ckpt_dir", d])
-    assert res.steps_done == 1 and res.failures_recovered == 0
+    for arch in ("mixtral-8x22b", "gatedgcn", "meshgraphnet", "schnet"):
+        res = train.main(["--arch", arch, "--reduced", "--steps", "1",
+                          "--device", "cpu", "--ckpt_dir", d])
+        assert res.steps_done == 1 and res.failures_recovered == 0
 from repro_torch.train.grad_compression import compress_tree
 deq, err = compress_tree({"w": torch.ones(3)}, {"w": torch.zeros(3)})
 src, dst = random_graph(50, 3.0, seed=0)

@@ -289,7 +289,7 @@ def test_train_cli_runs_the_lm_on_the_cpu(tmp_path):
     assert "on cpu; loss " in proc.stdout
 
 
-def test_moe_lm_loss_still_raises():
+def test_moe_lm_loss_adds_the_aux_loss():
     """An MoE lm_loss, which raised until MoE layers were ported (item
     15e), now trains: the loss is the cross-entropy plus 0.01 times the
     aux loss summed over the layers, each near 1 (Switch's balanced

@@ -335,7 +335,7 @@ def test_qwen3_8b_full_width_numbers():
 
 
 @pytest.mark.parametrize("arch", MOE)
-def test_moe_archs_raise(arch):
+def test_moe_archs_serve_through_the_launcher(arch):
     """The MoE archs, which raised until MoE serving was ported (item
     15e), now serve: get_arch returns the port's config (its numbers are
     JAX's: test_config_numbers_equal_jax), and the serve launcher's
@@ -359,7 +359,7 @@ def test_moe_archs_raise(arch):
     assert torch.equal(got, torch.cat(want, 1))
 
 
-def test_unported_paths_raise():
+def test_paged_decode_and_moe_paths_run():
     """The paths that raised until paged decode and MoE layers were
     ported (items 15f, 15e) now run: serve_step ignores decode_paged, as
     JAX's does; serve_step_paged leaves the cache as it was; lm_loss and
