@@ -769,6 +769,30 @@ GNN_ARCH_LOSS_TOL = GNN_LOSS_TOL[:GNN_ARCH_STEPS]
 # it leaves room for float32 rounding through 16 layers.
 GNN_ARCH_LAUNCHER_TOL = dict(rtol=5e-6, atol=0.0)
 
+# Full-batch GraphSAGE: graphsage-reddit at ogb_products, nothing cut
+# (2,449,408 nodes and 61,859,328 edges as padded, 61,858,531 valid, d_feat
+# 100, 47 classes), the train launcher's one batch (``graph_batch``:
+# random_graph over the padded sizes, build_graph_batch with 5 label
+# classes). Every layer aggregates through row 5d over in_neighbors_csr.
+# The JAX package cannot take that shape on a host of 62 GB (its gather
+# h[src] alone is 31.7 GB), so tests/jax_gnn_losses.py --what full_batch
+# pins the JAX launcher's first GNN_FB_STEPS losses (AdamWConfig()) on
+# the same recipe at GNN_FB_PIN_NODES nodes and the same edges a node,
+# where row 5's padded matrix would pass 2**31 slots (K = 29,182).
+GNN_FB_SHAPE = "ogb_products"
+GNN_FB_STEPS = 3
+GNN_FB_PIN_NODES = 131_072
+GNN_FB_PIN_EDGES = 3_310_198      # 131,072 x 61,859,328 / 2,449,408
+GNN_FULL_BATCH_JAX_LOSSES = [3.882173776626587, 3.882171154022217,
+                             3.8821630477905273]
+# The launcher's lr warms up, so these losses move by only 2.6e-6 and
+# then 7.8e-6 a step (6.8e-7 and 2.0e-6 of the loss): rtol 5e-7, 1.9e-6
+# here, about 8 float32 steps of 3.88, fails a frozen state at every
+# step. The port on the CPU is within 4.8e-7 of the pins, 1.2e-7 of the
+# loss (tests/jax_gnn_losses.py --what full_batch --port); the card has
+# been within 6.1e-8 of the loss. The phase also asks the loss to fall.
+GNN_FB_TOL = [dict(rtol=5e-7, atol=0.0)] * GNN_FB_STEPS
+
 # The padded-array engines (hype_jax, hype_parallel): the graphs of
 # benchmarks/bench_engine_scaling.py ("pl300", k=8) and
 # benchmarks/bench_beyond_paper.py ("pl3000", k=16), and hype_jax on the
@@ -1386,7 +1410,8 @@ def phase_profile(label, fn, watch=()):
     a synchronize, so the wall time covers the card's work. ``watch``
     names kernels (substrings of their names) whose device time and
     launch count are also reported, each summed, with its share of the
-    busy time.
+    busy time. ``device_launches`` counts the call's device events
+    (kernels and copies).
 
     Once a process has run for a while, the profiler drops kernel
     records at the start of a window, with no error: they are missing
@@ -1431,6 +1456,7 @@ def phase_profile(label, fn, watch=()):
                for w in watch}
     emit({"phase": "profile", "path": label, "wall_s": wall,
           "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
+          "device_launches": sum(calls.values()),
           "top_device_us": dict(top.most_common(6)),
           "warmup_launches": PROFILE_WARMUP_LAUNCHES,
           "warmup_kept": len(device) - sum(calls.values())} | ({
@@ -3886,7 +3912,8 @@ def phase_gnn_train(launches, cfg, meta, sampler, feats, labels):
     batch (host sample, upload and device step timed apart), in a fresh
     checkpoint directory, then GNN_PROFILE_STEPS more under the profiler.
     Fails on a recovered failure, a skipped step, a non-finite loss, a
-    launch count other than 2 forward + 2 backward a step, or a first loss
+    launch count other than 2 forward (row 5d) + 2 backward a step, or a
+    first loss
     outside GNN_LOSS_TOL of the JAX package's."""
     import tempfile
 
@@ -3933,7 +3960,8 @@ def phase_gnn_train(launches, cfg, meta, sampler, feats, labels):
     losses = [m["loss"] for m in res.metrics_history]
     skipped = [i for i, m in enumerate(res.metrics_history)
                if m.get("skipped")]
-    need = {"neighbor_agg": 2 * GNN_STEPS, "neighbor_agg_bwd": 2 * GNN_STEPS}
+    need = {"neighbor_agg_csr": 2 * GNN_STEPS,
+            "neighbor_agg_bwd": 2 * GNN_STEPS}
     pinned = GNN_JAX_LOSSES
     close = [bool(math.isclose(a, b, rel_tol=t["rtol"], abs_tol=t["atol"]))
              for a, b, t in zip(losses, pinned, GNN_LOSS_TOL)]
@@ -3987,7 +4015,7 @@ def phase_gnn_launcher(launches):
         res, wall, counts = launches.drive(lambda: launch_train.main(
             argv + ["--ckpt_dir", d]))
     losses = [m["loss"] for m in res.metrics_history]
-    need = {"neighbor_agg": 2 * GNN_LAUNCHER_STEPS,
+    need = {"neighbor_agg_csr": 2 * GNN_LAUNCHER_STEPS,
             "neighbor_agg_bwd": 2 * GNN_LAUNCHER_STEPS}
     pinned = GNN_LAUNCHER_JAX_LOSSES
     t = GNN_LAUNCHER_TOL
@@ -4404,6 +4432,416 @@ def phase_gnn_arch_launcher(launches):
                              f"JAX's: {row}")
 
 
+# ------------------------------------------- row 5d and the full batch
+
+def csr_stats(indptr, indices) -> dict:
+    """The shape of a CSR's work: valid slots, rows, the longest row, the
+    rows past 32 slots and their slots, and the busiest source id."""
+    import torch
+    cnt = indptr[1:] - indptr[:-1]
+    E = int(indptr[-1])
+    long_rows = cnt > 32
+    per_id = torch.bincount(indices[:E].long())
+    return {"rows": int(cnt.numel()), "valid_slots": E,
+            "live_rows": int((cnt > 0).sum()), "K": int(cnt.max()),
+            "rows_past_32": int(long_rows.sum()),
+            "slots_in_rows_past_32": int(cnt[long_rows].sum()),
+            "busiest_id_slots": int(per_id.max()) if E else 0}
+
+
+def neighbor_agg_csr_bound(x, indptr, indices, w, with_mean):
+    """(FLOPs, bytes, bound ms, bound_by) of one row 5d forward: the rows
+    of x that the slots name, indptr, the valid indices and w read once,
+    the float32 output (and the mean, when training keeps it) written
+    once; one add per valid slot and element, 2 D F FLOP for the product
+    of each row with a slot. The rows a hub names again (31.7 GB of
+    gathers at the ogb layer) are not counted: each is one read."""
+    import torch
+    B = indptr.numel() - 1
+    D, F = w.shape
+    E = int(indptr[-1])
+    rows = int(torch.unique(indices[:E]).numel())
+    live = int(((indptr[1:] - indptr[:-1]) > 0).sum())
+    nbytes = (rows * D * x.element_size() + (B + 1) * 8 + E * 4
+              + w.numel() * w.element_size() + B * F * 4
+              + (B * D * 4 if with_mean else 0))
+    flops = E * D + 2 * live * D * F
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops > t_bytes else "bytes")
+
+
+def csr_case(nops, nref, x, indptr, indices, w, row, on_cpu=True):
+    """One row 5d case on the card. With ``on_cpu``: the card's mean and
+    its backward (row 5b's mean mode over ``csr_transpose_index``) bit
+    for bit against the plain versions on the CPU (``index_add_`` in the
+    chunk order), the output within NA_TOL (the product's order), each
+    equal to itself on a second run. Without (the ogb layer, too large for
+    the host's plain version): the output and the mean within NA_TOL of
+    the plain version on the card, whose atomics add in another order.
+    Returns the forward's and the backward's max abs error."""
+    import torch
+    from repro_torch.kernels._build import load_extension
+    N = x.shape[0]
+    out = nops.neighbor_agg_csr(x, indptr, indices, w)
+    # the second run with the chunk units built ahead, as the model's
+    # layers take them
+    again, mean = nops.launch_csr(x, indptr, indices, w, nops.chunk_units(
+        indptr, indices.shape[0]))
+    g = torch.randn(out.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(7))
+    gw = g @ w.float().t()
+    index = nops.csr_transpose_index(indptr, indices, N)
+    ext = load_extension()
+    gx = ext.neighbor_agg_bwd(gw, *index, False, True)
+    gx2 = ext.neighbor_agg_bwd(gw, *index, False, True)
+    torch.cuda.synchronize()
+    row = {"phase": "kernel_neighbor_agg_csr", **row,
+           **csr_stats(indptr, indices), "N": N, "D": x.shape[1],
+           "F": w.shape[1], "w_dtype": str(w.dtype).removeprefix("torch."),
+           "fwd_tol": NA_TOL["float32"],
+           "fwd_run_to_run_equal": torch.equal(out, again),
+           "bwd_run_to_run_equal": torch.equal(gx, gx2),
+           "plain_on": "cpu" if on_cpu else "cuda"}
+    del again, gx2, index
+    if not on_cpu:            # room for the plain version's 31.7 GB
+        del g, gw, gx
+        torch.cuda.empty_cache()
+    if on_cpu:
+        args = (x.cpu(), indptr.cpu(), indices.cpu())
+        want_mean, _ = nref.neighbor_mean_csr_ref(*args)
+        want = (want_mean @ w.cpu().float())
+        want_gx = nref.neighbor_agg_csr_bwd_ref(gw.cpu(), *args[1:], N)
+        got, got_mean, got_gx = out.cpu(), mean.cpu(), gx.cpu()
+        row.update(mean_bit_equal=torch.equal(got_mean, want_mean),
+                   bwd_bit_equal=torch.equal(got_gx, want_gx),
+                   bwd_max_abs_err=max_abs_err([got_gx], [want_gx]))
+        ok = row["mean_bit_equal"] and row["bwd_bit_equal"]
+    else:
+        want_mean, _ = nref.neighbor_mean_csr_ref(x, indptr, indices)
+        want = want_mean @ w.float()
+        got, got_mean = out, mean
+        row.update(mean_max_abs_err=float(
+            (got_mean - want_mean).abs().max()),
+            mean_close=torch.allclose(got_mean, want_mean,
+                                      **NA_TOL["float32"]),
+            bwd_max_abs_err=None)
+        ok = row["mean_close"]
+        del want_mean
+    row.update(fwd_max_abs_err=float((got - want).abs().max())
+               if got.numel() else 0.0,
+               close=torch.allclose(got, want, **NA_TOL["float32"]))
+    emit(row)
+    if not (ok and row["close"] and row["fwd_run_to_run_equal"]
+            and row["bwd_run_to_run_equal"]):
+        raise SystemExit(f"neighbor_agg_csr disagrees with its plain "
+                         f"version: {row}")
+    return row["fwd_max_abs_err"], row["bwd_max_abs_err"] or 0.0
+
+
+def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
+    """Row 5d at one layer: eager and in a CUDA graph with its chunk units
+    built ahead, as the model's layers call it (and eager with the
+    wrapper building them), its two launches apart, the plain version, ``F.embedding_bag`` (mean, by offsets) then
+    ``torch.matmul``, the bound; then row 5b's backward over the layer's
+    by-source index."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels._build import load_extension
+    ext = load_extension()
+    N, D = x.shape
+    E = int(indptr[-1])
+    flops, nbytes, bound_ms, bound_by = neighbor_agg_csr_bound(
+        x, indptr, indices, w, True)
+    units = nops.chunk_units(indptr, indices.shape[0])
+    none = torch.empty(0, dtype=torch.int32, device="cuda")
+    sums = ext.neighbor_agg_bwd(x, none, indptr, indices, *units, False,
+                                False)
+    scratch = sums.clone()
+    reps = dict(reps=3, iters=iters, warmup=2)
+    row = {"phase": "kernel_neighbor_agg_csr_timed", "layer": label,
+           **csr_stats(indptr, indices), "N": N, "D": D, "F": w.shape[1],
+           "chunk_units": int(units[0][-1]),
+           "ms": cuda_ms(lambda: nops.neighbor_agg_csr(
+               x, indptr, indices, w, units=units), **reps),
+           "graph_ms": graph_ms(lambda: nops.neighbor_agg_csr(
+               x, indptr, indices, w, units=units), iters=iters),
+           "with_units_build_ms": cuda_ms(lambda: nops.neighbor_agg_csr(
+               x, indptr, indices, w), **reps),
+           "sum_ms": cuda_ms(lambda: ext.neighbor_agg_bwd(
+               x, none, indptr, indices, *units, False, False), **reps),
+           "epilogue_ms": cuda_ms(lambda: ext.neighbor_agg_fin(
+               scratch, indptr, w), **reps),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "gathered_bytes": E * D * x.element_size()}
+    # the sum without the busiest row's slots: what its chunk partials,
+    # added in order by one warp, cost beyond the rest
+    cnt = indptr[1:] - indptr[:-1]
+    hub = int(cnt.argmax())
+    lo, hi = int(indptr[hub]), int(indptr[hub + 1])
+    rest_ptr = torch.where(torch.arange(indptr.numel(), device="cuda") > hub,
+                           indptr - (hi - lo), indptr)
+    rest_idx = torch.cat([indices[:lo], indices[hi:]])
+    rest_units = nops.chunk_units(rest_ptr, rest_idx.shape[0])
+    row.update(busiest_row=hub, busiest_row_slots=hi - lo,
+               sum_without_busiest_row_ms=cuda_ms(
+                   lambda: ext.neighbor_agg_bwd(
+                       x, none, rest_ptr, rest_idx, *rest_units, False,
+                       False), **reps))
+    del sums, scratch, rest_ptr, rest_idx, rest_units
+    row["plain_ms"] = cuda_ms(lambda: nref.neighbor_agg_csr_ref(
+        x, indptr, indices, w), reps=2, iters=1, warmup=1)
+    torch.cuda.empty_cache()
+    ids = indices[:E].long()
+    offsets = indptr[:-1]
+    wf = w.float()
+    lib = F.embedding_bag(ids, x, offsets, mode="mean") @ wf
+    row["library_max_abs_err"] = float(
+        (lib - nops.neighbor_agg_csr(x, indptr, indices, w)).abs().max())
+    del lib
+    row.update(library_ms=cuda_ms(lambda: F.embedding_bag(
+        ids, x, offsets, mode="mean") @ wf, **reps),
+        library_call="two calls: F.embedding_bag(indices, x, "
+                     "offsets=indptr[:-1], mode='mean'), then "
+                     "torch.matmul")
+    del ids
+    g = torch.randn((indptr.numel() - 1, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    index = nops.csr_transpose_index(indptr, indices, N)
+    row["backward"] = {
+        "ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False, True),
+                      **reps),
+        "chunk_units": int(index.hptr[-1]),
+        "heaviest_id_slots": int((index.rowptr[1:]
+                                  - index.rowptr[:-1]).max())}
+    emit(row)
+    del g, index
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernel_neighbor_agg_csr(nops, nref, first, pin_batch, ogb_batch):
+    """Row 5d on the card: bit for bit against its plain version on the
+    CPU on small CSRs (row 5's shapes as CSRs, hub rows of 33 to 2,049
+    slots, rows with none), at the minibatch_lg layer (the first sampled
+    batch) and at the full-batch pin graph (131,072 nodes, 3.3M edges);
+    within float32 rounding of the plain version on the card at the ogb
+    layer (2,449,408 nodes, 61.9M edges). Timed at the ogb layer and the
+    minibatch_lg layer. Returns the ogb row (the minibatch row in it)
+    and the worst forward and backward errors."""
+    import numpy as np
+    import torch
+    from repro_torch.models import gnn
+    gen = torch.Generator("cuda").manual_seed(13)
+    worst = (0.0, 0.0)
+
+    def csr_of(b, n):
+        t = {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).cuda()
+             for k, v in b.items()
+             if k in ("edge_src", "edge_dst", "edge_mask")}
+        return gnn.in_neighbors_csr(t["edge_src"], t["edge_dst"],
+                                    t["edge_mask"], n)[:2]
+
+    small = [(64, 32, 16, [3, 0, 4, 4, 1, 2, 0, 4], "float32"),
+             (200, 128, 64, [10, 0, 33, 64, 65, 9, 1000, 2], "float32"),
+             (50, 33, 7, [1, 0, 40, 70, 1], "float32"),
+             (40, 5, 3, [0, 0, 2049, 0, 3], "bfloat16"),
+             (300, 128, 128, [25] * 60 + [0] * 3 + [777], "bfloat16"),
+             (10, 16, 8, [0, 0, 0], "float32")]
+    for N, D, F_, lengths, wd in small:
+        rng = np.random.default_rng(N + D)
+        indptr = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(lengths)]).astype(np.int64)).cuda()
+        E = int(indptr[-1])
+        indices = torch.from_numpy(np.concatenate([rng.integers(
+            0, N, size=E), [N - 1] * 3]).astype(np.int32)).cuda()
+        x = torch.from_numpy(rng.normal(size=(N, D)).astype(
+            np.float32)).cuda()
+        w = torch.from_numpy((rng.normal(size=(D, F_)) * 0.1).astype(
+            np.float32)).to(getattr(torch, wd)).cuda()
+        worst = tuple(map(max, worst, csr_case(
+            nops, nref, x, indptr, indices, w,
+            {"case": f"small, rows of {min(lengths)}-{max(lengths)} "
+                     f"slots"})))
+
+    for label, b, on_cpu in (("minibatch_lg layer", first, True),
+                             ("full-batch pin graph", pin_batch, True),
+                             ("ogb layer", ogb_batch, False)):
+        n = b["nodes"].shape[0]
+        indptr, indices = csr_of(b, n)
+        x, w = layer_x_w(n, gen)
+        worst = tuple(map(max, worst, csr_case(
+            nops, nref, x, indptr, indices, w, {"case": label},
+            on_cpu=on_cpu)))
+        if label == "minibatch_lg layer":
+            mb = csr_timed(nops, nref, x, indptr, indices, w, label, 20)
+        elif label == "ogb layer":
+            row = csr_timed(nops, nref, x, indptr, indices, w, label, 5)
+        del x, w, indptr, indices
+        torch.cuda.empty_cache()
+    row["minibatch_lg_layer"] = {k: mb[k] for k in (
+        "ms", "graph_ms", "with_units_build_ms", "sum_ms", "epilogue_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by", "backward", "valid_slots", "K")}
+    return row, worst
+
+
+def phase_gnn_full_batch_parity(launches, pin_batch):
+    """The train launcher at ogb_products (its config and AdamW) for
+    GNN_FB_STEPS steps on the batch its recipe makes at GNN_FB_PIN_NODES
+    nodes and GNN_FB_PIN_EDGES edges, held to the JAX launcher's losses
+    (GNN_FULL_BATCH_JAX_LOSSES, GNN_FB_TOL) and asked to fall."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", GNN_ARCH, "--shape", GNN_FB_SHAPE, "--steps",
+            str(GNN_FB_STEPS)]
+    orig = launch_train.gnn_batches
+    launch_train.gnn_batches = lambda *a, **k: (lambda step: pin_batch)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            res, wall, counts = launches.drive(lambda: launch_train.main(
+                argv + ["--ckpt_dir", d]))
+    finally:
+        launch_train.gnn_batches = orig
+    losses = [m["loss"] for m in res.metrics_history]
+    need = {"neighbor_agg_csr": 2 * GNN_FB_STEPS,
+            "neighbor_agg_bwd": 2 * GNN_FB_STEPS}
+    pinned = GNN_FULL_BATCH_JAX_LOSSES
+    close = [bool(math.isclose(a, b, rel_tol=t["rtol"], abs_tol=t["atol"]))
+             for a, b, t in zip(losses, pinned, GNN_FB_TOL)]
+    row = {"phase": "gnn_full_batch_parity", "argv": argv,
+           "nodes": GNN_FB_PIN_NODES, "edges": GNN_FB_PIN_EDGES,
+           "valid_edges": int(pin_batch["edge_mask"].sum()),
+           "wall_s": wall, "steps": res.steps_done,
+           "failures_recovered": res.failures_recovered, "losses": losses,
+           "jax_losses": pinned, "loss_tol": GNN_FB_TOL,
+           "losses_close_to_jax": close,
+           "max_rel_diff": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, pinned)),
+           "launches": counts, "expected_launches": need}
+    emit(row)
+    if res.failures_recovered or any(m.get("skipped")
+                                     for m in res.metrics_history):
+        raise SystemExit(f"gnn_full_batch_parity hid a failure: {row}")
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"gnn_full_batch_parity launched {counts}")
+    if len(pinned) != len(losses) or not all(close) \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"the full-batch losses differ from JAX's: {row}")
+
+
+def phase_gnn_full_batch(launches, batch_at, build_s):
+    """graphsage-reddit at ogb_products, nothing cut, through the train
+    launcher (``python -m repro_torch.launch.train --arch
+    graphsage-reddit --shape ogb_products --steps 3``, its batch built
+    once and handed to it): GNN_FB_STEPS steps, finite and falling, 2 + 2
+    launches a step, each step timed (a synchronise on either side) and
+    its step 0's loss and gradients kept; then one more pass of step 0,
+    bit-equal to the kept one; the peak memory, one profiled step."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.cells import opt_config
+    from repro_torch.models import gnn
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.tree import tree_flatten
+
+    tb = batch_at(0)
+    cfg = get_arch(GNN_ARCH).build_cfg(shape=GNN_FB_SHAPE)
+    argv = ["--arch", GNN_ARCH, "--shape", GNN_FB_SHAPE, "--steps",
+            str(GNN_FB_STEPS)]
+    step_ms, first = [], []
+    orig_vg, orig_make = (train_loop.value_and_grad,
+                          launch_train.make_train_step)
+
+    def kept_vg(*a, **k):
+        out = orig_vg(*a, **k)
+        if not first:
+            first.extend(t.clone() for t in tree_flatten(out))
+        return out
+
+    def timed_make(*a, **k):
+        step = orig_make(*a, **k)
+
+        def timed(*sa, **sk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*sa, **sk)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    orig_batches = launch_train.gnn_batches
+    launch_train.gnn_batches = lambda *a, **k: batch_at
+    train_loop.value_and_grad = kept_vg
+    launch_train.make_train_step = timed_make
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            res, wall, counts = launches.drive(lambda: launch_train.main(
+                argv + ["--ckpt_dir", d]))
+    finally:
+        launch_train.gnn_batches = orig_batches
+        train_loop.value_and_grad = orig_vg
+        launch_train.make_train_step = orig_make
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in res.metrics_history]
+
+    def loss_fn(p, bb):
+        return gnn.gnn_loss(p, bb, cfg)
+
+    params = launch_train.launcher_params(cfg, "cuda")
+    again = tree_flatten(orig_vg(loss_fn, params, tb))
+    repeat_equal = len(again) == len(first) and all(
+        torch.equal(a, b) for a, b in zip(first, again))
+    first_equal = float(first[0]) == losses[0]
+    del first, again
+    batch_gb = sum(t.numel() * t.element_size() for t in tb.values()) / 1e9
+    need = {"neighbor_agg_csr": 2 * GNN_FB_STEPS,
+            "neighbor_agg_bwd": 2 * GNN_FB_STEPS}
+    row = {"phase": "gnn_full_batch", "argv": argv, "config": GNN_ARCH,
+           "shape": GNN_FB_SHAPE, "n_layers": cfg.n_layers,
+           "d_hidden": cfg.d_hidden, "d_in": cfg.d_in,
+           "n_classes": cfg.n_classes, "nodes": int(tb["nodes"].shape[0]),
+           "edges": int(tb["edge_src"].shape[0]),
+           "valid_edges": int(tb["edge_mask"].sum()),
+           "batch_build_s": build_s, "batch_gb": batch_gb,
+           "launcher_wall_s": wall, "steps": res.steps_done,
+           "failures_recovered": res.failures_recovered, "losses": losses,
+           "step_ms": step_ms, "peak_gb": peak,
+           "step0_repeat_bit_equal": repeat_equal,
+           "step0_equals_launcher_loss": first_equal,
+           "launches": counts, "expected_launches": need,
+           "launches_per_step": {k: v / GNN_FB_STEPS
+                                 for k, v in counts.items() if v}}
+    emit(row)
+    if res.failures_recovered or res.steps_done != GNN_FB_STEPS or any(
+            m.get("skipped") for m in res.metrics_history):
+        raise SystemExit(f"gnn_full_batch hid a failure: {row}")
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"gnn_full_batch's losses are not finite and "
+                         f"falling: {losses}")
+    if {k: v for k, v in counts.items() if v} != need:
+        raise SystemExit(f"gnn_full_batch launched {counts}, not {need}")
+    if not (repeat_equal and first_equal):
+        raise SystemExit(f"gnn_full_batch's step 0 changed its bits on a "
+                         f"repeat: {row}")
+    opt_cfg = opt_config(GNN_ARCH)
+    step_fn = orig_make(loss_fn, opt_cfg)
+    o = init_adamw(params, opt_cfg)
+    phase_profile("gnn_full_batch_step", lambda: step_fn(params, o, tb),
+                  watch=("neighbor_agg_bwd_kernel",
+                         "neighbor_agg_fin_kernel"))
+    return row
+
+
 def run_gnn(launches, nops, nref):
     """The GNN training slice: the reddit-scale source graph and sampler
     on the host, the neighbor_agg kernel phase at the layer shape of its
@@ -4458,11 +4896,32 @@ def run_gnn(launches, nops, nref):
     t0 = time.perf_counter()
     ss_timed, ss_worst = phase_kernel_segment_sum(nops, nref, first, graphs)
     phase_gnn_archs(launches, first, graphs)
-    del first
     phase_gnn_archs_parity(graphs)
     phase_gnn_arch_launcher(launches)
     emit({"phase": "gnn_archs_done", "wall_s": time.perf_counter() - t0})
-    return timed, worst, ss_timed, ss_worst
+
+    # full-batch GraphSAGE at ogb_products and row 5d
+    t0 = time.perf_counter()
+    d_feat = arch.shapes[GNN_FB_SHAPE].meta["d_feat"]
+    pin_batch = launch_train.graph_batch(GNN_FB_PIN_NODES, GNN_FB_PIN_EDGES,
+                                         d_feat, "cuda", keys=GNN_KEYS)
+    t1 = time.perf_counter()
+    fb_batch_at = launch_train.gnn_batches(arch, GNN_FB_SHAPE, False, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    csr_row, csr_worst = phase_kernel_neighbor_agg_csr(
+        nops, nref, first, pin_batch, fb_batch_at(0))
+    del first
+    torch.cuda.empty_cache()
+    phase_gnn_full_batch_parity(launches, pin_batch)
+    del pin_batch
+    fb_row = phase_gnn_full_batch(launches, fb_batch_at, build_s)
+    csr_row["gnn_full_batch_step_ms"] = fb_row["step_ms"]
+    del fb_batch_at
+    torch.cuda.empty_cache()
+    emit({"phase": "gnn_full_batch_done", "pin_batch_s": t1 - t0,
+          "ogb_batch_s": build_s, "wall_s": time.perf_counter() - t0})
+    return timed, worst, ss_timed, ss_worst, csr_row, csr_worst
 
 class Launches:
     """The launch counts of every kernel wrapper of the port."""
@@ -5936,6 +6395,7 @@ def main() -> int:
                          "flash_attention": fops.flash_attention,
                          "flash_attention_bwd": fops.flash_attention_bwd,
                          "neighbor_agg": nops.neighbor_agg,
+                         "neighbor_agg_csr": nops.neighbor_agg_csr,
                          "neighbor_agg_bwd": nops.neighbor_agg_bwd,
                          "segment_sum": nops.segment_sum})
     runs = {}
@@ -6094,8 +6554,8 @@ def main() -> int:
     flash_rows, worst_flash, bwd_rows, worst_bwd = run_lm(launches, fops,
                                                           fref)
     run_moe(launches)
-    na_row, (worst_na, worst_na_bwd), ss_row, worst_ss = run_gnn(
-        launches, nops, nref)
+    (na_row, (worst_na, worst_na_bwd), ss_row, worst_ss, csr_row,
+     (worst_csr, worst_csr_bwd)) = run_gnn(launches, nops, nref)
 
     def entry(name, source, replaces, main, err, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -6122,6 +6582,11 @@ def main() -> int:
                                   for shape, r in bwd_rows.items()},
           "neighbor_agg": {"layer": {"library_ms": na_row["library_ms"],
                                      "call": na_row["library_call"]}},
+          "neighbor_agg_csr": {
+              "ogb layer": {"library_ms": csr_row["library_ms"],
+                            "call": csr_row["library_call"]},
+              "minibatch_lg layer": {"library_ms": csr_row[
+                  "minibatch_lg_layer"]["library_ms"]}},
           "neighbor_agg_bwd": {"layer": {
               "library_ms": na_row["backward"]["library_ms"],
               "call": na_row["backward"]["library_call"]}},
@@ -6214,14 +6679,32 @@ def main() -> int:
                    "has no TPU backward (the JAX model differentiates its "
                    "einsum attention); bf16 at D <= 128 on wgmma, D = 80 "
                    "padded to 96; timed at the LM training shape"),
+        # the padded front end: GraphSAGE runs row 5d, whose launches
+        # are other kernels (row 5b's and the epilogue) in its own entry
         entry("neighbor_agg", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               "src/repro/kernels/neighbor_agg/kernel.py:72", na_row,
               worst_na, launcher_batch=na_row["launcher_batch"]),
+        entry("neighbor_agg_csr", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
+              "src/repro/kernels/neighbor_agg/kernel.py:72", csr_row,
+              worst_csr, **{key: csr_row[key] for key in (
+                  "graph_ms", "with_units_build_ms", "sum_ms",
+                  "epilogue_ms", "chunk_units",
+                  "sum_without_busiest_row_ms", "busiest_row_slots",
+                  "gnn_full_batch_step_ms")},
+              minibatch_lg_layer=csr_row["minibatch_lg_layer"],
+              note="the CSR front end of neighbor_agg_kernel (row 5d): "
+                   "row 5b's kernel in its sum mode over the rows' CSR, "
+                   "then an epilogue kernel (the TPU body's _fin: the "
+                   "division by the count and the product with w); timed "
+                   "at the ogb_products layer"),
         entry("neighbor_agg_bwd", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
-              None, na_row["backward"], worst_na_bwd,
+              None, na_row["backward"], max(worst_na_bwd, worst_csr_bwd),
+              ogb_layer=csr_row["backward"],
+              minibatch_lg_layer_csr=csr_row["minibatch_lg_layer"][
+                  "backward"],
               note="the backward (grad of x) of neighbor_agg_kernel, "
                    "src/repro/kernels/neighbor_agg/kernel.py:72, which has "
-                   "no TPU backward"),
+                   "no TPU backward; of row 5 and of row 5d"),
         entry("segment_sum", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               None, ss_row, worst_ss, graph_ms=ss_row["graph_ms"],
               with_index_build_ms=ss_row["with_index_build_ms"],

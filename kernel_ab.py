@@ -5,6 +5,7 @@ commits can be compared on one card.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
                          [--stream-only] [--recsys-vocab ROWS]
+                         [--gnn-only [--gnn-batch FILE]]
 
 ``--tree`` is the root of a checkout of this repository (default: the
 one holding this script); its ``src/repro_torch`` is imported, and its
@@ -67,7 +68,19 @@ Measures, each on inputs made from fixed seeds:
 measures no kernel: it runs ``chip_smoke.py``'s recsys_train phase with
 each vocabulary at ROWS and prints its row (the peak memory), or, where
 the allocator refuses, the peak and the reserved memory before it, to
-size that phase's vocabulary cut. Prints one JSON line per
+size that phase's vocabulary cut. ``--gnn-only`` measures the sampled
+GraphSAGE path alone, as the tree's model runs it, on the first sampled
+batch of ``chip_smoke.py``'s gnn_train (169,984 padded nodes, 168,960
+edges): the in-neighbour structure's build, one layer's aggregation
+(float32 x with unit rows, bfloat16 w of D = F = 128 that asks for its
+gradient, the structure built once) eagerly and in a CUDA graph, and
+graphsage-reddit's train step (``GNN_OPT``, TF32 off) on that batch, 10
+steps after 2 warm-ups, by the host clock with a synchronise on either
+side (gnn_train's ``device_ms``) and by CUDA events, then one step
+under ``chip_smoke.phase_profile`` (its device launches and busy time). ``--gnn-batch FILE`` keeps
+that batch (an ``.npz``, built from ``chip_smoke.gnn_source`` when the
+file is missing), so that the trees' runs skip the host's 40 s build.
+Prints one JSON line per
 measurement, then the card's name and power limit. Exits 1 without a
 CUDA device.
 """
@@ -90,6 +103,8 @@ def main(argv=None) -> int:
     ap.add_argument("--flash-only", action="store_true")
     ap.add_argument("--stream-only", action="store_true")
     ap.add_argument("--recsys-vocab", type=int, default=None)
+    ap.add_argument("--gnn-only", action="store_true")
+    ap.add_argument("--gnn-batch", default=None)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -120,6 +135,10 @@ def main(argv=None) -> int:
 
     if args.recsys_vocab:
         recsys_vocab(emit, args.recsys_vocab)
+        print(card_line(), flush=True)
+        return 0
+    if args.gnn_only:
+        sampled_gnn(emit, args.gnn_batch, cuda_ms, graph_ms)
         print(card_line(), flush=True)
         return 0
     if args.stream_only:
@@ -236,6 +255,110 @@ def main(argv=None) -> int:
                             reps=5, iters=20, warmup=3)})
     print(card_line(), flush=True)
     return 0
+
+
+def sampled_gnn(emit, batch_file, cuda_ms, graph_ms):
+    """``--gnn-only``: the sampled GraphSAGE layer and train step of the
+    tree on gnn_train's first batch (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graphs
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.train_loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch(cs.GNN_ARCH)
+    cfg = arch.build_cfg(shape=cs.GNN_SHAPE)
+    meta = arch.shapes[cs.GNN_SHAPE].meta
+    path = pathlib.Path(batch_file) if batch_file else None
+    if path is not None and path.exists():
+        b = dict(np.load(path))
+    else:
+        src, dst, feats, labels = cs.gnn_source(meta, graphs)
+        sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
+        del src, dst
+        b = cs.gnn_sample(sampler, meta, feats, labels, 0)
+        b = {k: b[k] for k in cs.GNN_KEYS}
+        del sampler, feats, labels
+        if path is not None:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.savez(path, **b)
+    tb = {k: torch.from_numpy(b[k]).cuda() for k in cs.GNN_KEYS}
+    n = meta["nodes"]
+    edges = (tb["edge_src"], tb["edge_dst"], tb["edge_mask"], n)
+    x, w = cs.layer_x_w(n, torch.Generator("cuda").manual_seed(3))
+    w.requires_grad_(True)
+    if hasattr(gnn, "in_neighbors_csr"):
+        route = "neighbor_agg_csr"
+
+        def build():
+            return gnn.in_neighbors_csr(*edges)
+
+        indptr, indices, _, *rest = build()
+
+        # rest is (units, index) where the tree builds the forward's chunk
+        # units once, (index,) where the wrapper builds them in each call
+        def layer():
+            return nops.neighbor_agg_csr(x, indptr, indices, w,
+                                         *reversed(rest))
+    else:
+        route = "neighbor_agg"
+
+        def build():
+            return gnn.in_neighbors(*edges)
+
+        nbrs, _, index = build()
+
+        def layer():
+            return nops.neighbor_agg(x, nbrs, w, index)
+
+    row = {"gnn": "layer", "route": route, "nodes": n,
+           "valid_edges": int(tb["edge_mask"].sum()),
+           "structure_build_ms": cuda_ms(build, reps=3, iters=5, warmup=2),
+           "ms": cuda_ms(layer, reps=5, iters=20, warmup=3)}
+    try:
+        row["graph_ms"] = graph_ms(layer, iters=20)
+    except RuntimeError as e:          # a route that cannot be captured
+        row["graph_ms"], row["graph_error"] = None, str(e)[:200]
+    emit(row)
+    del x, w
+
+    params = convert.gnn_params_from_numpy(
+        cs.gnn_numpy_params(gnn.gnn_param_shapes(cfg)), cfg, "cuda",
+        dtype=torch.bfloat16)
+    opt_cfg = AdamWConfig(**cs.GNN_OPT)
+    step_fn = make_train_step(lambda p, bb: gnn.gnn_loss(p, bb, cfg),
+                              opt_cfg)
+    state = (params, init_adamw(params, opt_cfg))
+    host, device, losses = [], [], []
+    for _ in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        p, o, m = step_fn(*state, tb)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        state = (p, o)
+    emit({"gnn": "train_step", "route": route, "warmups": 2,
+          "host_ms": host[2:], "host_ms_median": float(np.median(host[2:])),
+          "events_ms": device[2:],
+          "events_ms_median": float(np.median(device[2:])),
+          "losses": losses})
+    cs.emit = emit          # the profile's row carries the tree's label
+    cs.phase_profile(f"gnn_step_{route}", lambda: step_fn(*state, tb),
+                     watch=("neighbor_agg",))
 
 
 def recsys_vocab(emit, vocab):

@@ -43,9 +43,6 @@ PORTED = {"two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
           "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
           "hype_paper": "repro_torch.configs.hype_paper"}
 
-_ITEM = "ROADMAP.md, queue 1, item 15"
-PENDING_FULL_BATCH = (f"{_ITEM}j: full-batch GraphSAGE past 2**31 "
-                      f"neighbour slots")
 # family -> the ROADMAP.md item an unported arch of it raises with
 PENDING_ITEMS: dict = {}
 

@@ -68,6 +68,12 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            int D, int F, int x_bf16,
                                            int w_bf16, int vec, int id_vec,
                                            int out_vec, cudaStream_t stream);
+extern "C" cudaError_t neighbor_agg_fin_launch(float* mean,
+                                               const int64_t* indptr,
+                                               const void* w, float* out,
+                                               int64_t B, int D, int F,
+                                               int w_bf16, int vec,
+                                               cudaStream_t stream);
 extern "C" cudaError_t neighbor_agg_bwd_launch(
     const float* g, const int32_t* cnt, const int64_t* rowptr,
     const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
@@ -559,7 +565,8 @@ std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
 // int64, rows (rowptr[N]) int32, and the chunk units of the ids with
 // more than 32 slots: hptr (N + 1) int64 and hunit (at least hptr[N])
 // int32, whose length sizes the units' scratch. ``mean`` false is the
-// sum mode (no division by the counts, which are then not read).
+// sum mode (no division by the counts, which are then not read and may
+// have any length: row 5d's forward passes an empty one).
 torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
                                const torch::Tensor& cnt,
                                const torch::Tensor& rowptr,
@@ -578,7 +585,7 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
   const int64_t B = g.size(0), D = g.size(1), N = rowptr.size(0) - 1;
   TORCH_CHECK(N >= 0, "rowptr must hold N + 1 offsets");
   TORCH_CHECK(hptr.size(0) == N + 1, "hptr must hold N + 1 offsets");
-  TORCH_CHECK(cnt.size(0) == B, "cnt must be (B,)");
+  TORCH_CHECK(!mean || cnt.size(0) == B, "cnt must be (B,)");
   TORCH_CHECK(D < (int64_t{1} << 31), "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
@@ -598,6 +605,40 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
       at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return grad_x;
+}
+
+// Row 5d's epilogue: ``mean`` (B, D) float32, the sums of row 5b's sum
+// mode over the rows' CSR, overwritten in place with the means; returns
+// out (B, F) float32 = mean @ w (w float32 or bfloat16, (D, F)).
+torch::Tensor neighbor_agg_fin(const torch::Tensor& mean,
+                               const torch::Tensor& indptr,
+                               const torch::Tensor& w) {
+  TORCH_CHECK(mean.is_cuda(), "mean must be a CUDA tensor");
+  const torch::Device device = mean.device();
+  TORCH_CHECK(float_or_bf16(w), "w must be float32 or bfloat16, got ",
+              w.scalar_type());
+  check_input(mean, "mean", torch::kFloat32, 2, device);
+  check_input(indptr, "indptr", torch::kInt64, 1, device);
+  check_input(w, "w", w.scalar_type(), 2, device);
+  const int64_t B = mean.size(0), D = mean.size(1), F = w.size(1);
+  TORCH_CHECK(indptr.size(0) == B + 1, "indptr must hold B + 1 offsets");
+  TORCH_CHECK(w.size(0) == D, "w must be (D, F) with D = ", D);
+  TORCH_CHECK(D < kInt31 && F < kInt31 && B < kInt31, "shape too large");
+  TORCH_CHECK(neighbor_agg_smem_bytes(static_cast<int>(D),
+                                      static_cast<int>(F)) <=
+                  static_cast<size_t>(max_smem_optin()),
+              "D = ", D, " exceeds the kernel's shared memory");
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor out = torch::empty({B, F}, mean.options());
+  if (B == 0 || F == 0) return out;
+  const int vec = D % 4 == 0 && aligned16(mean);
+  C10_CUDA_CHECK(neighbor_agg_fin_launch(
+      mean.data_ptr<float>(), indptr.data_ptr<int64_t>(), w.data_ptr(),
+      out.data_ptr<float>(), B, static_cast<int>(D), static_cast<int>(F),
+      w.scalar_type() == torch::kBFloat16, vec,
+      at::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
 }
 
 }  // namespace
@@ -626,4 +667,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("neighbor_agg_bwd", &neighbor_agg_bwd,
         "Gradient of x of neighbor_agg, or of an EmbeddingBag's table "
         "(mean or sum), deterministic (CUDA, sm_90a)");
+  m.def("neighbor_agg_fin", &neighbor_agg_fin,
+        "Row 5d's epilogue: a CSR's row sums to means, in place, times w "
+        "(CUDA, sm_90a)");
 }

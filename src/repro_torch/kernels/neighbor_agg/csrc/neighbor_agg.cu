@@ -317,6 +317,36 @@ __device__ void product(const float* pm, const int* prow, int p,
   }
 }
 
+// w (D, F) widened to float32 into shared memory (ld x wld, zero past D
+// and F), by the whole block: with F % 4 == 0 the rows are wld = F wide
+// and w is read as it lies, 16 bytes a thread. The caller syncs.
+template <typename W>
+__device__ void stage_w(const W* __restrict__ w, float* w_s, int D, int F,
+                        int ld, int wld) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  using XW = XLoad<W, 16 / sizeof(W)>;
+  constexpr int WV = 16 / sizeof(W);
+  if ((F & 3) == 0 && (D * F) % WV == 0 &&
+      reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+    for (int i = threadIdx.x; i < D * F / WV; i += kThreads) {
+      float v[WV];
+#pragma unroll
+      for (int e = 0; e < WV; ++e) v[e] = 0.0f;
+      XW::add(XW::load(w + i * WV), v);
+#pragma unroll
+      for (int e = 0; e < WV; e += 4) store4(v + e, w_s + i * WV + e);
+    }
+    for (int i = D * F + threadIdx.x; i < ld * wld; i += kThreads)
+      w_s[i] = 0.0f;
+  } else {
+    for (int d = warp; d < ld; d += kWarps)
+      for (int f = lane; f < wld; f += 32)
+        w_s[d * wld + f] =
+            d < D && f < F ? widen(w[(int64_t)d * F + f]) : 0.0f;
+  }
+}
+
 // id_vec: every row of nbrs starts 16-byte aligned (K % 4 == 0);
 // out_vec: every row of out does (F * sizeof(T) % 16 == 0).
 template <typename T, typename W, int V>
@@ -339,29 +369,7 @@ neighbor_agg_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbrs,
   int32_t* n_s = buf + kBufPerWarp;                      // list lengths
   int32_t* prow = n_s + 32;                              // places' rows
   if (resident) {
-    // rows d < D of w widened to float32, then zero rows up to ld; with
-    // F % 4 == 0 the rows are wld = F wide and w is read as it lies, 16
-    // bytes a thread
-    using XW = XLoad<W, 16 / sizeof(W)>;
-    constexpr int WV = 16 / sizeof(W);
-    if ((F & 3) == 0 && (D * F) % WV == 0 &&
-        reinterpret_cast<uintptr_t>(w) % 16 == 0) {
-      for (int i = threadIdx.x; i < D * F / WV; i += kThreads) {
-        float v[WV];
-#pragma unroll
-        for (int e = 0; e < WV; ++e) v[e] = 0.0f;
-        XW::add(XW::load(w + i * WV), v);
-#pragma unroll
-        for (int e = 0; e < WV; e += 4) store4(v + e, w_s + i * WV + e);
-      }
-      for (int i = D * F + threadIdx.x; i < ld * wld; i += kThreads)
-        w_s[i] = 0.0f;
-    } else {
-      for (int d = warp; d < ld; d += kWarps)
-        for (int f = lane; f < wld; f += 32)
-          w_s[d * wld + f] =
-              d < D && f < F ? widen(w[(int64_t)d * F + f]) : 0.0f;
-    }
+    stage_w(w, w_s, D, F, ld, wld);
     __syncthreads();  // the kernel's only barrier: warps run on their own
   }
 
@@ -582,6 +590,103 @@ neighbor_agg_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbrs,
       product<true>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
     else
       product<false>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
+  }
+}
+
+// ---- row 5d's epilogue: the TPU body's ``_fin`` over a CSR's sums.
+// ``mean`` (B, D) float32 holds each row's sum of its neighbours (row 5b's
+// kernel in its sum mode over the rows' CSR) and is overwritten with the
+// mean, sum / max(count, 1) in one IEEE division, count = indptr[b + 1] -
+// indptr[b]; out[b] = mean[b] @ w in float32 on the CUDA cores, by row
+// 5's ``product``. A row with no slot has a zero sum: it keeps its zero
+// mean and writes zeros, skipping the product. Persistent blocks of 8
+// warps, w resident in shared memory when it fits (row 5's plan); a warp
+// takes a set of 32 rows at a time (one count a lane, read at once),
+// writes the dead rows' zeros, and moves the live rows' means into its
+// places, multiplying them by w whenever the places are full. Set g holds
+// rows g, g + sets, g + 2 sets, ...: a sampled batch's live rows come
+// first (14k of 170k at the minibatch_lg layer), and consecutive sets
+// left most warps without a product (0.136 ms there, the sum 0.068 ms on
+// the H100). ``vec``: D % 4 == 0 and mean 16-byte aligned (16-byte loads
+// and stores).
+// What bounds row 5d at the ogb_products layer (2,449,408 rows, 61.9M
+// slots, D = F = 128) on the H100: the sum's gathers, 31.7 GB of rows
+// named at random (the x table is 1.25 GB, L2 50 MB), 11.5 ms or 2.8
+// TB/s, near the 9.5 ms they take at 3.35 TB/s; node 0's 5,371 partials,
+// added by one warp, cost 0.4 ms of it. The epilogue's 80 GFLOP take
+// 3.6-3.7 ms (22 TFLOP/s).
+template <bool kResident, typename W>
+__global__ void __launch_bounds__(kThreads, 2)
+neighbor_agg_fin_kernel(float* __restrict__ mean,
+                        const int64_t* __restrict__ indptr,
+                        const W* __restrict__ w, float* __restrict__ out,
+                        int64_t B, int D, int F, int ld, int wld, int places,
+                        int warp_stride, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* w_s = reinterpret_cast<float*>(smem_raw);
+  unsigned char* mine = smem_raw +
+                        (kResident ? sizeof(float) * (size_t)ld * wld : 0) +
+                        (size_t)warp * warp_stride;
+  float* pm = reinterpret_cast<float*>(mine);            // places x ld
+  int32_t* prow = reinterpret_cast<int32_t*>(pm + places * ld);
+  if (kResident) {
+    stage_w(w, w_s, D, F, ld, wld);
+    __syncthreads();  // the kernel's only barrier
+  }
+  const int64_t sets = (B + 31) / 32;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  int pending = 0;
+  for (int64_t set = (int64_t)blockIdx.x * kWarps + warp; set < sets;
+       set += warps) {
+    const int64_t my_b = set + lane * sets;
+    int64_t cnt = 0;
+    if (my_b < B) cnt = indptr[my_b + 1] - indptr[my_b];
+    const unsigned dead = __ballot_sync(kFull, my_b < B && cnt == 0);
+    const unsigned live = __ballot_sync(kFull, cnt > 0);
+    for (unsigned m = dead; m; m &= m - 1) {
+      float* dst = out + (set + (__ffs(m) - 1) * sets) * F;
+      for (int f = lane; f < F; f += 32) dst[f] = 0.0f;
+    }
+    for (unsigned m = live; m; m &= m - 1) {
+      const int i = __ffs(m) - 1;
+      const int64_t b = set + i * sets;
+      const float denom = (float)__shfl_sync(kFull, cnt, i);
+      float* row = mean + b * D;
+      float* place = pm + pending * ld;
+      if (vec) {
+        for (int d = lane * 4; d < D; d += 128) {
+          float4 q = __ldcg(reinterpret_cast<const float4*>(row + d));
+          q.x /= denom;
+          q.y /= denom;
+          q.z /= denom;
+          q.w /= denom;
+          *reinterpret_cast<float4*>(row + d) = q;
+          *reinterpret_cast<float4*>(place + d) = q;
+        }
+      } else {
+        for (int d = lane; d < ld; d += 32) {
+          float v = 0.0f;
+          if (d < D) {
+            v = __ldcg(row + d) / denom;
+            row[d] = v;
+          }
+          place[d] = v;
+        }
+      }
+      if (lane == 0) prow[pending] = (int32_t)b;
+      if (++pending == places) {
+        __syncwarp();
+        product<kResident>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
+        __syncwarp();
+        pending = 0;
+      }
+    }
+  }
+  if (pending > 0) {
+    __syncwarp();
+    product<kResident>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
   }
 }
 
@@ -847,6 +952,33 @@ cudaError_t launch_fwd(const void* x, const int32_t* nbrs, const void* w,
   return cudaGetLastError();
 }
 
+template <typename W>
+cudaError_t launch_fin(float* mean, const int64_t* indptr, const void* w,
+                       float* out, int64_t B, int D, int F, int vec,
+                       cudaStream_t stream) {
+  const FwdPlan p = fwd_plan(D, F);
+  auto kernel = p.resident ? neighbor_agg_fin_kernel<true, W>
+                           : neighbor_agg_fin_kernel<false, W>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, p.smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t want = ((B + 31) / 32 + kWarps - 1) / kWarps;
+  const int64_t fit = (int64_t)per_sm * sms;
+  const unsigned blocks = (unsigned)(want < fit ? want : fit);
+  kernel<<<blocks, kThreads, p.smem, stream>>>(
+      mean, indptr, static_cast<const W*>(w), out, B, D, F, p.ld, p.wld,
+      p.places, (int)p.warp_bytes, vec);
+  return cudaGetLastError();
+}
+
 template <int V, typename T>
 cudaError_t launch_bwd(const float* g, const int32_t* cnt,
                        const int64_t* rowptr, const int32_t* rows,
@@ -908,6 +1040,21 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                             stream);
   return launch_fwd<float, float>(x, nbrs, w, out, mean_out, B, K, D, F, vec,
                                   id_vec, out_vec, stream);
+}
+
+// Row 5d's epilogue: ``mean`` (B, D) float32, the rows' sums in and
+// their means out, indptr (B + 1) int64, w (D, F) (``w_bf16``), out (B,
+// F) float32; ``vec``: D % 4 == 0 and mean 16-byte aligned.
+extern "C" cudaError_t neighbor_agg_fin_launch(float* mean,
+                                               const int64_t* indptr,
+                                               const void* w, float* out,
+                                               int64_t B, int D, int F,
+                                               int w_bf16, int vec,
+                                               cudaStream_t stream) {
+  if (w_bf16)
+    return launch_fin<__nv_bfloat16>(mean, indptr, w, out, B, D, F, vec,
+                                     stream);
+  return launch_fin<float>(mean, indptr, w, out, B, D, F, vec, stream);
 }
 
 // ``vec`` says that D is a multiple of 4 and g is 16-byte aligned. A

@@ -15,6 +15,14 @@ id: the caller may pass one it built with the neighbour matrix
 ``neighbor_agg_bwd.launches`` count the CUDA launches, so a run can show
 that its path went through the kernels.
 
+``neighbor_agg_csr`` (row 5d) is the same function over a CSR of the
+rows' neighbours, at any degree: on the card the backward kernel in its
+sum mode gives each row's sum (chunk units for the long rows), then an
+epilogue kernel divides by the count and multiplies by ``w``. Its
+backward is row 5's, over the by-source ``SlotIndex`` that
+``csr_transpose_index`` builds. ``neighbor_agg_csr.launches`` counts its
+calls on the card.
+
 ``segment_sum`` is the backward kernel in its sum mode over an edge list
 (each edge a bag of one slot): the GNN archs' sums of messages by an
 edge index, deterministic where ``index_add_`` adds with float atomics
@@ -29,10 +37,13 @@ from typing import NamedTuple
 import torch
 
 from .._build import load_extension, on_cuda
-from .ref import CHUNK, acc_dtype, neighbor_agg_bwd_ref, neighbor_mean_ref
+from .ref import (CHUNK, acc_dtype, neighbor_agg_bwd_ref,
+                  neighbor_agg_csr_bwd_ref, neighbor_mean_csr_ref,
+                  neighbor_mean_ref)
 
-__all__ = ["SlotIndex", "bwd_args_ok", "chunk_units", "gather_rows",
-           "launch_bwd", "neighbor_agg", "neighbor_agg_bwd", "segment_index",
+__all__ = ["SlotIndex", "bwd_args_ok", "chunk_units", "csr_transpose_index",
+           "gather_rows", "launch_bwd", "launch_csr", "neighbor_agg",
+           "neighbor_agg_bwd", "neighbor_agg_csr", "segment_index",
            "segment_sum", "transpose_index"]
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -84,6 +95,25 @@ def transpose_index(nbrs: torch.Tensor, n_rows: int) -> SlotIndex:
         ids, torch.arange(n_rows + 1, dtype=ids.dtype, device=ids.device))
     return SlotIndex((nbrs >= 0).sum(1, dtype=torch.int32), rowptr, rows,
                      *chunk_units(rowptr, pos.numel()))
+
+
+def csr_transpose_index(indptr: torch.Tensor, indices: torch.Tensor,
+                        n_rows: int) -> SlotIndex:
+    """The ``SlotIndex`` of a CSR (row b's neighbours ``indices[indptr[b]:
+    indptr[b + 1]]``, entries past ``indptr[B]`` ignored): its slots
+    grouped by id in (b, slot) order, the counts ``indptr[b + 1] -
+    indptr[b]``; in torch ops on the tensors' device with no sync (one
+    stable sort; the chunk units sized by ``indices``' length). It equals
+    ``transpose_index`` of the padded matrix of the same rows."""
+    E = indices.shape[0]
+    pos = torch.arange(E, dtype=indptr.dtype, device=indptr.device)
+    row = torch.searchsorted(indptr, pos, right=True) - 1
+    key = torch.where(pos < indptr[-1], indices.long(), n_rows)
+    skey, order = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(skey, torch.arange(
+        n_rows + 1, dtype=skey.dtype, device=skey.device))
+    return SlotIndex((indptr[1:] - indptr[:-1]).to(torch.int32), rowptr,
+                     row[order].to(torch.int32), *chunk_units(rowptr, E))
 
 
 def bwd_args_ok(name: str, g: torch.Tensor, nbrs: torch.Tensor,
@@ -163,6 +193,125 @@ class _NeighborAgg(torch.autograd.Function):
             grad_x = neighbor_agg_bwd(g @ w.to(dt).t(), nbrs, ctx.n_rows,
                                       ctx.x_dtype, ctx.index)
         return grad_x, None, grad_w, None
+
+
+def launch_csr(x: torch.Tensor, indptr: torch.Tensor,
+               indices: torch.Tensor, w: torch.Tensor,
+               units: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Row 5d's two launches on the card: the backward kernel in its sum
+    mode over the rows' CSR, then the epilogue, which turns the sums into
+    means in place. ``units`` is ``chunk_units(indptr, indices.shape[0])``
+    (built here when not given). Returns ``(out, mean)``; the wrapper that
+    calls it counts it."""
+    ext = load_extension()
+    hptr, hunit = units or chunk_units(indptr, indices.shape[0])
+    # the sum mode reads no count: an empty one allocates nothing
+    mean = ext.neighbor_agg_bwd(
+        x, indptr.new_empty(0, dtype=torch.int32), indptr, indices, hptr,
+        hunit, False, False)
+    return ext.neighbor_agg_fin(mean, indptr, w), mean
+
+
+class _NeighborAggCSR(torch.autograd.Function):
+    """Row 5d, ``mean(x[indices[indptr[b]:indptr[b + 1]]]) @ w``, with its
+    gradient for x and w (row 5's backward over the by-source index)."""
+
+    @staticmethod
+    def forward(ctx, x, indptr, indices, w, index, units):
+        want_mean = ctx.needs_input_grad[3]
+        if on_cuda(x, "neighbor_agg_csr"):
+            out, mean = launch_csr(x, indptr, indices, w, units)
+            neighbor_agg_csr.launches += 1
+        else:
+            mean, _ = neighbor_mean_csr_ref(x, indptr, indices)
+            out = (mean @ w.to(mean.dtype)).to(x.dtype)
+        ctx.save_for_backward(indptr, indices, w,
+                              mean if want_mean else None)
+        ctx.n_rows, ctx.x_dtype, ctx.index = x.shape[0], x.dtype, index
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        indptr, indices, w, mean = ctx.saved_tensors
+        dt = acc_dtype(ctx.x_dtype)
+        g = grad_out.to(dt)
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[3]:
+            grad_w = (mean.t() @ g).to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            gw = g @ w.to(dt).t()
+            if not on_cuda(gw, "neighbor_agg_csr"):
+                grad_x = neighbor_agg_csr_bwd_ref(gw, indptr, indices,
+                                                  ctx.n_rows)
+            else:
+                index = ctx.index or csr_transpose_index(indptr, indices,
+                                                         ctx.n_rows)
+                grad_x = load_extension().neighbor_agg_bwd(
+                    gw.contiguous(), *index, False, True)
+                neighbor_agg_bwd.launches += 1
+        return grad_x, None, None, grad_w, None, None
+
+
+def neighbor_agg_csr(x: torch.Tensor, indptr: torch.Tensor,
+                     indices: torch.Tensor, w: torch.Tensor,
+                     index: SlotIndex | None = None,
+                     units: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> torch.Tensor:
+    """Row 5d: ``neighbor_agg`` over a CSR of the rows' neighbours, at any
+    degree. x (N, D) float32 (float64 too on the CPU); indptr (B + 1)
+    int64 from 0, non-decreasing; indices int32 ids in [0, N), at least
+    ``indptr[B]`` of them (the rest ignored); w (D, F) float32 or
+    bfloat16 (float64 too on the CPU); all contiguous on one device.
+    Returns (B, F) in x's dtype: each row's float32 mean times ``w`` in
+    float32, 0 for a row with no slot. The mean adds a row's slots in
+    ``ref.py``'s chunk order (a row of at most 32 slots in slot order from
+    0, bit-equal to ``neighbor_agg``'s mean of the same row; a longer one
+    in chunks of 32, the partials in chunk order) and divides once by the
+    count; the card's mean equals ``ref.neighbor_mean_csr_ref`` bit for
+    bit, and its product agrees with the plain matmul within float32
+    rounding. Differentiable in x and w: grad_w is ``mean^T g`` (kept
+    float32 mean), grad_x row 5b's mean mode over ``index``, the
+    by-source ``csr_transpose_index(indptr, indices, N)``, and ``units``
+    the forward's ``chunk_units(indptr, indices.shape[0])`` (each built
+    here when not given; ``models.gnn.in_neighbors_csr`` builds both once
+    for every layer). No host sync.
+
+    On the card a call makes two kernel launches, row 5b's kernel in its
+    sum mode (a memset of its tickets first when a row has more than 32
+    slots) and the epilogue kernel, and counts one in
+    ``neighbor_agg_csr.launches``; its backward makes one, counted in
+    ``neighbor_agg_bwd.launches``. An id at or above N is not looked for.
+    """
+    if x.dim() != 2 or w.dim() != 2 or indptr.dim() != 1 or \
+            indices.dim() != 1:
+        raise ValueError(f"neighbor_agg_csr takes x (N, D), indptr (B + 1,),"
+                         f" indices (E,) and w (D, F), got {tuple(x.shape)},"
+                         f" {tuple(indptr.shape)}, {tuple(indices.shape)} "
+                         f"and {tuple(w.shape)}")
+    if w.shape[0] != x.shape[1]:
+        raise ValueError(f"w must be (D, F) with D = {x.shape[1]}, got "
+                         f"{tuple(w.shape)}")
+    if indptr.dtype != torch.int64 or indices.dtype != torch.int32:
+        raise ValueError(f"indptr must be int64 and indices int32, got "
+                         f"{indptr.dtype} and {indices.dtype}")
+    if indptr.numel() < 1:
+        raise ValueError("indptr must hold B + 1 offsets")
+    card = on_cuda(x, "neighbor_agg_csr")
+    x_ok = (torch.float32,) if card else (torch.float32, torch.float64)
+    w_ok = DTYPES if card else CPU_DTYPES
+    if x.dtype not in x_ok or w.dtype not in w_ok:
+        raise ValueError(f"x must be one of {x_ok} and w one of {w_ok}, "
+                         f"got {x.dtype} and {w.dtype}")
+    if not all(t.is_contiguous() for t in (x, indptr, indices, w)):
+        raise ValueError("x, indptr, indices and w must be contiguous")
+    if not (x.device == indptr.device == indices.device == w.device):
+        raise ValueError(f"x, indptr, indices and w must share one device, "
+                         f"got {x.device}, {indptr.device}, "
+                         f"{indices.device} and {w.device}")
+    return _NeighborAggCSR.apply(x, indptr, indices, w, index, units)
+
+
+neighbor_agg_csr.launches = 0
 
 
 def segment_index(ids: torch.Tensor, n_rows: int) -> SlotIndex:

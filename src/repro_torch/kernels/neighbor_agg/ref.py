@@ -28,6 +28,11 @@ and the kernel's result equals this one bit for bit. On the card
 ``index_add_`` adds with atomics, in an order that changes from run to
 run: there this version is a yardstick of time, not of bits.
 
+Row 5d (``neighbor_agg_csr``) is the same forward over a CSR of the
+rows' neighbours: row b's are ``indices[indptr[b]:indptr[b + 1]]``, and
+its mean sums them in the backward's chunk order, a row of at most
+``CHUNK`` slots in slot order (so its mean is row 5's bit for bit).
+
 A float64 input is summed in float64 (the CPU route only, for
 ``torch.autograd.gradcheck``); every other dtype in float32.
 """
@@ -72,6 +77,42 @@ def neighbor_agg_ref(x: torch.Tensor, nbrs: torch.Tensor,
     return (mean @ w.to(mean.dtype)).to(x.dtype)
 
 
+def _chunk_sum(contrib: torch.Tensor, ids: torch.Tensor,
+               n_rows: int) -> torch.Tensor:
+    """(n_rows, D): row u the sum of the rows of ``contrib`` (S, D) whose
+    id in ``ids`` (S,) int64, ascending, is u, in the chunk order of the
+    module's docstring: u's rows, in their order in ``contrib``, cut into
+    chunks of ``CHUNK``, each summed from 0, the partials added in chunk
+    order from 0 (two ``index_add_`` calls, which add in index order on
+    the CPU)."""
+    count = torch.bincount(ids, minlength=n_rows)
+    nchunk = (count + CHUNK - 1) // CHUNK
+    rank = (torch.arange(ids.numel(), device=contrib.device)
+            - (torch.cumsum(count, 0) - count)[ids])
+    chunk = (torch.cumsum(nchunk, 0) - nchunk)[ids] + rank // CHUNK
+    partial = torch.zeros((int(nchunk.sum()), contrib.shape[1]),
+                          dtype=contrib.dtype, device=contrib.device
+                          ).index_add_(0, chunk, contrib)
+    owner = torch.repeat_interleave(
+        torch.arange(n_rows, device=contrib.device), nchunk)
+    out = torch.zeros((n_rows, contrib.shape[1]), dtype=contrib.dtype,
+                      device=contrib.device)
+    return out.index_add_(0, owner, partial)
+
+
+def _slots_bwd(g: torch.Tensor, b: torch.Tensor, ids: torch.Tensor,
+               denom: torch.Tensor | None, n_rows: int) -> torch.Tensor:
+    """The backward over the valid slots listed in (b, j) order: slot s
+    of row ``b[s]`` names id ``ids[s]``; ``g[b] / denom[b]`` (no
+    division for a null ``denom``) summed by id in the chunk order."""
+    ids, perm = torch.sort(ids.long(), stable=True)
+    b = b[perm]
+    contrib = g.index_select(0, b)
+    if denom is not None:
+        contrib = contrib / denom.index_select(0, b)[:, None]
+    return _chunk_sum(contrib, ids, n_rows)
+
+
 def neighbor_agg_bwd_ref(g: torch.Tensor, nbrs: torch.Tensor,
                          n_rows: int, mean: bool = True) -> torch.Tensor:
     """The gradient of ``x`` through the mean: g (B, D) float32 (the
@@ -80,24 +121,58 @@ def neighbor_agg_bwd_ref(g: torch.Tensor, nbrs: torch.Tensor,
     each row id, in the chunk order of the module's docstring. With
     ``mean=False`` (the gradient through a bag's sum) there is no
     division: ``sum of g[b]``, in the same order."""
-    B, K = nbrs.shape
+    K = nbrs.shape[1]
     flat = nbrs.reshape(-1)
     pos = (flat >= 0).nonzero().squeeze(1)
-    # the valid slots grouped by id, each id's in (b, j) order
-    ids, perm = torch.sort(flat[pos].long(), stable=True)
-    b = torch.div(pos[perm], K, rounding_mode="floor")
-    contrib = g.index_select(0, b)
-    if mean:
-        denom = (nbrs >= 0).sum(1).clamp_min(1).to(g.dtype)
-        contrib = contrib / denom.index_select(0, b)[:, None]
-    count = torch.bincount(ids, minlength=n_rows)
-    nchunk = (count + CHUNK - 1) // CHUNK
-    rank = (torch.arange(ids.numel(), device=g.device)
-            - (torch.cumsum(count, 0) - count)[ids])
-    chunk = (torch.cumsum(nchunk, 0) - nchunk)[ids] + rank // CHUNK
-    partial = torch.zeros((int(nchunk.sum()), g.shape[1]), dtype=g.dtype,
-                          device=g.device).index_add_(0, chunk, contrib)
-    owner = torch.repeat_interleave(
-        torch.arange(n_rows, device=g.device), nchunk)
-    out = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype, device=g.device)
-    return out.index_add_(0, owner, partial)
+    denom = ((nbrs >= 0).sum(1).clamp_min(1).to(g.dtype) if mean
+             else None)
+    return _slots_bwd(g, torch.div(pos, K, rounding_mode="floor"),
+                      flat[pos], denom, n_rows)
+
+
+# ---- row 5d: the same functions over a CSR of the rows' neighbours
+
+def csr_rows(indptr: torch.Tensor) -> torch.Tensor:
+    """The row of each of the ``indptr[-1]`` slots of a CSR, in order."""
+    B = indptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(B, device=indptr.device), indptr[1:] - indptr[:-1])
+
+
+def neighbor_mean_csr_ref(x: torch.Tensor, indptr: torch.Tensor,
+                          indices: torch.Tensor):
+    """x (N, D) float; row b's neighbours ``indices[indptr[b]:indptr[b +
+    1]]``. Returns ``(mean, count)``: the (B, D) float32 (float64 for a
+    float64 x) mean of each row's neighbours, summed in the chunk order
+    (a row of at most ``CHUNK`` slots in slot order from 0, so equal bit
+    for bit to ``neighbor_mean_ref`` of the same row; a longer row in
+    chunks of ``CHUNK``, the partials in chunk order), then divided once
+    by ``max(count, 1)``; 0 for a row with no slot. count is (B,) int64."""
+    B = indptr.numel() - 1
+    dt = acc_dtype(x.dtype)
+    count = indptr[1:] - indptr[:-1]
+    rows = csr_rows(indptr)
+    contrib = x.index_select(0, indices[:rows.numel()].long()).to(dt)
+    sums = _chunk_sum(contrib, rows, B)
+    return sums / count.clamp_min(1).to(dt)[:, None], count
+
+
+def neighbor_agg_csr_ref(x: torch.Tensor, indptr: torch.Tensor,
+                         indices: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    """Row 5d's plain version: (B, F) in ``x.dtype``, the mean of
+    ``neighbor_mean_csr_ref`` times ``w`` in float32, rounded once."""
+    mean, _ = neighbor_mean_csr_ref(x, indptr, indices)
+    return (mean @ w.to(mean.dtype)).to(x.dtype)
+
+
+def neighbor_agg_csr_bwd_ref(g: torch.Tensor, indptr: torch.Tensor,
+                             indices: torch.Tensor,
+                             n_rows: int) -> torch.Tensor:
+    """The gradient of x through row 5d's mean: g (B, D) float32 (float64
+    too), ``sum of g[b] / max(count_b, 1)`` over the slots naming each
+    id, in (b, slot) order cut into chunks: ``neighbor_agg_bwd_ref`` of
+    the padded matrix, bit for bit."""
+    rows = csr_rows(indptr)
+    denom = (indptr[1:] - indptr[:-1]).clamp_min(1).to(g.dtype)
+    return _slots_bwd(g, rows, indices[:rows.numel()], denom, n_rows)

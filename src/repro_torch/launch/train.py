@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch graphsage-reddit --shape minibatch_lg --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch graphsage-reddit --shape ogb_products --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch stablelm-3b --reduced --steps 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch mixtral-8x22b --reduced --steps 4 --device cpu
@@ -16,7 +18,9 @@ and MoE) and two-tower families. It runs on the card unless ``--device cpu`` is
 given, and raises when there is no card. As the JAX launcher does:
 
 * GNN: it trains on one fixed batch from ``random_graph`` over the
-  shape's padded size (``build_graph_batch`` with 5 label classes), and
+  shape's padded size (``build_graph_batch`` with 5 label classes;
+  ``graph_batch``), full-batch ogb_products included (2,449,408 nodes,
+  61,859,328 edges: a batch of about 3.6 GB on the card), and
   draws every param as ``rng.normal(shape)`` in float32 times 0.1, cast
   to the param's dtype, in JAX's flatten order over the sorted keys (so
   the params equal the JAX launcher's bit for bit).
@@ -69,19 +73,28 @@ DEFAULT_SHAPE = {"lm": "train_4k", "gnn": "full_graph_sm",
                  "recsys": "train_batch"}
 
 
+def graph_batch(n: int, e: int, d_feat: int, device, seed: int = 0,
+                keys=None) -> dict:
+    """The JAX launcher's one GNN batch (``_gnn_batches``) at n nodes and
+    e edges: ``random_graph`` over n with e / n edges a node, cut to e,
+    then ``build_graph_batch`` with 5 label classes (JAX's ``int(labels
+    and 5) or 5``) padded to n and e; the arrays named in ``keys`` (all
+    when None), on ``device``."""
+    src, dst = random_graph(n, max(e / n, 1.0), seed=seed)
+    src, dst = src[:e], dst[:e]
+    base = build_graph_batch(n, src, dst, d_feat, 5, seed=seed,
+                             pad_nodes=n, pad_edges=e)
+    return {k: torch.from_numpy(v).to(device) for k, v in base.items()
+            if keys is None or k in keys}
+
+
 def gnn_batches(arch, shape: str, reduced: bool, device, seed: int = 0):
     """The JAX launcher's ``_gnn_batches``: one fixed batch for every
     step, the input spec's keys only, on ``device``."""
     spec = arch.input_specs(shape, reduced=reduced)
     (n, d_feat), _ = spec["nodes"]
-    e = spec["edge_src"][0][0]
-    src, dst = random_graph(n, max(e / n, 1.0), seed=seed)
-    src, dst = src[:e], dst[:e]
-    base = build_graph_batch(n, src, dst, d_feat,
-                             int(spec["labels"][0][0] and 5) or 5,
-                             seed=seed, pad_nodes=n, pad_edges=e)
-    base = {k: torch.from_numpy(v).to(device) for k, v in base.items()
-            if k in spec}
+    base = graph_batch(n, spec["edge_src"][0][0], d_feat, device, seed,
+                       keys=spec)
     return lambda step: base
 
 

@@ -26,14 +26,16 @@ padding edge's state ends in that product, so their gradients are zero
 too. ``gnn_loss``'s ``graph_reg`` pooling goes the same way by
 ``graph_id``.
 
-The GraphSAGE layer goes through ``neighbor_agg`` (the hand-written
-kernel of the mean and its projection) over a padded in-neighbour matrix
-that ``in_neighbors`` builds on the device once per forward. The JAX
-mean divides by every edge into a node, padding edges included, whose
-messages are zero (``_segment_agg(..., "mean")``); the kernel counts the
-valid slots only, so each row is scaled by ``max(valid, 1) / max(all,
-1)`` after it: 1 exactly on every row but the padding edges' target,
-node 0.
+The GraphSAGE layer goes through ``neighbor_agg_csr`` (row 5d: the
+hand-written kernels of the mean and its projection) over a CSR of the
+in-neighbours that ``in_neighbors_csr`` builds on the device once per
+forward, with no sync and at any degree: one path for a sampled batch
+and a full graph. The JAX mean divides by every edge into a node,
+padding edges included, whose messages are zero (``_segment_agg(...,
+"mean")``); the kernel counts the valid slots only, so each row is
+scaled by ``max(valid, 1) / max(all, 1)`` after it: 1 exactly on every
+row but the padding edges' target, node 0. ``in_neighbors`` pads the
+same CSR into row 5's (N, K) matrix, for row 5's own checks.
 
 Params are the JAX package's nested dicts, the MLPs bfloat16 as
 ``mlp_init`` draws them and the norm vectors float32, against float32
@@ -50,16 +52,16 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..configs import PENDING_FULL_BATCH
-from ..kernels.neighbor_agg.ops import (SlotIndex, chunk_units, gather_rows,
-                                        neighbor_agg, segment_index,
+from ..kernels.neighbor_agg.ops import (SlotIndex, chunk_units,
+                                        csr_transpose_index, gather_rows,
+                                        neighbor_agg_csr, segment_index,
                                         segment_sum)
 from .common import (DEFAULT_DTYPE, layer_norm, mlp_apply, mlp_init,
                      softmax_cross_entropy)
 
 ARCHS = ("gatedgcn", "meshgraphnet", "schnet", "graphsage")
 TASKS = ("node_class", "node_reg", "graph_reg")
-# int32 slot offsets of the neighbour matrix: N * K must stay below this
+# int32 slot offsets of row 5's padded matrix: N * K must stay below this
 MAX_SLOTS = 2 ** 31
 # The float32 norm vectors of gatedgcn and meshgraphnet layers and the
 # value ``init_gnn_params`` fills each with (JAX's ``jnp.ones``/``zeros``).
@@ -153,53 +155,69 @@ def init_gnn_params(gen: torch.Generator, cfg: GNNConfig,
 
 # -------------------------------------------------------------- neighbours
 
-def in_neighbors(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                 edge_mask: torch.Tensor, n_nodes: int):
-    """The padded in-neighbour matrix of the valid edges, on their device.
+def in_neighbors_csr(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                     edge_mask: torch.Tensor, n_nodes: int):
+    """The in-neighbours of the valid edges as a CSR, on their device, with
+    no host sync and no size limit.
 
-    Returns ``(nbrs, scale, index)``: nbrs (n_nodes, K) int32, row v
-    holding the sources of the valid edges into v in edge order (a stable
-    sort by destination, so duplicate edges stay), -1 past them, with K
-    the largest valid in-degree (at least 1); scale (n_nodes,) float32,
-    ``max(valid in-degree, 1) / max(in-degree, 1)`` with padding edges
-    counted, as the JAX mean counts them; index, the backward's
-    ``SlotIndex`` of nbrs, from a second stable sort (by source) of the
-    same edges, so both layers' backwards share it (its chunk units
-    sized by the E edges, a bound on the valid slots). Reading K syncs
-    once. Raises ``NotImplementedError`` when the matrix would pass 2**31
-    slots.
+    Returns ``(indptr, indices, scale, units, index)``: indptr (n_nodes +
+    1,) int64 and indices (E,) int32, node v's in-neighbours
+    ``indices[indptr[v]:indptr[v + 1]]``, the sources of the valid edges
+    into v in edge order (a stable sort by destination, so duplicate edges
+    stay), the invalid edges' sources past ``indptr[n_nodes]``; scale
+    (n_nodes,) float32, ``max(valid in-degree, 1) / max(in-degree, 1)``
+    with padding edges counted, as the JAX mean counts them; units, the
+    forward's ``chunk_units(indptr, E)``, and index, the backward's
+    by-source ``SlotIndex`` (``csr_transpose_index``), both built once so
+    that every layer's ``neighbor_agg_csr`` shares them.
     """
-    E = edge_dst.shape[0]
     dst = edge_dst.long()
     key = torch.where(edge_mask, dst, n_nodes)      # invalid edges last
     cnt_valid = torch.bincount(key, minlength=n_nodes + 1)[:n_nodes]
     cnt_all = torch.bincount(dst, minlength=n_nodes)[:n_nodes]
-    K = max(int(cnt_valid.max()), 1) if n_nodes else 1
-    if n_nodes * K >= MAX_SLOTS:
-        raise NotImplementedError(
-            f"the in-neighbour matrix would hold {n_nodes} x {K} slots, "
-            f"past 2**31; see {PENDING_FULL_BATCH}")
-    skey, order = torch.sort(key, stable=True)
-    start = torch.cumsum(cnt_valid, 0) - cnt_valid  # first slot of each row
-    valid = skey < n_nodes
-    row = skey.clamp_max(max(n_nodes - 1, 0))
-    slot = torch.arange(E, device=key.device) - start[row]
-    # invalid edges all land on one spare slot past the matrix
-    flat = torch.where(valid, row * K + slot, n_nodes * K)
-    nbrs = torch.full((n_nodes * K + 1,), -1, dtype=torch.int32,
-                      device=key.device)
-    nbrs[flat] = edge_src[order].to(torch.int32)
+    _, order = torch.sort(key, stable=True)
+    indptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=key.device)
+    torch.cumsum(cnt_valid, 0, out=indptr[1:])
+    indices = edge_src[order].to(torch.int32)
     scale = (cnt_valid.clamp_min(1).float()
              / cnt_all.clamp_min(1).float())
-    # the slots grouped by source in (row, slot) order: the valid edges
-    # in slot order, sorted stably by source (invalid edges last)
-    skey2 = torch.where(valid, edge_src[order].long(), n_nodes)
-    _, by_src = torch.sort(skey2, stable=True)
-    rowptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=key.device)
-    torch.cumsum(torch.bincount(skey2, minlength=n_nodes + 1)[:n_nodes], 0,
-                 out=rowptr[1:])
-    index = SlotIndex(cnt_valid.to(torch.int32), rowptr,
-                      row[by_src].to(torch.int32), *chunk_units(rowptr, E))
+    return (indptr, indices, scale, chunk_units(indptr, indices.shape[0]),
+            csr_transpose_index(indptr, indices, n_nodes))
+
+
+def in_neighbors(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                 edge_mask: torch.Tensor, n_nodes: int):
+    """The padded in-neighbour matrix of the valid edges, on their device:
+    the inputs of row 5 (``neighbor_agg``), for its checks and timings;
+    the GraphSAGE layer aggregates through ``in_neighbors_csr`` and row
+    5d.
+
+    Returns ``(nbrs, scale, index)``: nbrs (n_nodes, K) int32, row v
+    holding ``in_neighbors_csr``'s neighbours of v in order, -1 past them,
+    with K the largest valid in-degree (at least 1); scale and index as
+    ``in_neighbors_csr`` returns them (the index equals
+    ``transpose_index(nbrs, n_nodes)``). Reading K syncs once. Raises
+    ``ValueError`` when the matrix would pass 2**31 slots.
+    """
+    indptr, indices, scale, _, index = in_neighbors_csr(
+        edge_src, edge_dst, edge_mask, n_nodes)
+    cnt = indptr[1:] - indptr[:-1]
+    K = max(int(cnt.max()), 1) if n_nodes else 1
+    if n_nodes * K >= MAX_SLOTS:
+        raise ValueError(
+            f"the in-neighbour matrix would hold {n_nodes} x {K} slots, "
+            f"past 2**31; row 5d (neighbor_agg_csr over in_neighbors_csr) "
+            f"takes any degree")
+    E = indices.shape[0]
+    pos = torch.arange(E, device=indptr.device)
+    row = (torch.searchsorted(indptr, pos, right=True) - 1).clamp_max(
+        max(n_nodes - 1, 0))
+    # invalid edges all land on one spare slot past the matrix
+    flat = torch.where(pos < indptr[-1], row * K + pos - indptr[row],
+                       n_nodes * K)
+    nbrs = torch.full((n_nodes * K + 1,), -1, dtype=torch.int32,
+                      device=indptr.device)
+    nbrs[flat] = indices
     return nbrs[:n_nodes * K].view(n_nodes, K), scale, index
 
 
@@ -283,11 +301,12 @@ def _rbf_expand(dist: torch.Tensor, n_rbf: int,
 
 def _graphsage(params: dict, h: torch.Tensor, batch: dict,
                N: int) -> torch.Tensor:
-    nbrs, scale, index = in_neighbors(batch["edge_src"], batch["edge_dst"],
-                                      batch["edge_mask"], N)
+    indptr, indices, scale, units, index = in_neighbors_csr(
+        batch["edge_src"], batch["edge_dst"], batch["edge_mask"], N)
     for lp in params["layers"]:
         nbr = lp["w_nbr"]
-        agg = (neighbor_agg(h.contiguous(), nbrs, nbr["w0"], index)
+        agg = (neighbor_agg_csr(h.contiguous(), indptr, indices, nbr["w0"],
+                                index, units)
                * scale[:, None].to(h.dtype) + nbr["b0"])
         h = torch.relu(mlp_apply(lp["w_self"], h, 1) + agg)
         h = h / torch.linalg.vector_norm(h, dim=-1,

@@ -1,7 +1,7 @@
 """Compute the JAX package's losses that chip_smoke.py pins.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/jax_gnn_losses.py \
-        [--what {all,graphsage,archs}] [--port] [--stats]
+        [--what {all,graphsage,archs,full_batch}] [--port] [--stats]
 
 Runs, on the CPU, the JAX package on the inputs chip_smoke.py makes for
 its GNN phases, from the same numpy seeds and by the same recipe
@@ -22,10 +22,17 @@ its GNN phases, from the same numpy seeds and by the same recipe
     cast to bfloat16 and the norm vectors kept float32, as JAX's
     ``init_gnn_params`` has them);
   * ``GNN_ARCH_LAUNCHER_JAX_LOSSES``: the JAX train launcher's losses of
-    each of those three archs at its defaults for 3 steps.
+    each of those three archs at its defaults for 3 steps;
+  * ``GNN_FULL_BATCH_JAX_LOSSES`` (``--what full_batch`` only): the JAX
+    train launcher's first ``GNN_FB_STEPS`` losses of graphsage-reddit at
+    ogb_products (its config, its AdamW), its batch made by its own
+    ``_gnn_batches`` at ``GNN_FB_PIN_NODES`` nodes and
+    ``GNN_FB_PIN_EDGES`` edges (ogb_products' edges a node), where the
+    padded in-neighbour matrix would hold 3.82e9 slots. About 10 GB of
+    host memory and two minutes.
 
-``--what`` picks graphsage's pins, the three archs' or both (the
-default). With ``--stats`` it prints the shape of the first sampled
+``--what`` picks graphsage's pins, the three archs', both (the default)
+or the full-batch pins. With ``--stats`` it prints the shape of the first sampled
 batch: its valid edges, K (the largest valid in-degree) and how many
 slots of the in-neighbour matrix the busiest source id fills (the
 backward kernel's longest row). With ``--port`` it also runs the port
@@ -182,15 +189,62 @@ def launcher_losses(argv):
     return [m["loss"] for m in seen["res"].metrics_history]
 
 
+def full_batch_losses(port: bool):
+    """GNN_FULL_BATCH_JAX_LOSSES: the JAX launcher at ogb_products with
+    its ``_gnn_batches`` reading a spec of GNN_FB_PIN_NODES nodes and
+    GNN_FB_PIN_EDGES edges; with ``port``, the port's launcher on the
+    CPU on the same batch (its ``gnn_batches`` at the same sizes)."""
+    import types
+
+    from repro.configs.gnn_common import gnn_batch_specs
+    meta = dict(get_arch(cs.GNN_ARCH).shapes[cs.GNN_FB_SHAPE].meta,
+                nodes=cs.GNN_FB_PIN_NODES, edges=cs.GNN_FB_PIN_EDGES)
+    small = types.SimpleNamespace(args=(None, None, gnn_batch_specs(meta)))
+    argv = ["--arch", cs.GNN_ARCH, "--shape", cs.GNN_FB_SHAPE, "--steps",
+            str(cs.GNN_FB_STEPS)]
+    orig = jax_launch._gnn_batches
+    jax_launch._gnn_batches = lambda arch, plan, seed=0: orig(arch, small,
+                                                              seed)
+    try:
+        losses = launcher_losses(argv)
+    finally:
+        jax_launch._gnn_batches = orig
+    if not port:
+        return losses, None
+    from repro_torch.launch import train as port_launch
+    porig = port_launch.gnn_batches
+
+    def small_batches(arch, shape, reduced, device, seed=0):
+        b = port_launch.graph_batch(meta["nodes"], meta["edges"],
+                                    meta["d_feat"], device, seed)
+        return lambda step: b
+
+    port_launch.gnn_batches = small_batches
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            res = port_launch.main(argv + ["--ckpt_dir", d, "--device",
+                                           "cpu"])
+    finally:
+        port_launch.gnn_batches = porig
+    return losses, [m["loss"] for m in res.metrics_history]
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--what", choices=("all", "graphsage", "archs"),
+    ap.add_argument("--what", choices=("all", "graphsage", "archs",
+                                       "full_batch"),
                     default="all", help="which pins to compute")
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU and print its losses")
     ap.add_argument("--stats", action="store_true",
                     help="print the first sampled batch's shape")
     args = ap.parse_args()
+    if args.what == "full_batch":
+        jl, pl = full_batch_losses(args.port)
+        print("GNN_FULL_BATCH_JAX_LOSSES =", jl, flush=True)
+        if pl is not None:
+            print("port on the CPU:", pl, flush=True)
+        return
     if args.what in ("all", "archs"):
         print("GNN_ARCH_LAUNCHER_JAX_LOSSES =", {
             name: launcher_losses(["--arch", name, "--steps",

@@ -761,10 +761,55 @@ def test_cuda_neighbor_agg_backward_index_from_edges():
                        nops.neighbor_agg_bwd(g, nbrs, 3072))
 
 
+@pytest.mark.parametrize("lengths", [[3, 0, 5, 1, 32], [33, 0, 1000, 2],
+                                     [0, 2049, 0, 64, 65]])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_cuda_neighbor_agg_csr_equals_plain_version(lengths, wdtype):
+    """Row 5d on the card: its mean and its backward bit for bit against
+    the plain versions on the CPU (the chunk order), the output within
+    float32 rounding (the product's order), the same bits with the chunk
+    units built ahead, one counted launch a call."""
+    _need_card()
+    from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.kernels.neighbor_agg import ref as nref
+    rng = np.random.default_rng(len(lengths))
+    N, D, F = 300, 128, 64
+    indptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int64))
+    indices = torch.from_numpy(rng.integers(
+        0, N, size=int(indptr[-1]) + 4).astype(np.int32))
+    x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(D, F)) * 0.1).astype(
+        np.float32)).to(wdtype)
+    before = nops.neighbor_agg_csr.launches
+    out = nops.neighbor_agg_csr(x.cuda(), indptr.cuda(), indices.cuda(),
+                                w.cuda())
+    assert nops.neighbor_agg_csr.launches == before + 1
+    ext = load_extension()
+    again, mean = nops.launch_csr(x.cuda(), indptr.cuda(), indices.cuda(),
+                                  w.cuda())
+    want_mean, _ = nref.neighbor_mean_csr_ref(x, indptr, indices)
+    assert torch.equal(mean.cpu(), want_mean)
+    assert torch.equal(again, out)
+    units = nops.chunk_units(indptr.cuda(), indices.shape[0])
+    assert torch.equal(nops.neighbor_agg_csr(
+        x.cuda(), indptr.cuda(), indices.cuda(), w.cuda(), units=units), out)
+    torch.testing.assert_close(out.cpu(), nref.neighbor_agg_csr_ref(
+        x, indptr, indices, w), atol=1e-5, rtol=1e-5)
+    g = torch.randn((len(lengths), D), generator=torch.Generator()
+                    .manual_seed(1))
+    gx = ext.neighbor_agg_bwd(g.cuda(), *nops.csr_transpose_index(
+        indptr.cuda(), indices.cuda(), N), False, True)
+    assert torch.equal(gx.cpu(), nref.neighbor_agg_csr_bwd_ref(
+        g, indptr, indices, N))
+
+
 def test_cuda_graphsage_step_launches_two_forward_two_backward():
     """One training step of the reduced GraphSAGE on the card: each of the
-    two layers launches the forward kernel once and the backward once;
-    the loss agrees with the CPU run within float32 rounding."""
+    two layers launches the forward (row 5d, the CSR front end) once and
+    the backward once; the loss agrees with the CPU run within float32
+    rounding."""
     _need_card()
     from repro_torch.configs import get_arch
     from repro_torch.data.graphs import build_graph_batch, random_graph
@@ -782,10 +827,12 @@ def test_cuda_graphsage_step_launches_two_forward_two_backward():
     for dev in ("cpu", "cuda"):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
         p = tree_map(lambda t: t.to(dev), params)
-        before = (nops.neighbor_agg.launches, nops.neighbor_agg_bwd.launches)
+        before = (nops.neighbor_agg_csr.launches,
+                  nops.neighbor_agg_bwd.launches)
         loss, grads = value_and_grad(
             lambda q, bb: gnn.gnn_loss(q, bb, cfg), p, batch)
-        after = (nops.neighbor_agg.launches, nops.neighbor_agg_bwd.launches)
+        after = (nops.neighbor_agg_csr.launches,
+                 nops.neighbor_agg_bwd.launches)
         want = (0, 0) if dev == "cpu" else (2, 2)
         assert (after[0] - before[0], after[1] - before[1]) == want
         losses[dev] = float(loss)

@@ -129,8 +129,8 @@ def test_padding_edges_count_in_node_zero_denominator():
     n_pad = int((~b["edge_mask"]).sum())
     assert n_pad > 200 and (b["edge_dst"][~b["edge_mask"]] == 0).all()
     tb = to_torch(b)
-    nbrs, scale, _ = gnn.in_neighbors(tb["edge_src"], tb["edge_dst"],
-                                      tb["edge_mask"], 256)
+    _, _, scale, _, _ = gnn.in_neighbors_csr(
+        tb["edge_src"], tb["edge_dst"], tb["edge_mask"], 256)
     valid0 = int(((b["edge_dst"] == 0) & b["edge_mask"]).sum())
     assert float(scale[0]) == pytest.approx(max(valid0, 1)
                                             / (valid0 + n_pad))
@@ -140,13 +140,13 @@ def test_padding_edges_count_in_node_zero_denominator():
     got = gnn.gnn_forward(p, tb, cfg).detach().numpy()
     np.testing.assert_allclose(got, want, **TOL)
     # without the scale node 0 (a node the loss counts) would differ
-    orig = gnn.in_neighbors
+    orig = gnn.in_neighbors_csr
     try:
-        gnn.in_neighbors = lambda *a: (orig(*a)[0], torch.ones(256),
-                                       orig(*a)[2])
+        gnn.in_neighbors_csr = lambda *a: (*orig(*a)[:2], torch.ones(256),
+                                           *orig(*a)[3:])
         unscaled = gnn.gnn_forward(p, tb, cfg).detach().numpy()
     finally:
-        gnn.in_neighbors = orig
+        gnn.in_neighbors_csr = orig
     assert np.abs(unscaled[0] - want[0]).max() > 1e-3
 
 
@@ -199,11 +199,107 @@ def test_in_neighbors_index_equals_transpose_index(kind):
 
 
 def test_in_neighbors_past_2_31_slots_raises(monkeypatch):
+    """Row 5's padded matrix still has its limit, and raises naming row
+    5d; GraphSAGE does not build it: with the limit so low that any
+    padded matrix of the batch would raise, the model runs through row 5d
+    and equals JAX."""
     monkeypatch.setattr(gnn, "MAX_SLOTS", 12)
     src = torch.tensor([1, 2, 3, 0], dtype=torch.int32)
     dst = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 15j"):
+    with pytest.raises(ValueError, match="row 5d"):
         gnn.in_neighbors(src, dst, torch.ones(4, dtype=torch.bool), 4)
+    cfg, jcfg = configs()
+    b = graph_batch(cfg)
+    tb = to_torch(b)
+    with pytest.raises(ValueError, match="past 2\\*\\*31"):
+        gnn.in_neighbors(tb["edge_src"], tb["edge_dst"], tb["edge_mask"],
+                         256)
+    jp, p = same_params(jcfg, cfg)
+    want = np.asarray(jax_gnn.gnn_forward(jp, to_jax(b), jcfg))
+    np.testing.assert_allclose(
+        gnn.gnn_forward(p, tb, cfg).detach().numpy(), want, **TOL)
+
+
+def numpy_csr(b, n):
+    """The in-neighbour CSR by a numpy stable argsort by destination."""
+    valid = b["edge_mask"]
+    key = np.where(valid, b["edge_dst"].astype(np.int64), n)
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(b["edge_dst"][valid], minlength=n)
+    return (np.concatenate([[0], np.cumsum(counts)]),
+            b["edge_src"][order][:int(valid.sum())])
+
+
+@pytest.mark.parametrize("kind", ["graph", "sampled", "hubs"])
+def test_in_neighbors_csr_equals_a_numpy_stable_argsort(kind):
+    """The CSR (duplicates kept, each node's edges in edge order, the
+    invalid ones past indptr[N]) equals numpy's stable argsort by
+    destination, its backward index equals ``transpose_index`` of the
+    padded matrix of the same rows, and its forward chunk units are
+    ceil(count / 32) for each row past 32 slots."""
+    from repro_torch.kernels.neighbor_agg.ops import transpose_index
+    cfg, _ = configs()
+    if kind == "hubs":
+        b = graph_batch(cfg, n=3000, e=18000, pad_nodes=3072,
+                        pad_edges=20480, seed=2)
+    else:
+        b = graph_batch(cfg) if kind == "graph" else sampled_batch(cfg)
+    tb = to_torch(b)
+    n = tb["nodes"].shape[0]
+    indptr, indices, scale, fwd, index = gnn.in_neighbors_csr(
+        tb["edge_src"], tb["edge_dst"], tb["edge_mask"], n)
+    want_ptr, want_idx = numpy_csr(b, n)
+    assert indptr.dtype == torch.int64 and indices.dtype == torch.int32
+    assert indices.shape == tb["edge_src"].shape
+    assert np.array_equal(indptr.numpy(), want_ptr)
+    assert np.array_equal(indices[:want_idx.size].numpy(), want_idx)
+    nbrs, pscale, pindex = gnn.in_neighbors(tb["edge_src"], tb["edge_dst"],
+                                            tb["edge_mask"], n)
+    assert torch.equal(scale, pscale)
+    want = transpose_index(nbrs, n)
+    for got in (index, pindex):
+        assert torch.equal(got.cnt, want.cnt)
+        assert torch.equal(got.rowptr, want.rowptr)
+        assert torch.equal(got.rows[:int(got.rowptr[-1])], want.rows)
+        assert torch.equal(got.hptr, want.hptr)
+        units = int(got.hptr[-1])
+        assert torch.equal(got.hunit[:units], want.hunit[:units])
+    # the forward's chunk units: ceil(count / 32) for each row past 32
+    cnt = np.diff(want_ptr)
+    long = cnt > 32
+    assert int(fwd[0][-1]) == int(((cnt[long] + 31) // 32).sum())
+    assert np.array_equal(np.diff(fwd[0].numpy()),
+                          np.where(long, (cnt + 31) // 32, 0))
+    if kind == "hubs":
+        assert int((indptr[1:] - indptr[:-1]).max()) > 32
+
+
+def test_hub_graph_loss_and_gradients_equal_jax():
+    """GraphSAGE on ``random_graph(4096, 25.25)``, whose busiest rows pass
+    32 slots (so row 5d sums them in chunks): the loss and every
+    gradient equal ``jax.value_and_grad`` of JAX's ``gnn_loss`` within
+    2e-5, in float32 params (so the gradients are float32 too)."""
+    cfg, jcfg = configs()
+    src, dst = graphs.random_graph(4096, 25.25, seed=0)
+    b = graphs.build_graph_batch(4096, src, dst, cfg.d_in, cfg.n_classes,
+                                 seed=0, pad_nodes=4096,
+                                 pad_edges=src.size + 512)
+    assert np.bincount(dst).max() > 32
+    jp, _ = same_params(jcfg, cfg, seed=4)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    p = convert.gnn_params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                      dtype=torch.float32)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda q: jax_gnn.gnn_loss(q, to_jax(b), jcfg)))(jp)
+    loss, g = value_and_grad(lambda q, bb: gnn.gnn_loss(q, bb, cfg), p,
+                             to_torch(b))
+    assert float(loss) == pytest.approx(float(jl), rel=2e-5, abs=2e-5)
+    from repro_torch.train.tree import tree_flatten
+    got, want = tree_flatten(g), jax.tree.leaves(jg)
+    assert len(got) == len(want) == 14
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
 
 
 @pytest.mark.parametrize("task,shape", [("node_reg", "full_graph_sm"),
