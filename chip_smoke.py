@@ -698,6 +698,8 @@ GNN_KEYS = ("nodes", "edge_src", "edge_dst", "edge_mask", "node_mask",
 # FP32 CUDA-core peak of one H100 SXM (NVIDIA's data sheet): the
 # operations bound of neighbor_agg (float32 gathers, means and product).
 FP32_FLOPS = 67e12
+# TF32 tensor-core peak (dense) of the same card: row 5d's product.
+TF32_FLOPS = 495e12
 # neighbor_agg on the card against its plain version: the mean is a
 # float32 sum in slot order in both (compared bit for bit); the product
 # sums over D in another order (float32 rounding), and a bf16 output
@@ -706,6 +708,16 @@ FP32_FLOPS = 67e12
 # chunk order of ref.py in both), not to this tolerance.
 NA_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
           "bfloat16": dict(atol=1e-5, rtol=2 ** -7)}
+# Row 5d's output against its plain version (the float32 mean times w):
+# the tile kernel multiplies on the tensor cores, each float32 mean split
+# into hi = tf32(mean) and lo = tf32(mean - hi) (together within 2**-24 of
+# the mean), w bfloat16 (exact in TF32) or split the same way (a third
+# product, hi w_lo), every product exact, summed in float32 in the mma's
+# depth steps: float32 rounding of another order, as before, so the
+# tolerance stays NA_TOL's float32 one, no looser. One TF32 product (no
+# split) is off by up to 2**-12 of each term and fails it
+# (tests/test_torch_neighbor_agg_csr.py). The mean stays bit for bit.
+NA_CSR_TOL = dict(atol=1e-5, rtol=1e-5)
 # The first losses of gnn_train and of the launcher at minibatch_lg for 5
 # steps, from the JAX package on the CPU (tests/jax_gnn_losses.py).
 GNN_JAX_LOSSES = [3.7235753536224365, 3.68819260597229, 3.634840965270996]
@@ -1468,6 +1480,41 @@ def phase_profile(label, fn, watch=()):
               if watch else {}))
 
 
+def kernel_split(fn, iters: int = 5) -> dict:
+    """Each launch's share of ``fn``: its device events (kernels and
+    memsets) under torch.profiler over ``iters`` calls after one warm-up,
+    summed by the kernel's name (namespace and template arguments cut),
+    ms a call. The window opens as phase_profile's does, and only events
+    inside the calls' PROFILE_MARK range count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    one = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP_LAUNCHES):
+            one.add_(1.0)
+        torch.cuda.synchronize()
+        with record_function(PROFILE_MARK):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == PROFILE_MARK)
+    split = collections.Counter()
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.name != PROFILE_MARK
+                and e.time_range.start >= start):
+            name = e.name.split("<")[0].split("::")[-1].split("(")[0]
+            split[name.removeprefix("void ").strip()] += \
+                e.time_range.elapsed_us()
+    return {k: us / iters / 1e3 for k, us in split.items()}
+
+
 def bag_case(bops, bref, table, ids, combine, row, timed):
     """One EmbeddingBag case: the kernel against its plain version
     (``torch.equal``); when ``timed``, the kernel's, the plain version's
@@ -1853,9 +1900,11 @@ def phase_kernel_bag_bwd(bops, bref):
     RecsysStream at V = 2,097,152, timed eagerly (the kernel alone on a
     built index, and the wrapper with its index build) and in a CUDA
     graph, beside the plain version on the card and autograd's backward
-    of F.embedding_bag(mode='mean') (its forward not timed), and for the
-    user tower again with the heaviest id's, then every heavy id's,
-    slots moved to random rows (the split of the heavy ids' cost).
+    of F.embedding_bag(mode='mean') (its forward not timed), with each
+    launch's share (the tickets' memset and the one launch of the heavy
+    and light passes), and for the user tower again with the heaviest
+    id's, then every heavy id's, slots moved to random rows (the split
+    of the heavy ids' cost).
     Returns the user tower's timed row and the worst error."""
     import numpy as np
     import torch
@@ -1967,7 +2016,15 @@ def phase_kernel_bag_bwd(bops, bref):
                          "padding_idx=V) on a zero-padded table, forward "
                          "not timed",
             library_max_abs_err=float((lib_grad[:V] - out).abs().max()),
-            bytes=nbytes, bound_ms=bound, bound_by="bytes")
+            bytes=nbytes, bound_ms=bound, bound_by="bytes",
+            # each launch's share (the memset, the one launch of both
+            # passes), and the light pass alone (the light ids and the
+            # runs of empty ids: no unit list, so no heavy block)
+            split_ms=kernel_split(lambda: ext.neighbor_agg_bwd(
+                g, *index, False, True)),
+            light_pass_ms=cuda_ms(lambda: ext.neighbor_agg_bwd(
+                g, *index[:4], index.hunit[:0], False, True), reps=5,
+                iters=10, warmup=3))
         if side == "user":
             # where the time goes: the same launch with the heaviest id's
             # slots, then every heavy id's (more than CHUNK slots), moved
@@ -4453,9 +4510,11 @@ def neighbor_agg_csr_bound(x, indptr, indices, w, with_mean):
     """(FLOPs, bytes, bound ms, bound_by) of one row 5d forward: the rows
     of x that the slots name, indptr, the valid indices and w read once,
     the float32 output (and the mean, when training keeps it) written
-    once; one add per valid slot and element, 2 D F FLOP for the product
-    of each row with a slot. The rows a hub names again (31.7 GB of
-    gathers at the ogb layer) are not counted: each is one read."""
+    once; one add per valid slot and element on the CUDA cores, and the
+    product of each row with a slot on the tensor cores in TF32, 2 D F a
+    row for each of its products (two for a bfloat16 w, the mean's two
+    TF32 parts; three for a float32 w). The rows a hub names again (31.7
+    GB of gathers at the ogb layer) are not counted: each is one read."""
     import torch
     B = indptr.numel() - 1
     D, F = w.shape
@@ -4465,9 +4524,11 @@ def neighbor_agg_csr_bound(x, indptr, indices, w, with_mean):
     nbytes = (rows * D * x.element_size() + (B + 1) * 8 + E * 4
               + w.numel() * w.element_size() + B * F * 4
               + (B * D * 4 if with_mean else 0))
-    flops = E * D + 2 * live * D * F
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return flops, nbytes, max(t_ops, t_bytes) * 1e3, (
+    products = 2 if w.dtype == torch.bfloat16 else 3
+    adds, mma = E * D, products * 2 * live * D * F
+    t_ops = adds / FP32_FLOPS + mma / TF32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return adds + mma, nbytes, max(t_ops, t_bytes) * 1e3, (
         "operations" if t_ops > t_bytes else "bytes")
 
 
@@ -4475,10 +4536,10 @@ def csr_case(nops, nref, x, indptr, indices, w, row, on_cpu=True):
     """One row 5d case on the card. With ``on_cpu``: the card's mean and
     its backward (row 5b's mean mode over ``csr_transpose_index``) bit
     for bit against the plain versions on the CPU (``index_add_`` in the
-    chunk order), the output within NA_TOL (the product's order), each
+    chunk order), the output within NA_CSR_TOL (the product's order), each
     equal to itself on a second run. Without (the ogb layer, too large for
-    the host's plain version): the output and the mean within NA_TOL of
-    the plain version on the card, whose atomics add in another order.
+    the host's plain version): the output and the mean within NA_CSR_TOL
+    of the plain version on the card, whose atomics add in another order.
     Returns the forward's and the backward's max abs error."""
     import torch
     from repro_torch.kernels._build import load_extension
@@ -4499,7 +4560,7 @@ def csr_case(nops, nref, x, indptr, indices, w, row, on_cpu=True):
     row = {"phase": "kernel_neighbor_agg_csr", **row,
            **csr_stats(indptr, indices), "N": N, "D": x.shape[1],
            "F": w.shape[1], "w_dtype": str(w.dtype).removeprefix("torch."),
-           "fwd_tol": NA_TOL["float32"],
+           "fwd_tol": NA_CSR_TOL,
            "fwd_run_to_run_equal": torch.equal(out, again),
            "bwd_run_to_run_equal": torch.equal(gx, gx2),
            "plain_on": "cpu" if on_cpu else "cuda"}
@@ -4524,13 +4585,13 @@ def csr_case(nops, nref, x, indptr, indices, w, row, on_cpu=True):
         row.update(mean_max_abs_err=float(
             (got_mean - want_mean).abs().max()),
             mean_close=torch.allclose(got_mean, want_mean,
-                                      **NA_TOL["float32"]),
+                                      **NA_CSR_TOL),
             bwd_max_abs_err=None)
         ok = row["mean_close"]
         del want_mean
     row.update(fwd_max_abs_err=float((got - want).abs().max())
                if got.numel() else 0.0,
-               close=torch.allclose(got, want, **NA_TOL["float32"]))
+               close=torch.allclose(got, want, **NA_CSR_TOL))
     emit(row)
     if not (ok and row["close"] and row["fwd_run_to_run_equal"]
             and row["bwd_run_to_run_equal"]):
@@ -4542,9 +4603,12 @@ def csr_case(nops, nref, x, indptr, indices, w, row, on_cpu=True):
 def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
     """Row 5d at one layer: eager and in a CUDA graph with its chunk units
     built ahead, as the model's layers call it (and eager with the
-    wrapper building them), its two launches apart, the plain version, ``F.embedding_bag`` (mean, by offsets) then
-    ``torch.matmul``, the bound; then row 5b's backward over the layer's
-    by-source index."""
+    wrapper building them), each launch's share (the tickets' memset, the
+    heavy pass, the tile kernel), the plain version, ``F.embedding_bag``
+    (mean, by offsets) then ``torch.matmul``, the bound; the call and its
+    shares without the busiest row (what its chunks and their ordered
+    tail cost); then row 5b's backward over the layer's by-source index,
+    with its shares."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels._build import load_extension
@@ -4554,29 +4618,24 @@ def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
     flops, nbytes, bound_ms, bound_by = neighbor_agg_csr_bound(
         x, indptr, indices, w, True)
     units = nops.chunk_units(indptr, indices.shape[0])
-    none = torch.empty(0, dtype=torch.int32, device="cuda")
-    sums = ext.neighbor_agg_bwd(x, none, indptr, indices, *units, False,
-                                False)
-    scratch = sums.clone()
     reps = dict(reps=3, iters=iters, warmup=2)
+
+    def call():
+        return nops.neighbor_agg_csr(x, indptr, indices, w, units=units)
+
     row = {"phase": "kernel_neighbor_agg_csr_timed", "layer": label,
            **csr_stats(indptr, indices), "N": N, "D": D, "F": w.shape[1],
            "chunk_units": int(units[0][-1]),
-           "ms": cuda_ms(lambda: nops.neighbor_agg_csr(
-               x, indptr, indices, w, units=units), **reps),
-           "graph_ms": graph_ms(lambda: nops.neighbor_agg_csr(
-               x, indptr, indices, w, units=units), iters=iters),
+           "ms": cuda_ms(call, **reps),
+           "graph_ms": graph_ms(call, iters=iters),
            "with_units_build_ms": cuda_ms(lambda: nops.neighbor_agg_csr(
                x, indptr, indices, w), **reps),
-           "sum_ms": cuda_ms(lambda: ext.neighbor_agg_bwd(
-               x, none, indptr, indices, *units, False, False), **reps),
-           "epilogue_ms": cuda_ms(lambda: ext.neighbor_agg_fin(
-               scratch, indptr, w), **reps),
+           "split_ms": kernel_split(call, iters=min(iters, 5)),
            "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": bound_by,
            "gathered_bytes": E * D * x.element_size()}
-    # the sum without the busiest row's slots: what its chunk partials,
-    # added in order by one warp, cost beyond the rest
+    # without the busiest row's slots: what its chunk partials and their
+    # ordered tail cost beyond the rest
     cnt = indptr[1:] - indptr[:-1]
     hub = int(cnt.argmax())
     lo, hi = int(indptr[hub]), int(indptr[hub + 1])
@@ -4584,12 +4643,16 @@ def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
                            indptr - (hi - lo), indptr)
     rest_idx = torch.cat([indices[:lo], indices[hi:]])
     rest_units = nops.chunk_units(rest_ptr, rest_idx.shape[0])
+
+    def rest():
+        return nops.neighbor_agg_csr(x, rest_ptr, rest_idx, w,
+                                     units=rest_units)
+
     row.update(busiest_row=hub, busiest_row_slots=hi - lo,
-               sum_without_busiest_row_ms=cuda_ms(
-                   lambda: ext.neighbor_agg_bwd(
-                       x, none, rest_ptr, rest_idx, *rest_units, False,
-                       False), **reps))
-    del sums, scratch, rest_ptr, rest_idx, rest_units
+               without_busiest_row_ms=cuda_ms(rest, **reps),
+               without_busiest_row_split_ms=kernel_split(
+                   rest, iters=min(iters, 5)))
+    del rest_ptr, rest_idx, rest_units
     row["plain_ms"] = cuda_ms(lambda: nref.neighbor_agg_csr_ref(
         x, indptr, indices, w), reps=2, iters=1, warmup=1)
     torch.cuda.empty_cache()
@@ -4597,8 +4660,7 @@ def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
     offsets = indptr[:-1]
     wf = w.float()
     lib = F.embedding_bag(ids, x, offsets, mode="mean") @ wf
-    row["library_max_abs_err"] = float(
-        (lib - nops.neighbor_agg_csr(x, indptr, indices, w)).abs().max())
+    row["library_max_abs_err"] = float((lib - call()).abs().max())
     del lib
     row.update(library_ms=cuda_ms(lambda: F.embedding_bag(
         ids, x, offsets, mode="mean") @ wf, **reps),
@@ -4609,9 +4671,13 @@ def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
     g = torch.randn((indptr.numel() - 1, D), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
     index = nops.csr_transpose_index(indptr, indices, N)
+
+    def backward():
+        return ext.neighbor_agg_bwd(g, *index, False, True)
+
     row["backward"] = {
-        "ms": cuda_ms(lambda: ext.neighbor_agg_bwd(g, *index, False, True),
-                      **reps),
+        "ms": cuda_ms(backward, **reps),
+        "split_ms": kernel_split(backward, iters=min(iters, 5)),
         "chunk_units": int(index.hptr[-1]),
         "heaviest_id_slots": int((index.rowptr[1:]
                                   - index.rowptr[:-1]).max())}
@@ -4622,14 +4688,18 @@ def csr_timed(nops, nref, x, indptr, indices, w, label, iters):
 
 
 def phase_kernel_neighbor_agg_csr(nops, nref, first, pin_batch, ogb_batch):
-    """Row 5d on the card: bit for bit against its plain version on the
-    CPU on small CSRs (row 5's shapes as CSRs, hub rows of 33 to 2,049
-    slots, rows with none), at the minibatch_lg layer (the first sampled
-    batch) and at the full-batch pin graph (131,072 nodes, 3.3M edges);
-    within float32 rounding of the plain version on the card at the ogb
-    layer (2,449,408 nodes, 61.9M edges). Timed at the ogb layer and the
-    minibatch_lg layer. Returns the ogb row (the minibatch row in it)
-    and the worst forward and backward errors."""
+    """Row 5d on the card: its mean and backward bit for bit against the
+    plain versions on the CPU, its output within NA_CSR_TOL, on small
+    CSRs (row 5's shapes as CSRs, hub rows of 33 to 2,049 slots, rows
+    with none, F = 200 in two panels; then in bf16 and float32 w the tile
+    kernel's edges: rows of 0, 32, 33, 1,024 and 1,025 slots, a hub of
+    100,003, a tile of heavy rows only, a partial last tile, D = 256), at
+    the minibatch_lg layer (the first sampled batch) and at the full-batch
+    pin graph (131,072 nodes, 3.3M edges); within NA_CSR_TOL of the plain
+    version on the card at the ogb layer (2,449,408 nodes, 61.9M edges).
+    Timed at the ogb layer and the minibatch_lg layer with each launch's
+    share. Returns the ogb row (the minibatch row in it) and the worst
+    forward and backward errors."""
     import numpy as np
     import torch
     from repro_torch.models import gnn
@@ -4648,7 +4718,20 @@ def phase_kernel_neighbor_agg_csr(nops, nref, first, pin_batch, ogb_batch):
              (50, 33, 7, [1, 0, 40, 70, 1], "float32"),
              (40, 5, 3, [0, 0, 2049, 0, 3], "bfloat16"),
              (300, 128, 128, [25] * 60 + [0] * 3 + [777], "bfloat16"),
-             (10, 16, 8, [0, 0, 0], "float32")]
+             (10, 16, 8, [0, 0, 0], "float32"),
+             (300, 128, 200, [25] * 70 + [0] * 3 + [777], "float32")]
+    # the tile kernel's edges, in both w dtypes: rows of 0, 32, 33, 1,024
+    # and 1,025 slots; a hub of 100,003 (not a multiple of 32; its tail
+    # through the heavy pass's ring); a tile of heavy rows only; a partial
+    # last tile (B = 209); D = 256 (two vectors a lane in the ring)
+    edges = np.random.default_rng(33)
+    for wd in ("bfloat16", "float32"):
+        small += [(500, 128, 128, [0, 32, 33, 1024, 1025, 3, 0, 1], wd),
+                  (3000, 128, 128, [5, 100_003, 0, 40, 7], wd),
+                  (400, 128, 128, list(edges.integers(33, 200, size=64)),
+                   wd),
+                  (300, 128, 128, list(edges.integers(0, 40, size=209)), wd),
+                  (64, 256, 128, [3, 0, 500, 33, 1], wd)]
     for N, D, F_, lengths, wd in small:
         rng = np.random.default_rng(N + D)
         indptr = torch.from_numpy(np.concatenate(
@@ -4662,8 +4745,8 @@ def phase_kernel_neighbor_agg_csr(nops, nref, first, pin_batch, ogb_batch):
             np.float32)).to(getattr(torch, wd)).cuda()
         worst = tuple(map(max, worst, csr_case(
             nops, nref, x, indptr, indices, w,
-            {"case": f"small, rows of {min(lengths)}-{max(lengths)} "
-                     f"slots"})))
+            {"case": f"small, {len(lengths)} rows of {min(lengths)}-"
+                     f"{max(lengths)} slots, D {D}, F {F_}, w {wd}"})))
 
     for label, b, on_cpu in (("minibatch_lg layer", first, True),
                              ("full-batch pin graph", pin_batch, True),
@@ -4681,8 +4764,9 @@ def phase_kernel_neighbor_agg_csr(nops, nref, first, pin_batch, ogb_batch):
         del x, w, indptr, indices
         torch.cuda.empty_cache()
     row["minibatch_lg_layer"] = {k: mb[k] for k in (
-        "ms", "graph_ms", "with_units_build_ms", "sum_ms", "epilogue_ms", "plain_ms", "library_ms",
-        "bound_ms", "bound_by", "backward", "valid_slots", "K")}
+        "ms", "graph_ms", "with_units_build_ms", "split_ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by", "backward", "valid_slots",
+        "K")}
     return row, worst
 
 
@@ -4838,7 +4922,7 @@ def phase_gnn_full_batch(launches, batch_at, build_s):
     o = init_adamw(params, opt_cfg)
     phase_profile("gnn_full_batch_step", lambda: step_fn(params, o, tb),
                   watch=("neighbor_agg_bwd_kernel",
-                         "neighbor_agg_fin_kernel"))
+                         "neighbor_agg_tile_kernel"))
     return row
 
 
@@ -6656,13 +6740,16 @@ def main() -> int:
               None, bag_bwd_row, worst_bag_bwd,
               graph_ms=bag_bwd_row["graph_ms"],
               wrapper_ms=bag_bwd_row["wrapper_ms"],
+              split_ms=bag_bwd_row["split_ms"],
+              light_pass_ms=bag_bwd_row["light_pass_ms"],
               item_tower=bag_bwd_row["item_tower"],
               note="the table's gradient through embedding_bag_kernel, "
                    "src/repro/kernels/embedding_bag/kernel.py:73, which "
                    "has no TPU backward (the JAX model differentiates "
-                   "jnp.take): row 5b's kernel (neighbor_agg_bwd) with "
-                   "the bags as rows, in its mean mode; timed at the "
-                   "training shape's user tower"),
+                   "jnp.take): row 5b's kernels (neighbor_agg_bwd: the "
+                   "heavy pass, then the light pass) with the bags as "
+                   "rows, in its mean mode; timed at the training "
+                   "shape's user tower"),
         entry("flash_attention",
               csrc + "flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:111",
@@ -6680,23 +6767,25 @@ def main() -> int:
                    "einsum attention); bf16 at D <= 128 on wgmma, D = 80 "
                    "padded to 96; timed at the LM training shape"),
         # the padded front end: GraphSAGE runs row 5d, whose launches
-        # are other kernels (row 5b's and the epilogue) in its own entry
+        # are other kernels (the heavy pass and the tile kernel) in its
+        # own entry
         entry("neighbor_agg", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               "src/repro/kernels/neighbor_agg/kernel.py:72", na_row,
               worst_na, launcher_batch=na_row["launcher_batch"]),
         entry("neighbor_agg_csr", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               "src/repro/kernels/neighbor_agg/kernel.py:72", csr_row,
               worst_csr, **{key: csr_row[key] for key in (
-                  "graph_ms", "with_units_build_ms", "sum_ms",
-                  "epilogue_ms", "chunk_units",
-                  "sum_without_busiest_row_ms", "busiest_row_slots",
+                  "graph_ms", "with_units_build_ms", "split_ms",
+                  "chunk_units", "without_busiest_row_ms",
+                  "without_busiest_row_split_ms", "busiest_row_slots",
                   "gnn_full_batch_step_ms")},
               minibatch_lg_layer=csr_row["minibatch_lg_layer"],
               note="the CSR front end of neighbor_agg_kernel (row 5d): "
-                   "row 5b's kernel in its sum mode over the rows' CSR, "
-                   "then an epilogue kernel (the TPU body's _fin: the "
-                   "division by the count and the product with w); timed "
-                   "at the ogb_products layer"),
+                   "row 5b's heavy pass over the rows' CSR (the means of "
+                   "the rows past 32 slots), then the tile kernel (the "
+                   "other rows' means and the TPU body's _fin, the "
+                   "product with w, on the tensor cores in split TF32); "
+                   "timed at the ogb_products layer"),
         entry("neighbor_agg_bwd", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
               None, na_row["backward"], max(worst_na_bwd, worst_csr_bwd),
               ogb_layer=csr_row["backward"],

@@ -6,6 +6,7 @@ commits can be compared on one card.
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
                          [--stream-only] [--recsys-vocab ROWS]
                          [--gnn-only [--gnn-batch FILE]]
+                         [--rows-only [--rows-cache DIR]]
 
 ``--tree`` is the root of a checkout of this repository (default: the
 one holding this script); its ``src/repro_torch`` is imported, and its
@@ -80,6 +81,23 @@ side (gnn_train's ``device_ms``) and by CUDA events, then one step
 under ``chip_smoke.phase_profile`` (its device launches and busy time). ``--gnn-batch FILE`` keeps
 that batch (an ``.npz``, built from ``chip_smoke.gnn_source`` when the
 file is missing), so that the trees' runs skip the host's 40 s build.
+``--rows-only`` measures the chunk-sum kernels alone, each at its main
+path's shape, eagerly and in a CUDA graph: row 5d (``neighbor_agg_csr``,
+float32 x with unit rows, bfloat16 w of D = F = 128, the chunk units
+built ahead, as the model's layers call it) at the ogb_products layer
+(the full-batch launcher's batch: 2,449,408 rows, 61.9M slots) and at
+the minibatch_lg layer (gnn_train's first sampled batch); row 4b
+(``neighbor_agg_bwd`` on the table's index, the kernel alone) at the
+two-tower training shape (the user tower's 262,144 bags of 8 from
+``RecsysStream`` at V = 2,097,152, D = 256, mean), and its light ids and
+empty rows alone (the index's unit list emptied); row 5b (the backward
+over ``csr_transpose_index``, D = 128) at both layers; row 5c
+(``segment_sum`` by dst, the masked edges skipped, the index built
+ahead) at meshgraphnet's (D = 128) and gatedgcn's (D = 70) layer; and,
+where the tree's kernels have the names, each launch's share by
+``chip_smoke.kernel_split``. ``--rows-cache DIR`` keeps both batches'
+CSRs and the sampled batch there, so that the next tree's run skips the
+host's builds.
 Prints one JSON line per
 measurement, then the card's name and power limit. Exits 1 without a
 CUDA device.
@@ -105,6 +123,8 @@ def main(argv=None) -> int:
     ap.add_argument("--recsys-vocab", type=int, default=None)
     ap.add_argument("--gnn-only", action="store_true")
     ap.add_argument("--gnn-batch", default=None)
+    ap.add_argument("--rows-only", action="store_true")
+    ap.add_argument("--rows-cache", default=None)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -139,6 +159,10 @@ def main(argv=None) -> int:
         return 0
     if args.gnn_only:
         sampled_gnn(emit, args.gnn_batch, cuda_ms, graph_ms)
+        print(card_line(), flush=True)
+        return 0
+    if args.rows_only:
+        chunk_rows(emit, args.rows_cache)
         print(card_line(), flush=True)
         return 0
     if args.stream_only:
@@ -359,6 +383,116 @@ def sampled_gnn(emit, batch_file, cuda_ms, graph_ms):
     cs.emit = emit          # the profile's row carries the tree's label
     cs.phase_profile(f"gnn_step_{route}", lambda: step_fn(*state, tb),
                      watch=("neighbor_agg",))
+
+
+def rows_inputs(cache):
+    """The sampled batch (numpy, GNN_KEYS) of gnn_train's first step and
+    the ogb_products launcher batch's in-neighbour CSR (on the card), from
+    ``cache`` where a tree's run kept them."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graphs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn
+
+    arch = get_arch(cs.GNN_ARCH)
+    path = pathlib.Path(cache) if cache else None
+    if path is not None and (path / "first.npz").exists():
+        first = dict(np.load(path / "first.npz"))
+        ogb = torch.load(path / "ogb_csr.pt", map_location="cuda")
+        return first, ogb["indptr"], ogb["indices"]
+    meta = arch.shapes[cs.GNN_SHAPE].meta
+    src, dst, feats, labels = cs.gnn_source(meta, graphs)
+    sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
+    del src, dst
+    first = cs.gnn_sample(sampler, meta, feats, labels, 0)
+    first = {k: first[k] for k in cs.GNN_KEYS}
+    del sampler, feats, labels
+    b = launch_train.gnn_batches(arch, cs.GNN_FB_SHAPE, False, "cuda")(0)
+    indptr, indices = gnn.in_neighbors_csr(
+        b["edge_src"], b["edge_dst"], b["edge_mask"],
+        b["nodes"].shape[0])[:2]
+    del b
+    if path is not None:
+        path.mkdir(parents=True, exist_ok=True)
+        np.savez(path / "first.npz", **first)
+        torch.save({"indptr": indptr, "indices": indices},
+                   path / "ogb_csr.pt")
+    return first, indptr, indices
+
+
+def chunk_rows(emit, cache):
+    """``--rows-only``: rows 5d, 4b, 5b and 5c (see the docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    from repro_torch.models import gnn
+
+    ext = load_extension()
+    gen = torch.Generator("cuda").manual_seed(3)
+    first, ogb_ptr, ogb_idx = rows_inputs(cache)
+    tb = {k: torch.from_numpy(first[k]).cuda() for k in cs.GNN_KEYS}
+    n = tb["nodes"].shape[0]
+    mb_ptr, mb_idx = gnn.in_neighbors_csr(tb["edge_src"], tb["edge_dst"],
+                                          tb["edge_mask"], n)[:2]
+
+    def timed(row, fn, iters, split=True):
+        row.update(ms=cs.cuda_ms(fn, reps=3, iters=iters, warmup=2),
+                   graph_ms=cs.graph_ms(fn, iters=iters))
+        if split:
+            row["split_ms"] = cs.kernel_split(fn, iters=min(iters, 5))
+        emit(row)
+
+    for layer, indptr, indices, iters in (
+            ("minibatch_lg", mb_ptr, mb_idx, 20),
+            ("ogb_products", ogb_ptr, ogb_idx, 5)):
+        N = indptr.numel() - 1
+        x, w = cs.layer_x_w(N, gen)
+        units = nops.chunk_units(indptr, indices.shape[0])
+        timed({"row": "5d", "kernel": "neighbor_agg_csr", "layer": layer,
+               "valid_slots": int(indptr[-1])},
+              lambda: nops.neighbor_agg_csr(x, indptr, indices, w,
+                                            units=units), iters)
+        del x, w, units
+        g = torch.randn((N, 128), device="cuda", generator=gen)
+        index = nops.csr_transpose_index(indptr, indices, N)
+        timed({"row": "5b", "kernel": "neighbor_agg_bwd", "layer": layer},
+              lambda: ext.neighbor_agg_bwd(g, *index, False, True), iters)
+        del g, index
+        torch.cuda.empty_cache()
+    del ogb_ptr, ogb_idx
+
+    V = cs.RECSYS_TRAIN_VOCAB
+    ids = torch.from_numpy(RecsysStream(V, V, 65_536, n_fields=4, bag=8)
+                           .batch_at(0)["user_ids"].reshape(-1, 8)).cuda()
+    g = torch.randn((ids.shape[0], 256), device="cuda", generator=gen)
+    index = nops.transpose_index(ids, V)
+    # the light ids and the runs of empty ids alone: no unit list
+    light = cs.cuda_ms(lambda: ext.neighbor_agg_bwd(
+        g, *index[:4], index.hunit[:0], False, True), reps=3, iters=10,
+        warmup=2)
+    timed({"row": "4b", "kernel": "embedding_bag_bwd",
+           "shape": "training shape, user tower", "V": V, "D": 256,
+           "light_pass_ms": light},
+          lambda: ext.neighbor_agg_bwd(g, *index, False, True), 10)
+    del g, index, ids
+    torch.cuda.empty_cache()
+
+    dst = tb["edge_dst"]
+    dst_ids = torch.where(tb["edge_mask"], dst, -1)
+    index = nops.segment_index(dst_ids, n)
+    for arch, D in (("meshgraphnet", 128), ("gatedgcn", 70)):
+        msgs = torch.randn((dst.shape[0], D), device="cuda",
+                           generator=gen) * tb["edge_mask"][:, None]
+        timed({"row": "5c", "kernel": "segment_sum", "layer": arch, "D": D},
+              lambda: nops.segment_sum(msgs, dst_ids, n, index), 100,
+              split=False)
 
 
 def recsys_vocab(emit, vocab):

@@ -68,17 +68,17 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                            int D, int F, int x_bf16,
                                            int w_bf16, int vec, int id_vec,
                                            int out_vec, cudaStream_t stream);
-extern "C" cudaError_t neighbor_agg_fin_launch(float* mean,
-                                               const int64_t* indptr,
-                                               const void* w, float* out,
-                                               int64_t B, int D, int F,
-                                               int w_bf16, int vec,
-                                               cudaStream_t stream);
 extern "C" cudaError_t neighbor_agg_bwd_launch(
     const float* g, const int32_t* cnt, const int64_t* rowptr,
     const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
     float* partials, int32_t* tickets, int64_t cap, void* grad_x, int64_t N,
     int D, int out_bf16, int vec, cudaStream_t stream);
+extern "C" size_t neighbor_agg_csr_smem_bytes(int D, int F, int w_bf16);
+extern "C" cudaError_t neighbor_agg_csr_launch(
+    const float* x, const int64_t* indptr, const int32_t* indices,
+    const int64_t* hptr, const int32_t* hunit, float* partials,
+    int32_t* tickets, int64_t cap, const void* w, float* mean, float* out,
+    int64_t B, int D, int F, int w_bf16, int vec, cudaStream_t stream);
 
 namespace {
 
@@ -566,7 +566,8 @@ std::vector<torch::Tensor> neighbor_agg(const torch::Tensor& x,
 // more than 32 slots: hptr (N + 1) int64 and hunit (at least hptr[N])
 // int32, whose length sizes the units' scratch. ``mean`` false is the
 // sum mode (no division by the counts, which are then not read and may
-// have any length: row 5d's forward passes an empty one).
+// have any length). Launches on the stream: a memset of the tickets and
+// the heavy pass (when hunit is not empty), then the light pass.
 torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
                                const torch::Tensor& cnt,
                                const torch::Tensor& rowptr,
@@ -594,7 +595,7 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
   if (N == 0 || D == 0) return grad_x;
   const int64_t cap = hunit.size(0);
   torch::Tensor partials = torch::empty({cap, D}, g.options());
-  torch::Tensor tickets = torch::empty({cap}, hunit.options());
+  torch::Tensor tickets = torch::empty({cap + 1}, hunit.options());
   const int vec = D % 4 == 0 && aligned16(g);
   C10_CUDA_CHECK(neighbor_agg_bwd_launch(
       g.data_ptr<float>(), mean ? cnt.data_ptr<int32_t>() : nullptr,
@@ -607,38 +608,57 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
   return grad_x;
 }
 
-// Row 5d's epilogue: ``mean`` (B, D) float32, the sums of row 5b's sum
-// mode over the rows' CSR, overwritten in place with the means; returns
-// out (B, F) float32 = mean @ w (w float32 or bfloat16, (D, F)).
-torch::Tensor neighbor_agg_fin(const torch::Tensor& mean,
-                               const torch::Tensor& indptr,
-                               const torch::Tensor& w) {
-  TORCH_CHECK(mean.is_cuda(), "mean must be a CUDA tensor");
-  const torch::Device device = mean.device();
+// Row 5d: x (N, D) float32, the rows' CSR (indptr (B + 1) int64, indices
+// int32, at least indptr[B] of them) and its chunk units (hptr (B + 1)
+// int64, hunit int32, whose length sizes the scratch), w (D, F) float32
+// or bfloat16. Returns {out (B, F), mean (B, D)}, both float32: the heavy
+// pass writes the means of the rows past 32 slots, the tile kernel the
+// rest and every row of out (a memset of the tickets and the counters
+// first).
+std::vector<torch::Tensor> neighbor_agg_csr(const torch::Tensor& x,
+                                            const torch::Tensor& indptr,
+                                            const torch::Tensor& indices,
+                                            const torch::Tensor& hptr,
+                                            const torch::Tensor& hunit,
+                                            const torch::Tensor& w) {
+  TORCH_CHECK(x.is_cuda(), "x must be a CUDA tensor");
+  const torch::Device device = x.device();
   TORCH_CHECK(float_or_bf16(w), "w must be float32 or bfloat16, got ",
               w.scalar_type());
-  check_input(mean, "mean", torch::kFloat32, 2, device);
+  check_input(x, "x", torch::kFloat32, 2, device);
   check_input(indptr, "indptr", torch::kInt64, 1, device);
+  check_input(indices, "indices", torch::kInt32, 1, device);
+  check_input(hptr, "hptr", torch::kInt64, 1, device);
+  check_input(hunit, "hunit", torch::kInt32, 1, device);
   check_input(w, "w", w.scalar_type(), 2, device);
-  const int64_t B = mean.size(0), D = mean.size(1), F = w.size(1);
-  TORCH_CHECK(indptr.size(0) == B + 1, "indptr must hold B + 1 offsets");
+  const int64_t B = indptr.size(0) - 1, D = x.size(1), F = w.size(1);
+  TORCH_CHECK(B >= 0, "indptr must hold B + 1 offsets");
+  TORCH_CHECK(hptr.size(0) == B + 1, "hptr must hold B + 1 offsets");
   TORCH_CHECK(w.size(0) == D, "w must be (D, F) with D = ", D);
   TORCH_CHECK(D < kInt31 && F < kInt31 && B < kInt31, "shape too large");
-  TORCH_CHECK(neighbor_agg_smem_bytes(static_cast<int>(D),
-                                      static_cast<int>(F)) <=
+  const int w_bf16 = w.scalar_type() == torch::kBFloat16;
+  TORCH_CHECK(neighbor_agg_csr_smem_bytes(static_cast<int>(D),
+                                          static_cast<int>(F), w_bf16) <=
                   static_cast<size_t>(max_smem_optin()),
-              "D = ", D, " exceeds the kernel's shared memory");
+              "D = ", D, " exceeds the tile kernel's shared memory");
   const c10::cuda::CUDAGuard guard(device);
-  torch::Tensor out = torch::empty({B, F}, mean.options());
-  if (B == 0 || F == 0) return out;
-  const int vec = D % 4 == 0 && aligned16(mean);
-  C10_CUDA_CHECK(neighbor_agg_fin_launch(
-      mean.data_ptr<float>(), indptr.data_ptr<int64_t>(), w.data_ptr(),
+  torch::Tensor out = torch::empty({B, F}, x.options());
+  torch::Tensor mean = torch::empty({B, D}, x.options());
+  if (B == 0 || D == 0) return {out.zero_(), mean};
+  const int64_t cap = hunit.size(0);
+  torch::Tensor partials = torch::empty({cap, D}, x.options());
+  torch::Tensor tickets = torch::empty({cap + 2}, hunit.options());
+  const int vec = D % 4 == 0 && aligned16(x) && aligned16(mean);
+  C10_CUDA_CHECK(neighbor_agg_csr_launch(
+      x.data_ptr<float>(), indptr.data_ptr<int64_t>(),
+      indices.data_ptr<int32_t>(), hptr.data_ptr<int64_t>(),
+      hunit.data_ptr<int32_t>(), partials.data_ptr<float>(),
+      tickets.data_ptr<int32_t>(), cap, w.data_ptr(), mean.data_ptr<float>(),
       out.data_ptr<float>(), B, static_cast<int>(D), static_cast<int>(F),
-      w.scalar_type() == torch::kBFloat16, vec,
+      w_bf16, vec,
       at::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return out;
+  return {out, mean};
 }
 
 }  // namespace
@@ -667,7 +687,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("neighbor_agg_bwd", &neighbor_agg_bwd,
         "Gradient of x of neighbor_agg, or of an EmbeddingBag's table "
         "(mean or sum), deterministic (CUDA, sm_90a)");
-  m.def("neighbor_agg_fin", &neighbor_agg_fin,
-        "Row 5d's epilogue: a CSR's row sums to means, in place, times w "
-        "(CUDA, sm_90a)");
+  m.def("neighbor_agg_csr", &neighbor_agg_csr,
+        "Row 5d: the mean of each CSR row's neighbour rows (chunk order) "
+        "and its product with w on the tensor cores (CUDA, sm_90a)");
 }

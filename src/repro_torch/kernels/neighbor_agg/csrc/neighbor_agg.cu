@@ -35,30 +35,46 @@
 // The caller's transposed index gives ``rows``, the b of every valid
 // slot sorted stably by id, ``rowptr`` over the N + 1 ids, and the chunk
 // units of the ids with more than kChunk slots (``hptr``, ``hunit``).
-// A hub id of a power-law batch names a thousand slots, and one warp
-// walking them in order took 0.29 ms on the H100 at the GraphSAGE
-// layer, so:
-//   * light ids (at most kChunk slots, one chunk): a warp owns kIds
-//     consecutive ids, lane t holding id t's slot range. A warp scan
-//     packs their slots into one list; the lanes load 32 slots' rows and
-//     counts at a time (one coalesced load each), then the warp walks
-//     the list with kFlight rows of g in flight, lanes over D, and
-//     writes each id's row after its last slot (zeros for an id without
-//     one). The walk is serial, so a warp takes few ids and many warps
-//     hide the chain rowptr -> rows -> cnt -> g (of 1 to 32 ids a warp,
-//     4 ran fastest on the H100 at the GraphSAGE layer);
-//   * heavy ids: every chunk is a unit of its own, spread over the
-//     first blocks of the grid. A warp sums its chunk into a float32
-//     scratch row, then takes a ticket (an integer atomic on the id's
-//     counter, zeroed before the launch); the warp that draws the last
-//     ticket adds the id's partials in chunk order and writes its row.
+// A hub id of a power-law batch names thousands of slots, and one warp
+// walking them in order took 0.29 ms on the H100 at the GraphSAGE layer,
+// so a call is one launch (after a memset of the tickets) whose blocks
+// split the ids:
+//   * heavy blocks (at most 3/4 of the card's resident blocks): every chunk
+//     of a heavy id is a unit of its own, and the warps take units in
+//     order from a counter, so the hub's units start at once and a warp
+//     busy with a long tail takes fewer. A warp sums its chunk into a
+//     float32 scratch row, then takes a ticket (an integer atomic on the
+//     id's counter); the warp that draws the last ticket adds the id's
+//     partials in chunk order and writes its row. A long tail (16
+//     partials or more, D <= 256) streams through the block's ring in
+//     shared memory: flat bulk copies of 8 KB stages, two in flight while
+//     the warp adds one, each column's sum still one chain from partial
+//     0 (8 partials a round trip would cost the two-tower hub's 8,199,
+//     D = 256, about 1.9 ms; PERF.md, row 4b);
+//   * light blocks: a warp owns kIds = 4 consecutive ids, lane t holding
+//     id t's slot range (8, 16 and 32 ran slower at every shape timed: a
+//     warp's walk is serial). The ids without a slot come in runs of
+//     consecutive rows, each zeroed as one stretch with 16-byte stores;
+//     a warp scan packs the light ids' slots into one list, whose 32-slot
+//     batches the lanes load at once, and the warp walks it with kFlight
+//     rows of g in flight, lanes over D, writing each id's row after its
+//     last slot.
 // Every id's row is written once. Offsets are 64-bit. What bounds the
-// backward: bytes, mostly the N x D output (87 MB at the GraphSAGE
-// layer, most rows zeros: 0.029 ms at 3.35 TB/s; 2.15 GB at the
-// two-tower training shape, 262,144 bags of 8 over 2,097,152 rows of
-// 256, 0.72 ms with g). There a Zipf(1.2) hub names 262k slots: its
-// 8,199 partials are added by the one warp that draws its last ticket,
-// a serial tail (PERF.md, row 4b).
+// backward: bytes, the gathered rows of g and the N x D output (87 MB at
+// the GraphSAGE layer, most rows zeros: 0.029 ms at 3.35 TB/s; at the
+// two-tower training shape, 262,144 bags of 8 over 2,097,152 rows of 256,
+// 2.15 GB of output and 1.5 GB of gathered rows, 1.1 ms).
+//
+// Row 5d (the CSR front end of the forward, no TPU kernel of its own): the
+// heavy pass over the rows' CSR (rows as ids, x as g, no division) writes
+// the mean of each row of more than kChunk slots, divided once by its
+// count; then the tile kernel (see its comment) sums the other rows in
+// slot order, divides them, and multiplies every 64-row tile by w on the
+// tensor cores. At the ogb_products layer (2,449,408 rows, 61.9M slots,
+// D = F = 128) the bound is the 31.7 GB of x rows the slots name at
+// random (x is 1.25 GB, L2 50 MB) plus the mean and the output, 10.2 ms
+// at 3.35 TB/s with no reuse; the means never make a round trip through
+// device memory before the product.
 //
 // What bounds the forward on the H100: bytes. At the GraphSAGE layer
 // (B = N = 169,984, K = 25, D = F = 128, float32 x, bfloat16 w) the
@@ -106,6 +122,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../mbarrier.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -118,7 +136,7 @@ constexpr int kBufPerWarp = 32 * 4 * kIdLoads;  // compacted ids a warp
 constexpr size_t kWarpsBudget = 96 * 1024;     // the warps' buffers, at most
 constexpr size_t kBlockBudget = 110 * 1024;    // two blocks an SM
 constexpr int kChunk = 32;    // slots per chunk (bwd; ref.py's CHUNK)
-constexpr int kFlight = 8;    // rows of g in flight per lane (bwd)
+constexpr int kFlight = 8;    // rows in flight per lane (the chunk sums)
 constexpr int kIds = 4;       // light ids per warp (bwd), at most 32
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -593,104 +611,8 @@ neighbor_agg_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbrs,
   }
 }
 
-// ---- row 5d's epilogue: the TPU body's ``_fin`` over a CSR's sums.
-// ``mean`` (B, D) float32 holds each row's sum of its neighbours (row 5b's
-// kernel in its sum mode over the rows' CSR) and is overwritten with the
-// mean, sum / max(count, 1) in one IEEE division, count = indptr[b + 1] -
-// indptr[b]; out[b] = mean[b] @ w in float32 on the CUDA cores, by row
-// 5's ``product``. A row with no slot has a zero sum: it keeps its zero
-// mean and writes zeros, skipping the product. Persistent blocks of 8
-// warps, w resident in shared memory when it fits (row 5's plan); a warp
-// takes a set of 32 rows at a time (one count a lane, read at once),
-// writes the dead rows' zeros, and moves the live rows' means into its
-// places, multiplying them by w whenever the places are full. Set g holds
-// rows g, g + sets, g + 2 sets, ...: a sampled batch's live rows come
-// first (14k of 170k at the minibatch_lg layer), and consecutive sets
-// left most warps without a product (0.136 ms there, the sum 0.068 ms on
-// the H100). ``vec``: D % 4 == 0 and mean 16-byte aligned (16-byte loads
-// and stores).
-// What bounds row 5d at the ogb_products layer (2,449,408 rows, 61.9M
-// slots, D = F = 128) on the H100: the sum's gathers, 31.7 GB of rows
-// named at random (the x table is 1.25 GB, L2 50 MB), 11.5 ms or 2.8
-// TB/s, near the 9.5 ms they take at 3.35 TB/s; node 0's 5,371 partials,
-// added by one warp, cost 0.4 ms of it. The epilogue's 80 GFLOP take
-// 3.6-3.7 ms (22 TFLOP/s).
-template <bool kResident, typename W>
-__global__ void __launch_bounds__(kThreads, 2)
-neighbor_agg_fin_kernel(float* __restrict__ mean,
-                        const int64_t* __restrict__ indptr,
-                        const W* __restrict__ w, float* __restrict__ out,
-                        int64_t B, int D, int F, int ld, int wld, int places,
-                        int warp_stride, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* w_s = reinterpret_cast<float*>(smem_raw);
-  unsigned char* mine = smem_raw +
-                        (kResident ? sizeof(float) * (size_t)ld * wld : 0) +
-                        (size_t)warp * warp_stride;
-  float* pm = reinterpret_cast<float*>(mine);            // places x ld
-  int32_t* prow = reinterpret_cast<int32_t*>(pm + places * ld);
-  if (kResident) {
-    stage_w(w, w_s, D, F, ld, wld);
-    __syncthreads();  // the kernel's only barrier
-  }
-  const int64_t sets = (B + 31) / 32;
-  const int64_t warps = (int64_t)gridDim.x * kWarps;
-  int pending = 0;
-  for (int64_t set = (int64_t)blockIdx.x * kWarps + warp; set < sets;
-       set += warps) {
-    const int64_t my_b = set + lane * sets;
-    int64_t cnt = 0;
-    if (my_b < B) cnt = indptr[my_b + 1] - indptr[my_b];
-    const unsigned dead = __ballot_sync(kFull, my_b < B && cnt == 0);
-    const unsigned live = __ballot_sync(kFull, cnt > 0);
-    for (unsigned m = dead; m; m &= m - 1) {
-      float* dst = out + (set + (__ffs(m) - 1) * sets) * F;
-      for (int f = lane; f < F; f += 32) dst[f] = 0.0f;
-    }
-    for (unsigned m = live; m; m &= m - 1) {
-      const int i = __ffs(m) - 1;
-      const int64_t b = set + i * sets;
-      const float denom = (float)__shfl_sync(kFull, cnt, i);
-      float* row = mean + b * D;
-      float* place = pm + pending * ld;
-      if (vec) {
-        for (int d = lane * 4; d < D; d += 128) {
-          float4 q = __ldcg(reinterpret_cast<const float4*>(row + d));
-          q.x /= denom;
-          q.y /= denom;
-          q.z /= denom;
-          q.w /= denom;
-          *reinterpret_cast<float4*>(row + d) = q;
-          *reinterpret_cast<float4*>(place + d) = q;
-        }
-      } else {
-        for (int d = lane; d < ld; d += 32) {
-          float v = 0.0f;
-          if (d < D) {
-            v = __ldcg(row + d) / denom;
-            row[d] = v;
-          }
-          place[d] = v;
-        }
-      }
-      if (lane == 0) prow[pending] = (int32_t)b;
-      if (++pending == places) {
-        __syncwarp();
-        product<kResident>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
-        __syncwarp();
-        pending = 0;
-      }
-    }
-  }
-  if (pending > 0) {
-    __syncwarp();
-    product<kResident>(pm, prow, pending, w, w_s, wld, out, D, F, ld);
-  }
-}
-
-// ---- backward. V floats per lane: 4 (16-byte loads) or 1.
+// ---- the chunk sums: row 5b's backward, rows 4b and 5c, and row 5d's
+// heavy rows. V floats per lane: 4 (16-byte loads) or 1.
 
 template <int V>
 __device__ __forceinline__ void load_g(const float* p, float* v) {
@@ -724,16 +646,41 @@ __device__ __forceinline__ void store_row(const float* a, T* dst) {
   }
 }
 
-// Adds slots s0 .. s0 + n - 1 (n <= 32) of the lanes' list into acc, in
-// order: lane s holds slot s's row b and divisor. When ``out`` is set,
-// lane s also holds the owner t (row out + t * D) and whether the slot
-// is its owner's last, and the warp writes acc there and restarts from 0
-// after each last slot.
+// n zero elements from dst, by the warp: 16-byte stores where V == 4
+// (dst then 8-byte aligned: an 8-byte head and tail where needed).
 template <int V, typename T>
-__device__ __forceinline__ void add_slots(
-    const float* __restrict__ g, int D, int col, bool mine, int n,
-    int32_t my_b, float my_den, int my_t, bool my_last, T* out,
-    float* acc) {
+__device__ __forceinline__ void zero_span(T* dst, int64_t n) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (V == 4) {
+    char* p = reinterpret_cast<char*>(dst);
+    int64_t bytes = n * (int64_t)sizeof(T);
+    if (reinterpret_cast<uintptr_t>(p) & 15) {
+      if (lane == 0) *reinterpret_cast<uint2*>(p) = make_uint2(0, 0);
+      p += 8;
+      bytes -= 8;
+    }
+    uint4* q = reinterpret_cast<uint4*>(p);
+    const int64_t n16 = bytes >> 4;
+    for (int64_t i = lane; i < n16; i += 32) q[i] = make_uint4(0, 0, 0, 0);
+    if ((bytes & 15) && lane == 0)
+      *reinterpret_cast<uint2*>(p + (n16 << 4)) = make_uint2(0, 0);
+  } else {
+    for (int64_t i = lane; i < n; i += 32) dst[i] = zero_of<T>();
+  }
+}
+
+// Adds slots s0 .. s0 + n - 1 (n <= 32) of the lanes' list into acc, in
+// order, kFlight rows in flight: lane s holds slot s's row b, its divisor, its
+// owner t and whether the slot is its owner's last; after an owner's last
+// slot the warp hands acc to sink(t, acc) and restarts from 0. Without
+// kDiv (the sum mode) no slot is divided: x / 1.0f is x, and the IEEE
+// division costs a dozen instructions a value.
+template <int V, bool kDiv, typename Sink>
+__device__ __forceinline__ void add_slots(const float* __restrict__ g, int D,
+                                          int col, bool mine, int n,
+                                          int32_t my_b, float my_den,
+                                          int my_t, bool my_last,
+                                          Sink&& sink, float (&acc)[V]) {
   for (int s0 = 0; s0 < n; s0 += kFlight) {
     float v[kFlight][V];
     float den[kFlight];
@@ -753,9 +700,10 @@ __device__ __forceinline__ void add_slots(
       const bool last = __shfl_sync(kFull, (int)my_last, s0 + s) != 0;
       if (s0 + s >= n) break;  // the same for every lane
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] += v[s][i] / den[s];
-      if (out && last) {
-        if (mine) store_row<V>(acc, out + (int64_t)t * D + (int64_t)col * V);
+      for (int i = 0; i < V; ++i)
+        acc[i] += kDiv ? v[s][i] / den[s] : v[s][i];
+      if (last) {
+        sink(t, acc);
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = 0.0f;
       }
@@ -763,22 +711,21 @@ __device__ __forceinline__ void add_slots(
   }
 }
 
-// The ids u0 .. u0 + kIds - 1 with at most kChunk slots (one warp).
-template <int V, typename T>
-__device__ void light_ids(const float* __restrict__ g,
-                          const int32_t* __restrict__ cnt,
-                          const int64_t* __restrict__ rowptr,
-                          const int32_t* __restrict__ rows,
-                          T* __restrict__ grad_x, int64_t N, int D,
-                          int64_t u0) {
+// The light ids of one warp: lane t holds id t's first slot ``lo`` and its
+// slot count ``nl`` (at most kChunk; 0: an id the walk skips). Each id's
+// slots rows[lo .. lo + nl) are added in order from 0 (g[b] / cnt[b], or
+// g[b] without kDiv), lanes over the columns, and sink(t, col, mine,
+// acc) takes id t's sum after its last slot. A warp scan packs the ids'
+// slots into one list, whose 32-slot batches the lanes load at once (a
+// slot's b and divisor a lane); the walk keeps kFlight rows of g in
+// flight.
+template <int V, bool kDiv, typename Sink>
+__device__ __forceinline__ void light_walk(const float* __restrict__ g,
+                                           const int32_t* __restrict__ cnt,
+                                           const int32_t* __restrict__ rows,
+                                           int D, int64_t lo, int nl,
+                                           Sink&& sink) {
   const int lane = threadIdx.x & 31;
-  const int64_t u = lane < kIds ? u0 + lane : N;  // lanes past kIds: none
-  int64_t lo = 0, hi = 0;
-  if (u < N) {
-    lo = rowptr[u];
-    hi = rowptr[u + 1];
-  }
-  const int nl = hi - lo <= kChunk ? (int)(hi - lo) : 0;  // heavy: skip
   int off = nl;  // inclusive scan of nl over the lanes, then exclusive
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -787,48 +734,169 @@ __device__ void light_ids(const float* __restrict__ g,
   }
   const int total = __shfl_sync(kFull, off, 31);
   off -= nl;
-  const unsigned empty = __ballot_sync(kFull, u < N && hi == lo);
-  T* out = grad_x + u0 * D;
+  if (total == 0) return;
   const int ncol = V == 4 ? D / 4 : D;
   for (int c0 = 0; c0 < ncol; c0 += 32) {
     const int col = c0 + lane;
     const bool mine = col < ncol;
-    const float zero[V] = {};
-    for (unsigned m = empty; m; m &= m - 1) {
-      if (mine)
-        store_row<V>(zero, out + (int64_t)(__ffs(m) - 1) * D +
-                               (int64_t)col * V);
-    }
     float acc[V] = {};
-    for (int qb = 0; qb < total; qb += 32) {
-      // lane l: packed slot q = qb + l, owned by the last lane t with
-      // off_t <= q (off does not decrease over the lanes)
+    // lane l's slot of the batch from qb: its row b (loaded), its owner t
+    // and whether it is t's last slot; the next batch's b is loaded while
+    // this one is added
+    auto locate = [&](int qb, int32_t& b, int& t, bool& last) {
+      // packed slot q = qb + l, owned by the last lane t with off_t <= q
+      // (off does not decrease over the lanes)
       const int q = qb + lane;
-      int t = 0;
+      t = 0;
 #pragma unroll
       for (int step = 16; step > 0; step >>= 1)
         if (__shfl_sync(kFull, off, t + step) <= q) t += step;
       const int64_t lo_t = __shfl_sync(kFull, lo, t);
       const int off_t = __shfl_sync(kFull, off, t);
       const int nl_t = __shfl_sync(kFull, nl, t);
-      int32_t my_b = 0;
+      b = q < total ? rows[lo_t + (q - off_t)] : 0;
+      last = q == off_t + nl_t - 1;
+    };
+    int32_t nb;
+    int nt;
+    bool nlast;
+    locate(0, nb, nt, nlast);
+    for (int qb = 0; qb < total; qb += 32) {
+      const int32_t my_b = nb;
+      const int my_t = nt;
+      const bool my_last = nlast;
+      if (qb + 32 < total) locate(qb + 32, nb, nt, nlast);
       float my_den = 1.0f;
-      if (q < total) {
-        my_b = rows[lo_t + (q - off_t)];
-        if (cnt) {
-          const int c = cnt[my_b];
-          my_den = (float)(c > 1 ? c : 1);
-        }
+      if (kDiv && qb + lane < total) {
+        const int c = cnt[my_b];
+        my_den = (float)(c > 1 ? c : 1);
       }
-      add_slots<V>(g, D, col, mine, total - qb < 32 ? total - qb : 32, my_b,
-                   my_den, t, q == off_t + nl_t - 1, out, acc);
+      add_slots<V, kDiv>(
+          g, D, col, mine, total - qb < 32 ? total - qb : 32, my_b, my_den,
+          my_t, my_last,
+          [&](int owner, const float (&a)[V]) { sink(owner, col, mine, a); },
+          acc);
     }
   }
 }
 
+// The heavy pass's ring for the ordered tails: kRingStages stages of
+// kStageBytes in shared memory, one barrier each, filled by flat bulk
+// copies that one lane issues. One warp of the block holds it at a time
+// (``lock``); ``phase`` keeps each barrier's parity between holders.
+constexpr int kRingStages = 3;
+constexpr int kStageBytes = 8 * 1024;
+constexpr int kRingMaxD = 256;  // the ring's tails: D <= 256 (two vectors
+                                // a lane), D % 4 == 0
+constexpr int kRingMin = 16;    // and more than 16 partials
+constexpr size_t kRingSmem =
+    (size_t)kRingStages * kStageBytes + kRingStages * sizeof(uint64_t) + 16;
+
+struct Ring {
+  float* buf;
+  uint64_t* bar;
+  int* lock;
+  unsigned* phase;
+};
+
+__device__ __forceinline__ Ring ring_of(unsigned char* smem) {
+  Ring r;
+  r.buf = reinterpret_cast<float*>(smem);
+  r.bar = reinterpret_cast<uint64_t*>(smem + kRingStages * kStageBytes);
+  r.lock = reinterpret_cast<int*>(r.bar + kRingStages);
+  r.phase = reinterpret_cast<unsigned*>(r.lock + 1);
+  return r;
+}
+
+// acc[c] += the rows p[0 .. units) (D floats each, D % 4 == 0, D <= 256)
+// in order, lane l adding columns 4 (l + 32 c) .. + 3. The rows are
+// contiguous, so each stage is one bulk copy of ``per`` rows; a stage is
+// refilled as soon as the warp has added it, so kRingStages - 1 stages
+// (16 KB) stay in flight while the warp adds one. Every column's sum stays
+// one chain from row 0, the order of the register loop it replaces.
+__device__ void ring_tail(const Ring& r, const float* __restrict__ p,
+                          int64_t units, int D, float (&acc)[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const int ncol = D / 4;
+  const int per = kStageBytes / (int)(sizeof(float) * D);
+  const int64_t nstage = (units + per - 1) / per;
+  unsigned phase = 0;
+  if (lane == 0) {
+    while (atomicCAS(r.lock, 0, 1) != 0) __nanosleep(128);
+    __threadfence_block();
+    phase = *reinterpret_cast<volatile unsigned*>(r.phase);
+  }
+  phase = __shfl_sync(kFull, phase, 0);
+  auto issue = [&](int64_t k) {  // lane 0: stage k into its slot
+    const int s = (int)(k % kRingStages);
+    const int64_t left = units - k * per;
+    const uint32_t bytes =
+        (uint32_t)((left < per ? left : per) * D * sizeof(float));
+    const uint32_t bar = smem_u32(r.bar + s);
+    mbar_expect_tx(bar, bytes);
+    bulk_load(smem_u32(r.buf) + s * kStageBytes, p + k * per * D, bytes,
+              bar);
+  };
+  if (lane == 0) {
+    // the partials (other warps' generic stores) before the copies
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+    for (int64_t k = 0; k < nstage && k < kRingStages; ++k) issue(k);
+  }
+  for (int64_t k = 0; k < nstage; ++k) {
+    const int s = (int)(k % kRingStages);
+    mbar_wait(smem_u32(r.bar + s), (phase >> s) & 1u);
+    phase ^= 1u << s;
+    const int64_t left = units - k * per;
+    const int n = (int)(left < per ? left : per);
+    const float* st = r.buf + (size_t)s * (kStageBytes / sizeof(float));
+    for (int i = 0; i < n; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = lane + 32 * c;
+        if (col < ncol) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(st + i * D + col * 4);
+          acc[c][0] += q.x;
+          acc[c][1] += q.y;
+          acc[c][2] += q.z;
+          acc[c][3] += q.w;
+        }
+      }
+    }
+    __syncwarp();  // the stage is read before it is refilled
+    if (lane == 0 && k + kRingStages < nstage) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(k + kRingStages);
+    }
+  }
+  if (lane == 0) {
+    *reinterpret_cast<volatile unsigned*>(r.phase) = phase;
+    __threadfence_block();
+    atomicExch(r.lock, 0);
+  }
+  __syncwarp();
+}
+
+// Id u's finished sum (lanes' columns col): its row of out, or with kMean
+// (row 5d's heavy rows) the row's mean, divided once by its slot count.
+template <int V, typename T, bool kMean>
+__device__ __forceinline__ void finish_heavy(const float* acc, T* out,
+                                             int64_t u, float den, int D,
+                                             int col) {
+  if constexpr (kMean) {
+    float m[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) m[e] = acc[e] / den;
+    store_row<V>(m, out + u * D + (int64_t)col * V);
+  } else {
+    store_row<V>(acc, out + u * D + (int64_t)col * V);
+  }
+}
+
 // Chunk unit i of a heavy id: its partial, then, for the warp that draws
-// the id's last ticket, the sum of the id's partials in chunk order.
-template <int V, typename T>
+// the id's last ticket, the sum of the id's partials in chunk order
+// (through the ring when it is long, else kFlight rows in flight).
+template <int V, typename T, bool kMean>
 __device__ void heavy_unit(const float* __restrict__ g,
                            const int32_t* __restrict__ cnt,
                            const int64_t* __restrict__ rowptr,
@@ -836,8 +904,8 @@ __device__ void heavy_unit(const float* __restrict__ g,
                            const int64_t* __restrict__ hptr,
                            const int32_t* __restrict__ hunit,
                            float* __restrict__ partials,
-                           int32_t* __restrict__ tickets,
-                           T* __restrict__ grad_x, int D, int64_t i) {
+                           int32_t* __restrict__ tickets, const Ring& ring,
+                           T* __restrict__ out, int D, int64_t i) {
   const int lane = threadIdx.x & 31;
   const int64_t u = hunit[i];
   const int64_t base = hptr[u], units = hptr[u + 1] - base;
@@ -858,8 +926,12 @@ __device__ void heavy_unit(const float* __restrict__ g,
     const int col = c0 + lane;
     const bool mine = col < ncol;
     float acc[V] = {};
-    add_slots<V, T>(g, D, col, mine, n, my_b, my_den, 0, false, nullptr,
-                    acc);
+    if (cnt)
+      add_slots<V, true>(g, D, col, mine, n, my_b, my_den, 0, false,
+                         [](int, const float(&)[V]) {}, acc);
+    else
+      add_slots<V, false>(g, D, col, mine, n, my_b, my_den, 0, false,
+                          [](int, const float(&)[V]) {}, acc);
     if (mine) store_row<V>(acc, partials + i * D + (int64_t)col * V);
   }
   __threadfence();  // the partial is visible before the ticket is taken
@@ -868,6 +940,19 @@ __device__ void heavy_unit(const float* __restrict__ g,
   if (lane == 0) ticket = atomicAdd(tickets + base, 1);
   if (__shfl_sync(kFull, ticket, 0) != units - 1) return;
   __threadfence();
+  const float den = (float)(rowptr[u + 1] - rowptr[u]);
+  const float* p = partials + base * D;
+  if constexpr (V == 4) {
+    if (D <= kRingMaxD && units >= kRingMin) {
+      float acc[2][4] = {};
+      ring_tail(ring, p, units, D, acc);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (lane + 32 * c < ncol)
+          finish_heavy<V, T, kMean>(acc[c], out, u, den, D, lane + 32 * c);
+      return;
+    }
+  }
   for (int c0 = 0; c0 < ncol; c0 += 32) {
     const int col = c0 + lane;
     const bool mine = col < ncol;
@@ -879,8 +964,7 @@ __device__ void heavy_unit(const float* __restrict__ g,
 #pragma unroll
         for (int e = 0; e < V; ++e) v[s][e] = 0.0f;
         if (k0 + s < units && mine)
-          load_partial<V>(partials + (base + k0 + s) * D + (int64_t)col * V,
-                          v[s]);
+          load_partial<V>(p + (k0 + s) * D + (int64_t)col * V, v[s]);
       }
 #pragma unroll
       for (int s = 0; s < kFlight; ++s) {
@@ -889,14 +973,56 @@ __device__ void heavy_unit(const float* __restrict__ g,
         for (int e = 0; e < V; ++e) acc[e] += v[s][e];
       }
     }
-    if (mine) store_row<V>(acc, grad_x + u * D + (int64_t)col * V);
+    if (mine) finish_heavy<V, T, kMean>(acc, out, u, den, D, col);
   }
 }
 
-// Blocks below ``heavy_blocks`` walk the chunk units; the others own 32
-// ids a warp.
+// The light work of kIds consecutive ids (one warp), lane t holding id u0
+// + t: the ids with no slot come in runs of consecutive rows, each zeroed
+// as one contiguous stretch; the ids of 1 to kChunk slots go through
+// light_walk; heavy ids are the heavy pass's.
 template <int V, typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ void light_ids(const float* __restrict__ g,
+                          const int32_t* __restrict__ cnt,
+                          const int64_t* __restrict__ rowptr,
+                          const int32_t* __restrict__ rows,
+                          T* __restrict__ grad_x, int64_t N, int D,
+                          int64_t u0) {
+  const int lane = threadIdx.x & 31;
+  const int64_t u = lane < kIds ? u0 + lane : N;
+  int64_t lo = 0, hi = 0;
+  if (u < N) {
+    lo = rowptr[u];
+    hi = rowptr[u + 1];
+  }
+  T* out = grad_x + u0 * D;
+  for (unsigned m = __ballot_sync(kFull, u < N && hi == lo); m;) {
+    const int a = __ffs(m) - 1;
+    const unsigned from = ~(m >> a);
+    const int len = from ? __ffs(from) - 1 : 32 - a;
+    zero_span<V>(out + (int64_t)a * D, (int64_t)len * D);
+    m &= ~((len == 32 ? kFull : (1u << len) - 1) << a);
+  }
+  const int nl = hi - lo <= kChunk ? (int)(hi - lo) : 0;
+  auto sink = [&](int t, int col, bool mine, const float (&a)[V]) {
+    if (mine) store_row<V>(a, out + (int64_t)t * D + (int64_t)col * V);
+  };
+  if (cnt)
+    light_walk<V, true>(g, cnt, rows, D, lo, nl, sink);
+  else
+    light_walk<V, false>(g, cnt, rows, D, lo, nl, sink);
+}
+
+// Blocks below ``heavy_blocks`` take the heavy ids' chunk units in order
+// from one counter (tickets[cap], zeroed with the tickets), so the hub's
+// units start at once and a warp busy with a long tail takes fewer; the
+// other blocks own kIds * kWarps consecutive ids each, the light work,
+// beside them (none for row 5d, whose tile kernel takes its light rows).
+// With V == 4 each block's ring sits in its dynamic shared memory. Four
+// blocks an SM where light blocks share the launch (the light work wants
+// warps), three for row 5d's heavy units alone (fewer spills).
+template <int V, typename T, bool kMean>
+__global__ void __launch_bounds__(kThreads, kMean ? 3 : 4)
 neighbor_agg_bwd_kernel(const float* __restrict__ g,
                         const int32_t* __restrict__ cnt,
                         const int64_t* __restrict__ rowptr,
@@ -904,21 +1030,361 @@ neighbor_agg_bwd_kernel(const float* __restrict__ g,
                         const int64_t* __restrict__ hptr,
                         const int32_t* __restrict__ hunit,
                         float* __restrict__ partials,
-                        int32_t* __restrict__ tickets,
-                        T* __restrict__ grad_x, int64_t N, int D,
+                        int32_t* __restrict__ tickets, int64_t cap,
+                        T* __restrict__ out, int64_t N, int D,
                         int heavy_blocks) {
+  extern __shared__ __align__(16) unsigned char heavy_smem[];
   const int warp = threadIdx.x >> 5;
-  if ((int)blockIdx.x < heavy_blocks) {
-    const int64_t units = hptr[N];
-    for (int64_t i = (int64_t)blockIdx.x * kWarps + warp; i < units;
-         i += (int64_t)heavy_blocks * kWarps)
-      heavy_unit<V>(g, cnt, rowptr, rows, hptr, hunit, partials, tickets,
-                    grad_x, D, i);
+  const int lane = threadIdx.x & 31;
+  if ((int)blockIdx.x >= heavy_blocks) {
+    const int64_t u0 =
+        ((int64_t)(blockIdx.x - heavy_blocks) * kWarps + warp) * kIds;
+    if (u0 < N) light_ids<V>(g, cnt, rowptr, rows, out, N, D, u0);
     return;
   }
-  const int64_t u0 =
-      ((int64_t)(blockIdx.x - heavy_blocks) * kWarps + warp) * kIds;
-  if (u0 < N) light_ids<V>(g, cnt, rowptr, rows, grad_x, N, D, u0);
+  const int64_t units = hptr[N];
+  if (units == 0) return;
+  const Ring ring = ring_of(heavy_smem);
+  if constexpr (V == 4) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kRingStages; ++s)
+        mbar_init(smem_u32(ring.bar + s), 1);
+      *ring.lock = 0;
+      *ring.phase = 0;
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(tickets + cap, 1);
+    i = __shfl_sync(kFull, i, 0);
+    if (i >= units) break;
+    heavy_unit<V, T, kMean>(g, cnt, rowptr, rows, hptr, hunit, partials,
+                            tickets, ring, out, D, i);
+  }
+}
+
+// ---- row 5d: the tile kernel, after the heavy pass over the rows' CSR.
+// A tile is 64 consecutive rows. Persistent blocks (256 threads, three an
+// SM) draw tiles in order from a counter (zeroed with the tickets), so a
+// sampled batch's live rows (its first tiles) spread over the blocks, one
+// tile each, and the blocks that drew a tile without a slot (zeros only)
+// draw the next ones; a block draws its next tile while it works on this
+// one. Each warp takes 8 of the tile's rows: a light row's slots (at most
+// 32) are added in slot order (light_walk, the next 32 slots' ids loaded
+// while these are added), divided once by the count and written to the
+// mean and to the tile in shared memory; a heavy row's mean comes from
+// the heavy pass; a row without a slot is zero. Then the tile times w on
+// the tensor cores (mma.sync m16n8k8, TF32): each float32 mean is split
+// into two TF32 parts, hi = tf32(mean) and lo = tf32(mean - hi), and a
+// bfloat16 w is exact in TF32, so lo w + hi w carries float32's precision;
+// a float32 w is split the same way and takes a third product, hi w_lo.
+// Each warp owns 16 rows and 64 columns of a 128-column panel of w, kept
+// in shared memory in w's own type (staged during the block's first tile
+// when F <= 128, else before each panel's product). A row without a slot
+// writes zeros (0 w would be NaN on a non-finite w) and a tile without one
+// skips the product. Offsets are 64-bit. Measured on the H100 (PERF.md,
+// row 5d): 512 threads a block (16 warps of 4 rows, two blocks an SM), 32-
+// row tiles and 16 rows of x in flight a lane all ran slower.
+constexpr int kTile = 64;
+constexpr int kPanel = 128;
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTileWarpRows = kTile / kTileWarps;
+constexpr int kTileMT = kTile / 16;                      // m-tiles a tile
+constexpr int kTileNT = kPanel / 8 / (kTileWarps / kTileMT);  // a warp's
+
+struct TilePlan {
+  int dk, lda, fp, ldw;
+  size_t w_bytes, smem;
+};
+
+// w's panel (dk x fp in w's own type, row stride ldw) and the tile (64 x
+// dk float32, stride lda), then the rows' live flags and the tile drawn.
+// The strides keep the fragment loads conflict-free: lda = 4 modulo 8
+// words; ldw = 8 modulo 16 words (float32 w) or 8 modulo 64 halves
+// (bfloat16 w). A bfloat16 panel (34 KB at D = F = 128) beside the 33 KB
+// tile lets three blocks share an SM.
+TilePlan tile_plan(int D, int F, int w_size) {
+  TilePlan p;
+  p.dk = (D + 7) & ~7;
+  p.lda = p.dk + 4;
+  const int f8 = (F + 7) & ~7;
+  p.fp = f8 < kPanel ? f8 : kPanel;
+  p.ldw = w_size == 2 ? ((p.fp + 63) & ~63) + 8 : (p.fp + 8) | 8;
+  p.w_bytes = ((size_t)w_size * p.dk * p.ldw + 15) & ~(size_t)15;
+  p.smem = p.w_bytes + sizeof(float) * (size_t)kTile * p.lda +
+           sizeof(int) * (kTile + 1);
+  return p;
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Columns f0 .. f0 + fp - 1 of w into w_s as they are (zero past D and
+// F): 16-byte loads when the panel is w's whole rows, else one element a
+// load, eight loads in flight a thread either way.
+template <typename W>
+__device__ void stage_panel(const W* __restrict__ w, W* w_s, int D, int F,
+                            int f0, const TilePlan& p) {
+  constexpr int E = 16 / sizeof(W);  // elements a 16-byte load
+  if (f0 == 0 && p.fp == F && F % E == 0 &&
+      reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+    const int per_row = F / E, total = p.dk * per_row;
+    for (int i0 = threadIdx.x; i0 < total; i0 += 8 * kTileThreads) {
+      uint4 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * kTileThreads, k = i / per_row;
+        v[j] = i < total && k < D
+                   ? __ldg(reinterpret_cast<const uint4*>(w) + i)
+                   : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * kTileThreads, k = i / per_row;
+        if (i < total)
+          *reinterpret_cast<uint4*>(w_s + k * p.ldw + (i - k * per_row) * E) =
+              v[j];
+      }
+    }
+    return;
+  }
+  const int total = p.dk * p.fp;
+  for (int i0 = threadIdx.x; i0 < total; i0 += 8 * kTileThreads) {
+    W v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * kTileThreads;
+      const int k = i / p.fp, n = i - k * p.fp;
+      v[j] = i < total && k < D && f0 + n < F
+                 ? w[(int64_t)k * F + f0 + n]
+                 : zero_of<W>();
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * kTileThreads;
+      const int k = i / p.fp;
+      if (i < total) w_s[k * p.ldw + i - k * p.fp] = v[j];
+    }
+  }
+}
+
+// out[r0 .. r0 + 63, f0 .. f0 + fp) = tile @ panel. Warp w: rows 16 (w %
+// kTileMT) .. + 15, n-tiles kTileNT (w / kTileMT) .. + kTileNT - 1 of the
+// panel; the mma
+// fragments of the PTX ISA (g = lane / 4, t = lane % 4).
+template <typename W>
+__device__ void tile_product(const float* tile_s, const W* w_s,
+                             const int* live_s, float* __restrict__ out,
+                             int64_t r0, int64_t B, int F, int f0,
+                             const TilePlan& p) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % kTileMT;
+  const int j0 = (warp / kTileMT) * kTileNT;
+  const int ntn = p.fp / 8;
+  if (j0 >= ntn) return;
+  float acc[kTileNT][4] = {};
+  const float* a0 = tile_s + (16 * mt + g) * p.lda + t;
+  const float* a1 = a0 + 8 * p.lda;
+  for (int k0 = 0; k0 < p.dk; k0 += 8) {
+    const float av[4] = {a0[k0], a1[k0], a0[k0 + 4], a1[k0 + 4]};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[e] = tf32(av[e]);
+      lo[e] = tf32(av[e] - __uint_as_float(hi[e]));
+    }
+    const W* w0 = w_s + (k0 + t) * p.ldw + g;
+    const W* w1 = w0 + 4 * p.ldw;
+#pragma unroll
+    for (int j = 0; j < kTileNT; ++j) {
+      if (j0 + j >= ntn) break;
+      const float b0 = widen(w0[(j0 + j) * 8]);
+      const float b1 = widen(w1[(j0 + j) * 8]);
+      if constexpr (sizeof(W) == 2) {  // bfloat16 w: exact in TF32
+        const uint32_t h0 = __float_as_uint(b0), h1 = __float_as_uint(b1);
+        mma_tf32(acc[j], lo, h0, h1);
+        mma_tf32(acc[j], hi, h0, h1);
+      } else {
+        const uint32_t h0 = tf32(b0), h1 = tf32(b1);
+        const uint32_t l0 = tf32(b0 - __uint_as_float(h0));
+        const uint32_t l1 = tf32(b1 - __uint_as_float(h1));
+        mma_tf32(acc[j], lo, h0, h1);
+        mma_tf32(acc[j], hi, l0, l1);
+        mma_tf32(acc[j], hi, h0, h1);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * mt + g + 8 * h;
+    if (r0 + r >= B) continue;
+    const bool live = live_s[r] != 0;
+    float* dst = out + (r0 + r) * F;
+#pragma unroll
+    for (int j = 0; j < kTileNT; ++j) {
+      if (j0 + j >= ntn) break;
+      const int f = f0 + (j0 + j) * 8 + 2 * t;
+      const float v0 = live ? acc[j][2 * h] : 0.0f;
+      const float v1 = live ? acc[j][2 * h + 1] : 0.0f;
+      if ((F & 1) == 0 && f + 1 < F) {
+        *reinterpret_cast<float2*>(dst + f) = make_float2(v0, v1);
+      } else {
+        if (f < F) dst[f] = v0;
+        if (f + 1 < F) dst[f + 1] = v1;
+      }
+    }
+  }
+}
+
+template <int V, typename W>
+__global__ void __launch_bounds__(kTileThreads, 3)
+neighbor_agg_tile_kernel(const float* __restrict__ x,
+                         const int64_t* __restrict__ indptr,
+                         const int32_t* __restrict__ indices,
+                         const W* __restrict__ w, float* __restrict__ mean,
+                         float* __restrict__ out,
+                         int32_t* __restrict__ tile_next, int64_t B, int D,
+                         int F, TilePlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* w_s = reinterpret_cast<W*>(smem_raw);
+  float* tile_s = reinterpret_cast<float*>(smem_raw + p.w_bytes);
+  int* live_s = reinterpret_cast<int*>(tile_s + kTile * p.lda);
+  int* next_s = live_s + kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int npanel = (F + kPanel - 1) / kPanel;
+  const int pad = p.dk - D;  // the tile's columns past D: zero throughout
+  for (int i = threadIdx.x; i < kTile * pad; i += kTileThreads)
+    tile_s[(i / pad) * p.lda + D + i % pad] = 0.0f;
+  const int64_t ntiles = (B + kTile - 1) / kTile;
+  const int ncol = V == 4 ? D / 4 : D;
+  const int row0 = warp * kTileWarpRows;  // the warp's rows in a tile
+  // w's panel goes in after the first tile's walk (its loads then overlap
+  // the walk's); thread 0 draws the next tile while this one is worked
+  bool staged = npanel > 1;
+  int drawn = 0;
+  if (threadIdx.x == 0) drawn = atomicAdd(tile_next, 1);
+  for (;;) {
+    if (threadIdx.x == 0) {
+      *next_s = drawn;
+      drawn = atomicAdd(tile_next, 1);
+    }
+    __syncthreads();
+    const int64_t tile = *next_s;
+    if (tile >= ntiles) break;
+    const int64_t r0 = tile * kTile;
+    const int64_t b = r0 + row0 + lane;
+    const bool mine_row = lane < kTileWarpRows;
+    int64_t lo = 0, n = 0;
+    if (mine_row && b < B) {
+      lo = indptr[b];
+      n = indptr[b + 1] - lo;
+    }
+    if (mine_row) live_s[row0 + lane] = n > 0;
+    for (unsigned m = __ballot_sync(kFull, mine_row && n == 0); m;
+         m &= m - 1) {  // no slot (or past B): zeros
+      const int t = __ffs(m) - 1;
+      float* tr = tile_s + (row0 + t) * p.lda;
+      for (int c = lane; c < D; c += 32) tr[c] = 0.0f;
+      if (r0 + row0 + t < B) zero_span<V>(mean + (r0 + row0 + t) * D, D);
+    }
+    for (unsigned m = __ballot_sync(kFull, n > kChunk); m; m &= m - 1) {
+      const int t = __ffs(m) - 1;  // heavy: the heavy pass's mean
+      const float* src = mean + (r0 + row0 + t) * D;
+      float* tr = tile_s + (row0 + t) * p.lda;
+      for (int c = lane; c < ncol; c += 32) {
+        float v[V];
+        load_g<V>(src + c * V, v);
+        if constexpr (V == 4) {
+          store4(v, tr + c * 4);
+        } else {
+          tr[c] = v[0];
+        }
+      }
+    }
+    const int nl = n <= kChunk ? (int)n : 0;
+    light_walk<V, false>(
+        x, nullptr, indices, D, lo, nl,
+        [&](int t, int col, bool mine, const float (&a)[V]) {
+          const float den = (float)__shfl_sync(kFull, nl, t);
+          if (!mine) return;
+          float m[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) m[e] = a[e] / den;
+          float* tr = tile_s + (row0 + t) * p.lda + col * V;
+          float* md = mean + (r0 + row0 + t) * D + (int64_t)col * V;
+          if constexpr (V == 4) {
+            store4(m, tr);
+            store4(m, md);
+          } else {
+            *tr = m[0];
+            *md = m[0];
+          }
+        });
+    if (!staged) {
+      stage_panel(w, w_s, D, F, 0, p);
+      staged = true;
+    }
+    if (!__syncthreads_or(mine_row && n > 0)) {
+      // no row of the tile has a slot: its rows of out, one stretch
+      const int64_t rows = B - r0 < kTile ? B - r0 : kTile;
+      float* dst = out + r0 * F;
+      const int64_t len = rows * F;
+      if ((F & 3) == 0) {
+        for (int64_t i = threadIdx.x; i < len / 4; i += kTileThreads)
+          reinterpret_cast<float4*>(dst)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        for (int64_t i = threadIdx.x; i < len; i += kTileThreads)
+          dst[i] = 0.0f;
+      }
+      continue;  // nothing read the tile: the next one may fill it
+    }
+    for (int q = 0; q < npanel; ++q) {
+      if (npanel > 1) {
+        if (q > 0) __syncthreads();
+        stage_panel(w, w_s, D, F, q * kPanel, p);
+        __syncthreads();
+      }
+      tile_product<W>(tile_s, w_s, live_s, out, r0, B, F, q * kPanel, p);
+    }
+    __syncthreads();  // the tile is read before the next one fills it
+  }
+}
+
+// Blocks of ``kernel`` the card holds at once with ``smem`` dynamic bytes
+// (at least 1), after raising its dynamic shared memory limit.
+template <typename K>
+cudaError_t resident_blocks(K kernel, size_t smem, int64_t* fit,
+                            int threads = kThreads) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *fit = (int64_t)per_sm * sms;
+  return cudaSuccess;
 }
 
 template <typename T, typename W>
@@ -929,21 +1395,12 @@ cudaError_t launch_fwd(const void* x, const int32_t* nbrs, const void* w,
   const FwdPlan p = fwd_plan(D, F);
   auto kernel = vec ? neighbor_agg_kernel<T, W, (int)(16 / sizeof(T))>
                     : neighbor_agg_kernel<T, W, 1>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, p.smem);
+  int64_t fit = 0;
+  const cudaError_t err = resident_blocks(kernel, p.smem, &fit);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   // persistent blocks: as many as the card holds at once, fewer when the
   // rows do not give every warp a set
   const int64_t want = (B + kWarps - 1) / kWarps;
-  const int64_t fit = (int64_t)per_sm * sms;
   const unsigned blocks = (unsigned)(want < fit ? want : fit);
   kernel<<<blocks, kThreads, p.smem, stream>>>(
       static_cast<const T*>(x), nbrs, static_cast<const W*>(w),
@@ -952,30 +1409,34 @@ cudaError_t launch_fwd(const void* x, const int32_t* nbrs, const void* w,
   return cudaGetLastError();
 }
 
-template <typename W>
-cudaError_t launch_fin(float* mean, const int64_t* indptr, const void* w,
-                       float* out, int64_t B, int D, int F, int vec,
-                       cudaStream_t stream) {
-  const FwdPlan p = fwd_plan(D, F);
-  auto kernel = p.resident ? neighbor_agg_fin_kernel<true, W>
-                           : neighbor_agg_fin_kernel<false, W>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, p.smem);
+// One launch after the caller's memset of the tickets (cap + 1 int32: the
+// units' counter last): the heavy blocks (as many as the units may use,
+// at most three quarters of the card's resident blocks when light blocks
+// follow, so those start beside them; a half or all of them ran slower
+// at the ogb_products layer) and, with ``light``, the light blocks over
+// the N ids.
+template <int V, typename T, bool kMean>
+cudaError_t launch_passes(const float* g, const int32_t* cnt,
+                          const int64_t* rowptr, const int32_t* rows,
+                          const int64_t* hptr, const int32_t* hunit,
+                          float* partials, int32_t* tickets, int64_t cap,
+                          T* out, int64_t N, int D, bool light,
+                          cudaStream_t stream) {
+  auto kernel = neighbor_agg_bwd_kernel<V, T, kMean>;
+  const size_t smem = V == 4 ? kRingSmem : 0;
+  int64_t fit = 0;
+  const cudaError_t err = resident_blocks(kernel, smem, &fit);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t want = ((B + 31) / 32 + kWarps - 1) / kWarps;
-  const int64_t fit = (int64_t)per_sm * sms;
-  const unsigned blocks = (unsigned)(want < fit ? want : fit);
-  kernel<<<blocks, kThreads, p.smem, stream>>>(
-      mean, indptr, static_cast<const W*>(w), out, B, D, F, p.ld, p.wld,
-      p.places, (int)p.warp_bytes, vec);
+  // the units' count is on the device: a block past it returns at once
+  int64_t heavy = (cap + kWarps - 1) / kWarps;
+  const int64_t most = light ? fit * 3 / 4 : fit;
+  if (heavy > most) heavy = most;
+  const int64_t blocks =
+      heavy + (light ? (N + kIds * kWarps - 1) / (kIds * kWarps) : 0);
+  if (blocks == 0) return cudaSuccess;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      g, cnt, rowptr, rows, hptr, hunit, partials, tickets, cap, out, N, D,
+      (int)heavy);
   return cudaGetLastError();
 }
 
@@ -985,26 +1446,39 @@ cudaError_t launch_bwd(const float* g, const int32_t* cnt,
                        const int64_t* hptr, const int32_t* hunit,
                        float* partials, int32_t* tickets, int64_t cap,
                        void* grad_x, int64_t N, int D, cudaStream_t stream) {
-  int heavy_blocks = 0;
-  if (cap > 0) {
-    cudaError_t err =
-        cudaMemsetAsync(tickets, 0, sizeof(int32_t) * cap, stream);
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    // at most two blocks a streaming multiprocessor: the units' count is
-    // on the device, and a block past it returns at once
-    const int64_t want = (cap + kWarps - 1) / kWarps;
-    heavy_blocks = (int)(want < 2 * sms ? want : 2 * sms);
-  }
-  const int64_t light = (N + kIds * kWarps - 1) / (kIds * kWarps);
-  neighbor_agg_bwd_kernel<V, T>
-      <<<(unsigned)(heavy_blocks + light), kThreads, 0, stream>>>(
-          g, cnt, rowptr, rows, hptr, hunit, partials, tickets,
-          static_cast<T*>(grad_x), N, D, heavy_blocks);
+  const cudaError_t err =
+      cudaMemsetAsync(tickets, 0, sizeof(int32_t) * (cap + 1), stream);
+  if (err != cudaSuccess) return err;
+  return launch_passes<V, T, false>(g, cnt, rowptr, rows, hptr, hunit,
+                                    partials, tickets, cap,
+                                    static_cast<T*>(grad_x), N, D, true,
+                                    stream);
+}
+
+template <int V, typename W>
+cudaError_t launch_csr(const float* x, const int64_t* indptr,
+                       const int32_t* indices, const int64_t* hptr,
+                       const int32_t* hunit, float* partials,
+                       int32_t* tickets, int64_t cap, const void* w,
+                       float* mean, float* out, int64_t B, int D, int F,
+                       cudaStream_t stream) {
+  // the tickets, the units' counter and the tiles' counter
+  cudaError_t err =
+      cudaMemsetAsync(tickets, 0, sizeof(int32_t) * (cap + 2), stream);
+  if (err == cudaSuccess)
+    err = launch_passes<V, float, true>(x, nullptr, indptr, indices, hptr,
+                                        hunit, partials, tickets, cap, mean,
+                                        B, D, false, stream);
+  const TilePlan p = tile_plan(D, F, (int)sizeof(W));
+  auto kernel = neighbor_agg_tile_kernel<V, W>;
+  int64_t fit = 0;
+  if (err == cudaSuccess)
+    err = resident_blocks(kernel, p.smem, &fit, kTileThreads);
+  if (err != cudaSuccess) return err;
+  const int64_t ntiles = (B + kTile - 1) / kTile;
+  kernel<<<(unsigned)(ntiles < fit ? ntiles : fit), kTileThreads, p.smem,
+           stream>>>(x, indptr, indices, static_cast<const W*>(w), mean, out,
+                     tickets + cap + 1, B, D, F, p);
   return cudaGetLastError();
 }
 
@@ -1042,26 +1516,11 @@ extern "C" cudaError_t neighbor_agg_launch(const void* x, const int32_t* nbrs,
                                   id_vec, out_vec, stream);
 }
 
-// Row 5d's epilogue: ``mean`` (B, D) float32, the rows' sums in and
-// their means out, indptr (B + 1) int64, w (D, F) (``w_bf16``), out (B,
-// F) float32; ``vec``: D % 4 == 0 and mean 16-byte aligned.
-extern "C" cudaError_t neighbor_agg_fin_launch(float* mean,
-                                               const int64_t* indptr,
-                                               const void* w, float* out,
-                                               int64_t B, int D, int F,
-                                               int w_bf16, int vec,
-                                               cudaStream_t stream) {
-  if (w_bf16)
-    return launch_fin<__nv_bfloat16>(mean, indptr, w, out, B, D, F, vec,
-                                     stream);
-  return launch_fin<float>(mean, indptr, w, out, B, D, F, vec, stream);
-}
-
 // ``vec`` says that D is a multiple of 4 and g is 16-byte aligned. A
 // null ``cnt`` is the sum mode: every slot's divisor is 1 (x / 1.0f is x).
-// ``partials`` (cap x D float32) and ``tickets`` (cap int32) are scratch
-// for the chunk units, ``cap`` the length of ``hunit``; the tickets are
-// zeroed here, on the stream, before the launch.
+// ``partials`` (cap x D float32) and ``tickets`` (cap + 1 int32) are
+// scratch for the chunk units, ``cap`` the length of ``hunit``; the
+// tickets are zeroed here, on the stream, before the heavy pass.
 extern "C" cudaError_t neighbor_agg_bwd_launch(
     const float* g, const int32_t* cnt, const int64_t* rowptr,
     const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
@@ -1080,4 +1539,35 @@ extern "C" cudaError_t neighbor_agg_bwd_launch(
                                 tickets, cap, grad_x, N, D, stream);
   return launch_bwd<1, float>(g, cnt, rowptr, rows, hptr, hunit, partials,
                               tickets, cap, grad_x, N, D, stream);
+}
+
+// Row 5d: the dynamic shared memory of its tile kernel.
+extern "C" size_t neighbor_agg_csr_smem_bytes(int D, int F, int w_bf16) {
+  return tile_plan(D, F, w_bf16 ? 2 : 4).smem;
+}
+
+// Row 5d: x (N, D) float32, the rows' CSR (indptr (B + 1) int64, indices
+// int32), its chunk units (hptr (B + 1) int64, hunit (cap) int32), w (D,
+// F) (``w_bf16``); writes mean (B, D) and out (B, F), float32.
+// ``partials`` as for the backward, ``tickets`` cap + 2 int32 (the tiles'
+// counter last), zeroed here; ``vec``: D % 4 == 0 and x and mean 16-byte
+// aligned.
+extern "C" cudaError_t neighbor_agg_csr_launch(
+    const float* x, const int64_t* indptr, const int32_t* indices,
+    const int64_t* hptr, const int32_t* hunit, float* partials,
+    int32_t* tickets, int64_t cap, const void* w, float* mean, float* out,
+    int64_t B, int D, int F, int w_bf16, int vec, cudaStream_t stream) {
+  if (w_bf16 && vec)
+    return launch_csr<4, __nv_bfloat16>(x, indptr, indices, hptr, hunit,
+                                        partials, tickets, cap, w, mean, out,
+                                        B, D, F, stream);
+  if (w_bf16)
+    return launch_csr<1, __nv_bfloat16>(x, indptr, indices, hptr, hunit,
+                                        partials, tickets, cap, w, mean, out,
+                                        B, D, F, stream);
+  if (vec)
+    return launch_csr<4, float>(x, indptr, indices, hptr, hunit, partials,
+                                tickets, cap, w, mean, out, B, D, F, stream);
+  return launch_csr<1, float>(x, indptr, indices, hptr, hunit, partials,
+                              tickets, cap, w, mean, out, B, D, F, stream);
 }

@@ -16,9 +16,10 @@ id: the caller may pass one it built with the neighbour matrix
 that its path went through the kernels.
 
 ``neighbor_agg_csr`` (row 5d) is the same function over a CSR of the
-rows' neighbours, at any degree: on the card the backward kernel in its
-sum mode gives each row's sum (chunk units for the long rows), then an
-epilogue kernel divides by the count and multiplies by ``w``. Its
+rows' neighbours, at any degree: on the card the backward kernel's heavy
+pass gives the mean of each row of more than 32 slots (chunk units over
+many warps), then a tile kernel sums the other rows, divides by the
+count and multiplies each 64-row tile by ``w`` on the tensor cores. Its
 backward is row 5's, over the by-source ``SlotIndex`` that
 ``csr_transpose_index`` builds. ``neighbor_agg_csr.launches`` counts its
 calls on the card.
@@ -198,18 +199,15 @@ class _NeighborAgg(torch.autograd.Function):
 def launch_csr(x: torch.Tensor, indptr: torch.Tensor,
                indices: torch.Tensor, w: torch.Tensor,
                units: tuple[torch.Tensor, torch.Tensor] | None = None):
-    """Row 5d's two launches on the card: the backward kernel in its sum
-    mode over the rows' CSR, then the epilogue, which turns the sums into
-    means in place. ``units`` is ``chunk_units(indptr, indices.shape[0])``
-    (built here when not given). Returns ``(out, mean)``; the wrapper that
-    calls it counts it."""
-    ext = load_extension()
-    hptr, hunit = units or chunk_units(indptr, indices.shape[0])
-    # the sum mode reads no count: an empty one allocates nothing
-    mean = ext.neighbor_agg_bwd(
-        x, indptr.new_empty(0, dtype=torch.int32), indptr, indices, hptr,
-        hunit, False, False)
-    return ext.neighbor_agg_fin(mean, indptr, w), mean
+    """Row 5d on the card: a memset of the tickets, the heavy pass (the
+    means of the rows of more than 32 slots, their chunk units over many
+    warps) and the tile kernel (the other rows' means, then every 64-row
+    tile times ``w`` on the tensor cores). ``units`` is
+    ``chunk_units(indptr, indices.shape[0])`` (built here when not given).
+    Returns ``(out, mean)``; the wrapper that calls it counts it."""
+    return load_extension().neighbor_agg_csr(
+        x, indptr, indices, *(units or chunk_units(indptr, indices.shape[0])),
+        w)
 
 
 class _NeighborAggCSR(torch.autograd.Function):
@@ -268,7 +266,8 @@ def neighbor_agg_csr(x: torch.Tensor, indptr: torch.Tensor,
     0, bit-equal to ``neighbor_agg``'s mean of the same row; a longer one
     in chunks of 32, the partials in chunk order) and divides once by the
     count; the card's mean equals ``ref.neighbor_mean_csr_ref`` bit for
-    bit, and its product agrees with the plain matmul within float32
+    bit, and its product (float32 precision from two TF32 products, three
+    for a float32 w) agrees with the plain matmul within float32
     rounding. Differentiable in x and w: grad_w is ``mean^T g`` (kept
     float32 mean), grad_x row 5b's mean mode over ``index``, the
     by-source ``csr_transpose_index(indptr, indices, N)``, and ``units``
@@ -276,11 +275,14 @@ def neighbor_agg_csr(x: torch.Tensor, indptr: torch.Tensor,
     here when not given; ``models.gnn.in_neighbors_csr`` builds both once
     for every layer). No host sync.
 
-    On the card a call makes two kernel launches, row 5b's kernel in its
-    sum mode (a memset of its tickets first when a row has more than 32
-    slots) and the epilogue kernel, and counts one in
-    ``neighbor_agg_csr.launches``; its backward makes one, counted in
-    ``neighbor_agg_bwd.launches``. An id at or above N is not looked for.
+    On the card a call makes two kernel launches, the heavy pass (a
+    memset of its tickets first; neither when ``units`` has no entry) and
+    the tile kernel, and counts one in ``neighbor_agg_csr.launches``; its
+    backward (row 5b: the heavy and the light pass) counts one in
+    ``neighbor_agg_bwd.launches``. The tile kernel keeps w's panel and a
+    tile of means in shared memory, which bounds D (at F >= 128 on an
+    H100, about 430 for a bfloat16 w and 280 for a float32 w; past it the
+    call raises). An id at or above N is not looked for.
     """
     if x.dim() != 2 or w.dim() != 2 or indptr.dim() != 1 or \
             indices.dim() != 1:

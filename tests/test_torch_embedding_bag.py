@@ -8,18 +8,25 @@ round once to the table's dtype, so the port equals the JAX kernel bit
 for bit. The JAX oracle ``embedding_bag_ref`` sums the bag in the
 table's dtype, in an order XLA picks; it is held with the tolerance of
 ``tests/test_kernels.py``'s ``_tol``: 2e-5 for float32, 2e-2 for
-bfloat16.
+bfloat16. The table's gradient (row 4b) as the card's two passes compute
+it, emulated in numpy (``tests/_torch_chunk_sums.py``: the heavy ids'
+chunks, four light ids a warp, runs of empty ids), equals the plain
+version bit for bit and JAX's gradient of its oracle within 2e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_chunk_sums import bwd_schedule, runs_of
 from repro.kernels.embedding_bag.ops import embedding_bag as jax_bag
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_ref
 from repro_torch.kernels.embedding_bag import ops
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
+                                                   embedding_bag_ref)
+from repro_torch.kernels.neighbor_agg.ops import transpose_index
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -130,3 +137,51 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 def test_wrapper_rejects_bad_arguments(table, ids, combine, match):
     with pytest.raises(ValueError, match=match):
         embedding_bag(table, ids, combine=combine)
+
+
+@pytest.mark.parametrize("mask", [0, 0xFFFFFFFF, 1, 1 << 31, 0x80000001,
+                                  0x0F0F0F0F, 0x7FFFFFFE, 0xFFFF0000])
+def test_runs_of_empty_ids_cover_each_once(mask):
+    """The light work's runs of empty ids (the kernel's bit walk, on any
+    32-bit mask): each set bit in exactly one run, each run maximal."""
+    masks = [mask] + list(np.random.default_rng(mask & 0xFFFF).integers(
+        0, 1 << 32, size=50, dtype=np.uint64))
+    for m in map(int, masks):
+        covered = 0
+        for a, n in runs_of(m):
+            run = (((1 << n) - 1) << a) & 0xFFFFFFFF
+            assert n >= 1 and covered & run == 0 and run & ~m == 0
+            assert not (a > 0 and m >> (a - 1) & 1)
+            assert not (a + n < 32 and m >> (a + n) & 1)
+            covered |= run
+        assert covered == m
+
+
+@pytest.mark.parametrize("combine", ["mean", "sum"])
+@pytest.mark.parametrize("kind", ["zipf", "hub"])
+def test_two_pass_schedule_equals_plain_and_jax(combine, kind):
+    """Row 4b as the card computes it (the heavy blocks write the ids of
+    more than 32 slots, their chunks' partials added in chunk order; the
+    light blocks zero each run of empty ids and walk the rest in slot
+    order, every id written once) gives the plain version's bits; both
+    are within 2e-5 of JAX's gradient of its oracle (jnp.take)."""
+    rng = np.random.default_rng(12)
+    V, B, bag, D = 3000, 1500, 8, 8
+    if kind == "zipf":   # the training stream's law: id 0 a hub
+        ids = ((rng.zipf(1.2, size=(B, bag)) - 1) % V).astype(np.int32)
+    else:
+        ids = rng.integers(0, V, size=(B, bag)).astype(np.int32)
+        ids[rng.random(ids.shape) < 0.4] = 17
+    ids[rng.random(ids.shape) < 0.3] = -1
+    g = rng.normal(size=(B, D)).astype(np.float32)
+    index = transpose_index(torch.from_numpy(ids), V)
+    got = bwd_schedule(g, index.rowptr.numpy(), index.rows.numpy(),
+                       index.cnt.numpy() if combine == "mean" else None, V)
+    want = embedding_bag_bwd_ref(torch.from_numpy(g), torch.from_numpy(ids),
+                                 V, combine).numpy()
+    assert int((index.rowptr[1:] - index.rowptr[:-1]).max()) > 1024
+    assert np.array_equal(got, want)
+    _, vjp = jax.vjp(lambda t: jax_ref(t, jnp.asarray(ids), combine),
+                     jnp.zeros((V, D), jnp.float32))
+    np.testing.assert_allclose(want, np.asarray(vjp(jnp.asarray(g))[0]),
+                               atol=2e-5, rtol=2e-5)

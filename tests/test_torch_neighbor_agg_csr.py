@@ -10,17 +10,29 @@ to row 5's ``neighbor_mean_ref`` on rows of at most 32 slots, and to a
 hand-written loop in the chunk order (chunks of 32 summed from 0, the
 partials in chunk order) on longer rows, the order the card's kernels
 keep. The backward is held bit for bit to row 5's on the padded matrix,
-and by ``torch.autograd.gradcheck`` in float64.
+and by ``torch.autograd.gradcheck`` in float64. The card's schedule,
+emulated in numpy (``tests/_torch_chunk_sums.py``): the heavy pass and
+the 64-row tiles give the plain version's mean bit for bit, and the
+tile's product, split into TF32 parts, stays within ``CSR_TOL`` of a
+float64 product where one TF32 product does not.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_chunk_sums import (csr_mean_schedule, split_product, tf32_rna,
+                               tiles_of)
 from repro.kernels.neighbor_agg.ops import neighbor_agg as jax_neighbor_agg
 from repro_torch.kernels.neighbor_agg import ops, ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# Row 5d's product on the card, as chip_smoke.py's NA_CSR_TOL states it:
+# each float32 mean is hi + lo in TF32 (an error of 2**-24 of the mean),
+# a bfloat16 w is exact in TF32 (a float32 w split the same way), so
+# every product term is within about 2**-22 of its float32 value and the
+# float32 sums dominate: NA_TOL's float32 tolerance, no looser.
+CSR_TOL = dict(atol=1e-5, rtol=1e-5)
 # the shapes of tests/test_torch_neighbor_agg.py (N, D, F, B, K)
 SHAPES = [(64, 32, 16, 8, 4), (200, 128, 64, 16, 10), (30, 16, 8, 4, 15),
           (50, 33, 7, 9, 1), (40, 5, 3, 6, 3), (300, 128, 128, 64, 25),
@@ -254,13 +266,127 @@ def test_cpu_tensors_never_launch(built):
         x.detach(), indptr, indices)[0].t() @ ones)
 
 
-def test_epilogue_kernel_is_in_the_source_and_bound():
-    """The card's route names a kernel of the checkout: the epilogue is
-    in neighbor_agg.cu and bound by the extension."""
+def _sources():
     import pathlib
     root = pathlib.Path(ops.__file__).resolve().parent.parent
-    cu = (root / "neighbor_agg" / "csrc" / "neighbor_agg.cu").read_text()
-    binding = (root / "hype_score" / "csrc" / "binding.cpp").read_text()
-    assert "neighbor_agg_fin_kernel" in cu
-    assert 'extern "C" cudaError_t neighbor_agg_fin_launch' in cu
-    assert 'm.def("neighbor_agg_fin"' in binding
+    return ((root / "neighbor_agg" / "csrc" / "neighbor_agg.cu").read_text(),
+            (root / "hype_score" / "csrc" / "binding.cpp").read_text(),
+            pathlib.Path(ops.__file__).read_text())
+
+
+def test_epilogue_kernel_is_in_the_source_and_bound():
+    """The card's route names kernels of the checkout: the tile kernel,
+    which holds the division and the product since the old epilogue
+    went, and the kernel of the heavy pass are in neighbor_agg.cu, its
+    entry point is bound by the extension and called by ``launch_csr``."""
+    cu, binding, py = _sources()
+    for kernel in ("neighbor_agg_tile_kernel", "neighbor_agg_bwd_kernel"):
+        assert f"{kernel}(" in cu
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in cu
+    assert "cvt.rna.tf32.f32" in cu
+    assert 'extern "C" cudaError_t neighbor_agg_csr_launch' in cu
+    assert 'm.def("neighbor_agg_csr"' in binding
+    assert "neighbor_agg_csr(" in py
+
+
+def test_old_epilogue_is_gone():
+    """The CUDA-core epilogue and its launcher and binding are deleted,
+    and nothing chooses between an old and a new route."""
+    for text in _sources():
+        assert "neighbor_agg_fin" not in text
+    assert "getenv" not in _sources()[0]
+
+
+@pytest.mark.parametrize("lengths", [
+    [0, 32, 33, 1024, 1025, 3, 0, 1],
+    [5, 100_003, 0, 40, 7],
+    list(np.random.default_rng(1).integers(33, 200, size=64)),
+    list(np.random.default_rng(2).integers(0, 40, size=64 * 3 + 17))],
+    ids=["edges", "hub", "heavy_tile", "partial_tile"])
+def test_two_launch_schedule_mean_bit_equal(lengths):
+    """The heavy pass (rows past 32 slots: their chunks' partials in chunk
+    order, divided once) and the tile kernel (the light rows in slot
+    order, empty rows zero) give the plain version's mean bit for bit:
+    rows of 0, 32, 33, 1,024 and 1,025 slots, a hub of 100,003 slots (not
+    a multiple of 32), a tile of heavy rows only, a partial last tile."""
+    N, D = 300, 8
+    x = np.random.default_rng(len(lengths)).normal(size=(N, D)).astype(
+        np.float32)
+    indptr, indices = hub_csr(N, lengths, seed=7)
+    got, tiles = csr_mean_schedule(x, indptr.numpy(), indices.numpy())
+    want, _ = ref.neighbor_mean_csr_ref(torch.from_numpy(x), indptr,
+                                        indices)
+    assert np.array_equal(got, want.numpy())
+    assert sum(r.size for _, r in tiles) == len(lengths)
+
+
+@pytest.mark.parametrize("lengths", [[3, 0, 40, 32, 33], [0] * 7,
+                                     [100, 1000, 20000]])
+def test_units_cover_the_heavy_rows_in_chunk_order(lengths):
+    """``chunk_units`` (the heavy pass's units, built in torch ops) gives
+    units to exactly the rows of more than 32 slots, and unit k of row u
+    names slots indptr[u] + 32 k .. (the last one short), so the units
+    cover each heavy row's slots once, in order."""
+    indptr, indices = hub_csr(50, lengths, seed=2)
+    hptr, hunit = ops.chunk_units(indptr, indices.shape[0])
+    count = (indptr[1:] - indptr[:-1]).numpy()
+    units = (hptr[1:] - hptr[:-1]).numpy()
+    assert ((units > 0) == (count > ref.CHUNK)).all()
+    assert hunit.numel() >= int(hptr[-1])
+    for u in np.flatnonzero(units):
+        slots = []
+        for i in range(int(hptr[u]), int(hptr[u + 1])):
+            assert int(hunit[i]) == u
+            lo = int(indptr[u]) + (i - int(hptr[u])) * ref.CHUNK
+            slots.extend(range(lo, min(lo + ref.CHUNK, int(indptr[u + 1]))))
+        assert slots == list(range(int(indptr[u]), int(indptr[u + 1])))
+
+
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 64 * 3 + 17, 1000])
+def test_tiles_cover_every_row_once(B):
+    """The tile kernel's blocks draw 64-row tiles in order from a counter:
+    every row once, the last tile partial where B is not a multiple of
+    64, so a sampled batch's live rows (its first tiles) are the first
+    drawn."""
+    tiles = tiles_of(B)
+    rows = np.concatenate([r for _, r in tiles])
+    assert np.array_equal(rows, np.arange(B))
+    assert [t for t, _ in tiles] == list(range(len(tiles)))
+    assert tiles[-1][1].size == (B % 64 or 64)
+    assert all(r.size == 64 for _, r in tiles[:-1])
+
+
+def test_bfloat16_values_are_exact_in_tf32():
+    """Every finite bfloat16 value, widened to float32, is its own TF32
+    rounding (8 mantissa bits within TF32's 10): the tile kernel passes a
+    bfloat16 w to the tensor cores as it is."""
+    bits = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    finite = bits[np.isfinite(bits)]
+    assert np.array_equal(tf32_rna(finite).view(np.uint32),
+                          finite.view(np.uint32))
+    x = np.float32([1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -11, -(1 + 2 ** -11)])
+    assert np.array_equal(tf32_rna(x), np.float32([1 + 2 ** -10,
+                                                   1 + 2 ** -9,
+                                                   -(1 + 2 ** -10)]))
+
+
+@pytest.mark.parametrize("wdtype", ["bfloat16", "float32"])
+def test_split_product_within_csr_tol_of_float64(wdtype):
+    """At D = F = 128 the tile kernel's product, two TF32 products for a
+    bfloat16 w and three for a float32 w (emulated in the mma's depth
+    steps), stays within CSR_TOL of the float64 product of the same mean
+    and w; one TF32 product of the mean does not."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(4000, 128)).astype(np.float32)
+    w = (rng.normal(size=(128, 128)) * 0.1).astype(np.float32)
+    if wdtype == "bfloat16":
+        w = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+    indptr, indices = hub_csr(4000, list(rng.integers(1, 60, size=256)),
+                              seed=11)
+    mean = ref.neighbor_mean_csr_ref(torch.from_numpy(x), indptr,
+                                     indices)[0].numpy()
+    want = mean.astype(np.float64) @ w.astype(np.float64)
+    got = split_product(mean, w, w_split=wdtype == "float32")
+    np.testing.assert_allclose(got, want, **CSR_TOL)
+    one = tf32_rna(mean) @ tf32_rna(w)
+    assert not np.allclose(one, want, **CSR_TOL)
