@@ -35,7 +35,8 @@ prints one JSON line per phase:
             (its 4,096 boundary ids, tile_l 2,048, k=32): the tile's fill,
             bit-equal to its plain version, timed with and without the
             screen's delta, eagerly and in a CUDA graph, beside the launch
-            floor and the gather + tile kernel chain it replaced
+            floor and the gather + tile kernel chain it replaced; then at
+            k=67 on the same inputs
   device    the same graph through hype_device, t=16: the whole growth
             loop on the card, one round captured as a CUDA graph and
             replayed 64 times a chunk, held to the depth-1 slice's digest,
@@ -212,11 +213,12 @@ prints one JSON line per phase:
             losses held to the JAX launcher's
   gnn_parity  the reduced config in float32, card against CPU: loss and
             every gradient
-  kernel_segment_sum  segment_sum (the backward kernel in its sum mode,
-            each edge a bag of one slot) bit for bit against its plain
-            version on the CPU and on a repeat: D = 1, 64, 70 and 128 on
-            the pooling's, schnet's and the sampled batch's ids, an
-            all-skipped input, a 1,000-edge id, node 0's padding hub;
+  kernel_segment_sum  segment_sum (row 5c's kernel: the backward's sum
+            mode, each edge a bag of one slot) bit for bit against its
+            plain version on the CPU and on a repeat: D = 1, 3, 33, 64,
+            70, 128 and 130 on the pooling's, schnet's and the sampled
+            batch's ids (by dst, and by src at D = 70), an all-skipped
+            input, a 1,000-edge id, node 0's padding hub;
             meshgraphnet's and gatedgcn's layers timed eagerly and in a
             CUDA graph beside index_add_ and the bound
   gnn_archs gatedgcn (16 x 70) and meshgraphnet (15 x 128) at their
@@ -1292,10 +1294,12 @@ def phase_kernel_kway_screen(kops, kref, scoring, args):
     ``FirstScreen``: github_like(1.0, seed=0), the supersteps' assignment,
     the first 4,096 boundary ids, tile_l 2,048, k=32): its fill, the
     kernel bit-equal to its plain version, ``refine_gains_device`` whole
-    and the kernel alone timed eagerly and in a CUDA graph beside the
-    launch floor, and the tile chain this route replaced (the gather into
-    a (B, tile_l) tile, the own parts and the tile kernel) on the same
-    inputs, as the yardstick."""
+    (the delta and the gains, one device program) and the kernel alone
+    timed eagerly and in a CUDA graph beside the launch floor, and the
+    tile chain this route replaced (the gather into a (B, tile_l) tile,
+    the own parts and the tile kernel) on the same inputs, as the
+    yardstick; then the kernel and the screen at k = 67 on the same
+    inputs, bit-equal and timed."""
     import torch
     indptr, indices, cand = args["indptr"], args["indices"], args["cand"]
     tile_l, k = args["tile_l"], args["k"]
@@ -1349,9 +1353,30 @@ def phase_kernel_kway_screen(kops, kref, scoring, args):
            "launch_floor_ms": cuda_ms(lambda: one.add_(1.0)),
            "launch_floor_graph_ms": graph_ms(lambda: one.add_(1.0)),
            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    # k = 67 on the same inputs: the kernel alone and the screen whole
+    # (its delta written again: the same values)
+    w67 = kref.kway_gains_csr_ref(*x, tile_l, 67)
+    k67 = {"k": 67,
+           "equal": torch.equal(kops.kway_gains_csr(*x, tile_l=tile_l,
+                                                    k=67), w67),
+           "screen_equal": torch.equal(scoring.refine_gains_device(
+               indptr, indices, assign, *delta, cand, tile_l=tile_l,
+               k=67)[1], w67),
+           "ms": cuda_ms(lambda: kops.kway_gains_csr(*x, tile_l=tile_l,
+                                                     k=67)),
+           "graph_ms": graph_ms(lambda: kops.kway_gains_csr(
+               *x, tile_l=tile_l, k=67)),
+           "screen_ms": cuda_ms(lambda: scoring.refine_gains_device(
+               indptr, indices, assign, *delta, cand, tile_l=tile_l, k=67)),
+           "screen_graph_ms": graph_ms(lambda: scoring.refine_gains_device(
+               indptr, indices, assign, *delta, cand, tile_l=tile_l, k=67))}
+    k67["bound_ms"] = (nbytes - out.nbytes + w67.nbytes) / HBM_BYTES_PER_S \
+        * 1e3
+    row["k67"] = k67
     emit(row)
     if not (row["equal"] and row["second_call_equal"] and row["chain_equal"]
-            and row["screen_equal"]):
+            and row["screen_equal"] and k67["equal"]
+            and k67["screen_equal"]):
         raise SystemExit(f"kway_gains_csr disagrees with its plain "
                          f"version: {row}")
     return row
@@ -4200,8 +4225,11 @@ def ss_case(nops, msgs, ids, n_rows, row):
     got = out.cpu()
     idc = ids.cpu()
     per_id = torch.bincount(idc[idc >= 0].long(), minlength=max(n_rows, 1))
+    from repro_torch.kernels._build import load_extension
     row = {"phase": "kernel_segment_sum", **row, "E": ids.shape[0],
            "D": msgs.shape[1], "n_rows": n_rows,
+           "vec_width": load_extension().segment_sum_vec_width(
+               msgs.shape[1], 16),
            "valid_edges": int((idc >= 0).sum()),
            "max_edges_one_id": int(per_id.max()) if n_rows else 0,
            "equal": torch.equal(got, want),
@@ -4215,18 +4243,22 @@ def ss_case(nops, msgs, ids, n_rows, row):
 
 
 def phase_kernel_segment_sum(nops, nref, first, graphs):
-    """segment_sum (row 5b's kernel in its sum mode over an edge list) on
-    the card against its plain version, bit for bit: the graph_reg pooling
-    (D = 1), gatedgcn's D = 70 and meshgraphnet's D = 128 on the first
-    sampled batch's edges (masked ones skipped), schnet's D = 64 on the
-    molecules, an all-skipped input, an id of 1,000 edges (chunks of 32),
-    and node 0's padding hub (the masked edges kept); then meshgraphnet's
-    and gatedgcn's layer timed eagerly and in a CUDA graph beside the
-    plain version, ``index_add_`` (the library call; atomics) and the
-    bound. Returns the timed row (meshgraphnet's layer) and the worst
-    error."""
+    """segment_sum (row 5c's kernel over an edge list) on the card against
+    its plain version, bit for bit: the graph_reg pooling (D = 1),
+    gatedgcn's D = 70 and meshgraphnet's D = 128 on the first sampled
+    batch's edges by dst (masked ones skipped), and by src (the gradient
+    of h[src], whose ids may pass 32 edges), D = 3, 33 and 130 on the same
+    edges (4-, 4- and 8-byte loads; 130 in one pass), schnet's D = 64 on
+    the molecules, an all-skipped input, an id of 1,000 edges (chunks of
+    32), and node 0's padding hub (the masked edges kept); then
+    meshgraphnet's and gatedgcn's layer timed eagerly and in a CUDA graph
+    beside the plain version, ``index_add_`` (the library call; atomics)
+    and the bound. Returns the timed row (meshgraphnet's layer) and the
+    worst error."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels._build import load_extension
     gen = torch.Generator("cuda").manual_seed(5)
 
     def msgs_of(E, D):
@@ -4236,6 +4268,8 @@ def phase_kernel_segment_sum(nops, nref, first, graphs):
     dst = torch.from_numpy(first["edge_dst"]).cuda()
     emask = torch.from_numpy(first["edge_mask"]).cuda()
     dst_ids = torch.where(emask, dst, -1)
+    src_ids = torch.where(emask, torch.from_numpy(first["edge_src"]).cuda(),
+                          -1)
     mol = graphs.molecule_batch()
     mol_ids = torch.from_numpy(mol["edge_dst"]).cuda()
     gid = torch.from_numpy(mol["graph_id"]).cuda()
@@ -4247,6 +4281,11 @@ def phase_kernel_segment_sum(nops, nref, first, graphs):
              ("schnet layer", msgs_of(mol_ids.shape[0], 64), mol_ids,
               mol["nodes"].shape[0]),
              ("meshgraphnet layer", msgs_of(dst.shape[0], 128), dst_ids, N),
+             ("gatedgcn h[src] gradient", msgs_of(dst.shape[0], 70),
+              src_ids, N),
+             ("D = 3", msgs_of(dst.shape[0], 3), dst_ids, N),
+             ("D = 33", msgs_of(dst.shape[0], 33), dst_ids, N),
+             ("D = 130", msgs_of(dst.shape[0], 130), dst_ids, N),
              ("all skipped", msgs_of(1000, 64),
               torch.full((1000,), -1, dtype=torch.int32, device="cuda"), 300),
              ("an id of 1,000 edges", msgs_of(5000, 128),
@@ -4264,6 +4303,7 @@ def phase_kernel_segment_sum(nops, nref, first, graphs):
         flops, nbytes, bound, by = segment_sum_bound(msgs, dst_ids, N)
         row = {"phase": "kernel_segment_sum_timed", "case": name,
                "E": dst.shape[0], "D": D, "n_rows": N,
+               "vec_width": load_extension().segment_sum_vec_width(D, 16),
                "valid_edges": int(emask.sum()),
                "ms": cuda_ms(lambda: nops.segment_sum(msgs, dst_ids, N,
                                                       index)),
@@ -6717,11 +6757,15 @@ def main() -> int:
               **{key: screen_row[key] for key in (
                   "graph_ms", "screen_ms", "screen_graph_ms", "chain_ms",
                   "chain_graph_ms", "launch_floor_ms",
-                  "launch_floor_graph_ms", "fill")},
-              note="the refinement screen's front end of the same row "
-                   "routine: the candidates' parts read through the CSR "
-                   "in place of the (B, tile_l) tile; chain_ms is the "
-                   "gather + tile kernel it replaced"),
+                  "launch_floor_graph_ms", "fill", "k67")},
+              note="the refinement screen's front end: the candidates' "
+                   "parts read through the CSR in place of the (B, tile_l) "
+                   "tile, each block's rows packed into one list over "
+                   "its warps, a shared atomic a lane; "
+                   "with the host's delta (screen_ms) one device program, "
+                   "the gains' kernel a programmatic dependent of the "
+                   "delta's; chain_ms is the gather + tile kernel it "
+                   "replaced"),
         entry("stream_commit", csrc + "hype_score/csrc/stream_commit.cu",
               None, commit_row, worst_commit,
               **{key: commit_row[key] for key in (
@@ -6794,7 +6838,7 @@ def main() -> int:
               note="the backward (grad of x) of neighbor_agg_kernel, "
                    "src/repro/kernels/neighbor_agg/kernel.py:72, which has "
                    "no TPU backward; of row 5 and of row 5d"),
-        entry("segment_sum", csrc + "neighbor_agg/csrc/neighbor_agg.cu",
+        entry("segment_sum", csrc + "neighbor_agg/csrc/segment_sum.cu",
               None, ss_row, worst_ss, graph_ms=ss_row["graph_ms"],
               with_index_build_ms=ss_row["with_index_build_ms"],
               library_graph_ms=ss_row["library_graph_ms"],
@@ -6802,9 +6846,10 @@ def main() -> int:
               note="the segment sums of gatedgcn, meshgraphnet, schnet "
                    "and the graph_reg pooling (jax.ops.segment_sum in "
                    "src/repro/models/gnn.py:56-66, 137-139, 152, 168, 196, "
-                   "left to XLA; no pallas_call): row 5b's kernel in its "
-                   "sum mode, each edge a bag of one slot; timed at "
-                   "meshgraphnet's layer")]})
+                   "left to XLA; no pallas_call): row 5b's sum mode, each "
+                   "edge a bag of one slot, on a kernel of its own (one "
+                   "walk at any D, no memset); timed at meshgraphnet's "
+                   "layer")]})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,8 @@ commits can be compared on one card.
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
                          [--stream-only] [--recsys-vocab ROWS]
                          [--gnn-only [--gnn-batch FILE]]
-                         [--rows-only [--rows-cache DIR]]
+                         [--rows-only [--rows-cache DIR] [--rows LIST]]
+                         [--variants --rows-cache DIR]
 
 ``--tree`` is the root of a checkout of this repository (default: the
 one holding this script); its ``src/repro_torch`` is imported, and its
@@ -93,11 +94,31 @@ two-tower training shape (the user tower's 262,144 bags of 8 from
 empty rows alone (the index's unit list emptied); row 5b (the backward
 over ``csr_transpose_index``, D = 128) at both layers; row 5c
 (``segment_sum`` by dst, the masked edges skipped, the index built
-ahead) at meshgraphnet's (D = 128) and gatedgcn's (D = 70) layer; and,
-where the tree's kernels have the names, each launch's share by
-``chip_smoke.kernel_split``. ``--rows-cache DIR`` keeps both batches'
-CSRs and the sampled batch there, so that the next tree's run skips the
-host's builds.
+ahead) at meshgraphnet's (D = 128) and gatedgcn's (D = 70) layer, and by
+src at D = 70 (the gradient of h[src], whose ids pass 32 edges), beside
+row 5b's kernel in its sum mode on the same inputs with its unit list,
+without it (no ticket memset, no heavy blocks) and at D = 72 (its
+16-byte route); row 3b at the quality path's first screen (as the
+default run takes it): ``refine_gains_device`` whole and
+``kway_gains_csr`` alone, then the kernel alone at tile_l = 32, with
+every candidate a pad, at k = 1 and 67, with only the rows of at most 32
+neighbours, and the launch floor; row 3 (the ``kway_gains`` tile) as the
+default run times it; and, where the tree's kernels have the names, each
+launch's share by ``chip_smoke.kernel_split``. ``--rows LIST`` times
+only the rows named (a comma-separated subset of 5d,5b,4b,5c,3b,3; the
+ogb_products batch is built only for 5d and 5b).
+``--rows-cache DIR`` keeps both batches' CSRs, the sampled batch and the
+screen's arguments there, so that the next tree's run skips the host's
+builds and the quality run. ``--variants`` (after a ``--rows-only`` run
+with the same ``--rows-cache``, which keeps the screen's arguments)
+builds row 5c's kernel once per entry of SEGMENT_VARIANTS and row 3b's
+once per entry of SCREEN_VARIANTS (the committed source with one text
+change each: blocks an SM, ids a warp, rows in flight; rows and warps a
+block, lane-loads in flight, L2 gathers) with nvcc into
+``build/variants``, loads each with ctypes, and times it eagerly and in a CUDA graph (row 5c at gatedgcn's
+and meshgraphnet's layers; row 3b alone and with the delta at the first
+screen), each output held bit-equal to the tree's wrapper, beside each
+build's registers and spills.
 Prints one JSON line per
 measurement, then the card's name and power limit. Exits 1 without a
 CUDA device.
@@ -125,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gnn-batch", default=None)
     ap.add_argument("--rows-only", action="store_true")
     ap.add_argument("--rows-cache", default=None)
+    ap.add_argument("--rows", default="5d,5b,4b,5c,3b,3")
+    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -162,7 +185,11 @@ def main(argv=None) -> int:
         print(card_line(), flush=True)
         return 0
     if args.rows_only:
-        chunk_rows(emit, args.rows_cache)
+        chunk_rows(emit, args.rows_cache, args.rows.split(","))
+        print(card_line(), flush=True)
+        return 0
+    if args.variants:
+        variants(emit, args.rows_cache, args.rows.split(","))
         print(card_line(), flush=True)
         return 0
     if args.stream_only:
@@ -385,10 +412,11 @@ def sampled_gnn(emit, batch_file, cuda_ms, graph_ms):
                      watch=("neighbor_agg",))
 
 
-def rows_inputs(cache):
-    """The sampled batch (numpy, GNN_KEYS) of gnn_train's first step and
-    the ogb_products launcher batch's in-neighbour CSR (on the card), from
-    ``cache`` where a tree's run kept them."""
+def rows_inputs(cache, need_ogb=True):
+    """The sampled batch (numpy, GNN_KEYS) of gnn_train's first step and,
+    with ``need_ogb``, the ogb_products launcher batch's in-neighbour CSR
+    (on the card; else None, None), from ``cache`` where a tree's run kept
+    them."""
     import numpy as np
     import torch
 
@@ -402,15 +430,22 @@ def rows_inputs(cache):
     path = pathlib.Path(cache) if cache else None
     if path is not None and (path / "first.npz").exists():
         first = dict(np.load(path / "first.npz"))
+    else:
+        meta = arch.shapes[cs.GNN_SHAPE].meta
+        src, dst, feats, labels = cs.gnn_source(meta, graphs)
+        sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
+        del src, dst
+        first = cs.gnn_sample(sampler, meta, feats, labels, 0)
+        first = {k: first[k] for k in cs.GNN_KEYS}
+        del sampler, feats, labels
+        if path is not None:
+            path.mkdir(parents=True, exist_ok=True)
+            np.savez(path / "first.npz", **first)
+    if not need_ogb:
+        return first, None, None
+    if path is not None and (path / "ogb_csr.pt").exists():
         ogb = torch.load(path / "ogb_csr.pt", map_location="cuda")
         return first, ogb["indptr"], ogb["indices"]
-    meta = arch.shapes[cs.GNN_SHAPE].meta
-    src, dst, feats, labels = cs.gnn_source(meta, graphs)
-    sampler = graphs.NeighborSampler(meta["graph_nodes"], src, dst)
-    del src, dst
-    first = cs.gnn_sample(sampler, meta, feats, labels, 0)
-    first = {k: first[k] for k in cs.GNN_KEYS}
-    del sampler, feats, labels
     b = launch_train.gnn_batches(arch, cs.GNN_FB_SHAPE, False, "cuda")(0)
     indptr, indices = gnn.in_neighbors_csr(
         b["edge_src"], b["edge_dst"], b["edge_mask"],
@@ -418,14 +453,15 @@ def rows_inputs(cache):
     del b
     if path is not None:
         path.mkdir(parents=True, exist_ok=True)
-        np.savez(path / "first.npz", **first)
         torch.save({"indptr": indptr, "indices": indices},
                    path / "ogb_csr.pt")
     return first, indptr, indices
 
 
-def chunk_rows(emit, cache):
-    """``--rows-only``: rows 5d, 4b, 5b and 5c (see the docstring)."""
+def chunk_rows(emit, cache, rows):
+    """``--rows-only``: rows 5d, 4b, 5b, 5c, 3b and 3, those named in
+    ``rows`` (see the docstring)."""
+    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -436,11 +472,9 @@ def chunk_rows(emit, cache):
 
     ext = load_extension()
     gen = torch.Generator("cuda").manual_seed(3)
-    first, ogb_ptr, ogb_idx = rows_inputs(cache)
+    first, ogb_ptr, ogb_idx = rows_inputs(cache, "5d" in rows or "5b" in rows)
     tb = {k: torch.from_numpy(first[k]).cuda() for k in cs.GNN_KEYS}
     n = tb["nodes"].shape[0]
-    mb_ptr, mb_idx = gnn.in_neighbors_csr(tb["edge_src"], tb["edge_dst"],
-                                          tb["edge_mask"], n)[:2]
 
     def timed(row, fn, iters, split=True):
         row.update(ms=cs.cuda_ms(fn, reps=3, iters=iters, warmup=2),
@@ -449,50 +483,407 @@ def chunk_rows(emit, cache):
             row["split_ms"] = cs.kernel_split(fn, iters=min(iters, 5))
         emit(row)
 
-    for layer, indptr, indices, iters in (
-            ("minibatch_lg", mb_ptr, mb_idx, 20),
-            ("ogb_products", ogb_ptr, ogb_idx, 5)):
-        N = indptr.numel() - 1
-        x, w = cs.layer_x_w(N, gen)
-        units = nops.chunk_units(indptr, indices.shape[0])
-        timed({"row": "5d", "kernel": "neighbor_agg_csr", "layer": layer,
-               "valid_slots": int(indptr[-1])},
-              lambda: nops.neighbor_agg_csr(x, indptr, indices, w,
-                                            units=units), iters)
-        del x, w, units
-        g = torch.randn((N, 128), device="cuda", generator=gen)
-        index = nops.csr_transpose_index(indptr, indices, N)
-        timed({"row": "5b", "kernel": "neighbor_agg_bwd", "layer": layer},
-              lambda: ext.neighbor_agg_bwd(g, *index, False, True), iters)
-        del g, index
+    if "5d" in rows or "5b" in rows:
+        mb_ptr, mb_idx = gnn.in_neighbors_csr(
+            tb["edge_src"], tb["edge_dst"], tb["edge_mask"], n)[:2]
+        for layer, indptr, indices, iters in (
+                ("minibatch_lg", mb_ptr, mb_idx, 20),
+                ("ogb_products", ogb_ptr, ogb_idx, 5)):
+            N = indptr.numel() - 1
+            if "5d" in rows:
+                x, w = cs.layer_x_w(N, gen)
+                units = nops.chunk_units(indptr, indices.shape[0])
+                timed({"row": "5d", "kernel": "neighbor_agg_csr",
+                       "layer": layer, "valid_slots": int(indptr[-1])},
+                      lambda: nops.neighbor_agg_csr(x, indptr, indices, w,
+                                                    units=units), iters)
+                del x, w, units
+            if "5b" in rows:
+                g = torch.randn((N, 128), device="cuda", generator=gen)
+                index = nops.csr_transpose_index(indptr, indices, N)
+                timed({"row": "5b", "kernel": "neighbor_agg_bwd",
+                       "layer": layer},
+                      lambda: ext.neighbor_agg_bwd(g, *index, False, True),
+                      iters)
+                del g, index
+            torch.cuda.empty_cache()
+        del ogb_ptr, ogb_idx
+
+    if "4b" in rows:
+        V = cs.RECSYS_TRAIN_VOCAB
+        ids = torch.from_numpy(RecsysStream(V, V, 65_536, n_fields=4, bag=8)
+                               .batch_at(0)["user_ids"].reshape(-1, 8)
+                               ).cuda()
+        g = torch.randn((ids.shape[0], 256), device="cuda", generator=gen)
+        index = nops.transpose_index(ids, V)
+        # the light ids and the runs of empty ids alone: no unit list
+        light = cs.cuda_ms(lambda: ext.neighbor_agg_bwd(
+            g, *index[:4], index.hunit[:0], False, True), reps=3, iters=10,
+            warmup=2)
+        timed({"row": "4b", "kernel": "embedding_bag_bwd",
+               "shape": "training shape, user tower", "V": V, "D": 256,
+               "light_pass_ms": light},
+              lambda: ext.neighbor_agg_bwd(g, *index, False, True), 10)
+        del g, index, ids
         torch.cuda.empty_cache()
-    del ogb_ptr, ogb_idx
 
-    V = cs.RECSYS_TRAIN_VOCAB
-    ids = torch.from_numpy(RecsysStream(V, V, 65_536, n_fields=4, bag=8)
-                           .batch_at(0)["user_ids"].reshape(-1, 8)).cuda()
-    g = torch.randn((ids.shape[0], 256), device="cuda", generator=gen)
-    index = nops.transpose_index(ids, V)
-    # the light ids and the runs of empty ids alone: no unit list
-    light = cs.cuda_ms(lambda: ext.neighbor_agg_bwd(
-        g, *index[:4], index.hunit[:0], False, True), reps=3, iters=10,
-        warmup=2)
-    timed({"row": "4b", "kernel": "embedding_bag_bwd",
-           "shape": "training shape, user tower", "V": V, "D": 256,
-           "light_pass_ms": light},
-          lambda: ext.neighbor_agg_bwd(g, *index, False, True), 10)
-    del g, index, ids
-    torch.cuda.empty_cache()
+    if "5c" in rows:
+        segment_rows(emit, tb, n, gen, timed)
+    if "3b" in rows:
+        screen_rows(emit, cache, timed)
+    if "3" in rows:
+        krng = np.random.default_rng(2)
+        for kind, k in (("synthetic", 32), ("path", 32), ("synthetic", 67)):
+            x = [torch.from_numpy(a).cuda()
+                 for a in cs.kway_tile(krng, 4096, 2048, k, kind)]
+            timed({"row": "3", "kernel": "kway_gains", "B": 4096, "L": 2048,
+                   "k": k, "inputs": kind},
+                  lambda: ext.kway_gains(*x, k), 100, split=False)
 
-    dst = tb["edge_dst"]
-    dst_ids = torch.where(tb["edge_mask"], dst, -1)
-    index = nops.segment_index(dst_ids, n)
-    for arch, D in (("meshgraphnet", 128), ("gatedgcn", 70)):
-        msgs = torch.randn((dst.shape[0], D), device="cuda",
-                           generator=gen) * tb["edge_mask"][:, None]
-        timed({"row": "5c", "kernel": "segment_sum", "layer": arch, "D": D},
-              lambda: nops.segment_sum(msgs, dst_ids, n, index), 100,
+
+def segment_rows(emit, tb, n, gen, timed):
+    """Row 5c at meshgraphnet's (D = 128) and gatedgcn's (D = 70) layers,
+    by dst (the forward's sums) and, at D = 70, by src (h[src]'s
+    gradient), each index built ahead; then row 5b's kernel in its sum
+    mode on the same inputs, with its unit list and without it (the
+    ticket memset and the heavy blocks' launch left out), and at D = 72
+    (its 16-byte route), the yardsticks of the sum's fixed costs and of
+    its column passes."""
+    import torch
+
+    from repro_torch.kernels._build import load_extension
+    from repro_torch.kernels.neighbor_agg import ops as nops
+
+    ext = load_extension()
+    mask = tb["edge_mask"]
+    by = {"dst": torch.where(mask, tb["edge_dst"], -1),
+          "src": torch.where(mask, tb["edge_src"], -1)}
+    for arch, D, key in (("meshgraphnet", 128, "dst"), ("gatedgcn", 70, "dst"),
+                         ("gatedgcn", 70, "src")):
+        ids = by[key]
+        index = nops.segment_index(ids, n)
+        per_id = torch.bincount(ids[ids >= 0].long(), minlength=n)
+        msgs = torch.randn((ids.shape[0], D), device="cuda",
+                           generator=gen) * mask[:, None]
+        timed({"row": "5c", "kernel": "segment_sum", "layer": arch, "D": D,
+               "by": key, "max_edges_one_id": int(per_id.max()),
+               "ids_past_32": int((per_id > 32).sum())},
+              lambda: nops.segment_sum(msgs, ids, n, index), 100)
+        if key != "dst":
+            continue
+        row = {"row": "5c", "kernel": "neighbor_agg_bwd (sum mode)",
+               "layer": arch, "D": D, "by": key}
+        timed(dict(row, units="kept"), lambda: ext.neighbor_agg_bwd(
+            msgs, *index, False, False), 100)
+        timed(dict(row, units="none"), lambda: ext.neighbor_agg_bwd(
+            msgs, *index[:4], index.hunit[:0], False, False), 100)
+        if D % 4:
+            wide = torch.randn((ids.shape[0], D + 2), device="cuda",
+                               generator=gen) * mask[:, None]
+            timed(dict(row, D=D + 2, units="kept"),
+                  lambda: ext.neighbor_agg_bwd(wide, *index, False, False),
+                  100)
+            del wide
+        del msgs, index
+
+
+# Schedule variants of rows 5c and 3b: (name, [(text, replacement)])
+# applied to the kernel's source before it is built on its own (its plain
+# C entry points, no PyTorch headers).
+SEGMENT_VARIANTS = [
+    ("as committed", []),
+    ("3 blocks an SM", [("__launch_bounds__(kThreads, 4)",
+                         "__launch_bounds__(kThreads, 3)")]),
+    ("6 blocks an SM", [("__launch_bounds__(kThreads, 4)",
+                         "__launch_bounds__(kThreads, 6)")]),
+    ("8 blocks an SM", [("__launch_bounds__(kThreads, 4)",
+                         "__launch_bounds__(kThreads, 8)")]),
+    ("2 ids a warp", [("constexpr int kIds = 4;", "constexpr int kIds = 2;")]),
+    ("8 ids a warp", [("constexpr int kIds = 4;", "constexpr int kIds = 8;")]),
+    ("4 rows in flight", [("return VW * NC <= 4 ? 8 :",
+                           "return VW * NC <= 4 ? 4 :")]),
+    ("16 rows in flight", [("return VW * NC <= 4 ? 8 :",
+                            "return VW * NC <= 4 ? 16 :")]),
+]
+_OWN_IN_A_REGISTER = [
+    ("  for (int jb = (int)((int64_t)nl * warp / kWarps); jb < j1; jb += kSPer) {",
+     "  int mine = -1, own_acc = 0, own_col = 0;\n"
+     "  for (int jb = (int)((int64_t)nl * warp / kWarps); jb < j1; jb += kSPer) {"),
+    ("""      const int own = sr.own[row[i]];
+      const int col = (unsigned)x[i] < (unsigned)k   ? x[i]
+                      : x[i] >= 0 && x[i] == own ? k
+                                                 : -1;
+      if (col >= 0) atomicAdd(cnt + row[i] * k1 + col, 1);
+    }
+  }
+  __syncthreads();""",
+     """      const int own = sr.own[row[i]];
+      if (row[i] != mine) {  // a lane's places only move forward
+        if (own_acc) atomicAdd(cnt + mine * k1 + own_col, own_acc);
+        mine = row[i];
+        own_acc = 0;
+        own_col = own < k ? own : k;
+      }
+      if (x[i] >= 0 && x[i] == own) {
+        ++own_acc;
+      } else if ((unsigned)x[i] < (unsigned)k) {
+        atomicAdd(cnt + row[i] * k1 + x[i], 1);
+      }
+    }
+  }
+  if (own_acc) atomicAdd(cnt + mine * k1 + own_col, own_acc);
+  __syncthreads();""")]
+SCREEN_VARIANTS = [
+    ("as committed", []),
+    ("the own part counted in a register", _OWN_IN_A_REGISTER),
+    ("the own part in a register, 4 in flight", _OWN_IN_A_REGISTER + [
+        ("constexpr int kSPer = 8;", "constexpr int kSPer = 4;")]),
+    ("the own part in a register, 16 warps a block", _OWN_IN_A_REGISTER + [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
+    ("gathers from L2", [("__ldca(assign", "__ldcg(assign")]),
+    ("16 in flight", [("constexpr int kSPer = 8;",
+                       "constexpr int kSPer = 16;")]),
+    ("4 in flight", [("constexpr int kSPer = 8;",
+                      "constexpr int kSPer = 4;")]),
+    ("16 rows a block", [("constexpr int kSRows = 8;",
+                          "constexpr int kSRows = 16;")]),
+    ("4 rows a block", [("constexpr int kSRows = 8;",
+                         "constexpr int kSRows = 4;")]),
+    ("16 warps a block", [("constexpr int kThreads = 256;",
+                           "constexpr int kThreads = 512;")]),
+    ("16 rows and 16 warps a block", [
+        ("constexpr int kSRows = 8;", "constexpr int kSRows = 16;"),
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
+]
+
+
+def build_variant(src, name, subs, out_dir):
+    """``src`` with ``subs`` applied, built by nvcc into a shared library
+    under ``out_dir``; returns (the library, ptxas's register and spill
+    lines)."""
+    import ctypes
+    import subprocess
+    text = src.read_text()
+    for a, b in subs:
+        if a not in text:
+            raise SystemExit(f"variant {name!r}: {a!r} not in the source")
+        text = text.replace(a, b)
+    tag = src.stem + "_" + "".join(c if c.isalnum() else "_" for c in name)
+    cu, so = out_dir / f"{tag}.cu", out_dir / f"{tag}.so"
+    cu.write_text(text)
+    built = subprocess.run(
+        ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+         "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         f"-I{src.parent}", "-o", str(so), str(cu)],
+        capture_output=True, text=True)
+    if built.returncode:
+        raise SystemExit(f"variant {name!r} failed to build: "
+                         f"{built.stderr[-2000:]}")
+    ptxas = [line.strip() for line in built.stderr.splitlines()
+             if "registers" in line or "spill" in line]
+    return ctypes.CDLL(str(so)), ptxas
+
+
+def variants(emit, cache, rows):
+    """``--variants``: rows 5c and 3b (those in ``rows``) built once per
+    entry of SEGMENT_VARIANTS and SCREEN_VARIANTS (see the docstring)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    kernels = pathlib.Path(_build.__file__).parent
+    out_dir = pathlib.Path(_build.BUILD_DIR).parent / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def check(name, err):
+        if err:
+            raise SystemExit(f"variant {name!r}: CUDA error {err}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    if "5c" in rows:
+        segment_variants(emit, cache, kernels, out_dir, check, stream)
+    if "3b" in rows:
+        screen_variants(emit, cache, kernels, out_dir, check, stream)
+
+
+def segment_variants(emit, cache, kernels, out_dir, check, stream):
+    """Row 5c's variants (``variants``)."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels.neighbor_agg import ops as nops
+
+    vp, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    first = rows_inputs(cache, False)[0]
+    tb = {k: torch.from_numpy(first[k]).cuda() for k in cs.GNN_KEYS}
+    n = tb["nodes"].shape[0]
+    mask = tb["edge_mask"]
+    gen = torch.Generator("cuda").manual_seed(3)
+    cases = []
+    for D, key in ((70, "edge_dst"), (70, "edge_src"), (128, "edge_dst")):
+        ids = torch.where(mask, tb[key], -1)
+        msgs = torch.randn((ids.shape[0], D), device="cuda",
+                           generator=gen) * mask[:, None]
+        cases.append((D, key, msgs, nops.segment_index(ids, n),
+                      nops.segment_sum(msgs, ids, n)))
+    for name, subs in SEGMENT_VARIANTS:
+        lib, ptxas = build_variant(
+            kernels / "neighbor_agg" / "csrc" / "segment_sum.cu", name, subs,
+            out_dir)
+        fn = lib.segment_sum_launch
+        fn.restype = c_int
+        fn.argtypes = [vp] * 7 + [i64, vp, i64, c_int, c_int, vp]
+        for D, key, msgs, index, want in cases:
+            cap = index.hunit.shape[0]
+            tickets = torch.zeros(cap + 1, dtype=torch.int32, device="cuda")
+            partials = torch.empty((cap, D), device="cuda")
+            out = torch.empty((n, D), device="cuda")
+
+            def call():
+                check(name, fn(
+                    msgs.data_ptr(), index.rowptr.data_ptr(),
+                    index.rows.data_ptr(), index.hptr.data_ptr(),
+                    index.hunit.data_ptr(), partials.data_ptr(),
+                    tickets.data_ptr(), cap, out.data_ptr(), n, D, 16,
+                    stream()))
+
+            call()
+            torch.cuda.synchronize()
+            emit({"row": "5c", "variant": name, "D": D,
+                  "by": key.removeprefix("edge_"),
+                  "equal": torch.equal(out, want),
+                  "tickets_zero": not bool(tickets.any()),
+                  "ms": cs.cuda_ms(call, reps=3, iters=100, warmup=5),
+                  "graph_ms": cs.graph_ms(call, iters=100),
+                  "ptxas": ptxas})
+
+
+def screen_variants(emit, cache, kernels, out_dir, check, stream):
+    """Row 3b's variants (``variants``)."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import scoring
+    from repro_torch.kernels.kway_refine import ops as kops
+
+    vp, c_int = ctypes.c_void_p, ctypes.c_int
+    args = torch.load(pathlib.Path(cache) / "screen.pt", map_location="cuda")
+    indptr, indices, cand = args["indptr"], args["indices"], args["cand"]
+    tile_l, k = args["tile_l"], args["k"]
+    d_ids, d_vals = args["delta_ids"], args["delta_vals"]
+    assign = args["assign"].clone()
+    scoring.refine_gains_device(indptr, indices, assign, d_ids, d_vals,
+                                cand, tile_l=tile_l, k=k)
+    want = kops.kway_gains_csr(indptr, indices, assign, cand, tile_l=tile_l,
+                               k=k)
+    B = cand.shape[0]
+    for name, subs in SCREEN_VARIANTS:
+        lib, ptxas = build_variant(
+            kernels / "kway_refine" / "csrc" / "kway_gains.cu", name, subs,
+            out_dir)
+        fn = lib.kway_gains_csr_launch
+        fn.restype = c_int
+        fn.argtypes = [vp, c_int, vp, vp, c_int, vp, vp, c_int, vp, vp, vp,
+                       c_int, c_int, c_int, vp]
+        gains = torch.empty((B, k), device="cuda")
+        ptr64 = int(indptr.dtype == torch.int64)
+
+        def call(delta_ids, delta_vals, nd):
+            check(name, fn(indptr.data_ptr(), ptr64, indices.data_ptr(),
+                           assign.data_ptr(), assign.shape[0] - 1, delta_ids,
+                           delta_vals, nd, cand.data_ptr(), gains.data_ptr(),
+                           None, B, tile_l, k, stream()))
+
+        def kernel():
+            call(None, None, 0)
+
+        def screen():
+            call(d_ids.data_ptr(), d_vals.data_ptr(), d_ids.shape[0])
+
+        kernel()
+        torch.cuda.synchronize()
+        equal = torch.equal(gains, want)
+        screen()
+        torch.cuda.synchronize()
+        emit({"row": "3b", "variant": name, "B": B, "tile_l": tile_l,
+              "k": k, "equal": equal and torch.equal(gains, want),
+              "ms": cs.cuda_ms(kernel, reps=3, iters=100, warmup=5),
+              "graph_ms": cs.graph_ms(kernel, iters=100),
+              "screen_ms": cs.cuda_ms(screen, reps=3, iters=100, warmup=5),
+              "screen_graph_ms": cs.graph_ms(screen, iters=100),
+              "ptxas": ptxas})
+
+
+def screen_rows(emit, cache, timed):
+    """Row 3b at the quality path's first screen (github_like(1.0,
+    seed=0), k = 32, t = 16, preset "quality": the supersteps' assignment
+    and the first 4,096 boundary ids, from the tree's own run, kept in
+    ``cache``): ``refine_gains_device`` whole and ``kway_gains_csr``
+    alone, each eager, in a CUDA graph and split by launch; then the
+    kernel alone at tile_l = 32, with every candidate a pad, at k = 1 and
+    67, with only the rows of at most 32 neighbours (the others made
+    pads), and the launch floor."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import scoring
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.kway_refine import ops as kops
+    from repro_torch.partition_api import partition
+
+    path = pathlib.Path(cache) / "screen.pt" if cache else None
+    if path is not None and path.exists():
+        args = torch.load(path, map_location="cuda")
+    else:
+        with cs.FirstScreen(scoring) as first:
+            partition(synthetic.github_like(1.0, seed=0), 32,
+                      "hype_superstep", device="cuda", t=16,
+                      preset="quality")
+        args = first.args
+        if path is not None:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(args, path)
+    indptr, indices, cand = args["indptr"], args["indices"], args["cand"]
+    tile_l, k = args["tile_l"], args["k"]
+    assign = args["assign"].clone()
+    delta = (args["delta_ids"], args["delta_vals"])
+    scoring.refine_gains_device(indptr, indices, assign, *delta, cand,
+                                tile_l=tile_l, k=k)
+    deg = torch.where(cand >= 0, indptr[cand.clamp_min(0).long() + 1]
+                      - indptr[cand.clamp_min(0).long()], 0)
+    info = {"row": "3b", "B": cand.shape[0], "tile_l": tile_l, "k": k,
+            "real_rows": int((cand >= 0).sum()),
+            "rows_past_32": int((deg > 32).sum()),
+            "rows_at_tile_l": int((deg >= tile_l).sum()),
+            "delta_entries": int(delta[0].shape[0]),
+            "delta_real": int((delta[0] >= 0).sum())}
+    timed(dict(info, kernel="refine_gains_device"),
+          lambda: scoring.refine_gains_device(indptr, indices, assign,
+                                              *delta, cand, tile_l=tile_l,
+                                              k=k), 100)
+    timed(dict(info, kernel="kway_gains_csr"),
+          lambda: kops.kway_gains_csr(indptr, indices, assign, cand,
+                                      tile_l=tile_l, k=k), 100)
+    pads = torch.full_like(cand, -1)
+    short = torch.where(deg <= 32, cand, -1)
+    for name, c, tl, kk in (("tile_l 32", cand, 32, k),
+                            ("every candidate a pad", pads, tile_l, k),
+                            ("k 1", cand, tile_l, 1),
+                            ("k 67", cand, tile_l, 67),
+                            ("rows of at most 32 only", short, tile_l, k)):
+        timed(dict(info, kernel="kway_gains_csr", variant=name),
+              lambda: kops.kway_gains_csr(indptr, indices, assign, c,
+                                          tile_l=tl, k=kk), 100,
               split=False)
+    one = torch.zeros(1, device="cuda")
+    timed({"row": "3b", "kernel": "launch floor (one-element add_)"},
+          lambda: one.add_(1.0), 100, split=False)
 
 
 def recsys_vocab(emit, vocab):

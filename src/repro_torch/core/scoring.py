@@ -355,12 +355,13 @@ def batched_dext_torch(v2e, e2v, vs, ext_mask):
 
 
 # ------------------------------------------------------------ k-way refine
-# Device half of the refinement screen: apply the host's admitted-move
-# delta to the device assignment, then one ``kway_gains_csr`` launch reads
-# the candidates' neighbour partitions through the device CSR and counts
-# them, so only candidate ids go down and (B, k) gain rows come back. The
-# (B, tile_l) neighbour-partition tile of the JAX program is built only by
-# the plain version (``kernels/kway_refine/ref.py``), on the CPU.
+# Device half of the refinement screen, one device program as JAX's is:
+# one ``kway_gains_csr`` call applies the host's admitted-move delta to the
+# device assignment, then reads the candidates' neighbour partitions
+# through the device CSR and counts them, so only candidate ids go down
+# and (B, k) gain rows come back. The (B, tile_l) neighbour-partition
+# tile of the JAX program is built only by the plain version
+# (``kernels/kway_refine/ref.py``), on the CPU.
 
 def refine_gains_device(indptr, indices, assign, delta_ids, delta_vals,
                         cand, *, tile_l: int, k: int):
@@ -375,11 +376,9 @@ def refine_gains_device(indptr, indices, assign, delta_ids, delta_vals,
     partition ``q`` over its first ``tile_l`` neighbours (0 for
     ``q == own`` and for pad rows).
     """
-    n = assign.shape[0] - 1
-    inj = delta_ids >= 0
-    assign.index_put_((torch.where(inj, delta_ids, n).long(),), delta_vals)
     return assign, kway_gains_csr(indptr, indices, assign, cand,
-                                  tile_l=tile_l, k=k)
+                                  tile_l=tile_l, k=k,
+                                  delta=(delta_ids, delta_vals))
 
 
 # ---------------------------------------------------------- streaming step

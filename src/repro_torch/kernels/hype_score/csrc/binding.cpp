@@ -35,8 +35,9 @@ extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
                                          int vec4, cudaStream_t stream);
 extern "C" cudaError_t kway_gains_csr_launch(
     const void* indptr, int indptr64, const int32_t* indices,
-    const int32_t* assign, const int32_t* cand, float* gains, int* scratch,
-    int B, int tile_l, int k, cudaStream_t stream);
+    int32_t* assign, int n, const int32_t* delta_ids,
+    const int32_t* delta_vals, int nd, const int32_t* cand, float* gains,
+    int* scratch, int B, int tile_l, int k, cudaStream_t stream);
 extern "C" int64_t kway_gains_scratch_len(int B, int k);
 extern "C" cudaError_t embedding_bag_launch(const void* table,
                                             const int32_t* ids, void* out,
@@ -73,6 +74,12 @@ extern "C" cudaError_t neighbor_agg_bwd_launch(
     const int32_t* rows, const int64_t* hptr, const int32_t* hunit,
     float* partials, int32_t* tickets, int64_t cap, void* grad_x, int64_t N,
     int D, int out_bf16, int vec, cudaStream_t stream);
+extern "C" cudaError_t segment_sum_launch(
+    const float* msgs, const int64_t* rowptr, const int32_t* rows,
+    const int64_t* hptr, const int32_t* hunit, float* partials,
+    int32_t* tickets, int64_t cap, float* out, int64_t N, int D, int align,
+    cudaStream_t stream);
+extern "C" int segment_sum_vec_width(int D, int align);
 extern "C" size_t neighbor_agg_csr_smem_bytes(int D, int F, int w_bf16);
 extern "C" cudaError_t neighbor_agg_csr_launch(
     const float* x, const int64_t* indptr, const int32_t* indices,
@@ -99,14 +106,15 @@ void check_input(const torch::Tensor& t, const char* name,
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-// At least G zeroed int32 ticket counters for score_select on this device
-// and stream. The kernel leaves them zero, so they are allocated once (on
-// the stream, so the zeroing precedes the first launch) and kept for the
-// process; a larger G takes a larger array and keeps the old one, whose
-// address a captured CUDA graph may hold. One array per stream, so that
-// launches on concurrent streams never share a counter; the last lookup
+// At least G zeroed int32 ticket counters on this device and stream, for
+// score_select and segment_sum. Each kernel leaves the counters it used
+// zero, so they are allocated once (on the stream, so the zeroing precedes
+// the first launch) and kept for the process; a larger G takes a larger
+// array and keeps the old one, whose address a captured CUDA graph may
+// hold. One array per stream, so that launches on concurrent streams never
+// share a counter (launches on one stream run in turn); the last lookup
 // is remembered per host thread.
-int32_t* select_tickets(int64_t G, const torch::Device& device,
+int32_t* zeroed_tickets(int64_t G, const torch::Device& device,
                         cudaStream_t stream) {
   thread_local int last_dev = -1;
   thread_local cudaStream_t last_stream = nullptr;
@@ -194,7 +202,7 @@ Four score_select(const torch::Tensor& nbrs, const torch::Tensor& fringe,
       (L % 4 == 0) &&
       (reinterpret_cast<std::uintptr_t>(nbrs.data_ptr<int32_t>()) % 16 == 0);
   const cudaStream_t stream = at::cuda::getCurrentCUDAStream().stream();
-  int32_t* tickets = select_tickets(G, device, stream);
+  int32_t* tickets = zeroed_tickets(G, device, stream);
   const cudaError_t err = hype_score_select_launch(
       nbrs.data_ptr<int32_t>(), fringe.data_ptr<int32_t>(),
       bias.data_ptr<float>(), prev.data_ptr<float>(),
@@ -277,13 +285,18 @@ torch::Tensor kway_gains(const torch::Tensor& parts, const torch::Tensor& own,
 
 // The screen: gains of the candidates ``cand`` (B,) read through the CSR
 // (indptr int32 or int64, indices int32) and the (n + 1,) assignment, each
-// row cut to its first ``tile_l`` neighbours. Ids must lie in range: the
-// kernel reads what they point at.
+// row cut to its first ``tile_l`` neighbours. With ``delta_ids`` and
+// ``delta_vals`` ((nd,) int32, -1 pads landing on the scratch slot n) the
+// delta is written into the assignment in place first, and the gains'
+// kernel waits for its stores before it reads the assignment: one device
+// program. Ids must lie in range: the kernels read what they point at.
 torch::Tensor kway_gains_csr(const torch::Tensor& indptr,
                              const torch::Tensor& indices,
-                             const torch::Tensor& assign,
+                             torch::Tensor assign,
                              const torch::Tensor& cand, int64_t tile_l,
-                             int64_t k) {
+                             int64_t k,
+                             const c10::optional<torch::Tensor>& delta_ids,
+                             const c10::optional<torch::Tensor>& delta_vals) {
   TORCH_CHECK(cand.is_cuda(), "cand must be a CUDA tensor");
   const torch::Device device = cand.device();
   const auto ptr_type = indptr.scalar_type();
@@ -293,21 +306,36 @@ torch::Tensor kway_gains_csr(const torch::Tensor& indptr,
   check_input(indices, "indices", torch::kInt32, 1, device);
   check_input(assign, "assign", torch::kInt32, 1, device);
   check_input(cand, "cand", torch::kInt32, 1, device);
+  TORCH_CHECK(delta_ids.has_value() == delta_vals.has_value(),
+              "delta_ids and delta_vals come together");
+  int64_t nd = 0;
+  if (delta_ids.has_value()) {
+    check_input(*delta_ids, "delta_ids", torch::kInt32, 1, device);
+    check_input(*delta_vals, "delta_vals", torch::kInt32, 1, device);
+    nd = delta_ids->size(0);
+    TORCH_CHECK(delta_vals->size(0) == nd,
+                "delta_ids and delta_vals must have one length");
+  }
   TORCH_CHECK(indptr.size(0) >= 1, "indptr must hold n + 1 offsets");
+  TORCH_CHECK(assign.size(0) >= 1, "assign must hold n + 1 entries");
   TORCH_CHECK(k >= 1 && k < kKwayK, "k must lie in [1, 2**28), got ", k);
   TORCH_CHECK(tile_l >= 1 && tile_l < kKwayLen,
               "tile_l must lie in [1, 2**30), got ", tile_l);
   const int64_t B = cand.size(0);
-  TORCH_CHECK(B < kInt31, "shape too large");
+  TORCH_CHECK(B < kInt31 && nd < kInt31 && assign.size(0) < kInt31,
+              "shape too large");
 
   const c10::cuda::CUDAGuard guard(device);
   torch::Tensor gains =
       torch::empty({B, k}, cand.options().dtype(torch::kFloat32));
-  if (B == 0) return gains;
+  if (B == 0 && nd == 0) return gains;
   const torch::Tensor scratch = kway_scratch(B, k, cand);
   C10_CUDA_CHECK(kway_gains_csr_launch(
       indptr.data_ptr(), ptr_type == torch::kInt64,
       indices.data_ptr<int32_t>(), assign.data_ptr<int32_t>(),
+      static_cast<int>(assign.size(0) - 1),
+      nd ? delta_ids->data_ptr<int32_t>() : nullptr,
+      nd ? delta_vals->data_ptr<int32_t>() : nullptr, static_cast<int>(nd),
       cand.data_ptr<int32_t>(), gains.data_ptr<float>(),
       data_or_null(scratch), static_cast<int>(B), static_cast<int>(tile_l),
       static_cast<int>(k), at::cuda::getCurrentCUDAStream().stream()));
@@ -608,6 +636,57 @@ torch::Tensor neighbor_agg_bwd(const torch::Tensor& g,
   return grad_x;
 }
 
+// Row 5c: out (N, D) float32, the sum of msgs (E, D) float32 by id over
+// the segment index: rowptr (N + 1) int64, rows (at least rowptr[N]) int32
+// (the edges sorted stably by id), and the chunk units of the ids of more
+// than 32 edges, hptr (N + 1) int64 and hunit (at least hptr[N]) int32,
+// whose length sizes the partials. One launch: the tickets come from the
+// stream's zeroed workspace, which the kernel leaves zeroed.
+torch::Tensor segment_sum(const torch::Tensor& msgs,
+                          const torch::Tensor& rowptr,
+                          const torch::Tensor& rows,
+                          const torch::Tensor& hptr,
+                          const torch::Tensor& hunit) {
+  TORCH_CHECK(msgs.is_cuda(), "msgs must be a CUDA tensor");
+  const torch::Device device = msgs.device();
+  check_input(msgs, "msgs", torch::kFloat32, 2, device);
+  check_input(rowptr, "rowptr", torch::kInt64, 1, device);
+  check_input(rows, "rows", torch::kInt32, 1, device);
+  check_input(hptr, "hptr", torch::kInt64, 1, device);
+  check_input(hunit, "hunit", torch::kInt32, 1, device);
+  const int64_t D = msgs.size(1), N = rowptr.size(0) - 1;
+  TORCH_CHECK(N >= 0, "rowptr must hold N + 1 offsets");
+  TORCH_CHECK(hptr.size(0) == N + 1, "hptr must hold N + 1 offsets");
+  TORCH_CHECK(D < kInt31 && hunit.size(0) < kInt31, "shape too large");
+
+  const c10::cuda::CUDAGuard guard(device);
+  torch::Tensor out = torch::empty({N, D}, msgs.options());
+  if (N == 0 || D == 0) return out;
+  const int64_t cap = hunit.size(0);
+  torch::Tensor partials = torch::empty({cap, D}, msgs.options());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream().stream();
+  int32_t* tickets = zeroed_tickets(cap + 1, device, stream);
+  // the largest power of two, at most 16, dividing every base address
+  const std::uintptr_t bits =
+      16 | reinterpret_cast<std::uintptr_t>(msgs.data_ptr()) |
+      reinterpret_cast<std::uintptr_t>(out.data_ptr()) |
+      reinterpret_cast<std::uintptr_t>(partials.data_ptr());
+  const int align = static_cast<int>(bits & (~bits + 1));
+  C10_CUDA_CHECK(segment_sum_launch(
+      msgs.data_ptr<float>(), rowptr.data_ptr<int64_t>(),
+      rows.data_ptr<int32_t>(), hptr.data_ptr<int64_t>(),
+      hunit.data_ptr<int32_t>(), partials.data_ptr<float>(), tickets, cap,
+      out.data_ptr<float>(), N, static_cast<int>(D), align, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+// The floats a lane of segment_sum loads at once for rows of D floats at
+// the given base alignment (4, 2 or 1; chip_smoke.py reports it).
+int64_t segment_sum_vec_width_of(int64_t D, int64_t align) {
+  return segment_sum_vec_width(static_cast<int>(D), static_cast<int>(align));
+}
+
 // Row 5d: x (N, D) float32, the rows' CSR (indptr (B + 1) int64, indices
 // int32, at least indptr[B] of them) and its chunk units (hptr (B + 1)
 // int64, hunit int32, whose length sizes the scratch), w (D, F) float32
@@ -669,7 +748,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("scores", &scores, "HYPE external-neighbours scores (CUDA, sm_90a)");
   m.def("kway_gains", &kway_gains, "K-way move gains (CUDA, sm_90a)");
   m.def("kway_gains_csr", &kway_gains_csr,
-        "K-way move gains of candidates read through a CSR (CUDA, sm_90a)");
+        "K-way move gains of candidates read through a CSR, after the "
+        "refinement screen's delta when given (CUDA, sm_90a)");
   m.def("stream_commit", &stream_commit,
         "The streaming engine's sequential sketch commit (CUDA, sm_90a)");
   m.def("stream_commit_branch", &stream_commit_branch_of,
@@ -687,6 +767,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("neighbor_agg_bwd", &neighbor_agg_bwd,
         "Gradient of x of neighbor_agg, or of an EmbeddingBag's table "
         "(mean or sum), deterministic (CUDA, sm_90a)");
+  m.def("segment_sum", &segment_sum,
+        "Row 5c: the sum of an edge list's rows by id, deterministic "
+        "(CUDA, sm_90a)");
+  m.def("segment_sum_vec_width", &segment_sum_vec_width_of,
+        "The floats a lane of segment_sum loads at once");
   m.def("neighbor_agg_csr", &neighbor_agg_csr,
         "Row 5d: the mean of each CSR row's neighbour rows (chunk order) "
         "and its product with w on the tensor cores (CUDA, sm_90a)");

@@ -1,5 +1,6 @@
-// K-way move gains, hand-written for Hopper (sm_90a): one row routine with
-// two front ends.
+// K-way move gains, hand-written for Hopper (sm_90a): a row routine with
+// two front ends, and the refinement screen's own kernel for the CSR
+// front end.
 //
 // Replaces the Pallas TPU kernel ``kway_gains_kernel`` (body
 // ``_gain_kernel``) in src/repro/kernels/kway_refine/kernel.py, and, in the
@@ -21,7 +22,10 @@
 //     for j < min(deg(c), tile_l), c = cand[b], and own[b] = assign[c]; a
 //     pad candidate (c < 0) has no parts and own -1. This is the tile of
 //     the screen's plain version without building it: only the first
-//     tile_l neighbours in CSR order count, as there.
+//     tile_l neighbours in CSR order count, as there. With the host's
+//     delta (nd > 0) the delta is written into assign first,
+//     by a kernel whose programmatic dependent the gains' kernel is: the
+//     whole screen is one device program, as JAX's jitted one is.
 //
 // What bounds it on the H100. The CSR front end on the screen's path reads
 // a few MB (the candidates' ids up to the cut, their parts from assign,
@@ -31,7 +35,10 @@
 // longest rows, and by the random assign gathers (one L1 wavefront per
 // id). The tile front end reads the whole (B, L) tile once: bytes.
 //
-// The design.
+// The CSR front end runs the screen's kernel (kway_screen_kernel below)
+// wherever its row counters fit in shared memory, and the row
+// routine's shared or global counters past that (k above about 7,250).
+// The row routine (the tile front end at every k):
 // - A block takes kRows rows at a time (a group: rows g, g + G, g + 2G,
 //   ... of the G groups, so that a run of long rows spreads over the
 //   blocks). Each row is cut into chunks of 32 * kPer ids; the group's
@@ -292,6 +299,185 @@ kway_gains_kernel(Rows rows, float* __restrict__ gains,
   }
 }
 
+// ---- the screen's kernel: the CSR front end while its row counters fit
+// in shared memory (k up to about 7,250 on an H100), alone or after the
+// delta.
+//
+// A block takes kSRows rows (g, g + G, ...: a run of long rows spreads
+// over the blocks). Lanes 0 .. kSRows - 1 of warp 0 load their row's
+// candidate and offsets (the chain's first links, which no delta changes)
+// and, after a delta, every thread waits for the delta's grid
+// (griddepcontrol.wait) before the own part is read; with no delta the
+// own part is read beside the offsets. After one barrier the block's
+// ids, each row cut to tile_l, are one packed list: warp w takes lane-loads
+// [w n / 8, (w + 1) n / 8) of its n, kSPer of them in flight a lane (ids,
+// then their parts: plain loads of assign, which the wait makes see the
+// delta's stores), so a row of 10 ids costs one lane-load, not a 256-id
+// chunk, and a long row spreads over the block's warps. Each lane adds
+// one to its (row, column) counter in shared memory with a shared atomic:
+// column k of a row counts the parts equal to an own part at or past k,
+// the only parts outside [0, k) that count. After a second barrier the
+// block writes its rows' gains. No warp-private histogram to zero or
+// flush, and no barrier but those two. Measured on the H100 (PERF.md, row
+// 3b), at the first screen: grouping equal keys with __match_any_sync
+// first, one atomic a group, was slower, and so were gathers from L2
+// alone (ld.cg), rows cut into 32-id lane-loads counted by warp votes, and
+// 4 or 16 rows a block.
+constexpr int kSRows = 8;  // rows a block
+constexpr int kSPer = 8;   // lane-loads of ids a warp keeps in flight
+
+struct ScreenRows {
+  int64_t start[kSRows];  // offset of the row's first id
+  int own[kSRows];
+  int off[kSRows + 1];    // the rows' first places in the packed list
+};
+
+size_t screen_smem(int k) { return sizeof(int) * (size_t)kSRows * (k + 1); }
+
+bool screen_fits(int k) {
+  return screen_smem(k) + sizeof(ScreenRows) <= (size_t)max_smem_optin();
+}
+
+// Waits until the grid this launch depends on programmatically (the
+// delta) has completed and its stores are visible; returns at once when
+// the launch has no such dependency.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <typename Ptr>
+__global__ void __launch_bounds__(kThreads)
+kway_screen_kernel(const Ptr* __restrict__ indptr,
+                   const int32_t* __restrict__ indices,
+                   const int32_t* assign, const int32_t* __restrict__ cand,
+                   float* __restrict__ gains, int B, int tile_l, int k,
+                   int after_delta) {
+  extern __shared__ int cnt[];  // kSRows x (k + 1)
+  __shared__ ScreenRows sr;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int G = (B + kSRows - 1) / kSRows;
+  const int g = blockIdx.x;
+  const int k1 = k + 1;
+  int32_t c = -1;
+  int64_t start = 0;
+  int len = 0, own = -1;
+  if (warp == 0 && lane < kSRows && g + lane * G < B) {
+    c = __ldg(cand + g + lane * G);
+    if (c >= 0) {
+      if (!after_delta) own = __ldca(assign + c);  // beside the offsets
+      start = load_ptr(indptr + c);
+      const int64_t deg = load_ptr(indptr + c + 1) - start;
+      len = deg <= 0 ? 0 : (deg < tile_l ? (int)deg : tile_l);
+    }
+  }
+  for (int i = threadIdx.x; i < kSRows * k1; i += kThreads) cnt[i] = 0;
+  if (after_delta) {
+    wait_prior_grid();
+    if (c >= 0) own = __ldca(assign + c);
+  }
+  if (warp == 0) {
+    int n = len;
+#pragma unroll
+    for (int d = 1; d < kSRows; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, n, d);
+      if (lane >= d) n += t;
+    }
+    if (lane < kSRows) {
+      sr.start[lane] = start;
+      sr.own[lane] = own;
+      sr.off[lane + 1] = n;
+    }
+    if (lane == 0) sr.off[0] = 0;
+  }
+  __syncthreads();
+
+  const int total = sr.off[kSRows];
+  const int nl = (total + 31) / 32;
+  const int j1 = (int)((int64_t)nl * (warp + 1) / kWarps);
+  int first[kSRows];  // the rows' first places, in registers
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) first[r] = sr.off[r];
+  for (int jb = (int)((int64_t)nl * warp / kWarps); jb < j1; jb += kSPer) {
+    int32_t x[kSPer];
+    int row[kSPer];
+#pragma unroll
+    for (int i = 0; i < kSPer; ++i) {
+      const int p = (jb + i) * 32 + lane;
+      int r = 0;  // the last row whose first place is at or before p
+#pragma unroll
+      for (int q = 1; q < kSRows; ++q) r += first[q] <= p ? 1 : 0;
+      row[i] = r;
+      x[i] = jb + i < j1 && p < total
+                 ? __ldg(indices + sr.start[r] + (p - sr.off[r]))
+                 : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < kSPer; ++i) x[i] = x[i] >= 0 ? __ldca(assign + x[i]) : -1;
+#pragma unroll
+    for (int i = 0; i < kSPer; ++i) {
+      const int own = sr.own[row[i]];
+      const int col = (unsigned)x[i] < (unsigned)k   ? x[i]
+                      : x[i] >= 0 && x[i] == own ? k
+                                                 : -1;
+      if (col >= 0) atomicAdd(cnt + row[i] * k1 + col, 1);
+    }
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < kSRows * k; i += kThreads) {
+    const int r = i / k;
+    const int b = g + r * G;
+    if (b >= B) break;
+    const int own = sr.own[r];
+    const int oc = own < 0 ? 0 : cnt[r * k1 + (own < k ? own : k)];
+    gains[(int64_t)b * k + (i - r * k)] = (float)(cnt[r * k1 + i - r * k] - oc);
+  }
+}
+
+// The host's admitted moves written into the assignment: assign[ids[i]] =
+// vals[i], a pad id (-1) landing on the scratch slot n. Its blocks let the
+// screen's grid launch at once (griddepcontrol.launch_dependents); the
+// screen waits for this grid's stores before its first read of assign.
+__global__ void kway_delta_kernel(const int32_t* __restrict__ ids,
+                                  const int32_t* __restrict__ vals, int nd,
+                                  int32_t* __restrict__ assign, int n) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nd) {
+    const int32_t u = ids[i];
+    assign[u >= 0 ? u : n] = vals[i];
+  }
+}
+
+// The screen's kernel on the stream, as a programmatic dependent of the
+// launch before it (the delta) when ``after_delta``.
+template <typename Ptr>
+cudaError_t launch_screen(const Ptr* indptr, const int32_t* indices,
+                          const int32_t* assign, const int32_t* cand,
+                          float* gains, int B, int tile_l, int k,
+                          bool after_delta, cudaStream_t stream) {
+  auto kernel = kway_screen_kernel<Ptr>;
+  const size_t smem = screen_smem(k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((B + kSRows - 1) / kSRows));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = after_delta ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, indptr, indices, assign, cand,
+                            gains, B, tile_l, k, (int)after_delta);
+}
+
 Route route(int k) {
   if (k <= kPrivateK) return kPrivate;
   if (sizeof(int) * (size_t)kRows * k + sizeof(Group) <=
@@ -333,6 +519,29 @@ cudaError_t launch(const Rows& rows, float* gains, int* scratch, int B, int k,
   return cudaGetLastError();
 }
 
+// The CSR front end: the screen's kernel where its counters fit, else the
+// row routine (its shared or global counters), after the delta when nd >
+// 0.
+template <typename Ptr>
+cudaError_t csr_gains(const Ptr* indptr, const int32_t* indices,
+                      int32_t* assign, int n, const int32_t* delta_ids,
+                      const int32_t* delta_vals, int nd,
+                      const int32_t* cand, float* gains, int* scratch, int B,
+                      int tile_l, int k, cudaStream_t stream) {
+  if (nd > 0) {
+    kway_delta_kernel<<<(nd + kThreads - 1) / kThreads, kThreads, 0,
+                        stream>>>(delta_ids, delta_vals, nd, assign, n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (B == 0) return cudaSuccess;
+  if (screen_fits(k))
+    return launch_screen(indptr, indices, assign, cand, gains, B, tile_l, k,
+                         nd > 0, stream);
+  return launch(CsrRows<Ptr>{indptr, indices, assign, cand, tile_l}, gains,
+                scratch, B, k, stream);
+}
+
 }  // namespace
 
 // The int32 scratch either launch needs, in counters: 0 unless k's
@@ -353,15 +562,21 @@ extern "C" cudaError_t kway_gains_launch(const int32_t* parts,
   return launch(TileRows{parts, own, L, vec4}, gains, scratch, B, k, stream);
 }
 
+// The CSR front end, and the refinement screen as one device program: the
+// delta (``nd`` ids and values, -1 pads landing on assign[n], the scratch
+// slot; none when nd is 0) written into the (n + 1,) assignment, then the
+// gains, the screen's kernel launched as the delta's programmatic
+// dependent so that its launch and its first links overlap the delta.
 extern "C" cudaError_t kway_gains_csr_launch(
     const void* indptr, int indptr64, const int32_t* indices,
-    const int32_t* assign, const int32_t* cand, float* gains, int* scratch,
-    int B, int tile_l, int k, cudaStream_t stream) {
+    int32_t* assign, int n, const int32_t* delta_ids,
+    const int32_t* delta_vals, int nd, const int32_t* cand, float* gains,
+    int* scratch, int B, int tile_l, int k, cudaStream_t stream) {
   if (indptr64)
-    return launch(CsrRows<int64_t>{static_cast<const int64_t*>(indptr),
-                                   indices, assign, cand, tile_l},
-                  gains, scratch, B, k, stream);
-  return launch(CsrRows<int32_t>{static_cast<const int32_t*>(indptr), indices,
-                                 assign, cand, tile_l},
-                gains, scratch, B, k, stream);
+    return csr_gains(static_cast<const int64_t*>(indptr), indices, assign, n,
+                     delta_ids, delta_vals, nd, cand, gains, scratch, B,
+                     tile_l, k, stream);
+  return csr_gains(static_cast<const int32_t*>(indptr), indices, assign, n,
+                   delta_ids, delta_vals, nd, cand, gains, scratch, B, tile_l,
+                   k, stream);
 }

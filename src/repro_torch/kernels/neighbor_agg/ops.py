@@ -24,12 +24,14 @@ backward is row 5's, over the by-source ``SlotIndex`` that
 ``csr_transpose_index`` builds. ``neighbor_agg_csr.launches`` counts its
 calls on the card.
 
-``segment_sum`` is the backward kernel in its sum mode over an edge list
-(each edge a bag of one slot): the GNN archs' sums of messages by an
-edge index, deterministic where ``index_add_`` adds with float atomics
-on the card. With ``gather_rows`` (``h[src]``, whose gradient is such a
-sum) it keeps a GNN training step free of float atomics;
-``segment_sum.launches`` counts its launches.
+``segment_sum`` (row 5c) is the backward's sum mode over an edge list
+(each edge a bag of one slot), on a kernel of its own
+(``csrc/segment_sum.cu``: one walk of each warp's edges at any D, with
+the widest loads the rows' alignment allows, and no memset): the GNN
+archs' sums of messages by an edge index, deterministic where
+``index_add_`` adds with float atomics on the card. With ``gather_rows``
+(``h[src]``, whose gradient is such a sum) it keeps a GNN training step
+free of float atomics; ``segment_sum.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -333,13 +335,15 @@ def segment_index(ids: torch.Tensor, n_rows: int) -> SlotIndex:
 
 def _segment_sum(msgs: torch.Tensor, ids: torch.Tensor, n_rows: int,
                  index: SlotIndex | None) -> torch.Tensor:
-    """``segment_sum`` without its gradient: one launch of the backward
-    kernel in its sum mode on the card, counted; ``ref.py`` on the CPU."""
+    """``segment_sum`` without its gradient: one launch of its kernel
+    (``csrc/segment_sum.cu``) on the card, counted; ``ref.py`` on the
+    CPU."""
     slots = ids[:, None]
     if not bwd_args_ok("segment_sum", msgs, slots, msgs.dtype):
         return neighbor_agg_bwd_ref(msgs, slots, n_rows, mean=False)
-    out = launch_bwd(msgs, slots, n_rows, torch.float32,
-                     index or segment_index(ids, n_rows), False)
+    index = index or segment_index(ids, n_rows)
+    out = load_extension().segment_sum(msgs, index.rowptr, index.rows,
+                                       index.hptr, index.hunit)
     segment_sum.launches += 1
     return out
 
@@ -396,10 +400,11 @@ def segment_sum(msgs: torch.Tensor, ids: torch.Tensor, n_rows: int,
     """``jax.ops.segment_sum(msgs, ids, n_rows)`` over the edges whose id
     is not -1: msgs (E, D) float32 (float64 too on the CPU), ids (E,)
     int32 in [-1, n_rows). Returns (n_rows, D) in msgs' dtype. Each edge
-    is a bag of one slot, so this is the backward kernel's sum mode
+    is a bag of one slot, so this is the backward's sum mode
     (``neighbor_agg_bwd`` without the division): each id's edges added in
     the chunk order of ``ref.py``, with no atomics, the same bits on
-    every run and on either device. ``index``, when given, is
+    every run and on either device, at any D (on the card one launch of
+    ``csrc/segment_sum.cu``). ``index``, when given, is
     ``segment_index(ids, n_rows)``. Differentiable in msgs: the gradient
     is ``g[ids]``, 0 for a skipped edge. ``segment_sum.launches`` counts
     the card's launches, those of ``gather_rows``' backward too."""

@@ -142,3 +142,142 @@ def split_product(mean: np.ndarray, w: np.ndarray, w_split: bool):
             acc = acc + hi[:, s] @ w_lo[s]
         acc = acc + hi[:, s] @ w_hi[s]
     return acc
+
+
+# ---- row 5c: csrc/segment_sum.cu
+
+MAX_NC = 4     # vectors a lane in one pass (kMaxNC)
+
+
+def vec_width(D: int, align: int) -> int:
+    """The floats a lane loads at once (``segment_sum_vec_width``): 4
+    where D % 4 == 0 and the bases are 16-byte aligned, 2 at 8 bytes, else
+    1."""
+    if D % 4 == 0 and align >= 16:
+        return 4
+    if D % 2 == 0 and align >= 8:
+        return 2
+    return 1
+
+
+def tile_columns(D: int, vw: int):
+    """The walk's passes over a row of D floats: for each pass (from
+    vector c0, 32 NC vectors) the (lane, c, element slice) of every vector
+    a lane holds, vector j = c0 + lane + 32 c below nv = D / vw."""
+    nv = D // vw
+    nc = min(-(-nv // 32), MAX_NC)
+    passes = []
+    for c0 in range(0, nv, 32 * nc):
+        cols = []
+        for c in range(nc):
+            for lane in range(32):
+                j = c0 + lane + 32 * c
+                if j < nv:
+                    cols.append((lane, c, slice(j * vw, j * vw + vw)))
+        passes.append(cols)
+    return nc, passes
+
+
+def warp_list(rowptr, u0: int, n_ids: int):
+    """A light warp's packed edge list: lanes t < IDS hold id u0 + t's
+    first edge lo and count nl (0 past n_ids, for an id without an edge
+    and for a heavy one), the exclusive scan ``off``; returns, for each
+    packed place q < total, the kernel's locate: the owner t (the last
+    lane with off_t <= q, by its binary search over 32 lanes), the edge's
+    place in rows and whether it is t's last."""
+    lo = np.zeros(32, np.int64)
+    nl = np.zeros(32, np.int64)
+    for t in range(IDS):
+        u = u0 + t
+        if u < n_ids:
+            lo[t] = rowptr[u]
+            n = rowptr[u + 1] - rowptr[u]
+            nl[t] = n if n <= CHUNK else 0
+    off = np.cumsum(nl) - nl
+    total = int(nl.sum())
+    placed = []
+    for q in range(total):
+        t = 0
+        for step in (16, 8, 4, 2, 1):
+            if t + step < 32 and off[t + step] <= q:
+                t += step
+        placed.append((t, int(lo[t] + q - off[t]), q == off[t] + nl[t] - 1))
+    return placed
+
+
+def segment_schedule(msgs, rowptr, rows, n_ids, align=16, heavy_warps=8,
+                     seed=0):
+    """Row 5c's kernel as its warps share the ids, element by element: the
+    heavy units (chunks of the ids past CHUNK edges) drawn from the
+    counter in a random interleaving of ``heavy_warps`` warps, each a
+    partial, the id's last ticket adding the partials in chunk order; the
+    light warps' runs of empty ids zeroed and their packed lists walked
+    once a pass of the column tile, each id written after its last edge.
+    Every element is written once (checked), and the tickets and the
+    counter end at zero, as the next launch needs them (checked). Returns
+    (n_ids, D) float32 and the vector width."""
+    D = msgs.shape[1]
+    vw = vec_width(D, align)
+    nc, passes = tile_columns(D, vw)
+    out = np.full((n_ids, D), np.nan, np.float32)
+    written = np.zeros((n_ids, D), np.int64)
+
+    def put(u, acc, cols):
+        for _, _, sl in cols:
+            out[u, sl] = acc[sl]
+            written[u, sl] += 1
+
+    count = rowptr[1:] - rowptr[:-1]
+    units_of = np.where(count > CHUNK, -(-count // CHUNK), 0)
+    hptr = np.concatenate([[0], np.cumsum(units_of)])
+    units = int(hptr[-1])
+    hunit = np.repeat(np.arange(n_ids), units_of)
+    tickets = np.zeros(units + 1, np.int64)       # the counter last
+    partials = np.zeros((units, D), np.float32)
+    rng = np.random.default_rng(seed)
+    active = list(range(heavy_warps)) if units else []
+    last_draw = units + heavy_warps - 1
+    while active:                                 # the heavy warps
+        w = active[rng.integers(len(active))]
+        i = int(tickets[units])
+        tickets[units] += 1
+        if i >= units:
+            if i == last_draw:
+                tickets[units] = 0
+            active.remove(w)
+            continue
+        u = int(hunit[i])
+        base = int(hptr[u])
+        s0 = rowptr[u] + (i - base) * CHUNK
+        for cols in passes:
+            acc = np.zeros(D, np.float32)
+            for e in rows[s0:min(s0 + CHUNK, rowptr[u + 1])]:
+                acc = acc + msgs[e]
+            for _, _, sl in cols:
+                partials[i, sl] = acc[sl]
+        ticket = int(tickets[base])
+        tickets[base] += 1
+        if ticket == units_of[u] - 1:
+            tickets[base] = 0
+            for cols in passes:
+                acc = np.zeros(D, np.float32)
+                for p in partials[base:base + units_of[u]]:
+                    acc = acc + p
+                put(u, acc, cols)
+    assert not tickets.any()
+    for u0 in range(0, n_ids, IDS):               # the light warps
+        ids = range(u0, min(u0 + IDS, n_ids))
+        mask = sum(1 << (u - u0) for u in ids if count[u] == 0)
+        for a, n in runs_of(mask):
+            out[u0 + a:u0 + a + n] = 0.0
+            written[u0 + a:u0 + a + n] += 1
+        placed = warp_list(rowptr, u0, n_ids)
+        for cols in passes:
+            acc = np.zeros(D, np.float32)
+            for t, place, last in placed:
+                acc = acc + msgs[rows[place]]
+                if last:
+                    put(u0 + t, acc, cols)
+                    acc = np.zeros(D, np.float32)
+    assert (written == 1).all()
+    return out, vw

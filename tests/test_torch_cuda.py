@@ -216,6 +216,103 @@ def test_cuda_kway_gains_csr_equal_plain_version(tile_l, k, ptr_dtype):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("ptr_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k", [1, 32, 48, 65, 67, 10_000])
+@pytest.mark.parametrize("tile_l", [32, 2048])
+def test_cuda_kway_screen_with_delta_equal_plain_version(tile_l, k,
+                                                         ptr_dtype):
+    """The screen as one device program (the delta, then the gains'
+    kernel as its programmatic dependent): the assignment and the gains
+    bit-equal to the plain version's, eagerly and replayed in a CUDA
+    graph; a delta of pads only changes no vertex. One launch counted a
+    call."""
+    _need_card()
+    indptr, indices, assign, cand = _csr_screen(k, ptr_dtype)
+    rng = np.random.default_rng(k + tile_l)
+    movers = cand[:8].cpu().numpy()                # candidates that move
+    ids = np.full(96, -1, np.int32)
+    ids[:8] = movers
+    ids[8:40] = rng.choice(np.setdiff1d(np.arange(3000), movers), size=32,
+                           replace=False)          # the ids are unique
+    vals = rng.integers(0, k, size=96).astype(np.int32)
+    for d_ids in (ids, np.full(96, -1, np.int32)):
+        delta = [torch.from_numpy(a).cuda() for a in (d_ids, vals)]
+        cpu = [t.cpu() for t in (indptr, indices, assign, cand)]
+        cpu_assign = cpu[2].clone()
+        want = kway_gains_csr(cpu[0], cpu[1], cpu_assign, cpu[3],
+                              tile_l=tile_l, k=k,
+                              delta=[t.cpu() for t in delta])
+        dev_assign = assign.clone()
+        before = kway_gains_csr.launches
+        got = kway_gains_csr(indptr, indices, dev_assign, cand,
+                             tile_l=tile_l, k=k, delta=delta)
+        torch.cuda.synchronize()
+        assert kway_gains_csr.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(dev_assign.cpu()[:-1], cpu_assign[:-1])
+        replay = assign.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kway_gains_csr(indptr, indices, replay, cand, tile_l=tile_l,
+                           k=k, delta=delta)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kway_gains_csr(indptr, indices, replay, cand,
+                                 tile_l=tile_l, k=k, delta=delta)
+        replay.copy_(assign)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want)
+        assert torch.equal(replay.cpu()[:-1], cpu_assign[:-1])
+
+
+@pytest.mark.parametrize("D", [1, 3, 33, 64, 70, 128, 130, 256, 600])
+@pytest.mark.parametrize("hub", [0, 33, 1000])
+def test_cuda_segment_sum_equals_plain_version(D, hub):
+    """Row 5c's kernel at any D (16-, 8- and 4-byte rows, one pass or
+    several), with a heavy id of ``hub`` edges or none, runs of empty ids
+    and skipped edges: bit-equal to the plain version on the CPU, on a
+    repeat, on rows only 8 or 4 bytes aligned, and replayed in a CUDA
+    graph (the tickets left zeroed for the next launch)."""
+    _need_card()
+    from repro_torch.kernels.neighbor_agg import ops as nops
+    rng = np.random.default_rng(D + hub)
+    N = 5000
+    ids = rng.integers(-1, N // 2, size=20_000).astype(np.int32)
+    ids[ids == 7] = 8
+    ids[rng.permutation(ids.size)[:hub]] = 7
+    store = torch.randn((ids.size * D + 1,), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(D))
+    ids = torch.from_numpy(ids).cuda()
+    msgs = store[:-1].view(ids.shape[0], D)
+    want = nops.segment_sum(msgs.cpu(), ids.cpu(), N)
+    before = nops.segment_sum.launches
+    got = nops.segment_sum(msgs, ids, N)
+    again = nops.segment_sum(msgs, ids, N)
+    torch.cuda.synchronize()
+    assert nops.segment_sum.launches == before + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+    # rows from a 4-byte offset: the narrower loads give the same bits
+    shifted = store[1:].view(ids.shape[0], D)
+    assert torch.equal(nops.segment_sum(shifted, ids, N).cpu(),
+                       nops.segment_sum(shifted.cpu(), ids.cpu(), N))
+    index = nops.segment_index(ids, N)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nops.segment_sum(msgs, ids, N, index)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = nops.segment_sum(msgs, ids, N, index)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want)
+
+
 @pytest.mark.parametrize("method,kw,want", [
     ("hype_batched", {"t": 8}, "2f2d37dfd52d5986"),
     ("hype_superstep", {"preset": "quality"}, "8356b306cfe516d5"),

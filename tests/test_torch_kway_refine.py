@@ -242,9 +242,145 @@ def test_refine_gains_device_csr_matches_jax(tile_l, k, ptr_dtype,
         k, ptr_dtype)
     got_assign, got = scoring.refine_gains_device(
         indptr, indices, assign, d_ids, d_vals, cand, tile_l=tile_l, k=k)
-    assert calls == [{"tile_l": tile_l, "k": k}]
+    # one call, the delta handed to it (one device program on the card)
+    assert [(c["tile_l"], c["k"]) for c in calls] == [(tile_l, k)]
+    assert calls[0]["delta"][0] is d_ids and calls[0]["delta"][1] is d_vals
     np.testing.assert_array_equal(got_assign.numpy()[:-1], want_assign)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------- the screen's kernel schedule
+
+S_ROWS, S_WARPS, S_PER = 8, 8, 8   # kSRows, kWarps, kSPer (kway_gains.cu)
+
+
+def screen_schedule(indptr, indices, assign, cand, tile_l, k, delta=None):
+    """``kway_screen_kernel`` in numpy, as its blocks and warps share the
+    rows (numpy inputs; ``assign`` (n + 1,) is not changed). The delta is
+    written first (the kernel reads the assignment only after the delta's
+    grid has finished). Block g takes rows g + r G (G = ceil(B / 8)): each
+    row's candidate, offsets cut to tile_l, own part; the block's ids as
+    one packed list of ceil(total / 32) lane-loads, warp w taking
+    [w n / 8, (w + 1) n / 8) in batches of 8, a lane's place p in the
+    list placed in the last row whose first place is at or before p; each
+    lane adding one to its (row, column) counter (column k for a part
+    equal to an own part at or past k, none for a part outside [0, k) and
+    not own); then the block's gains, each row once (checked)."""
+    assign = assign.copy()
+    if delta is not None:
+        ids, vals = delta
+        assign[np.where(ids >= 0, ids, assign.size - 1)] = vals
+    B = cand.size
+    G = -(-B // S_ROWS)
+    k1 = k + 1
+    gains = np.full((B, k), np.nan, np.float32)
+    written = np.zeros(B, np.int64)
+    lane = np.arange(32)
+    for g in range(G):
+        start = np.zeros(S_ROWS, np.int64)
+        length = np.zeros(S_ROWS, np.int64)
+        own = np.full(S_ROWS, -1, np.int64)
+        for r in range(S_ROWS):
+            b = g + r * G
+            if b < B and cand[b] >= 0:
+                c = cand[b]
+                start[r] = indptr[c]
+                length[r] = min(max(indptr[c + 1] - indptr[c], 0), tile_l)
+                own[r] = assign[c]
+        off = np.concatenate([[0], np.cumsum(length)])
+        total = int(off[-1])
+        nl = -(-total // 32)
+        cnt = np.zeros(S_ROWS * k1, np.int64)
+        for w in range(S_WARPS):
+            j0, j1 = nl * w // S_WARPS, nl * (w + 1) // S_WARPS
+            for jb in range(j0, j1, S_PER):
+                for j in range(jb, jb + S_PER):
+                    p = j * 32 + lane
+                    r = (off[None, 1:S_ROWS] <= p[:, None]).sum(1)
+                    live = (j < j1) & (p < total)
+                    x = np.where(live, indices[np.where(
+                        live, start[r] + p - off[r], 0)], -1)
+                    part = np.where(x >= 0, assign[np.maximum(x, 0)], -1)
+                    col = np.where((part >= 0) & (part < k), part,
+                                   np.where((part >= 0) & (part == own[r]),
+                                            k, -1))
+                    np.add.at(cnt, (r * k1 + col)[col >= 0], 1)
+        cnt = cnt.reshape(S_ROWS, k1)
+        for r in range(S_ROWS):
+            b = g + r * G
+            if b >= B:
+                break
+            o = own[r]
+            oc = 0 if o < 0 else cnt[r, min(o, k)]
+            gains[b] = (cnt[r, :k] - oc).astype(np.float32)
+            written[b] += 1
+    assert (written == 1).all()
+    return gains
+
+
+@pytest.mark.parametrize("k", (1, 2, 32, 48, 65, 67))
+@pytest.mark.parametrize("tile_l", (32, 2048))
+@pytest.mark.parametrize("ptr_dtype", (torch.int32, torch.int64),
+                         ids=("int32", "int64"))
+def test_screen_schedule_matches_jax_and_plain_version(ptr_dtype, tile_l,
+                                                       k):
+    """The emulated screen, its delta included (some of whose ids are
+    candidates), equals JAX's program and the plain CSR front end after
+    the same delta, with pads among the candidates and rows past the
+    cut; ``kway_gains_csr`` given the delta on the CPU writes it and
+    gives the same gains."""
+    want_assign, want = _jax_screen(tile_l, k)
+    indptr, indices, assign, d_ids, d_vals, cand = csr_screen_inputs(k)
+    assert np.isin(cand, d_ids[d_ids >= 0]).sum() >= 5
+    got = screen_schedule(indptr.astype(ptr_dtype_np(ptr_dtype)), indices,
+                          assign, cand, tile_l, k, (d_ids, d_vals))
+    np.testing.assert_array_equal(got, want)
+    t_indptr, t_indices, t_assign, t_ids, t_vals, t_cand = _torch_screen(
+        k, ptr_dtype)
+    dev = kway_gains_csr(t_indptr, t_indices, t_assign, t_cand,
+                         tile_l=tile_l, k=k, delta=(t_ids, t_vals))
+    np.testing.assert_array_equal(dev.numpy(), got)
+    np.testing.assert_array_equal(t_assign.numpy()[:-1], want_assign)
+    assert torch.equal(kway_gains_csr_ref(t_indptr, t_indices, t_assign,
+                                          t_cand, tile_l, k), dev)
+
+
+def ptr_dtype_np(dtype):
+    return np.int32 if dtype == torch.int32 else np.int64
+
+
+@pytest.mark.parametrize("tile_l,k", ((128, 32), (2048, 65)))
+def test_screen_schedule_all_pad_delta(tile_l, k):
+    """A delta of pads only changes no vertex (the scratch slot takes the
+    pads); the gains are those of the assignment as it was, as JAX's
+    program gives them."""
+    indptr, indices, assign, d_ids, _, cand = csr_screen_inputs(k, seed=9)
+    pad_ids = np.full_like(d_ids, -1)
+    pad_vals = np.arange(d_ids.size, dtype=np.int32) % k
+    want_assign, want = jax_scoring.refine_gains_device(
+        jnp.asarray(indptr, jnp.int32), jnp.asarray(indices),
+        jnp.asarray(assign[:-1]), jnp.asarray(pad_ids),
+        jnp.asarray(pad_vals), jnp.asarray(cand), tile_l=tile_l, k=k,
+        interpret=True)
+    np.testing.assert_array_equal(np.asarray(want_assign), assign[:-1])
+    got = screen_schedule(indptr, indices, assign, cand, tile_l, k,
+                          (pad_ids, pad_vals))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    t_assign = torch.from_numpy(assign.copy())
+    dev = kway_gains_csr(torch.from_numpy(indptr), torch.from_numpy(indices),
+                         t_assign, torch.from_numpy(cand), tile_l=tile_l,
+                         k=k, delta=(torch.from_numpy(pad_ids),
+                                     torch.from_numpy(pad_vals)))
+    np.testing.assert_array_equal(dev.numpy(), got)
+    assert torch.equal(t_assign[:-1], torch.from_numpy(assign[:-1]))
+
+
+def test_kway_gains_csr_delta_must_be_int32():
+    indptr, indices, assign, d_ids, d_vals, cand = _torch_screen(
+        2, torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        kway_gains_csr(indptr, indices, assign, cand, tile_l=32, k=2,
+                       delta=(d_ids.long(), d_vals))
 
 
 def test_kway_gains_csr_refuses_other_devices():
