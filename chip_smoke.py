@@ -413,15 +413,18 @@ LONG_CHECK_ROWS = 64
 # The bf16 shapes timed beside SDPA: name -> (B, S, Hq, Hkv, D, window).
 # qwen3-8b's layer at the lm_serve prefill and its kernel alone at the
 # published S = 32,768; granite-moe-3b-a800m's layer (G = 3, D = 64) at
-# B = 4, S = 4,096; mixtral-8x22b's (G = 6, D = 128) at moe_window_serve's
-# prefill, its 4,096-token window over 16,384 tokens. Up to S = 4,096
-# every sequence is compared whole with the plain version (its scores at
-# most 2.1 GB a sequence); past it, the last LONG_CHECK_ROWS query rows
-# (mixtral's plain scores would be 51.5 GB).
+# B = 4, S = 4,096 (moe_train's forward); mixtral-8x22b's (G = 6, D = 128)
+# at moe_window_serve's prefill, its 4,096-token window over 16,384
+# tokens, and at moe_window_train's forward (B = 4, S = 4,096, where the
+# window masks no key). Up to S = 4,096 every sequence is compared whole
+# with the plain version (its scores at most 3.2 GB a sequence); past it,
+# the last LONG_CHECK_ROWS query rows (mixtral's plain scores would be
+# 51.5 GB).
 FLASH_TIMED = {"layer": (LM_BATCH, LM_PROMPT, 32, 8, 128, None),
                "long": (1, LM_LONG_SEQ, 32, 8, 128, None),
                "granite_layer": (4, 4096, 24, 8, 64, None),
-               "mixtral_window": (1, 16_384, 48, 8, 128, 4096)}
+               "mixtral_window": (1, 16_384, 48, 8, 128, 4096),
+               "mixtral_train": (4, 4096, 48, 8, 128, 4096)}
 # The reduced LM, float32 without TF32, card against CPU: the tolerance
 # tests/test_serving.py holds two float32 decode paths to.
 LM_PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -516,6 +519,32 @@ MOE_ARCH, MOE_BATCH, MOE_PROMPT = "granite-moe-3b-a800m", 4, 32_768
 MOE_WINDOW_ARCH, MOE_WINDOW_LAYERS = "mixtral-8x22b", 4
 MOE_WINDOW_BATCH, MOE_WINDOW_PROMPT = 1, 16_384
 MOE_STEPS = 16
+# The MoE training slices (PERF.md section 4): bf16, params drawn on the
+# card from a generator seeded with 0, remat on, the launcher's AdamW
+# (launch/cells.py opt_config), train_4k's sequence of 4,096 and
+# accum_steps 2. train_4k's microbatch of 128 sequences is cut to the
+# largest power of two up to 8 that leaves 4 GB of the card unreserved
+# at the step's peak, found on the card by kernel_ab.py
+# --moe-train (one process a microbatch; PERF.md section 4) and fixed
+# here: the phase does not search. granite-moe-3b-a800m at all 32 layers;
+# mixtral-8x22b with its depth cut from 56 layers to 1 (two layers are
+# 86 GB of params, gradients and moments). Batches: the launcher's
+# TokenStream(vocab, accum x mb, 4,096, seed=0), step i split into
+# microbatches. At S = 4,096 mixtral's 4,096-token window masks no key.
+MOE_TRAIN_SEQ, MOE_TRAIN_ACCUM = 4096, 2
+MOE_TRAIN = {
+    "moe_train": dict(arch=MOE_ARCH, layers=None, mb=4, steps=3),
+    "moe_window_train": dict(arch=MOE_WINDOW_ARCH, layers=1, mb=4, steps=3)}
+# the profiled step's aten ops whose device time is reported apart: the
+# experts' products, the routing's sort and one-hot running count, the
+# dispatch (the kept slots' copy into the (E, B, C, d) buffer, and its
+# backward) and the combine (each slot's output gathered, and the
+# gather's backward), the routing gather of top_p and its backward
+MOE_PROFILE_OPS = ("aten::bmm", "aten::sort", "aten::cumsum",
+                   "aten::repeat_interleave", "aten::index_copy",
+                   "aten::index_select", "aten::index",
+                   "aten::_index_put_impl_", "aten::gather",
+                   "aten::scatter_add_")
 # Paged against in-place decode on the card. Each paged step is held to a
 # serve_step on a copy of the paged cache with the same keys: on a full
 # rolling buffer the paged step attends to all Skv slots and the new token
@@ -1440,7 +1469,7 @@ PROFILE_WARMUP_LAUNCHES = 1000
 PROFILE_MARK = "phase_profile.call"
 
 
-def phase_profile(label, fn, watch=()):
+def phase_profile(label, fn, watch=(), ops=()):
     """Where the time goes in one path, from one more run of it under
     torch.profiler: the card's busy time (kernels and copies, summed over
     device-side events only) and its largest consumers. The run ends in
@@ -1457,7 +1486,10 @@ def phase_profile(label, fn, watch=()):
     synchronised, and only device events that start inside the call's
     PROFILE_MARK range are counted; ``warmup_kept`` says how many of the
     adds' records survived (fewer than were launched: some were lost,
-    ahead of the call).
+    ahead of the call). ``ops`` names aten ops (``aten::bmm``) whose
+    self device time, the kernels each launched itself (in the forward
+    and the backward), is also reported, summed by name, with its share
+    of the busy time.
     """
     import torch
     from torch.autograd import DeviceType
@@ -1491,6 +1523,12 @@ def phase_profile(label, fn, watch=()):
         top[key[:60]] += us
     watched = {w: sum(us for key, us in dev.items() if w in key)
                for w in watch}
+    op_us = dict.fromkeys(ops, 0.0)
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.name in op_us
+                and e.time_range.start >= start):
+            us = getattr(e, "self_device_time_total", None)
+            op_us[e.name] += e.self_cuda_time_total if us is None else us
     emit({"phase": "profile", "path": label, "wall_s": wall,
           "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
           "device_launches": sum(calls.values()),
@@ -1502,7 +1540,11 @@ def phase_profile(label, fn, watch=()):
                                           if w in key) for w in watch},
               "watched_share_of_busy": {
                   w: us / 1e6 / busy_s for w, us in watched.items()}}
-              if watch else {}))
+              if watch else {}) | ({
+              "op_device_us": op_us,
+              "op_share_of_busy": {o: us / 1e6 / busy_s
+                                   for o, us in op_us.items()}}
+              if ops else {}))
 
 
 def kernel_split(fn, iters: int = 5) -> dict:
@@ -2393,9 +2435,10 @@ def phase_kernel_flash(fops, fref):
     the shapes of tests/test_kernels.py in fp32 and bf16, non-causal, a
     window, D in {16, 32, 64, 80, 128, 192, 256}, Hkv = 1, ragged S, and
     the FLASH_TIMED shapes: the full-width layers of qwen3-8b (B=8,
-    S=4096, 32 q-heads, 8 kv-heads, D=128) and granite-moe-3b-a800m (B=4,
-    S=4096, 24/8 heads, D=64), compared one sequence at a time so the
-    plain scores stay at 2.1 GB; qwen3-8b's at B=1, S=32,768 and
+    S=4096, 32 q-heads, 8 kv-heads, D=128), granite-moe-3b-a800m (B=4,
+    S=4096, 24/8 heads, D=64) and mixtral-8x22b's training forward (B=4,
+    S=4096, 48/8 heads, D=128, window 4,096), compared one sequence at a
+    time so the plain scores stay at 3.2 GB; qwen3-8b's at B=1, S=32,768 and
     mixtral-8x22b's (B=1, S=16,384, 48/8 heads, D=128, window 4,096),
     where the plain version is neither run whole nor timed (its scores
     would be 137 and 51.5 GB) and the last LONG_CHECK_ROWS query rows of
@@ -2772,9 +2815,11 @@ def phase_kernel_flash_bwd(fops, fref):
     on the same inputs and the card's forward output: fp32 and bf16,
     causal, non-causal, windows, Hkv = 1, ragged S, D in {16, 64, 80, 128,
     192, 256}; then the LM training shape (B=2, S=4,096, 32 heads of 80,
-    bf16, causal) and qwen3-8b's layer (B=8, S=4,096, 32/8 heads, D=128,
-    bf16), compared one sequence at a time; one case repeated for equal
-    bits. The two big shapes are timed eagerly and in a CUDA graph,
+    bf16, causal), qwen3-8b's layer (B=8, S=4,096, 32/8 heads, D=128,
+    bf16) and the MoE training layers at their phases' microbatches
+    (granite_train: 24/8 heads of 64; mixtral_train: 48/8 heads of 128,
+    window 4,096), compared one sequence at a time; one case repeated for
+    equal bits. The four big shapes are timed eagerly and in a CUDA graph,
     beside the plain version and SDPA's backward (autograd of
     F.scaled_dot_product_attention on (B, H, S, D) copies, its forward
     out of the timing). Returns the timed rows and the worst error."""
@@ -2835,22 +2880,32 @@ def phase_kernel_flash_bwd(fops, fref):
         raise SystemExit("flash_attention_bwd gave other bits on a repeat")
 
     timed = {}
-    for name, (B, Hq, Hkv, D) in (("train", (LM_TRAIN_MB, 32, 32, 80)),
-                                  ("layer", (LM_BATCH, 32, 8, 128))):
+    # the LM training shape, qwen3-8b's layer, and the MoE training
+    # layers at their phases' microbatches: granite's (G = 3, D = 64) and
+    # mixtral's (G = 6, D = 128, its window of 4,096, which at S = 4,096
+    # masks no key)
+    for name, (B, Hq, Hkv, D, window) in (
+            ("train", (LM_TRAIN_MB, 32, 32, 80, None)),
+            ("layer", (LM_BATCH, 32, 8, 128, None)),
+            ("granite_train", (MOE_TRAIN["moe_train"]["mb"], 24, 8, 64,
+                               None)),
+            ("mixtral_train", (MOE_TRAIN["moe_window_train"]["mb"], 48, 8,
+                               128, 4096))):
         S = LM_TRAIN_SEQ
         torch.cuda.empty_cache()
         q, k, v, g = inputs(B, S, Hq, Hkv, D, "bfloat16")
-        out, lse = fops.flash_attention(q, k, v, return_lse=True)
-        got = fops.flash_attention_bwd(q, k, v, out, g, lse)
+        out, lse = fops.flash_attention(q, k, v, window=window,
+                                        return_lse=True)
+        got = fops.flash_attention_bwd(q, k, v, out, g, lse, window=window)
         torch.cuda.synchronize()
         row = {"phase": "kernel_flash_bwd", "shape": name, "B": B, "S": S,
                "Hq": Hq, "Hkv": Hkv, "D": D, "causal": True,
-               "window": None, "dtype": "bfloat16"}
+               "window": window, "dtype": "bfloat16"}
         checks = []
         for b in range(B):
             sl = [t[b:b + 1] for t in (q, k, v, out, g)]
-            want = fref.attention_bwd_ref(*sl)
-            absp = fref.attention_bwd_abs_ref(*sl)
+            want = fref.attention_bwd_ref(*sl, window=window)
+            absp = fref.attention_bwd_abs_ref(*sl, window=window)
             checks.append(bwd_check([t[b:b + 1] for t in got], want,
                                     "bfloat16", absp))
             del want, absp
@@ -2864,13 +2919,16 @@ def phase_kernel_flash_bwd(fops, fref):
                    mean_abs_ref=checks[0]["mean_abs_ref"],
                    compared="one sequence at a time")
         worst = max(worst, row["max_abs_err"])
-        flops, _, fwd_bound = attention_bound(B, S, Hq, Hkv, D)
-        call = lambda: fops.flash_attention_bwd(q, k, v, out, g, lse)  # noqa
+        flops, _, fwd_bound = attention_bound(B, S, Hq, Hkv, D, window)
+        call = lambda: fops.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, g, lse, window=window)
         row.update(ms=cuda_ms(call, reps=3, iters=2, warmup=1),
                    graph_ms=graph_ms(call, iters=1),
                    flops=BWD_CYCLES * flops,
                    bound_ms=BWD_CYCLES * fwd_bound, bound_by="operations")
         row["tflops"] = row["flops"] / row["ms"] / 1e9
+        if window is not None and window < S:
+            raise SystemExit("a window that masks keys needs SDPA's mask")
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -2882,7 +2940,9 @@ def phase_kernel_flash_bwd(fops, fref):
             reps=3, iters=2, warmup=1),
             library_call="the backward of F.scaled_dot_product_attention("
                          "is_causal=True, enable_gqa=True) on (B, H, S, D) "
-                         "copies (torch.autograd.grad, forward not timed)")
+                         "copies (torch.autograd.grad, forward not timed)"
+                         + ("; the window masks no key at this S"
+                            if window else ""))
         del qt, kt, vt, ot, gt
         torch.cuda.empty_cache()
         if name == "train":
@@ -2892,7 +2952,7 @@ def phase_kernel_flash_bwd(fops, fref):
             # the whole batch at once would materialise 8.6 GB of float32
             # scores per copy: one call walks the B sequences in turn
             row["plain_ms"] = cuda_ms(lambda: [fref.attention_bwd_ref(
-                *[t[b:b + 1] for t in (q, k, v, out, g)])
+                *[t[b:b + 1] for t in (q, k, v, out, g)], window=window)
                 for b in range(B)], reps=2, iters=1, warmup=1)
             row["plain_call"] = "attention_bwd_ref on each sequence in turn"
         emit(row)
@@ -2935,8 +2995,12 @@ def phase_lm_train(tf, launches):
     opt_cfg = opt_config(LM_TRAIN_ARCH)
     opt = init_adamw(params, opt_cfg)
     torch.cuda.synchronize()
+    # (counts only: a list of the leaves would keep the first params alive
+    # beside every later step's)
     leaves = tree_flatten(params)
-    n_params = sum(t.numel() for t in leaves)
+    n_leaves, n_params = len(leaves), sum(t.numel() for t in leaves)
+    param_gb = sum(t.nbytes for t in leaves) / 1e9
+    del leaves
     emit({"phase": "lm_train_setup", "config": LM_TRAIN_ARCH,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
@@ -2944,7 +3008,7 @@ def phase_lm_train(tf, launches):
           "dtype": str(cfg.dtype).removeprefix("torch."),
           "remat": cfg.remat, "params": n_params,
           "params_dense": cfg.params_dense,
-          "param_gb": sum(t.nbytes for t in leaves) / 1e9,
+          "param_gb": param_gb,
           "moment_gb": sum(t.nbytes for t in tree_flatten(opt.m))
           * 2 / 1e9, "opt": dataclasses.asdict(opt_cfg) | {
               "moment_dtype": str(opt_cfg.moment_dtype)},
@@ -2983,11 +3047,7 @@ def phase_lm_train(tf, launches):
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": counts, "expected_launches": need}
         if step == 0:
-            # (names only: a reference kept to a moment would hold
-            # step 0's 11.2 GB of them through the later steps)
-            firsts = {n: m for n, m in opt.m.items() if n != "layers"}
-            firsts.update((f"layers.{n}", m)
-                          for n, m in opt.m["layers"].items())
+            firsts = named_leaves(opt.m)
             row["leaves"] = len(firsts)
             row["zero_grad_leaves"] = [n for n, m in firsts.items()
                                        if float(m.abs().max()) == 0.0]
@@ -2999,10 +3059,11 @@ def phase_lm_train(tf, launches):
         if not math.isfinite(loss):
             raise SystemExit(f"lm_train step {step} gave loss {loss}")
         if step == 0 and (row["zero_grad_leaves"]
-                          or row["leaves"] != len(leaves)):
+                          or row["leaves"] != n_leaves):
             raise SystemExit(f"lm_train: leaves with a zero gradient on the "
                              f"first step: {row['zero_grad_leaves']}")
-    # one more step under the profiler (its new state is dropped): the
+    # one more step under the profiler (its params are dropped, its
+    # moments move in place and nothing reads them after it): the
     # card's busy share and the kernels that lead a step
     phase_profile("lm_train_step", lambda: step_fn(params, opt, batch),
                   watch=("flash_tc_kernel", "attn_bwd_delta_kernel",
@@ -3279,6 +3340,301 @@ class RouteLog:
         pinned one."""
         return sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
                    for a, b in zip(self.own, self.used))
+
+
+class TrainRouteLog(RouteLog):
+    """RouteLog (its own experts kept, none pinned) through remat training
+    steps, with a spy on ``transformer.moe_ffn`` too: each call that
+    returns keeps its aux loss under the index of its own routing. Under
+    remat a microbatch routes 2 L times: the forward's layers 0 to L - 1,
+    then the backward's recomputes, layer L - 1 first. A recompute may
+    stop after the layer's last saved tensor, before moe_ffn returns, so
+    the forward's aux losses are picked by index."""
+
+    def __init__(self, moe_mod, tf, cfg):
+        super().__init__(moe_mod, cfg)
+        self.tf, self.aux = tf, {}
+
+    def __enter__(self):
+        super().__enter__()
+        orig = self.orig_ffn = self.tf.moe_ffn
+
+        def spy(cfg, lp, x):
+            at = len(self.own)
+            out, aux = orig(cfg, lp, x)
+            self.aux[at] = aux.detach()
+            return out, aux
+
+        self.tf.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.moe_ffn = self.orig_ffn
+        super().__exit__(*exc)
+
+    def summary(self, n_layers: int, accum: int) -> dict:
+        """Of a step of ``accum`` microbatches: the routings counted, each
+        layer's forward and recompute experts bit-equal (over the
+        microbatches), each layer's dropped share of the forward's slots,
+        and the aux loss as lm_loss adds it (summed over the layers,
+        averaged over the microbatches)."""
+        import torch
+        L = n_layers
+        fwd = [[a * 2 * L + i for a in range(accum)] for i in range(L)]
+        rec = [[a * 2 * L + 2 * L - 1 - i for a in range(accum)]
+               for i in range(L)]
+        out = {"routings": len(self.own), "expected_routings": 2 * L * accum}
+        if out["routings"] != out["expected_routings"]:
+            return out
+        out["remat_experts_equal"] = [
+            all(bool(torch.equal(self.own[f], self.own[r]))
+                for f, r in zip(fs, rs)) for fs, rs in zip(fwd, rec)]
+        out["dropped_share_by_layer"] = [
+            round(sum(int(self.drops[c]) for c in fs)
+                  / sum(self.slots[c] for c in fs), 4) for fs in fwd]
+        out["dropped_share"] = sum(
+            int(self.drops[c]) for fs in fwd for c in fs) / sum(
+            self.slots[c] for fs in fwd for c in fs)
+        aux = [sum(float(self.aux[c]) for c in fs) / accum for fs in fwd]
+        out["aux"] = sum(aux)
+        out["aux_by_layer"] = [round(a, 4) for a in aux]
+        return out
+
+
+def moe_train_flops(cfg, S: int) -> dict:
+    """GFLOP a token of one remat training step of an MoE LM at sequence
+    S, by part (two per multiply-add). ``forward``: one forward with the
+    top-K experts a token takes; ``model``: the step as the model needs
+    it (each layer's forward, its recompute and a backward of twice the
+    forward; the head's forward and backward); ``executed``: what the
+    port's code runs, the experts' products over the whole (E, B, C, d)
+    capacity buffer (E C / S slots a token, the empty ones included) and
+    the attention backward's five products to the forward's two (row
+    6b). Scores count the keys each query sees (causal, within the
+    window)."""
+    from repro_torch.models import moe as moe_mod
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    w = cfg.window or S
+    keys = sum(min(i + 1, w) for i in range(S)) / S
+    slot = 6 * d * cfg.d_ff            # gate, up and down of one slot
+    fwd = {"experts": L * K * slot,
+           "attention_projections": L * 2 * d * (2 * Hq + 2 * Hkv) * D,
+           "scores": L * 4 * keys * Hq * D, "router": L * 2 * d * E,
+           "head": 2 * d * V}
+    model = {k: (3 if k == "head" else 4) * v for k, v in fwd.items()}
+    executed = dict(model, experts=4 * L * E * moe_mod.capacity(cfg, S)
+                    / S * slot, scores=4.5 * fwd["scores"])
+    g = 1e-9
+    return {"forward": {k: v * g for k, v in fwd.items()},
+            "forward_total": sum(fwd.values()) * g,
+            "model_total": sum(model.values()) * g,
+            "executed_total": sum(executed.values()) * g,
+            "capacity": moe_mod.capacity(cfg, S),
+            "mean_keys": keys}
+
+
+def named_leaves(tree) -> dict:
+    """An LM param tree's (or its moments') leaves by name: the top-level
+    ones, then ``layers.<name>``."""
+    out = {n: t for n, t in tree.items() if n != "layers"}
+    out.update((f"layers.{n}", t) for n, t in tree["layers"].items())
+    return out
+
+
+def phase_moe_train(tf, moe_mod, launches, phase, probe=False):
+    """An MoE LM trained at its published width on the card (MOE_TRAIN
+    gives the arch, the depth cut, the microbatch and the steps; bf16,
+    remat on, params drawn there, the launcher's AdamW). First microbatch
+    0 through value_and_grad twice, before the moments exist: the loss
+    and every gradient leaf bit-equal. Then each step, under
+    TrainRouteLog: twice a layer and microbatch the attention forward
+    (the forward and remat's recompute) and once its backward; a finite
+    loss, printed as the cross-entropy and 0.01 aux apart; each layer's
+    forward and recompute experts bit-equal; each layer's dropped share;
+    after step 0, no leaf with a zero first moment. The peak, the wall,
+    tokens/s and the FLOP count. Then one more step with no spy, whose
+    wall and tokens/s are the phase's (the spied steps' walls carry the
+    spy's launches), and one under the profiler. ``probe``
+    (kernel_ab.py --moe-train) runs one step, with no repeat, no
+    unspied step and no profile, to size the microbatch."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.cells import opt_config
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.train_loop import (make_train_step,
+                                              split_microbatches,
+                                              value_and_grad)
+    from repro_torch.train.tree import tree_flatten, tree_map
+
+    spec = MOE_TRAIN[phase]
+    arch, mb, accum, S = spec["arch"], spec["mb"], MOE_TRAIN_ACCUM, \
+        MOE_TRAIN_SEQ
+    steps = 1 if probe else spec["steps"]
+    cfg = get_arch(arch).build_cfg()
+    published = cfg.n_layers
+    if spec["layers"] is not None:
+        cfg = dc.replace(cfg, n_layers=spec["layers"])
+    L = cfg.n_layers
+    if torch.backends.cuda.matmul.allow_tf32 or not cfg.remat:
+        raise SystemExit(f"{phase} needs TF32 off (the router is float32) "
+                         f"and remat on")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    emit({"phase": f"{phase}_memory", "allocated_gb":
+          torch.cuda.memory_allocated() / 1e9,
+          "free_gb": torch.cuda.mem_get_info()[0] / 1e9, "card_gb": card_gb})
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # (counts only: a list of the leaves would keep the first params alive
+    # beside every later step's, 2 bytes a param)
+    n_params = sum(t.numel() for t in tree_flatten(params))
+    param_gb = sum(t.nbytes for t in tree_flatten(params)) / 1e9
+    if n_params != cfg.params_dense:
+        raise SystemExit(f"{arch} has {n_params} params, not params_dense "
+                         f"{cfg.params_dense}")
+    stream = TokenStream(cfg.vocab, accum * mb, S, seed=0)
+
+    def batch_at(step):
+        return split_microbatches({k: torch.from_numpy(v).cuda() for k, v
+                                   in stream.batch_at(step).items()}, accum)
+
+    def loss_fn(p, b):
+        return tf.lm_loss(p, b, cfg)
+
+    names = list(named_leaves(params))
+    repeat = {}
+    if not probe:
+        # step 0's first microbatch twice, before the moments exist, so
+        # two bf16 gradient trees fit
+        first = tree_map(lambda x: x[0], batch_at(0))
+        (l0, g0), wall0, counts0 = launches.drive(
+            lambda: value_and_grad(loss_fn, params, first))
+        l1, g1 = value_and_grad(loss_fn, params, first)
+        differ = [n for n, a, b in zip(names, tree_flatten(g0),
+                                       tree_flatten(g1))
+                  if not torch.equal(a, b)]
+        repeat = {"loss_bit_equal": bool(torch.equal(l0, l1)),
+                  "leaves_differ": differ, "leaves": len(names),
+                  "wall_s": wall0, "launches": counts0}
+        del g0, g1, first
+        torch.cuda.empty_cache()
+        emit({"phase": phase, "part": "step0_repeat", "micro_batch": mb,
+              "loss": float(l0), **repeat})
+        if differ or not repeat["loss_bit_equal"]:
+            raise SystemExit(f"{phase}: microbatch 0's loss or gradients "
+                             f"changed their bits on a repeat: {repeat}")
+    opt_cfg = opt_config(arch)
+    t0 = time.perf_counter()
+    opt = init_adamw(params, opt_cfg)
+    torch.cuda.synchronize()
+    flops = moe_train_flops(cfg, S)
+    emit({"phase": f"{phase}_setup", "config": arch, "n_layers": L,
+          "published_layers": published, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "d_head": cfg.d_head, "d_ff": cfg.d_ff,
+          "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "capacity_factor": cfg.moe.capacity_factor,
+          "capacity": moe_mod.capacity(cfg, S), "vocab": cfg.vocab,
+          "window": cfg.window, "dtype": str(cfg.dtype).removeprefix(
+              "torch."), "remat": cfg.remat, "params": n_params,
+          "params_dense": cfg.params_dense,
+          "param_gb": param_gb,
+          "moment_gb": sum(t.nbytes for t in tree_flatten((opt.m, opt.v)))
+          / 1e9, "opt": dataclasses.asdict(opt_cfg) | {
+              "moment_dtype": str(opt_cfg.moment_dtype)},
+          "seq": S, "accum_steps": accum, "micro_batch": mb,
+          "cut": (f"train_4k's microbatch of 128 sequences cut to {mb}"
+                  + (f", {published} layers to {L}" if L != published
+                     else "") + f", {steps} steps"),
+          "probe": probe, "init_s": init_s,
+          "init_adamw_s": time.perf_counter() - t0,
+          "gflop_per_token": flops})
+    step_fn = make_train_step(loss_fn, opt_cfg, accum_steps=accum)
+    need = {"flash_attention": 2 * L * accum,
+            "flash_attention_bwd": L * accum}
+    tokens = accum * mb * S
+    losses, walls = [], []
+
+    def run():
+        out = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        return out
+
+    for step in range(steps):
+        batch = batch_at(step)
+        torch.cuda.reset_peak_memory_stats()
+        with TrainRouteLog(moe_mod, tf, cfg) as log:
+            (params, opt, metrics), wall, counts = launches.drive(run)
+        routes = log.summary(L, accum)
+        del log
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        walls.append(wall)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        row = {"phase": phase, "step": step, "loss": loss,
+               "cross_entropy": loss - 0.01 * routes.get("aux", math.nan),
+               "aux_x_0.01": 0.01 * routes.get("aux", math.nan),
+               "grad_norm": float(metrics["grad_norm"]), "wall_s": wall,
+               "tokens": tokens, "tokens_per_s": tokens / wall,
+               "model_tflops_per_s": flops["model_total"] * tokens / wall
+               / 1e3, "peak_gb": peak, "peak_reserved_gb": reserved,
+               "spare_gb": card_gb - reserved,
+               "launches": counts, "expected_launches": need, **routes}
+        if step == 0:
+            row["zero_moment_leaves"] = [
+                n for n, m in named_leaves(opt.m).items()
+                if float(m.abs().max()) == 0.0]
+        emit(row)
+        if {k: v for k, v in counts.items() if v} != need:
+            raise SystemExit(f"{phase} step {step} launched {counts}, not "
+                             f"{need}")
+        if not math.isfinite(loss):
+            raise SystemExit(f"{phase} step {step} gave loss {loss}")
+        if routes["routings"] != routes["expected_routings"] or not all(
+                routes["remat_experts_equal"]):
+            raise SystemExit(f"{phase} step {step}: the recompute routed "
+                             f"other than the forward: {routes}")
+        if step == 0 and row["zero_moment_leaves"]:
+            raise SystemExit(f"{phase}: leaves with a zero first moment "
+                             f"after step 0: {row['zero_moment_leaves']}")
+        if reserved >= card_gb:
+            raise SystemExit(f"{phase}: the peak passed the card's memory")
+    clean = {}
+    if not probe:
+        # one step with no spy, for the wall (it and the profiled step
+        # move the params and moments on; nothing reads them after)
+        batch = batch_at(steps)
+        (params, opt, metrics), wall, counts = launches.drive(run)
+        clean = {"step": steps, "loss": float(metrics["loss"]),
+                 "wall_s": wall, "tokens_per_s": tokens / wall,
+                 "model_tflops_per_s": flops["model_total"] * tokens / wall
+                 / 1e3, "spied_wall_s": walls, "launches": counts}
+        emit({"phase": phase, "part": "no_spy", **clean})
+        if {k: v for k, v in counts.items() if v} != need or \
+                not math.isfinite(clean["loss"]):
+            raise SystemExit(f"{phase}'s unspied step: {clean}")
+        # one more step under the profiler
+        phase_profile(f"{phase}_step", lambda: step_fn(params, opt, batch),
+                      watch=("flash_tc_kernel", "attn_bwd_delta_kernel",
+                             "attn_bwd_dkdv_tc_kernel",
+                             "attn_bwd_dq_tc_kernel"),
+                      ops=MOE_PROFILE_OPS)
+    emit({"phase": f"{phase}_done", "losses": losses, "step_wall_s": walls,
+          "micro_batch": mb, "repeat": repeat, "no_spy": clean,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card_gb": card_gb})
+    del params, opt, batch
+    torch.cuda.empty_cache()
 
 
 def moe_parity_prompts(vocab: int):
@@ -3664,8 +4020,9 @@ def greedy(logits):
 def run_moe(launches):
     """The MoE LM slices: granite-moe-3b-a800m at full width
     (moe_serve), mixtral-8x22b at full width and 4 layers
-    (moe_window_serve), and the reduced configs against JAX's pinned
-    values (moe_parity)."""
+    (moe_window_serve), the reduced configs against JAX's pinned
+    values (moe_parity), then training at full width: granite at 32
+    layers (moe_train), mixtral at 1 (moe_window_train)."""
     from repro_torch import convert
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
@@ -3676,6 +4033,8 @@ def run_moe(launches):
                     MOE_WINDOW_ARCH, MOE_WINDOW_BATCH, MOE_WINDOW_PROMPT,
                     MOE_WINDOW_LAYERS)
     phase_moe_parity(tf, convert, moe_mod, launches)
+    for phase in MOE_TRAIN:
+        phase_moe_train(tf, moe_mod, launches, phase)
     emit({"phase": "moe_phases_done", "wall_s": time.perf_counter() - t0})
 
 # ------------------------------------------------------------------- GNN
@@ -6335,7 +6694,7 @@ def phase_hype_jax(launches, partition, synth, Hypergraph, metrics):
     the port's CPU run, and must launch no kernel: neither engine has one
     on its path. Prints each run's wall,
     iterations, restarts and rescues, k-1 and part sizes."""
-    from repro_torch import partition_api as api
+    from repro_torch.core import partition_api as api
     stats = []
 
     def with_stats(fn):
@@ -6480,7 +6839,7 @@ def main() -> int:
     from repro_torch.kernels.neighbor_agg import ref as nref
     from repro_torch.core import hype_stream
     from repro_torch.core import resilience as res
-    from repro_torch.partition_api import (PRESETS, partition,
+    from repro_torch.core.partition_api import (PRESETS, partition,
                                            partition_and_report,
                                            partition_resilient)
 
@@ -6797,14 +7156,22 @@ def main() -> int:
         entry("flash_attention",
               csrc + "flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:111",
-              flash_rows["layer"], worst_flash),
+              flash_rows["layer"], worst_flash,
+              **{label: {key: flash_rows[shape][key] for key in (
+                  "B", "ms", "plain_ms", "bound_ms", "library_ms",
+                  "max_abs_err")} for label, shape in (
+                  ("granite_moe_train", "granite_layer"),
+                  ("mixtral_moe_train", "mixtral_train"))}),
         entry("flash_attention_bwd",
               csrc + "flash_attention/csrc/flash_attention_bwd.cu", None,
               bwd_rows["train"], worst_bwd,
               graph_ms=bwd_rows["train"]["graph_ms"],
-              qwen3_8b_layer={key: bwd_rows["layer"][key] for key in (
-                  "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
-                  "max_abs_err")},
+              **{label: {key: bwd_rows[shape][key] for key in (
+                  "B", "ms", "graph_ms", "plain_ms", "bound_ms",
+                  "library_ms", "max_abs_err")} for label, shape in (
+                  ("qwen3_8b_layer", "layer"),
+                  ("granite_moe_train", "granite_train"),
+                  ("mixtral_moe_train", "mixtral_train"))},
               note="the backward (dq, dk, dv) of flash_attention_fwd, "
                    "src/repro/kernels/flash_attention/kernel.py:111, which "
                    "has no TPU backward (the JAX model differentiates its "

@@ -5,6 +5,7 @@ commits can be compared on one card.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--flash-only]
                          [--stream-only] [--recsys-vocab ROWS]
+                         [--moe-train PHASE:MB]
                          [--gnn-only [--gnn-batch FILE]]
                          [--rows-only [--rows-cache DIR] [--rows LIST]]
                          [--variants --rows-cache DIR]
@@ -70,7 +71,14 @@ Measures, each on inputs made from fixed seeds:
 measures no kernel: it runs ``chip_smoke.py``'s recsys_train phase with
 each vocabulary at ROWS and prints its row (the peak memory), or, where
 the allocator refuses, the peak and the reserved memory before it, to
-size that phase's vocabulary cut. ``--gnn-only`` measures the sampled
+size that phase's vocabulary cut. ``--moe-train PHASE:MB`` measures
+no kernel either: it runs ``chip_smoke.py``'s MoE training phase PHASE
+(``moe_train`` or ``moe_window_train``) at a microbatch of MB sequences
+for one step, with no repeat and no profile, and prints its rows (the
+peak allocated and reserved memory, the spare), or, where the allocator
+refuses, the peak and the reserved memory before it, and exits 3, to
+size that phase's microbatch cut (one process a microbatch: the
+allocator's cache of one attempt would skew the next). ``--gnn-only`` measures the sampled
 GraphSAGE path alone, as the tree's model runs it, on the first sampled
 batch of ``chip_smoke.py``'s gnn_train (169,984 padded nodes, 168,960
 edges): the in-neighbour structure's build, one layer's aggregation
@@ -142,6 +150,7 @@ def main(argv=None) -> int:
     ap.add_argument("--flash-only", action="store_true")
     ap.add_argument("--stream-only", action="store_true")
     ap.add_argument("--recsys-vocab", type=int, default=None)
+    ap.add_argument("--moe-train", default=None)
     ap.add_argument("--gnn-only", action="store_true")
     ap.add_argument("--gnn-batch", default=None)
     ap.add_argument("--rows-only", action="store_true")
@@ -168,7 +177,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.hype_score import ops, ref
     from repro_torch.kernels.neighbor_agg import ops as nops
     from repro_torch.models.gnn import in_neighbors
-    from repro_torch.partition_api import partition
+    from repro_torch.core.partition_api import partition
 
     label = args.label or tree.name
     ext = load_extension()
@@ -180,6 +189,10 @@ def main(argv=None) -> int:
         recsys_vocab(emit, args.recsys_vocab)
         print(card_line(), flush=True)
         return 0
+    if args.moe_train:
+        ok = moe_train(emit, args.moe_train)
+        print(card_line(), flush=True)
+        return 0 if ok else 3
     if args.gnn_only:
         sampled_gnn(emit, args.gnn_batch, cuda_ms, graph_ms)
         print(card_line(), flush=True)
@@ -835,7 +848,7 @@ def screen_rows(emit, cache, timed):
     from repro_torch.core import scoring
     from repro_torch.data import synthetic
     from repro_torch.kernels.kway_refine import ops as kops
-    from repro_torch.partition_api import partition
+    from repro_torch.core.partition_api import partition
 
     path = pathlib.Path(cache) / "screen.pt" if cache else None
     if path is not None and path.exists():
@@ -907,6 +920,38 @@ def recsys_vocab(emit, vocab):
               "reserved_gb": torch.cuda.memory_reserved() / 1e9,
               "total_gb": torch.cuda.get_device_properties(0).total_memory
               / 1e9, "error": str(e).split(". If ")[0]})
+
+
+def moe_train(emit, spec) -> bool:
+    """One step of chip_smoke.py's MoE training phase ``spec`` = PHASE:MB
+    at a microbatch of MB (it prints its own rows); where the allocator
+    refuses, the peak and the reserved memory when it did. Returns
+    whether the step ran to its end."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    phase, mb = spec.split(":")
+    chip_smoke.MOE_TRAIN[phase]["mb"] = int(mb)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = chip_smoke.Launches({
+        "flash_attention": fops.flash_attention,
+        "flash_attention_bwd": fops.flash_attention_bwd})
+    try:
+        chip_smoke.phase_moe_train(tf, moe_mod, launches, phase,
+                                   probe=True)
+    except torch.OutOfMemoryError as e:
+        emit({"phase": phase, "micro_batch": int(mb), "out_of_memory": True,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+              "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+              "total_gb": torch.cuda.get_device_properties(0).total_memory
+              / 1e9, "error": str(e).split(". If ")[0]})
+        return False
+    return True
 
 
 def stream(emit, hg, hs, scoring, ops, ref, ext, CaptureCommits,

@@ -307,7 +307,7 @@ def hype_partition(hg: Hypergraph, k: int,
 
     ``warm_start`` adopts a (possibly partial, -1 = unassigned)
     assignment before growing: the degradation ladder's last rung
-    (``partition_api.partition_resilient``) resumes here from the last
+    (``core.partition_api.partition_resilient``) resumes here from the last
     snapshot when every engine above it failed; values must lie in
     [-1, k).
     """

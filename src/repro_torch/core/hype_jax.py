@@ -231,7 +231,7 @@ def hype_jax_partition(hg: Hypergraph, k: int, *, s: int = 10, r: int = 2,
     """Sequential HYPE on padded arrays; an int32 ``(n,)`` assignment
     (with ``GrowthStats`` when ``return_stats``). ``device`` is ``None``
     (the card; raises without one), ``"cuda"`` or ``"cpu"``."""
-    from ..partition_api import resolve_device
+    from .partition_api import resolve_device
     ph = PaddedHypergraph.from_hypergraph(hg, resolve_device(device))
     stats = GrowthStats()
     n = ph.n
@@ -361,7 +361,7 @@ def hype_parallel_partition(hg: Hypergraph, k: int, *, candidates: int = 4,
     Raises ``ValueError``, as JAX's does, when ``k`` exceeds the vertex
     count or ``candidates`` the hyperedge count (checked in that order).
     """
-    from ..partition_api import resolve_device
+    from .partition_api import resolve_device
     if k > hg.n:
         raise ValueError(
             f"Cannot take a larger sample (size {k}) than population "

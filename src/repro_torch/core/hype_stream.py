@@ -409,7 +409,7 @@ def hype_stream_partition(hg: Hypergraph, k: int,
     ``ceil(n/k)`` capacity cap. ``device`` is ``None`` (the card; raises
     without one), ``"cuda"`` or ``"cpu"``.
     """
-    from ..partition_api import resolve_device
+    from .partition_api import resolve_device
     p = params or StreamParams()
     _validate_params(p)
     if k < 1:

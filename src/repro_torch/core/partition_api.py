@@ -18,19 +18,19 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .core import metrics, resilience
-from .core.hype import HypeParams, hype_partition
-from .core.hype_jax import hype_jax_partition, hype_parallel_partition
-from .core.hype_stream import StreamParams, hype_stream_partition
-from .core.hypergraph import Hypergraph
-from .core.minmax import hashing_partition, minmax_partition, random_partition
-from .core.multilevel import hype_multilevel_partition, multilevel_partition
-from .core.resilience import UnrecoverableFault
-from .core.shp import shp_partition
-from .engines.batched import BatchedParams, hype_batched_partition
-from .engines.device import DeviceParams, hype_device_partition
-from .engines.sharded import ShardedParams, hype_sharded_partition
-from .engines.superstep import SuperstepParams, hype_superstep_partition
+from . import metrics, resilience
+from .hype import HypeParams, hype_partition
+from .hype_jax import hype_jax_partition, hype_parallel_partition
+from .hype_stream import StreamParams, hype_stream_partition
+from .hypergraph import Hypergraph
+from .minmax import hashing_partition, minmax_partition, random_partition
+from .multilevel import hype_multilevel_partition, multilevel_partition
+from .resilience import UnrecoverableFault
+from .shp import shp_partition
+from ..engines.batched import BatchedParams, hype_batched_partition
+from ..engines.device import DeviceParams, hype_device_partition
+from ..engines.sharded import ShardedParams, hype_sharded_partition
+from ..engines.superstep import SuperstepParams, hype_superstep_partition
 
 # preset -> the knob defaults it folds in under the explicit knobs, as
 # in the JAX package's registry. The pipelined engine also pins the

@@ -35,7 +35,7 @@ import torch
 from ..configs import ARCH_IDS, FAMILIES, get_arch
 from ..models import recsys as rec_mod
 from ..models import transformer as tf_mod
-from ..partition_api import resolve_device
+from ..core.partition_api import resolve_device
 
 
 def _sync(device: torch.device) -> None:

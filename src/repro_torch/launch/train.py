@@ -62,7 +62,7 @@ from ..data.pipeline import RecsysStream, TokenStream
 from ..models import transformer as tf_mod
 from ..models.gnn import gnn_loss, init_gnn_params
 from ..models.recsys import init_twotower_params, twotower_loss
-from ..partition_api import resolve_device
+from ..core.partition_api import resolve_device
 from ..train.fault_tolerance import FTConfig, run_training
 from ..train.optimizer import init_adamw
 from ..train.train_loop import make_train_step, split_microbatches

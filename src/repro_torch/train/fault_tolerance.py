@@ -10,7 +10,11 @@
   * skip a batch after ``max_retries_per_step`` retries: its metrics are
     ``{"loss": nan, "skipped": True}``, and training goes on. A caller
     that must see every step succeed checks ``failures_recovered`` and
-    the ``skipped`` entries of ``metrics_history``.
+    the ``skipped`` entries of ``metrics_history``;
+  * a step whose AdamW update failed after writing moments in place
+    (``MomentsConsumed``) is neither replayed nor skipped on the state it
+    left: it goes on from the last checkpoint, and raises where there is
+    none or where its retries are spent.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import logging
 from typing import Callable, Iterator, Optional
 
 from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from .optimizer import MomentsConsumed
 from .tree import tree_map
 
 log = logging.getLogger("repro_torch.ft")
@@ -79,12 +84,17 @@ def run_training(train_step: Callable, state: tuple,
                 retries += 1
                 log.warning("step %d failed (%s); recovering", step, e,
                             exc_info=True)
+                restore = latest_step(ft.ckpt_dir)
+                if isinstance(e, MomentsConsumed) and (
+                        restore is None
+                        or retries > ft.max_retries_per_step):
+                    ckpt.wait()
+                    raise
                 if retries > ft.max_retries_per_step:
                     log.error("step %d exceeded retries; skipping batch",
                               step)
                     metrics = {"loss": float("nan"), "skipped": True}
                     break
-                restore = latest_step(ft.ckpt_dir)
                 if restore is not None:
                     state = restore_checkpoint(ft.ckpt_dir, restore, state)
                     step = restore

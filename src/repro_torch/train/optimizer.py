@@ -5,10 +5,18 @@ Every update runs in float32 and casts the new param back to its dtype,
 as the JAX package does, with the same order of operations: linear
 warmup then cosine decay to ``min_lr_frac``, one global-norm clip over
 every leaf, bias-corrected moments, and weight decay on every leaf. The
-update returns new tensors and leaves its inputs as they were (JAX's
-arrays are immutable; the fault-tolerant driver relies on it to replay a
-step). ``AdamWState`` is a NamedTuple of ``step``, ``m`` and ``v``, so a
-checkpoint flattens it in JAX's order.
+update returns new params and a new step count, and writes the new
+moments into the state's own ``m`` and ``v`` in place (the analogue of a
+donated buffer: a step never holds two moment trees, 8 bytes a param in
+float32). Every new param is allocated, and the clip scale known, before
+the first moment is written, so a step that fails up to there leaves the
+state as it was (``run_training`` replays a step on it); a failure after
+it raises ``MomentsConsumed``, which ``run_training`` does not replay on
+the same state. Each leaf is updated a flat slice of at most
+``UPDATE_SLICE`` elements at a time, so the float32 temporaries stay at
+one slice's size; the update is elementwise, so the bits are those of
+one pass over the leaf. ``AdamWState`` is a NamedTuple of ``step``,
+``m`` and ``v``, so a checkpoint flattens it in JAX's order.
 """
 from __future__ import annotations
 
@@ -19,6 +27,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from .tree import tree_flatten, tree_map
+
+# the most elements of a leaf updated at once (a float32 temporary of
+# 256 MB): a larger leaf goes a flat slice at a time
+UPDATE_SLICE = 1 << 26
+
+
+class MomentsConsumed(RuntimeError):
+    """An update failed after it had written some of the moments in
+    place: the state no longer holds the step's old moments, so the step
+    cannot be replayed on it."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +91,10 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
-    """Returns ``(new_params, new_state, stats)``."""
+    """Returns ``(new_params, new_state, stats)``. ``new_state`` holds
+    ``state``'s own ``m`` and ``v`` tensors, updated in place; a caller
+    that needs the old moments after the step clones them first. Raises
+    ``MomentsConsumed`` where it fails after its first moment write."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -81,28 +102,43 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - torch.pow(b1, step.float())
     bc2 = 1 - torch.pow(b2, step.float())
-    mdt = cfg.moment_dtype or torch.float32
 
-    def upd(p, g, m, v):
-        # JAX's expressions, operation for operation; the in-place forms
-        # (on temporaries only) give the same bits with fewer float32
-        # copies of a leaf alive at once (one leaf of a 3B model's is
-        # 2.26 GB)
-        g = g.float() * scale
-        m32 = (b1 * m.float()).add_((1 - b1) * g)
-        v32 = (b2 * v.float()).add_(((1 - b2) * g).mul_(g))
-        den = (v32 / bc2).sqrt_().add_(cfg.eps)
-        delta = (m32 / bc1).div_(den)
-        del den
-        delta.add_(cfg.weight_decay * p.float())
-        newp = torch.sub(p.float(), delta.mul_(lr))
-        del delta
-        return newp.to(p.dtype), m32.to(mdt), v32.to(mdt)
+    # every allocation first: the new params and the flat views (m and v
+    # must be views, as they are written in place)
+    flat = []
 
-    out = tree_map(upd, params, grads, state.m, state.v)
-    is_t = lambda t: isinstance(t, tuple)  # noqa: E731
-    new_params = tree_map(lambda t: t[0], out, is_leaf=is_t)
-    new_m = tree_map(lambda t: t[1], out, is_leaf=is_t)
-    new_v = tree_map(lambda t: t[2], out, is_leaf=is_t)
-    return new_params, AdamWState(step=step, m=new_m, v=new_v), {
+    def alloc(p, g, m, v):
+        newp = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        flat.append((p.reshape(-1), g.reshape(-1), m.view(-1), v.view(-1),
+                     newp.view(-1)))
+        return newp
+
+    new_params = tree_map(alloc, params, grads, state.m, state.v)
+    written = False
+    try:
+        for leaf in flat:
+            for p, g, m, v, newp in zip(*(t.split(UPDATE_SLICE)
+                                          for t in leaf)):
+                # JAX's expressions, operation for operation; the in-place
+                # forms (on temporaries only) give the same bits with
+                # fewer float32 copies of a slice alive at once; copy_
+                # rounds to the moment's and the param's dtype as .to()
+                g = g.float() * scale
+                m32 = (b1 * m.float()).add_((1 - b1) * g)
+                v32 = (b2 * v.float()).add_(((1 - b2) * g).mul_(g))
+                den = (v32 / bc2).sqrt_().add_(cfg.eps)
+                delta = (m32 / bc1).div_(den)
+                del den
+                written = True
+                m.copy_(m32)
+                v.copy_(v32)
+                del m32, v32
+                delta.add_(cfg.weight_decay * p.float())
+                newp.copy_(torch.sub(p.float(), delta.mul_(lr)))
+    except Exception as e:
+        if written:
+            raise MomentsConsumed(f"the AdamW update failed after writing "
+                                  f"moments in place: {e!r}") from e
+        raise
+    return new_params, AdamWState(step=step, m=state.m, v=state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -57,7 +57,7 @@ def main() -> int:
         from repro_torch.core import metrics as t_metrics
         from repro_torch.core.hypergraph import Hypergraph as THypergraph
         from repro_torch.data import synthetic as t_synth
-        from repro_torch.partition_api import partition as t_partition
+        from repro_torch.core.partition_api import partition as t_partition
         port = run(t_partition, t_synth, THypergraph, t_metrics,
                    device="cpu")
         print(json.dumps({"port": port}), flush=True)

@@ -25,7 +25,7 @@ from repro_torch.core import metrics
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic
 from repro_torch.engines import batched, superstep
-from repro_torch.partition_api import partition
+from repro_torch.core.partition_api import partition
 
 # the counters both engines keep, compared exactly
 _COUNTERS = ("kernel_calls", "kernel_rows", "host_rows", "cache_hits",

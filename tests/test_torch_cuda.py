@@ -23,7 +23,7 @@ from repro_torch.kernels.hype_score.ref import (SELECT_PAD,
 from repro_torch.kernels.kway_refine.ops import kway_gains, kway_gains_csr
 from repro_torch.kernels.kway_refine.ref import (kway_gains_csr_ref,
                                                  kway_gains_ref)
-from repro_torch.partition_api import partition
+from repro_torch.core.partition_api import partition
 
 pytestmark = pytest.mark.cuda
 

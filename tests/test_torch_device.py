@@ -28,7 +28,7 @@ from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic
 from repro_torch.engines import device
 from repro_torch.engines.runtime import EngineRuntime
-from repro_torch.partition_api import partition
+from repro_torch.core.partition_api import partition
 
 
 def _digest(a: np.ndarray) -> str:

@@ -21,7 +21,7 @@ from repro.placement import partitioned_embedding as jax_pe
 from repro_torch.core import hype
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic
-from repro_torch.partition_api import METHODS, PENDING, partition
+from repro_torch.core.partition_api import METHODS, PENDING, partition
 from repro_torch.placement import partitioned_embedding as pe
 
 # digest of partition_rows_hype on the bench log (vocab 8,192, 4,000

@@ -23,7 +23,7 @@ from repro.core import partition_api as jax_api
 from repro.core.hypergraph import Hypergraph as JaxHypergraph
 from repro.core.scoring import batched_dext_jax
 from repro.data import synthetic as jax_synth
-from repro_torch import partition_api as api
+from repro_torch.core import partition_api as api
 from repro_torch.core import hype_jax as hj
 from repro_torch.core import threefry
 from repro_torch.core.hypergraph import Hypergraph

@@ -33,7 +33,7 @@ from repro_torch.data import synthetic
 from repro_torch.engines.superstep import (SuperstepParams,
                                            hype_superstep_partition)
 from repro_torch.kernels.hype_score.ref import stream_bucket_ref
-from repro_torch.partition_api import partition
+from repro_torch.core.partition_api import partition
 from tests._hyp_compat import given, settings, st
 
 # wall-clock fields of StreamStats; every other field is a counter

@@ -11,7 +11,8 @@ compression, the sampler and
 the partitioned-GNN placement on the CPU, then no ``jax`` and no
 ``repro`` module may be loaded) and statically (no import statement in ``src/repro_torch``,
 ``chip_smoke.py`` or ``kernel_ab.py`` names them, lazy imports inside
-functions included).
+functions included). The port's modules mirror the JAX package's, the
+entry point ``core/partition_api.py`` among them.
 """
 import ast
 import os
@@ -33,7 +34,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data.synthetic import powerlaw_hypergraph
 from repro_torch.launch import serve
 from repro_torch.models import recsys
-from repro_torch.partition_api import METHODS, partition
+from repro_torch.core.partition_api import METHODS, partition
 from repro_torch.placement.partitioned_embedding import partition_rows_hype
 hg = powerlaw_hypergraph(200, 150, seed=2)
 knobs = {"hype_superstep": {"pipeline_depth": 2},
@@ -138,3 +139,29 @@ def test_static_scan_sees_a_forbidden_import(tmp_path):
     probe.write_text("def f():\n    from repro.core import metrics\n"
                      "    import jax.numpy\n")
     assert _forbidden(probe) == ["repro.core", "jax.numpy"]
+
+
+# the JAX package's modules the port leaves out: the Pallas kernels (each
+# became csrc/ beside its ops.py and ref.py), Pallas interpret mode, a
+# deprecated shim, and the TPU compile-only tooling that needs repro.dist
+NOT_PORTED = {"core/hype_batched.py", "kernels/_compat.py",
+              "launch/dryrun.py", "launch/mesh.py",
+              "launch/perf_experiments.py", "launch/roofline.py"}
+
+
+def test_port_mirrors_the_jax_layout():
+    """Every module of the JAX package has its namesake in the port,
+    apart from NOT_PORTED and the kernel.py files; the entry point is
+    core/partition_api.py, as in JAX, with nothing left at the root."""
+    jax_mods = {str(p.relative_to(REPO / "src" / "repro"))
+                for p in (REPO / "src" / "repro").rglob("*.py")}
+    port = REPO / "src" / "repro_torch"
+    missing = sorted(m for m in jax_mods - NOT_PORTED
+                     if not m.endswith("/kernel.py")
+                     and not (port / m).exists())
+    assert missing == []
+    assert (port / "core" / "partition_api.py").exists()
+    assert not (port / "partition_api.py").exists()
+    for kernel in (REPO / "src" / "repro" / "kernels").glob("*/kernel.py"):
+        assert any((port / "kernels" / kernel.parent.name / "csrc").glob(
+            "*.cu")), kernel.parent.name

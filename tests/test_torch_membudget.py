@@ -25,7 +25,7 @@ from repro.data import synthetic as jax_synth
 from repro.engines import device as jax_dev
 from repro.engines import runtime as jax_runtime
 from repro.engines import superstep as jax_ss
-from repro_torch import partition_api as api
+from repro_torch.core import partition_api as api
 from repro_torch.core import membudget as mb
 from repro_torch.core import metrics, resilience
 from repro_torch.core.hypergraph import Hypergraph

@@ -15,7 +15,7 @@ from repro.core import multilevel as jax_ml
 from repro.data import synthetic as jax_synth
 from repro_torch.core import metrics, multilevel
 from repro_torch.data import synthetic
-from repro_torch.partition_api import partition
+from repro_torch.core.partition_api import partition
 
 
 def _digest(a: np.ndarray) -> str:

@@ -18,7 +18,7 @@ import pytest
 from repro.core import metrics as jax_metrics
 from repro.core import partition_api as jax_api
 from repro.data import synthetic as jax_synth
-from repro_torch import partition_api as api
+from repro_torch.core import partition_api as api
 from repro_torch.core import metrics
 from repro_torch.data import synthetic
 

@@ -28,7 +28,7 @@ from repro.engines import batched as jax_batched
 from repro.engines import device as jax_dev
 from repro.engines import superstep as jax_ss
 from repro_torch import convert
-from repro_torch import partition_api as api
+from repro_torch.core import partition_api as api
 from repro_torch.core import device_loop, resilience
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic

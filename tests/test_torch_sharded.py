@@ -30,7 +30,7 @@ from repro.core import scoring as jax_scoring
 from repro.data import synthetic as jax_synth
 from repro.engines import sharded as jax_sharded
 from repro.kernels.hype_score import ops as jax_ops
-from repro_torch import partition_api as api
+from repro_torch.core import partition_api as api
 from repro_torch.core import resilience
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic

@@ -25,7 +25,7 @@ from repro_torch.core import metrics, scoring
 from repro_torch.core.hypergraph import Hypergraph
 from repro_torch.data import synthetic
 from repro_torch.engines import superstep as ss
-from repro_torch.partition_api import METHODS, PENDING, partition
+from repro_torch.core.partition_api import METHODS, PENDING, partition
 
 
 def _digest(a: np.ndarray) -> str:
@@ -271,7 +271,7 @@ def test_unported_knobs_raise(knobs):
 def test_pending_methods_raise(monkeypatch, method):
     """Every JAX method is served, so a stand-in patched into the
     registry keeps the pending path guarded."""
-    from repro_torch import partition_api as api
+    from repro_torch.core import partition_api as api
     monkeypatch.setitem(api.METHOD_INFO, method, {
         "desc": "not ported yet: a stand-in",
         "balance_slack": lambda n, k: 1, "pending": "item 15k"})
